@@ -1,0 +1,78 @@
+// One crossing of the fixed-ray tet walk, shared by both walk kernels
+// (walk.cu, block_walk.cu). Templated on float / double.
+//
+// The ray is parametrised by s in [0,1] along x0 -> dest with
+// x0 = dest - d0. For face f with outward unit normal n_f and offset
+// off_f (n_f . p = off_f on the face):
+//   a_f = n_f . d0,   b_f = off_f - n_f . dest + a_f   (= off_f - n_f . x0)
+// the face is crossed ahead iff a_f * (1 - s) > tol, at s_f = b_f / a_f,
+// clamped to s_f >= s (a committed point epsilon outside a face never
+// steps back). The exit face is the FIRST minimal s_f (lowest face
+// index wins ties, as argmin does). Sources: pumiumtally_tpu/ops/walk.py
+// _advance_geometry and ops/vmem_walk.py _advance_cols; this is the
+// column-wise form of the latter, operation for operation, so that a
+// build with --fmad=false rounds exactly as the plain PyTorch versions
+// (ops/walk.py walk_plain, ops/vmem_walk.py vmem_walk_local_plain) do.
+
+#pragma once
+
+// Packed walk-table row (mesh/tetmesh.py WALK_TABLE_*): 4 face normals,
+// 4 plane offsets, 4 neighbour ids stored as floats. A neighbour id of
+// -1 is the domain boundary; <= -2 encodes a neighbour in another block
+// as -(glid + 2).
+#define WALK_TABLE_WIDTH 20
+#define WALK_TABLE_OFFSETS 12
+#define WALK_TABLE_ADJ 16
+
+template <typename T>
+__device__ __forceinline__ T walk_inf();
+
+template <>
+__device__ __forceinline__ float walk_inf<float>() {
+  return __int_as_float(0x7f800000);
+}
+
+template <>
+__device__ __forceinline__ double walk_inf<double>() {
+  return __longlong_as_double(0x7ff0000000000000LL);
+}
+
+// Advance one crossing from ray coordinate s inside the tet whose row
+// is `row`. (dx,dy,dz) = d0 and (px,py,pz) = dest are walk constants.
+// Returns the new coordinate (1 when the destination lies inside this
+// tet) and, through `next`, the neighbour across the exit face.
+template <typename T>
+__device__ __forceinline__ T walk_step(const T* row, T s, T dx, T dy, T dz,
+                                       T px, T py, T pz, T tol,
+                                       int* next, bool* reached) {
+  const T one = T(1);
+  T s_exit = walk_inf<T>();
+  int f_exit = 0;
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    const T nx = row[3 * f], ny = row[3 * f + 1], nz = row[3 * f + 2];
+    const T a = nx * dx + ny * dy + nz * dz;
+    const T n_dest = nx * px + ny * py + nz * pz;
+    const T b = row[WALK_TABLE_OFFSETS + f] - n_dest + a;
+    const bool crossing = a * (one - s) > tol;
+    T s_f = crossing ? b / a : walk_inf<T>();
+    s_f = s_f > s ? s_f : s;
+    if (f == 0 || s_f < s_exit) {
+      s_exit = s_f;
+      f_exit = f;
+    }
+  }
+  *reached = s_exit >= one;
+  *next = static_cast<int>(row[WALK_TABLE_ADJ + f_exit]);
+  return *reached ? one : s_exit;
+}
+
+// The per-particle walk constants: segment length and premultiplied
+// tally weight eff_w = flying * weight * |d0|, in the plain versions'
+// operation order.
+template <typename T>
+__device__ __forceinline__ T walk_eff_weight(T dx, T dy, T dz,
+                                             signed char fly, T w) {
+  const T seg = sqrt(dx * dx + dy * dy + dz * dz);
+  return fly ? w * seg : T(0);
+}

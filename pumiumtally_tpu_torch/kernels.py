@@ -1,0 +1,171 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``
+(every pointer and the stream are ``c_void_p``; each entry point returns
+``cudaGetLastError()``). Libraries are built at first use, all sources
+at once (one ``nvcc`` per source, started together), into ``_build/``
+beside this file, keyed by a hash of the sources and flags, so a fresh
+checkout builds them itself and an edited source rebuilds.
+
+Nothing here runs at import time: this module is imported on machines
+without ``nvcc`` or a GPU, where only the plain PyTorch versions run.
+
+Launch counters: each wrapper adds one to ``launch_counts[name]`` where
+it launches its kernel, and nowhere else, so a caller can show that a
+path really went through the kernels (``reset_launch_counts`` first).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+HEADERS = ("walk_step.cuh",)
+SOURCES = {"walk": "walk.cu", "block_walk": "block_walk.cu"}
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+# C entry points per library: name -> argtypes (both dtypes share them).
+_ENTRY_ARGS = {
+    "walk": [_P] * 14 + [_I, _D, _I, _I, _P],
+    "block_walk": [_P] * 15 + [_I, _I, _I, _D, _I, _I, _P],
+}
+
+launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA "
+            "kernels are built from csrc/ at first use on the GPU machine"
+        )
+    return nvcc
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in (SOURCES[name], *HEADERS):
+        h.update((CSRC / src).read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = tuple(SOURCES)) -> float:
+    """Compile every named library that is not built yet, one ``nvcc``
+    process per source, all started together. Returns the wall seconds
+    of the build (0.0 when everything was cached). Raises with nvcc's
+    output when a compile fails. The ptxas report (registers, shared
+    memory, spills) lands in ``<lib>.log`` beside each library."""
+    todo = {n: _library_path(n) for n in names}
+    todo = {n: p for n, p in todo.items() if not p.exists()}
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = {}
+    for n, path in todo.items():
+        tmp = path.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+        procs[n] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ), tmp, path)
+    failures = []
+    for n, (proc, tmp, path) in procs.items():
+        out, _ = proc.communicate()
+        path.with_suffix(".log").write_text(out)
+        if proc.returncode != 0:
+            failures.append(f"{SOURCES[n]}:\n{out}")
+        else:
+            os.replace(tmp, path)
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """The nvcc/ptxas output of the named library's build."""
+    log = _library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = _library_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            for dt in ("f32", "f64"):
+                fn = getattr(lib, f"pumi_{name}_{dt}")
+                fn.argtypes = _ENTRY_ARGS[name]
+                fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """Device pointer of a tensor (None -> a null pointer)."""
+    return None if t is None else t.data_ptr()
+
+
+def launch(name: str, dtype: torch.dtype, device: torch.device,
+           *args) -> None:
+    """Call the ``name`` kernel's C entry point for ``dtype`` on the
+    current stream of ``device``, count the launch, and raise if the
+    launch was refused."""
+    suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    fn = getattr(_lib(name), f"pumi_{name}_{suffix}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
+    launch_counts[name] += 1
+
+
+def check_cuda_args(where: str, device: torch.device, specs) -> None:
+    """Raise unless every (name, tensor, dtype, shape) spec is a
+    contiguous tensor on ``device`` of that dtype and shape (``None``
+    entries in ``shape`` match any size)."""
+    for name, t, dtype, shape in specs:
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{where}: {name} is on {t.device}, not {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{where}: {name} is {t.dtype}, needs {dtype}")
+        if len(shape) != t.dim() or any(
+            s is not None and s != d for s, d in zip(shape, t.shape)
+        ):
+            raise ValueError(
+                f"{where}: {name} has shape {tuple(t.shape)}, needs {shape}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{where}: {name} must be contiguous")

@@ -1,0 +1,138 @@
+"""PyTorch port, isolation and device rules:
+
+- importing ``pumiumtally_tpu_torch`` (every module) and ``chip_smoke``
+  with ``jax`` blocked works and loads no ``pumiumtally_tpu`` module;
+- no port source or ``chip_smoke.py`` imports jax or pumiumtally_tpu;
+- a facade built without ``device=`` raises when no GPU is present;
+- on the CPU every wrapper runs its plain version: the kernel launch
+  counters stay 0;
+- the CUDA-side argument checks and the build refuse what they cannot
+  take, and ``chip_smoke.py`` exits non-zero without a GPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pumiumtally_tpu_torch import (
+    PartitionedPumiTally,
+    PumiTally,
+    TallyConfig,
+    build_box,
+    kernels,
+)
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "pumiumtally_tpu_torch"
+
+_BLOCKED_IMPORT = r"""
+import importlib, pkgutil, sys
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith("jax."):
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, _Block())
+import pumiumtally_tpu_torch as p
+for m in pkgutil.walk_packages(p.__path__, "pumiumtally_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "pumiumtally_tpu" or m.startswith("pumiumtally_tpu."))
+print("LOADED", bad)
+"""
+
+
+def test_imports_with_jax_blocked_load_nothing_of_jax():
+    r = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "LOADED []" in r.stdout
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_port_source_imports_jax_or_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        roots = set(_imported_roots(f))
+        assert not roots & {"jax", "jaxlib", "pumiumtally_tpu"}, f
+
+
+def test_facade_without_device_raises_when_no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    mesh = build_box(1, 1, 1, 1, 1, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PumiTally(mesh, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PartitionedPumiTally(mesh, 4, TallyConfig(walk_vmem_max_elems=2))
+
+
+def test_cpu_runs_plain_versions_and_counts_no_launch():
+    kernels.reset_launch_counts()
+    mesh = build_box(1, 1, 1, 3, 3, 3, dtype=torch.float64)
+    pts = np.random.default_rng(2).uniform(0.05, 0.95, (50, 3))
+    for t in (PumiTally(mesh, 50, device="cpu"),
+              PartitionedPumiTally(mesh, 50,
+                                   TallyConfig(walk_vmem_max_elems=40),
+                                   device="cpu")):
+        t.CopyInitialPosition(pts.reshape(-1).copy())
+        t.MoveToNextLocation(None, (1.0 - pts).reshape(-1).copy())
+        np.testing.assert_allclose(
+            t.flux.sum().item(),
+            np.linalg.norm(1.0 - 2 * pts, axis=1).sum(), rtol=1e-10,
+        )
+    assert kernels.launch_counts == {"walk": 0, "block_walk": 0}
+
+
+def test_cuda_argument_checks():
+    t = torch.zeros((4, 3))
+    dev = torch.device("cpu")
+    kernels.check_cuda_args("k", dev, [("x", t, torch.float32, (4, 3)),
+                                       ("s", None, torch.float32, (4,))])
+    with pytest.raises(TypeError, match="float64"):
+        kernels.check_cuda_args("k", dev, [("x", t, torch.float64, (4, 3))])
+    with pytest.raises(ValueError, match="shape"):
+        kernels.check_cuda_args("k", dev, [("x", t, torch.float32, (5, 3))])
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.check_cuda_args("k", dev, [("x", t.T, torch.float32,
+                                            (3, 4))])
+    with pytest.raises(ValueError, match="is on"):
+        kernels.check_cuda_args("k", torch.device("meta"),
+                                [("x", t, torch.float32, (4, 3))])
+
+
+def test_build_needs_nvcc_and_keys_on_the_sources(monkeypatch, tmp_path):
+    p = kernels._library_path("walk")
+    assert p.parent == kernels.BUILD_DIR and p.name.startswith("libwalk_")
+    assert kernels._library_path("block_walk") != p
+    if kernels.shutil.which("nvcc") or os.path.exists(
+            "/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is installed: the refusal path is not reachable")
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build()
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
