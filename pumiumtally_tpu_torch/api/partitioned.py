@@ -1,14 +1,17 @@
 """Partitioned-mesh facade on one device (port of
 ``pumiumtally_tpu/api/partitioned.py``): the three-call protocol over
 element blocks + particle migration (parallel/partition.py), with the
-block-local walk W1 (ops/vmem_walk.py). Staging, the flying-zeroing side
-effect, timing and the legacy VTK output are inherited from
+block-local walk W1 (ops/vmem_walk.py) on the packed tables or, with
+``walk_table_dtype="bfloat16"`` and ``walk_kernel="pallas"``, the
+two-tier block walk W2 (ops/pallas_walk.py). Staging, the flying-zeroing
+side effect, timing and the legacy VTK output are inherited from
 ``PumiTally``; a ``.pvtu`` filename writes the rank-aware piece layout
-(one piece: the device owns every block).
+(one piece: the device owns every block). The facade's mesh keeps its
+own tables: the engine builds the block tables of the configured tier.
 
-Requires ``TallyConfig.walk_vmem_max_elems`` (the gather walk that runs
-without it is not ported yet). Left out: multi-device meshes and the
-sentinel/scoring hooks.
+W1 requires ``TallyConfig.walk_vmem_max_elems`` (the gather walk that
+runs without it is not ported yet). Left out: multi-device meshes and
+the sentinel/scoring hooks.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ class PartitionedPumiTally(PumiTally):
     def __init__(self, mesh: TetMesh, num_particles: int = 100_000,
                  config: Optional[TallyConfig] = None, device: Any = None):
         t0 = time.perf_counter()
-        mesh = self._init_common(mesh, num_particles, config, device)
+        mesh = self._init_common(mesh, num_particles, config, device,
+                                 lowp_mesh=False)
         self.engine = PartitionedEngine(
             mesh,
             self.num_particles,
@@ -42,6 +46,8 @@ class PartitionedPumiTally(PumiTally):
             max_rounds=self.config.max_migration_rounds,
             check_found_all=self.config.check_found_all,
             vmem_walk_max_elems=self.config.walk_vmem_max_elems,
+            block_kernel=self.config.resolved_walk_kernel(),
+            table_dtype=self.config.resolved_table_dtype(),
         )
         self._sync()
         self.tally_times.initialization_time += time.perf_counter() - t0

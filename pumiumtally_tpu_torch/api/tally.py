@@ -18,6 +18,10 @@ Semantics kept from the reference and the JAX package:
 - ``WriteTallyResults`` divides flux by element volume only and writes a
   VTK file with "flux" and "volume" cell data (cpp:382-416).
 
+``TallyConfig(walk_table_dtype="bfloat16")`` walks the two-tier tables
+(``TetMesh.with_lowp_tables``, W0's two-tier variant); point location and
+``WriteTallyResults`` read the full-precision planes and volumes.
+
 The facades run on ``device="cuda"`` by default and raise when no GPU is
 present, unless the caller asks for ``device="cpu"`` (where every
 kernel's plain PyTorch version runs). Left out so far (ROADMAP.md): the
@@ -219,8 +223,12 @@ class PumiTally:
         self._sync()
         self.tally_times.initialization_time += time.perf_counter() - t0
 
-    def _init_common(self, mesh, num_particles, config, device) -> TetMesh:
-        """Shared construction: config, device, working dtype, mesh."""
+    def _init_common(self, mesh, num_particles, config, device,
+                     lowp_mesh: bool = True) -> TetMesh:
+        """Shared construction: config, device, working dtype, mesh.
+        ``lowp_mesh``: a facade whose walks read ``self.mesh`` takes the
+        two-tier tables when the configured tier is bf16 (the
+        partitioned facade builds its own block tables instead)."""
         self.config = config or TallyConfig()
         self.device = resolve_device(device)
         if isinstance(mesh, str):
@@ -231,7 +239,14 @@ class PumiTally:
         # for one explicitly.
         self.dtype = mesh.dtype if self.config.dtype is None \
             else self.config.dtype
-        self.mesh = mesh.to(dtype=self.dtype, device=self.device)
+        mesh = mesh.to(dtype=self.dtype, device=self.device)
+        if lowp_mesh and self.config.resolved_table_dtype() == "bfloat16":
+            mesh = mesh.with_lowp_tables()
+        elif lowp_mesh:
+            # The float32 tier walks a two-tier mesh's full-precision
+            # planes, as the JAX walk does.
+            mesh = mesh.with_packed_table()
+        self.mesh = mesh
         self.num_particles = int(num_particles)
         self._tol = self.config.resolved_tolerance(self.dtype)
         self._max_iters = self.config.resolved_max_iters(self.mesh.nelems)

@@ -4,7 +4,8 @@ that the PyTorch port implements so far.
 A knob the port does not have is not a field, so passing it is a
 ``TypeError``. The few values the JAX package accepts but the port does
 not run yet raise ``NotImplementedError`` naming the ROADMAP.md item
-that brings them.
+that brings them. Validation and resolution otherwise follow the JAX
+package's ``TallyConfig`` (config.py:592-660, :728-746).
 """
 
 from __future__ import annotations
@@ -15,9 +16,8 @@ from typing import Any, Optional
 import torch
 
 # ROADMAP.md items named by the refusals below.
-ROADMAP_TWO_TIER = "ROADMAP.md queue 2, K2 (two-tier tables, pallas_walk_local)"
 ROADMAP_GATHER_BLOCKS = (
-    "ROADMAP.md queue 1, 'partitioned gather walk (walk_local)'"
+    "ROADMAP.md queue 1 item 8, 'partitioned gather walk (walk_local)'"
 )
 ROADMAP_SCORING = "ROADMAP.md queue 1, 'scoring, stats and sentinel'"
 
@@ -41,10 +41,16 @@ class TallyConfig:
       max_migration_rounds: partitioned engine only, walk/migrate
         rounds per phase.
       walk_vmem_max_elems: partitioned engine only, the block length
-        bound of the block-local walk (shared memory plays VMEM's role).
+        bound of the block walks (shared memory plays VMEM's role; the
+        bf16 tier doubles it). Required by the "vmem" block walk; with
+        "pallas" it only sizes the blocks (unset: one block).
       walk_kernel / walk_block_kernel: the JAX package's block-kernel
-        selectors; only the "vmem" block walk exists in the port.
-      walk_table_dtype: only the float32 single-tier table exists.
+        selectors (``resolved_walk_kernel``): "vmem" (W1) or "pallas"
+        (W2, two-tier only); the "gather" block walk is not ported.
+      walk_table_dtype: "float32" (the packed table), "bfloat16" (the
+        two-tier tables, both facades) or "auto"/None (the
+        PUMIUMTALLY_WALK_TABLE_DTYPE environment variable, else
+        float32).
       scoring: no scoring lanes yet.
       output_filename: default VTK output path.
     """
@@ -72,7 +78,9 @@ class TallyConfig:
         if self.dtype is not None:
             if self.dtype == torch.bfloat16:
                 raise NotImplementedError(
-                    f"bfloat16 tables are not ported yet: {ROADMAP_TWO_TIER}"
+                    "a bfloat16 working dtype is not supported: positions "
+                    "and flux stay float32 or float64 (the bf16 walk-table "
+                    "tier is walk_table_dtype='bfloat16')"
                 )
             if self.dtype not in (torch.float32, torch.float64):
                 raise ValueError(
@@ -84,19 +92,20 @@ class TallyConfig:
                 "walk_table_dtype must be auto/float32/bfloat16, "
                 f"got {self.walk_table_dtype!r}"
             )
-        if self.walk_table_dtype == "bfloat16":
-            raise NotImplementedError(
-                f"walk_table_dtype='bfloat16' is not ported yet: "
-                f"{ROADMAP_TWO_TIER}"
-            )
         if self.walk_kernel not in ("gather", "vmem", "pallas"):
             raise ValueError(
                 "walk_kernel must be 'gather', 'vmem' or 'pallas', "
                 f"got {self.walk_kernel!r}"
             )
-        if self.walk_kernel == "pallas":
-            raise NotImplementedError(
-                f"walk_kernel='pallas' is not ported yet: {ROADMAP_TWO_TIER}"
+        if (
+            self.walk_kernel == "pallas"
+            and self.resolved_table_dtype() != "bfloat16"
+        ):
+            raise ValueError(
+                "walk_kernel='pallas' is the two-tier streaming kernel "
+                "and needs the bf16 select tier — set "
+                "walk_table_dtype='bfloat16' (got "
+                f"{self.resolved_table_dtype()!r})"
             )
         if self.walk_block_kernel not in ("vmem", "gather"):
             raise ValueError(
@@ -126,6 +135,21 @@ class TallyConfig:
         if self.tolerance is not None:
             return float(self.tolerance)
         return 1e-8 if dtype == torch.float64 else 1e-6
+
+    def resolved_table_dtype(self) -> str:
+        """The walk-table tier, "float32" or "bfloat16", with "auto"
+        resolved through the environment (ops/walk.py)."""
+        from pumiumtally_tpu_torch.ops.walk import resolve_table_dtype
+
+        return resolve_table_dtype(self.walk_table_dtype or "auto")
+
+    def resolved_walk_kernel(self) -> str:
+        """The block-kernel selector the partitioned engine receives:
+        ``walk_kernel="gather"`` (the default) defers to
+        ``walk_block_kernel``; anything else names the kernel."""
+        if self.walk_kernel == "gather":
+            return self.walk_block_kernel
+        return self.walk_kernel
 
     def resolved_max_iters(self, nelems: int) -> int:
         """Safety cap only: a straight segment can cross O(E) tets on a

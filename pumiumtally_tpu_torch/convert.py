@@ -6,17 +6,22 @@ of host numpy arrays (duck-typed: anything ``np.asarray`` can read, so
 no JAX import here) and build the port's object from such a dict:
 
 - a ``TetMesh``: coords, tet2vert, face_normals, face_offsets, face_adj,
-  volumes, walk_table;
-- a ``MeshPartition``: the block tables and the id maps;
+  volumes, and its walk tables: walk_table, or the two-tier
+  walk_table_lo (as its uint16 bit pattern) and walk_table_hi;
+- a ``MeshPartition``: the block tables (``table_hi`` too when two-tier;
+  a bf16 ``table`` as its uint16 bits) and the id maps;
 - a facade: its particle state and flux (``PumiTally``: x, elem, flux;
   ``PartitionedPumiTally``: every engine slot row plus the padded flux).
 
 Tests build an input once, hand it to both packages through here, and
-compare what comes out.
+compare what comes out. A bf16 tensor crosses as its uint16 bit pattern:
+numpy has no bf16 of its own (JAX's comes from ``ml_dtypes``, which the
+port never imports) and ``torch.from_numpy`` refuses JAX's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -33,20 +38,37 @@ from pumiumtally_tpu_torch.parallel.partition import MeshPartition
 
 MESH_KEYS = ("coords", "tet2vert", "face_normals", "face_offsets",
              "face_adj", "volumes", "walk_table")
+TWO_TIER_KEYS = ("walk_table_lo", "walk_table_hi")
 PARTITION_KEYS = ("ndev", "nelems", "L", "owner", "glid_of_orig",
                   "orig_of_glid", "table")
 
 
 def host(a) -> np.ndarray:
-    """A host numpy copy of a torch tensor, a JAX array or an array."""
+    """A host numpy copy of a torch tensor, a JAX array or an array; a
+    bf16 one as its uint16 bit pattern."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
-    return np.asarray(a)
+        a = a.detach().cpu()
+        if a.dtype == torch.bfloat16:
+            return a.view(torch.int16).numpy().view(np.uint16)
+        return a.numpy()
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return a.view(np.uint16)
+    return a
+
+
+def bf16_from_bits(bits, device: Any = "cpu") -> torch.Tensor:
+    """A torch bf16 tensor from ``host``'s uint16 bit pattern."""
+    bits = np.ascontiguousarray(np.asarray(bits, dtype=np.uint16))
+    return torch.from_numpy(bits.view(np.int16).copy()).view(
+        torch.bfloat16).to(device)
 
 
 def mesh_arrays(mesh) -> Dict[str, np.ndarray]:
-    """A TetMesh of either package as host arrays."""
-    return {k: host(getattr(mesh, k)) for k in MESH_KEYS}
+    """A TetMesh of either package as host arrays (only the walk tables
+    it carries)."""
+    return {k: host(getattr(mesh, k)) for k in MESH_KEYS + TWO_TIER_KEYS
+            if getattr(mesh, k, None) is not None}
 
 
 def tetmesh_from_arrays(arrays: Dict[str, Any],
@@ -55,11 +77,24 @@ def tetmesh_from_arrays(arrays: Dict[str, Any],
     """The port's TetMesh from ``mesh_arrays``-style host arrays.
 
     The walk table is reassembled in float64 from the planes and the
-    integer adjacency, so neighbour ids stay exact in any dtype."""
+    integer adjacency, so neighbour ids stay exact in any dtype. Arrays
+    holding the two-tier tables give a two-tier mesh: the bf16 tier
+    bit for bit, the refinement tier in ``dtype``."""
     coords = np.asarray(arrays["coords"])
     if dtype is None:
         dtype = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.float64): torch.float64}[coords.dtype]
+    if "walk_table_lo" in arrays:
+        mesh = TetMesh.from_numpy(coords, arrays["tet2vert"],
+                                  arrays["face_adj"], arrays["volumes"],
+                                  None, dtype=dtype, device=device)
+        return dataclasses.replace(
+            mesh,
+            walk_table_lo=bf16_from_bits(arrays["walk_table_lo"], device),
+            walk_table_hi=torch.tensor(
+                np.asarray(arrays["walk_table_hi"]), device=device
+            ).to(dtype),
+        )
     adj = np.asarray(arrays["face_adj"], dtype=np.int32)
     ne = adj.shape[0]
     table = np.empty((ne, WALK_TABLE_WIDTH), dtype=np.float64)
@@ -74,20 +109,32 @@ def tetmesh_from_arrays(arrays: Dict[str, Any],
 
 
 def partition_arrays(part) -> Dict[str, Any]:
-    """A MeshPartition of either package as host values."""
+    """A MeshPartition of either package as host values (``table_hi``
+    only when two-tier; ``table`` is then the bf16 tier's bits)."""
     out = {k: host(getattr(part, k)) for k in PARTITION_KEYS}
     for k in ("ndev", "nelems", "L"):
         out[k] = int(out[k])
+    if getattr(part, "table_hi", None) is not None:
+        out["table_hi"] = host(part.table_hi)
     return out
 
 
 def partition_from_arrays(arrays: Dict[str, Any],
                           device: Any = "cpu") -> MeshPartition:
     """The port's MeshPartition from ``partition_arrays`` values (the
-    table's local-encoded adjacency floats are exact in its dtype)."""
+    local-encoded adjacency floats are exact in their dtype)."""
+    dtypes = {np.dtype(np.float32): torch.float32,
+              np.dtype(np.float64): torch.float64}
     table = host(arrays["table"])
-    dtype = {np.dtype(np.float32): torch.float32,
-             np.dtype(np.float64): torch.float64}[table.dtype]
+    table_hi = None
+    if "table_hi" in arrays:
+        table_hi = host(arrays["table_hi"])
+        table_hi = torch.tensor(table_hi, dtype=dtypes[table_hi.dtype],
+                                device=device)
+        table_t = bf16_from_bits(table, device)
+    else:
+        table_t = torch.tensor(table, dtype=dtypes[table.dtype],
+                               device=device)
 
     def ids(k):
         return torch.tensor(np.asarray(arrays[k], dtype=np.int32),
@@ -97,7 +144,7 @@ def partition_from_arrays(arrays: Dict[str, Any],
         ndev=int(arrays["ndev"]), nelems=int(arrays["nelems"]),
         L=int(arrays["L"]), owner=np.asarray(arrays["owner"], np.int32),
         glid_of_orig=ids("glid_of_orig"), orig_of_glid=ids("orig_of_glid"),
-        table=torch.tensor(table, dtype=dtype, device=device),
+        table=table_t, table_hi=table_hi,
     )
 
 

@@ -19,13 +19,23 @@
 // that, varies from run to run. Positions are materialised once from
 // the ray coordinate at the end; a particle that reaches its
 // destination commits dest bit-exactly (the continue-mode contract).
+//
+// The two-tier variant (kTwoTier; the JAX walk's lo_select branch,
+// ops/walk.py _advance_geometry :425-431) reads, per crossing, the tet's
+// 32 B bf16 select row and then the winning face's 20 B (f32)
+// refinement row, whose adj lane names the neighbour: 52 B instead of
+// 80 B, and face_adj is never read (csrc/twotier_step.cuh).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "twotier_step.cuh"
 #include "walk_step.cuh"
 
-template <typename T>
+template <typename T, bool kTwoTier>
 __global__ void walk_kernel(const T* __restrict__ table,
+                            const uint16_t* __restrict__ table_lo,
+                            const T* __restrict__ table_hi,
                             const T* __restrict__ x,
                             const int* __restrict__ elem_in,
                             const T* __restrict__ dest,
@@ -50,8 +60,15 @@ __global__ void walk_kernel(const T* __restrict__ table,
   while (!done && steps < max_iters) {
     int next;
     bool reached;
-    const T s_new = walk_step(table + (size_t)e * WALK_TABLE_WIDTH, s, dx,
-                              dy, dz, px, py, pz, tol, &next, &reached);
+    T s_new;
+    if constexpr (kTwoTier) {
+      s_new = twotier_step(table_lo + (size_t)e * WALK_TABLE_LO_WIDTH,
+                           table_hi, e, s, dx, dy, dz, px, py, pz, tol,
+                           &next, &reached);
+    } else {
+      s_new = walk_step(table + (size_t)e * WALK_TABLE_WIDTH, s, dx, dy, dz,
+                        px, py, pz, tol, &next, &reached);
+    }
     const bool hit_boundary = !reached && next == -1;
     if (tally) {
       const T c = (s_new - s) * eff_w;
@@ -74,8 +91,9 @@ __global__ void walk_kernel(const T* __restrict__ table,
   atomicMax(iters, steps);
 }
 
-template <typename T>
-static int launch_walk(const void* table, const void* x, const void* elem,
+template <typename T, bool kTwoTier>
+static int launch_walk(const void* table, const void* table_lo,
+                       const void* table_hi, const void* x, const void* elem,
                        const void* dest, const void* fly, const void* w,
                        const void* s_init, void* flux, void* x_out,
                        void* elem_out, void* done_out, void* exited_out,
@@ -83,9 +101,11 @@ static int launch_walk(const void* table, const void* x, const void* elem,
                        int max_iters, int tally, void* stream) {
   const int threads = 256;
   if (n > 0) {
-    walk_kernel<T><<<(n + threads - 1) / threads, threads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(table), static_cast<const T*>(x),
+    walk_kernel<T, kTwoTier><<<(n + threads - 1) / threads, threads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(table),
+        static_cast<const uint16_t*>(table_lo),
+        static_cast<const T*>(table_hi), static_cast<const T*>(x),
         static_cast<const int*>(elem), static_cast<const T*>(dest),
         static_cast<const signed char*>(fly), static_cast<const T*>(w),
         static_cast<const T*>(s_init), static_cast<T*>(flux),
@@ -104,9 +124,10 @@ extern "C" int pumi_walk_f32(const void* table, const void* x,
                              void* elem_out, void* done_out, void* exited_out,
                              void* s_out, void* iters, int n, double tol,
                              int max_iters, int tally, void* stream) {
-  return launch_walk<float>(table, x, elem, dest, fly, w, s_init, flux,
-                            x_out, elem_out, done_out, exited_out, s_out,
-                            iters, n, tol, max_iters, tally, stream);
+  return launch_walk<float, false>(table, nullptr, nullptr, x, elem, dest,
+                                   fly, w, s_init, flux, x_out, elem_out,
+                                   done_out, exited_out, s_out, iters, n, tol,
+                                   max_iters, tally, stream);
 }
 
 extern "C" int pumi_walk_f64(const void* table, const void* x,
@@ -116,7 +137,32 @@ extern "C" int pumi_walk_f64(const void* table, const void* x,
                              void* elem_out, void* done_out, void* exited_out,
                              void* s_out, void* iters, int n, double tol,
                              int max_iters, int tally, void* stream) {
-  return launch_walk<double>(table, x, elem, dest, fly, w, s_init, flux,
-                             x_out, elem_out, done_out, exited_out, s_out,
-                             iters, n, tol, max_iters, tally, stream);
+  return launch_walk<double, false>(table, nullptr, nullptr, x, elem, dest,
+                                    fly, w, s_init, flux, x_out, elem_out,
+                                    done_out, exited_out, s_out, iters, n,
+                                    tol, max_iters, tally, stream);
+}
+
+extern "C" int pumi_walk_twotier_f32(
+    const void* table_lo, const void* table_hi, const void* x,
+    const void* elem, const void* dest, const void* fly, const void* w,
+    const void* s_init, void* flux, void* x_out, void* elem_out,
+    void* done_out, void* exited_out, void* s_out, void* iters, int n,
+    double tol, int max_iters, int tally, void* stream) {
+  return launch_walk<float, true>(nullptr, table_lo, table_hi, x, elem, dest,
+                                  fly, w, s_init, flux, x_out, elem_out,
+                                  done_out, exited_out, s_out, iters, n, tol,
+                                  max_iters, tally, stream);
+}
+
+extern "C" int pumi_walk_twotier_f64(
+    const void* table_lo, const void* table_hi, const void* x,
+    const void* elem, const void* dest, const void* fly, const void* w,
+    const void* s_init, void* flux, void* x_out, void* elem_out,
+    void* done_out, void* exited_out, void* s_out, void* iters, int n,
+    double tol, int max_iters, int tally, void* stream) {
+  return launch_walk<double, true>(nullptr, table_lo, table_hi, x, elem,
+                                   dest, fly, w, s_init, flux, x_out,
+                                   elem_out, done_out, exited_out, s_out,
+                                   iters, n, tol, max_iters, tally, stream);
 }

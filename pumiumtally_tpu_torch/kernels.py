@@ -11,9 +11,12 @@ checkout builds them itself and an edited source rebuilds.
 Nothing here runs at import time: this module is imported on machines
 without ``nvcc`` or a GPU, where only the plain PyTorch versions run.
 
-Launch counters: each wrapper adds one to ``launch_counts[name]`` where
+Launch counters: each wrapper adds one to ``launch_counts[entry]`` where
 it launches its kernel, and nowhere else, so a caller can show that a
 path really went through the kernels (``reset_launch_counts`` first).
+An entry is one C entry point of a library: ``walk`` (W0),
+``walk_twotier`` (W0's two-tier variant, in the same library),
+``block_walk`` (W1) and ``twotier_block_walk`` (W2).
 """
 
 from __future__ import annotations
@@ -32,8 +35,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-HEADERS = ("walk_step.cuh",)
-SOURCES = {"walk": "walk.cu", "block_walk": "block_walk.cu"}
+HEADERS = ("walk_step.cuh", "twotier_step.cuh")
+SOURCES = {
+    "walk": "walk.cu",
+    "block_walk": "block_walk.cu",
+    "twotier_block_walk": "twotier_block_walk.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -42,13 +49,18 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-# C entry points per library: name -> argtypes (both dtypes share them).
+# C entry points: entry -> (library, argtypes); both dtypes share them
+# (``pumi_<entry>_f32`` / ``pumi_<entry>_f64``).
 _ENTRY_ARGS = {
-    "walk": [_P] * 14 + [_I, _D, _I, _I, _P],
-    "block_walk": [_P] * 15 + [_I, _I, _I, _D, _I, _I, _P],
+    "walk": ("walk", [_P] * 14 + [_I, _D, _I, _I, _P]),
+    "walk_twotier": ("walk", [_P] * 15 + [_I, _D, _I, _I, _P]),
+    "block_walk": ("block_walk", [_P] * 15 + [_I, _I, _I, _D, _I, _I, _P]),
+    "twotier_block_walk": (
+        "twotier_block_walk", [_P] * 16 + [_I, _I, _I, _D, _I, _I, _I, _P],
+    ),
 }
 
-launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
+launch_counts: Dict[str, int] = {entry: 0 for entry in _ENTRY_ARGS}
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -122,10 +134,13 @@ def _lib(name: str) -> ctypes.CDLL:
             if not path.exists():
                 build([name])
             lib = ctypes.CDLL(str(path))
-            for dt in ("f32", "f64"):
-                fn = getattr(lib, f"pumi_{name}_{dt}")
-                fn.argtypes = _ENTRY_ARGS[name]
-                fn.restype = ctypes.c_int
+            for entry, (lib_name, argtypes) in _ENTRY_ARGS.items():
+                if lib_name != name:
+                    continue
+                for dt in ("f32", "f64"):
+                    fn = getattr(lib, f"pumi_{entry}_{dt}")
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
 
@@ -135,19 +150,21 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def launch(name: str, dtype: torch.dtype, device: torch.device,
+def launch(entry: str, dtype: torch.dtype, device: torch.device,
            *args) -> None:
-    """Call the ``name`` kernel's C entry point for ``dtype`` on the
-    current stream of ``device``, count the launch, and raise if the
-    launch was refused."""
+    """Call the C entry point ``entry`` for ``dtype`` on the current
+    stream of ``device``, count the launch, and raise if the launch was
+    refused."""
     suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
-    fn = getattr(_lib(name), f"pumi_{name}_{suffix}")
+    fn = getattr(_lib(_ENTRY_ARGS[entry][0]), f"pumi_{entry}_{suffix}")
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
-    launch_counts[name] += 1
+        raise RuntimeError(
+            f"CUDA kernel {entry} failed to launch: error {err}"
+        )
+    launch_counts[entry] += 1
 
 
 def check_cuda_args(where: str, device: torch.device, specs) -> None:

@@ -13,6 +13,14 @@ moved to the device as flat tensors:
   offsets | 4 neighbour ids stored as floats. One 80 B (f32) row is what
   a walk step reads; the ids are exact below 2^24 in f32, which
   ``from_arrays`` enforces.
+- or, in its place, the two-tier tables (``table_dtype="bfloat16"``,
+  ``with_lowp_tables``): ``walk_table_lo[E,16]`` bf16, the SELECT tier
+  (normals | offsets, one 32 B row picks the exit face), and
+  ``walk_table_hi[E*4,5]`` in the working dtype, the per-face
+  REFINEMENT tier (nx, ny, nz, off, adj of face f in row ``elem*4+f``:
+  one 20 B row re-solves the winning face's crossing and names the
+  neighbour). The adj lane holds ids as floats, under the same exact-id
+  ceiling as the packed table.
 """
 
 from __future__ import annotations
@@ -35,6 +43,12 @@ WALK_TABLE_OFFSETS = slice(12, 16)  # 4 face-plane offsets
 WALK_TABLE_ADJ = slice(16, 20)  # 4 neighbour ids, as floats
 WALK_TABLE_WIDTH = 20
 
+# The two-tier layout (csrc/twotier_step.cuh reads the same columns).
+WALK_TABLE_LO_NORMALS = slice(0, 12)  # bf16, 4 faces x 3 components
+WALK_TABLE_LO_OFFSETS = slice(12, 16)  # bf16, 4 face-plane offsets
+WALK_TABLE_LO_WIDTH = 16
+WALK_PLANE_WIDTH = 5  # refinement row: (nx, ny, nz, off, adj) of ONE face
+
 
 def exact_id_limit(dtype: torch.dtype) -> int:
     """Element-id count exactly representable in ``dtype``: 2^24 for
@@ -51,6 +65,41 @@ def _pack_walk_table(normals: np.ndarray, offsets: np.ndarray,
     )
     assert row.shape[1] == WALK_TABLE_WIDTH
     return row
+
+
+def pack_lo_table(normals: torch.Tensor,
+                  offsets: torch.Tensor) -> torch.Tensor:
+    """The bf16 SELECT tier: [E,WALK_TABLE_LO_WIDTH] rows of
+    normals|offsets, rounded to bf16 once, here."""
+    ne = offsets.shape[0]
+    row = torch.cat([normals.reshape(ne, 12), offsets], dim=1)
+    assert row.shape[1] == WALK_TABLE_LO_WIDTH
+    return row.to(torch.bfloat16)
+
+
+def pack_plane_table(normals: torch.Tensor, offsets: torch.Tensor,
+                     adj: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The REFINEMENT tier: [E*4,WALK_PLANE_WIDTH] rows, one per (elem,
+    face), holding (nx, ny, nz, off, adj) in ``dtype``. Assembled in
+    float64 so the ids survive the cast (the caller checks that they
+    are exact in ``dtype``)."""
+    ne = offsets.shape[0]
+    row = torch.cat([
+        normals.reshape(ne * 4, 3).double(),
+        offsets.reshape(ne * 4, 1).double(),
+        adj.reshape(ne * 4, 1).double(),
+    ], dim=1)
+    assert row.shape[1] == WALK_PLANE_WIDTH
+    return row.to(dtype)
+
+
+def _check_two_tier_ids(ne: int, dtype: torch.dtype) -> None:
+    if ne >= exact_id_limit(dtype):
+        raise ValueError(
+            f"two-tier walk tables store neighbor ids in "
+            f"{str(dtype).removeprefix('torch.')} refinement rows; {ne} "
+            f"elements exceed the exact-id limit {exact_id_limit(dtype)}"
+        )
 
 
 def _signed_volumes(coords: np.ndarray, tet2vert: np.ndarray) -> np.ndarray:
@@ -114,21 +163,33 @@ def mesh_geometry(coords: np.ndarray, tet2vert: np.ndarray):
 
 @dataclasses.dataclass(frozen=True)
 class TetMesh:
-    """Immutable tet mesh as tensors on one device."""
+    """Immutable tet mesh as tensors on one device. It carries either the
+    packed ``walk_table`` or the two-tier tables (``walk_table_lo`` and
+    ``walk_table_hi``, both set), never both."""
 
     coords: torch.Tensor  # [V,3] float
     tet2vert: torch.Tensor  # [E,4] int32
     face_adj: torch.Tensor  # [E,4] int32, -1 = boundary
     volumes: torch.Tensor  # [E] float
-    walk_table: torch.Tensor  # [E,20] float: normals|offsets|adj
+    walk_table: Optional[torch.Tensor]  # [E,20] float: normals|offsets|adj
+    walk_table_lo: Optional[torch.Tensor] = None  # [E,16] bf16
+    walk_table_hi: Optional[torch.Tensor] = None  # [E*4,5] float
 
     @property
     def face_normals(self) -> torch.Tensor:
-        return self.walk_table[:, WALK_TABLE_NORMALS].reshape(-1, 4, 3)
+        if self.walk_table is not None:
+            return self.walk_table[:, WALK_TABLE_NORMALS].reshape(-1, 4, 3)
+        return self.walk_table_hi.reshape(-1, 4, WALK_PLANE_WIDTH)[:, :, :3]
 
     @property
     def face_offsets(self) -> torch.Tensor:
-        return self.walk_table[:, WALK_TABLE_OFFSETS]
+        if self.walk_table is not None:
+            return self.walk_table[:, WALK_TABLE_OFFSETS]
+        return self.walk_table_hi.reshape(-1, 4, WALK_PLANE_WIDTH)[:, :, 3]
+
+    @property
+    def two_tier(self) -> bool:
+        return self.walk_table_lo is not None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -150,14 +211,29 @@ class TetMesh:
     def from_arrays(
         cls, coords: np.ndarray, tet2vert: np.ndarray,
         dtype: Optional[torch.dtype] = None, device: Any = "cpu",
+        table_dtype: str = "float32",
     ) -> "TetMesh":
         """Build a mesh (host-side precompute) from raw connectivity:
-        orientation fix, outward face planes, adjacency and volumes."""
+        orientation fix, outward face planes, adjacency and volumes.
+        ``table_dtype="bfloat16"`` builds the two-tier tables straight
+        from the float64 planes instead of the packed table."""
         dtype = torch.float32 if dtype is None else dtype
         coords, tet2vert, n, offsets, face_adj, volumes = mesh_geometry(
             coords, tet2vert
         )
         ne = tet2vert.shape[0]
+        if table_dtype == "bfloat16":
+            _check_two_tier_ids(ne, dtype)
+            n_t, off_t = torch.from_numpy(n), torch.from_numpy(offsets)
+            mesh = cls.from_numpy(coords, tet2vert, face_adj, volumes, None,
+                                  dtype=dtype, device=device)
+            return dataclasses.replace(
+                mesh,
+                walk_table_lo=pack_lo_table(n_t, off_t).to(device),
+                walk_table_hi=pack_plane_table(
+                    n_t, off_t, torch.from_numpy(face_adj), dtype
+                ).to(device),
+            )
         if ne >= exact_id_limit(dtype):
             raise NotImplementedError(
                 f"{ne} elements exceed the exact float-id limit of "
@@ -175,7 +251,8 @@ class TetMesh:
     def from_numpy(cls, coords, tet2vert, face_adj, volumes, walk_table,
                    dtype: torch.dtype, device: Any = "cpu") -> "TetMesh":
         """Move host arrays to ``device``: floats in ``dtype`` (the
-        table from its float64 form, so ids stay exact), ids int32."""
+        table from its float64 form, so ids stay exact), ids int32.
+        ``walk_table`` None leaves the tables to the caller."""
         def f(a):
             return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
@@ -184,24 +261,71 @@ class TetMesh:
 
         return cls(
             coords=f(coords), tet2vert=i(tet2vert), face_adj=i(face_adj),
-            volumes=f(volumes), walk_table=f(walk_table),
+            volumes=f(volumes),
+            walk_table=None if walk_table is None else f(walk_table),
         )
+
+    def with_lowp_tables(self) -> "TetMesh":
+        """This mesh with the two-tier tables in place of the packed
+        table, built from its current full-precision planes (the bf16
+        rounding of the stored values IS the conversion; the adj lane
+        goes through float64). Idempotent."""
+        if self.two_tier:
+            return self
+        _check_two_tier_ids(self.nelems, self.dtype)
+        fn, fo = self.face_normals, self.face_offsets
+        return dataclasses.replace(
+            self, walk_table=None,
+            walk_table_lo=pack_lo_table(fn, fo),
+            walk_table_hi=pack_plane_table(fn, fo, self.face_adj,
+                                           self.dtype),
+        )
+
+    def with_packed_table(self) -> "TetMesh":
+        """This mesh with the packed table, rebuilt through float64 from
+        the refinement tier's full-precision planes and ``face_adj``, in
+        place of the two-tier tables: what the JAX walk reads from a
+        two-tier mesh at the float32 tier. Idempotent."""
+        if not self.two_tier:
+            return self
+        table = torch.cat([self.face_normals.reshape(-1, 12).double(),
+                           self.face_offsets.double(),
+                           self.face_adj.double()], dim=1)
+        return dataclasses.replace(self, walk_table=table.to(self.dtype),
+                                   walk_table_lo=None, walk_table_hi=None)
 
     def to(self, dtype: Optional[torch.dtype] = None,
            device: Any = None) -> "TetMesh":
         """This mesh in another working dtype and/or on another device.
-        The table is rebuilt through float64 so adjacency ids survive."""
+        The packed table is rebuilt through float64 so adjacency ids
+        survive; a two-tier mesh stays two-tier (the bf16 tier is
+        unchanged, the refinement tier converts directly: its ids are
+        exact within the checked limit)."""
         dtype = self.dtype if dtype is None else dtype
         device = self.device if device is None else device
-        table = self.walk_table.to(torch.float64, copy=True)
-        table[:, WALK_TABLE_ADJ] = self.face_adj.double()
-        return TetMesh(
+        common = dict(
             coords=self.coords.to(device=device, dtype=dtype),
             tet2vert=self.tet2vert.to(device),
             face_adj=self.face_adj.to(device),
             volumes=self.volumes.to(device=device, dtype=dtype),
-            walk_table=table.to(device=device, dtype=dtype),
         )
+        if self.two_tier:
+            if self.nelems >= exact_id_limit(dtype):
+                raise ValueError(
+                    f"cannot convert two-tier tables to {dtype}: "
+                    f"{self.nelems} elements exceed the exact-id limit "
+                    f"{exact_id_limit(dtype)}"
+                )
+            return TetMesh(
+                **common, walk_table=None,
+                walk_table_lo=self.walk_table_lo.to(device),
+                walk_table_hi=self.walk_table_hi.to(device=device,
+                                                    dtype=dtype),
+            )
+        table = self.walk_table.to(torch.float64, copy=True)
+        table[:, WALK_TABLE_ADJ] = self.face_adj.double()
+        return TetMesh(**common,
+                       walk_table=table.to(device=device, dtype=dtype))
 
     def centroids(self) -> torch.Tensor:
         """Element centroids [E,3] (the reference seeds particles at

@@ -10,12 +10,19 @@ the boundary point) and otherwise steps into the neighbour. Positions
 are materialised once from s at the end; a particle that reached its
 destination commits ``dest`` bit-exactly.
 
+A two-tier mesh (``TetMesh.with_lowp_tables``) walks the JAX walk's
+``lo_select`` path instead: the exit face is selected from the tet's
+bf16 row, then the winning face's one full-precision refinement row
+re-solves the crossing and names the neighbour (csrc/twotier_step.cuh;
+the row helpers below are its column-wise form). Select in bf16, commit
+in the working dtype; not bitwise against the packed table (a face tie
+below bf16 precision may pick the adjacent face), and conserving.
+
 Left out against the JAX walk: the compaction cascade (a thread that
 walks its particle to completion has no lock-step waste to bound),
-``perm_mode``, the two-tier ``lo_select`` path, ``scoring`` and
-``tally_seg``. ``max_iters`` is a per-particle step budget; the JAX
-walk checks it every ``cond_every`` (4) steps, so it may take up to 3
-more.
+``perm_mode``, ``scoring`` and ``tally_seg``. ``max_iters`` is a
+per-particle step budget; the JAX walk checks it every ``cond_every``
+(4) steps, so it may take up to 3 more.
 
 ``walk`` launches W0 for CUDA tensors and runs ``walk_plain`` only for
 CPU tensors. Flux is accumulated IN PLACE into the ``flux`` argument
@@ -24,13 +31,18 @@ CPU tensors. Flux is accumulated IN PLACE into the ``flux`` argument
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import torch
 
 from pumiumtally_tpu_torch import kernels
 from pumiumtally_tpu_torch.mesh.tetmesh import (
+    WALK_PLANE_WIDTH,
     WALK_TABLE_ADJ,
+    WALK_TABLE_LO_NORMALS,
+    WALK_TABLE_LO_OFFSETS,
+    WALK_TABLE_LO_WIDTH,
     WALK_TABLE_NORMALS,
     WALK_TABLE_OFFSETS,
     WALK_TABLE_WIDTH,
@@ -40,6 +52,28 @@ from pumiumtally_tpu_torch.mesh.tetmesh import (
 _N0 = WALK_TABLE_NORMALS.start
 _O0 = WALK_TABLE_OFFSETS.start
 _A0 = WALK_TABLE_ADJ.start
+_LN0 = WALK_TABLE_LO_NORMALS.start
+_LO0 = WALK_TABLE_LO_OFFSETS.start
+
+# Walk-table precision tiers: "float32" is the packed single-tier table
+# (in the working dtype), "bfloat16" the two-tier tables.
+TABLE_DTYPES = ("float32", "bfloat16")
+TABLE_DTYPE_DEFAULT = "float32"
+
+
+def resolve_table_dtype(dtype: str) -> str:
+    """Resolve "auto" through the PUMIUMTALLY_WALK_TABLE_DTYPE
+    environment variable, as the JAX package does."""
+    if dtype == "auto":
+        dtype = os.environ.get(
+            "PUMIUMTALLY_WALK_TABLE_DTYPE", TABLE_DTYPE_DEFAULT
+        )
+    if dtype not in TABLE_DTYPES:
+        raise ValueError(
+            f"walk_table_dtype must be one of {TABLE_DTYPES} or 'auto', "
+            f"got {dtype!r}"
+        )
+    return dtype
 
 
 class WalkResult(NamedTuple):
@@ -54,6 +88,15 @@ class WalkResult(NamedTuple):
     s: torch.Tensor  # [N] final ray coordinate along x0 -> dest
 
 
+def _crossing(nx, ny, nz, off, s, d0, dest, one, tol):
+    """One face's ray projections and forward-crossing test, in the
+    kernels' operation order: (a, b, crossing)."""
+    a = nx * d0[:, 0] + ny * d0[:, 1] + nz * d0[:, 2]
+    n_dest = nx * dest[:, 0] + ny * dest[:, 1] + nz * dest[:, 2]
+    b = off - n_dest + a
+    return a, b, a * (one - s) > tol
+
+
 def advance_cols(row, s, d0, dest, tol):
     """One crossing for every row of a lock-step batch, column-wise —
     the operation order of csrc/walk_step.cuh, so that on the card the
@@ -64,13 +107,10 @@ def advance_cols(row, s, d0, dest, tol):
     inf = torch.full((), float("inf"), dtype=s.dtype, device=s.device)
     s_exit = nxt = None
     for f in range(4):
-        nx = row[:, _N0 + 3 * f]
-        ny = row[:, _N0 + 3 * f + 1]
-        nz = row[:, _N0 + 3 * f + 2]
-        a = nx * d0[:, 0] + ny * d0[:, 1] + nz * d0[:, 2]
-        n_dest = nx * dest[:, 0] + ny * dest[:, 1] + nz * dest[:, 2]
-        b = row[:, _O0 + f] - n_dest + a
-        crossing = a * (one - s) > tol
+        a, b, crossing = _crossing(
+            row[:, _N0 + 3 * f], row[:, _N0 + 3 * f + 1],
+            row[:, _N0 + 3 * f + 2], row[:, _O0 + f], s, d0, dest, one, tol,
+        )
         s_f = torch.where(crossing, b / torch.where(crossing, a, one), inf)
         s_f = torch.maximum(s_f, s)
         adj = row[:, _A0 + f].to(torch.int32)
@@ -80,6 +120,83 @@ def advance_cols(row, s, d0, dest, tol):
             better = s_f < s_exit  # strict: the first minimal face wins
             s_exit = torch.where(better, s_f, s_exit)
             nxt = torch.where(better, adj, nxt)
+    reached = s_exit >= one
+    return torch.where(reached, one, s_exit), nxt, reached
+
+
+def lift_bf16(lo: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """bf16 -> working dtype, exact (bf16 is truncated f32; the kernels
+    shift the 16 bits up, csrc/twotier_step.cuh)."""
+    return lo.to(torch.float32).to(dtype)
+
+
+def select_rows_lo(row, s, dest, d0, tol):
+    """SELECT tier on fetched, lifted [N,16] rows: every face's
+    candidate crossing, clamped to s, and the FIRST minimal face (the
+    JAX clamp-then-argmin rule; a candidate rounded behind s clamps to
+    s and wins, and the refinement then recomputes its true crossing).
+    Returns (s_sel, f_exit)."""
+    one = torch.ones((), dtype=s.dtype, device=s.device)
+    inf = torch.full((), float("inf"), dtype=s.dtype, device=s.device)
+    s_sel = f_exit = None
+    for f in range(4):
+        a, b, crossing = _crossing(
+            row[:, _LN0 + 3 * f], row[:, _LN0 + 3 * f + 1],
+            row[:, _LN0 + 3 * f + 2], row[:, _LO0 + f], s, d0, dest, one,
+            tol,
+        )
+        s_f = torch.where(crossing, b / torch.where(crossing, a, one), inf)
+        s_f = torch.maximum(s_f, s)
+        if f == 0:
+            s_sel = s_f
+            f_exit = torch.zeros(s.shape, dtype=torch.int64,
+                                 device=s.device)
+        else:
+            better = s_f < s_sel  # strict: the first minimal face wins
+            s_sel = torch.where(better, s_f, s_sel)
+            f_exit = torch.where(better, f, f_exit)
+    return s_sel, f_exit
+
+
+def select_faces_lo(table_lo, s, rows, dest, d0, tol):
+    """``select_rows_lo`` on the bf16 rows ``table_lo[rows]`` (one
+    32 B row per crossing)."""
+    return select_rows_lo(lift_bf16(table_lo[rows], s.dtype), s, dest, d0,
+                          tol)
+
+
+def refine_plane_hi(plane, s, s_sel, dest, d0, tol):
+    """REFINEMENT tier on the winning face's [N,5] plane rows: re-solve
+    its crossing in the working dtype. A face that is no longer a
+    genuine forward crossing keeps the bf16 candidate; an infinite
+    candidate (no face ahead: the destination is in this tet) stays
+    infinite so that "reached" fires. Returns (s_exit, next_elem) with
+    the neighbour from the row's adj lane."""
+    one = torch.ones((), dtype=s.dtype, device=s.device)
+    a, b, genuine = _crossing(plane[:, 0], plane[:, 1], plane[:, 2],
+                              plane[:, 3], s, d0, dest, one, tol)
+    s_ref = torch.where(genuine, b / torch.where(genuine, a, one), s_sel)
+    s_ref = torch.maximum(s_ref, s)
+    s_exit = torch.where(torch.isinf(s_sel), s_sel, s_ref)
+    return s_exit, plane[:, 4].to(torch.int32)
+
+
+def refine_face_hi(table_hi, s, rows, f_exit, s_sel, dest, d0, tol):
+    """``refine_plane_hi`` on the one row ``table_hi[rows*4 + f_exit]``
+    (20 B in f32)."""
+    return refine_plane_hi(table_hi[rows * 4 + f_exit], s, s_sel, dest, d0,
+                           tol)
+
+
+def advance_twotier(table_lo, table_hi, rows, s, d0, dest, tol):
+    """One two-tier crossing for every row of a lock-step batch (the
+    counterpart of ``advance_cols``): select, refine, then the walk's
+    reached rule. ``rows`` indexes the tier tables (int64). Returns
+    (s_new, next_elem, reached)."""
+    s_sel, f_exit = select_faces_lo(table_lo, s, rows, dest, d0, tol)
+    s_exit, nxt = refine_face_hi(table_hi, s, rows, f_exit, s_sel, dest, d0,
+                                 tol)
+    one = torch.ones((), dtype=s.dtype, device=s.device)
     reached = s_exit >= one
     return torch.where(reached, one, s_exit), nxt, reached
 
@@ -96,7 +213,8 @@ def walk_plain(
     tally: bool, tol: float, max_iters: int, s_init=None,
 ) -> WalkResult:
     """W0's plain PyTorch version: a masked lock-step loop, one crossing
-    of every unfinished particle per iteration."""
+    of every unfinished particle per iteration (two-tier when the mesh
+    carries the two-tier tables)."""
     n = x.shape[0]
     d0 = dest - x
     eff_w = eff_weight(d0, in_flight, weight) if tally else None
@@ -105,13 +223,18 @@ def walk_plain(
          else s_init.to(x.dtype).clone())
     elem = elem.to(torch.int32).clone()
     done = torch.zeros((n,), dtype=torch.bool, device=x.device)
-    table = mesh.walk_table
     iters = 0
     while iters < max_iters and not bool(done.all()):
         active = ~done
-        s_new, nxt, reached = advance_cols(
-            table[elem.long()], s, d0, dest, tol_t
-        )
+        if mesh.two_tier:
+            s_new, nxt, reached = advance_twotier(
+                mesh.walk_table_lo, mesh.walk_table_hi, elem.long(), s, d0,
+                dest, tol_t,
+            )
+        else:
+            s_new, nxt, reached = advance_cols(
+                mesh.walk_table[elem.long()], s, d0, dest, tol_t
+            )
         hit_boundary = ~reached & (nxt == -1)
         if tally:
             contrib = torch.where(active, (s_new - s) * eff_w,
@@ -135,8 +258,19 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
                max_iters, s_init):
     dev, dt = x.device, x.dtype
     n, ne = x.shape[0], mesh.nelems
-    kernels.check_cuda_args("walk", dev, [
-        ("walk_table", mesh.walk_table, dt, (ne, WALK_TABLE_WIDTH)),
+    if mesh.two_tier:
+        entry = "walk_twotier"
+        tables = [
+            ("walk_table_lo", mesh.walk_table_lo, torch.bfloat16,
+             (ne, WALK_TABLE_LO_WIDTH)),
+            ("walk_table_hi", mesh.walk_table_hi, dt,
+             (ne * 4, WALK_PLANE_WIDTH)),
+        ]
+    else:
+        entry = "walk"
+        tables = [("walk_table", mesh.walk_table, dt,
+                   (ne, WALK_TABLE_WIDTH))]
+    kernels.check_cuda_args("walk", dev, tables + [
         ("x", x, dt, (n, 3)),
         ("elem", elem, torch.int32, (n,)),
         ("dest", dest, dt, (n, 3)),
@@ -145,6 +279,10 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
         ("s_init", s_init, dt, (n,)),
         ("flux", flux if tally else None, dt, (ne,)),
     ])
+    # The kernel reads each 32 B select row as two 16 B words.
+    if mesh.two_tier and mesh.walk_table_lo.data_ptr() % 16:
+        raise ValueError("walk: walk_table_lo must start on a 16-byte "
+                         "boundary")
     x_out = torch.empty((n, 3), dtype=dt, device=dev)
     elem_out = torch.empty((n,), dtype=torch.int32, device=dev)
     done = torch.empty((n,), dtype=torch.bool, device=dev)
@@ -153,8 +291,9 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     p = kernels.ptr
     kernels.launch(
-        "walk", dt, dev, p(mesh.walk_table), p(x), p(elem), p(dest),
-        p(in_flight), p(weight), p(s_init), p(flux if tally else None),
+        entry, dt, dev, *(p(t) for _, t, _, _ in tables), p(x), p(elem),
+        p(dest), p(in_flight), p(weight), p(s_init),
+        p(flux if tally else None),
         p(x_out), p(elem_out), p(done), p(exited), p(s), p(iters), n,
         float(tol), int(max_iters), int(bool(tally)),
     )
@@ -165,6 +304,7 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
 def walk(
     mesh: TetMesh, x, elem, dest, in_flight, weight, flux, *,
     tally: bool, tol: float, max_iters: int, s_init=None,
+    table_dtype: Optional[str] = None,
 ) -> WalkResult:
     """Walk every particle from ``x`` (inside ``elem``) toward ``dest``.
 
@@ -174,9 +314,26 @@ def walk(
     continues an interrupted walk's exact parametrisation (pass the
     previous ``s`` with the ORIGINAL x/dest).
 
-    CUDA tensors launch kernel W0; CPU tensors run ``walk_plain``."""
+    The tier is the mesh's: two-tier tables walk the two-tier path.
+    ``table_dtype`` ("bfloat16", "float32" or "auto") asks for a tier,
+    as the JAX walk's does: "bfloat16" refuses a mesh without the
+    two-tier tables, "float32" walks a two-tier mesh's full-precision
+    planes.
+
+    CUDA tensors launch kernel W0 (its two-tier variant on a two-tier
+    mesh); CPU tensors run ``walk_plain``."""
     if tally and flux is None:
         raise ValueError("a tallying walk needs a flux tensor")
+    if table_dtype is not None:
+        lo_select = resolve_table_dtype(table_dtype) == "bfloat16"
+        if lo_select and not mesh.two_tier:
+            raise ValueError(
+                "table_dtype='bfloat16' needs the two-tier walk tables — "
+                "build the mesh with table_dtype='bfloat16' or convert it "
+                "with TetMesh.with_lowp_tables()"
+            )
+        if not lo_select:
+            mesh = mesh.with_packed_table()
     if x.is_cuda:
         return _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux,
                           tally=tally, tol=tol, max_iters=max_iters,

@@ -1,5 +1,5 @@
 """Partitioned mesh on ONE device: element blocks + particle migration
-(port of the single-device, vmem-walk subset of
+(port of the single-device, block-kernel subset of
 ``pumiumtally_tpu/parallel/partition.py``).
 
 - **Ownership**: recursive coordinate bisection (RCB) of element
@@ -9,17 +9,23 @@
   padded to a common length L; the packed walk table is rebuilt with
   LOCAL adjacency: a local id, -1 for the domain boundary, or
   -(glid+2) for a neighbour in another block (glid = block*L + local).
-- **Walk**: each round runs the block-local walk W1
-  (ops/vmem_walk.py), which pauses a particle at a block face with
-  ``pending = glid``.
+  With ``table_dtype="bfloat16"`` the blocks carry the two-tier tables
+  instead: ``table`` is the bf16 select tier and ``table_hi`` the
+  per-face refinement tier, whose adj lane holds the local encoding.
+- **Walk**: each round runs a block walk that pauses a particle at a
+  block face with ``pending = glid``: W1 (ops/vmem_walk.py) on the
+  packed tables, W2 (ops/pallas_walk.py, ``walk_kernel="pallas"``) on
+  the two-tier tables.
 - **Migration**: paused particles move to their target block's slot
   range by a stable rank per target (``migrate``); a round whose targets
   overflow a block's capacity keeps the old state (overflow-safe
   commit) and the engine raises.
 
-Localization is point location against the block tables, as in the JAX
-engine. Left out against the JAX engine (ROADMAP.md): the gather block
-walk (``walk_local``), multi-device meshes and collectives, the
+Localization is point location against the block tables (the
+full-precision refinement tier when two-tier), as in the JAX engine.
+Left out against the JAX engine (ROADMAP.md): the gather block
+walk (``walk_local``, also the JAX route for bf16 tables with the vmem
+kernel), multi-device meshes and collectives, the
 frontier-slab migrate, the overflow-recovery ladder, scoring, the
 sentinel hooks and the profiled per-round programs.
 """
@@ -34,7 +40,11 @@ import torch
 
 from pumiumtally_tpu_torch.config import ROADMAP_GATHER_BLOCKS
 from pumiumtally_tpu_torch.mesh.tetmesh import (
+    WALK_PLANE_WIDTH,
     WALK_TABLE_ADJ,
+    WALK_TABLE_LO_NORMALS,
+    WALK_TABLE_LO_OFFSETS,
+    WALK_TABLE_LO_WIDTH,
     WALK_TABLE_NORMALS,
     WALK_TABLE_OFFSETS,
     WALK_TABLE_WIDTH,
@@ -43,6 +53,7 @@ from pumiumtally_tpu_torch.mesh.tetmesh import (
 )
 from pumiumtally_tpu_torch.ops.bucketize import counting_ranks
 from pumiumtally_tpu_torch.ops.geometry import locate_chunk_by_planes
+from pumiumtally_tpu_torch.ops.pallas_walk import pallas_walk_local
 from pumiumtally_tpu_torch.ops.vmem_walk import (
     W_TILE_DEFAULT,
     effective_vmem_bound,
@@ -94,7 +105,12 @@ class MeshPartition:
     owner: np.ndarray  # [E] original elem -> part
     glid_of_orig: torch.Tensor  # [E] int32, original elem -> padded glid
     orig_of_glid: torch.Tensor  # [ndev*L] int32, glid -> orig elem (-1 pad)
-    table: torch.Tensor  # [ndev*L, 20] packed rows, adjacency local-encoded
+    # [ndev*L, 20] packed rows, adjacency local-encoded; or, two-tier,
+    # the [ndev*L, 16] bf16 select rows (adjacency then rides table_hi).
+    table: torch.Tensor
+    # Two-tier refinement tier: [ndev*L*4, 5] (plane, local-encoded adj)
+    # rows, row glid*4 + f; None for the packed layout.
+    table_hi: Optional[torch.Tensor] = None
 
     def flux_to_original(self, flux_padded: torch.Tensor) -> torch.Tensor:
         """Reorder an owned [ndev*L] flux into original element order."""
@@ -113,12 +129,35 @@ def derive_blocks_per_chip(
     )
 
 
+def resolve_block_kernel(block_kernel: str, table_dtype: str) -> str:
+    """The block kernel a partition runs: "vmem" (W1, packed tables) or
+    "pallas" (W2, two-tier only). Where the JAX package reroutes bf16
+    tables with the vmem kernel to its gather block walk, the port
+    refuses: that walk is not ported."""
+    if block_kernel == "pallas":
+        if table_dtype != "bfloat16":
+            raise ValueError(
+                "block_kernel='pallas' needs the bf16 two-tier tables "
+                f"(got table_dtype={table_dtype!r}); build the "
+                "partition with table_dtype='bfloat16'"
+            )
+        return block_kernel
+    if block_kernel == "gather" or table_dtype == "bfloat16":
+        raise NotImplementedError(
+            f"block_kernel={block_kernel!r} with table_dtype="
+            f"{table_dtype!r} runs the gather block walk in the JAX "
+            f"package, which is not ported yet ({ROADMAP_GATHER_BLOCKS}); "
+            "bfloat16 tables run with walk_kernel='pallas'"
+        )
+    return block_kernel
+
+
 def block_elems_bound(
     vmem_walk_max_elems: Optional[int], table_dtype: str = "float32"
 ) -> Optional[int]:
-    """The per-block element bound the sub-split derives blocks from
-    (the JAX package doubles it for the bf16 tier, which the port does
-    not have yet)."""
+    """The per-block element bound the sub-split derives blocks from:
+    the knob counts f32-table bytes (80 B/elem), so the 32 B/elem bf16
+    select tier gets twice the elements, as in the JAX package."""
     if vmem_walk_max_elems is None:
         return None
     if table_dtype == "bfloat16":
@@ -127,10 +166,26 @@ def block_elems_bound(
 
 
 def build_partition(mesh: TetMesh, ndev: int,
-                    dtype: Optional[torch.dtype] = None) -> MeshPartition:
+                    dtype: Optional[torch.dtype] = None,
+                    force_split_adj: bool = False,
+                    table_dtype: str = "float32") -> MeshPartition:
     """Partition ``mesh`` into ``ndev`` contiguous padded element blocks
-    on the mesh's device."""
+    on the mesh's device. ``table_dtype="bfloat16"`` builds the two-tier
+    block tables. ``force_split_adj`` (the JAX package's int32-adjacency
+    sidecar) is not ported."""
     dtype = mesh.dtype if dtype is None else dtype
+    two_tier = table_dtype == "bfloat16"
+    if force_split_adj:
+        if two_tier:
+            raise ValueError(
+                "force_split_adj is incompatible with table_dtype="
+                "'bfloat16': two-tier partitions carry adjacency in the "
+                "refinement rows' float lane, never in an int32 sidecar"
+            )
+        raise NotImplementedError(
+            f"the int32-adjacency sidecar is not ported yet "
+            f"({ROADMAP_GATHER_BLOCKS})"
+        )
     device = mesh.device
     coords = mesh.coords.double().cpu().numpy()
     tet2vert = mesh.tet2vert.cpu().numpy()
@@ -141,6 +196,14 @@ def build_partition(mesh: TetMesh, ndev: int,
     owner = rcb_partition(coords[tet2vert].mean(axis=1), ndev)
     counts = np.bincount(owner, minlength=ndev)
     L = int(counts.max())
+    if two_tier and ndev * L + 2 >= exact_id_limit(dtype):
+        raise ValueError(
+            f"two-tier partition tables store local-encoded neighbor "
+            f"ids in {str(dtype).removeprefix('torch.')} refinement rows; "
+            f"{ndev}x{L} padded elements exceed the exact-id range "
+            "(use walk_table_dtype='float32', whose int32 adjacency "
+            "sidecar has no ceiling)"
+        )
     if ndev * L + 2 >= exact_id_limit(dtype):
         raise NotImplementedError(
             f"{ndev}x{L} padded elements exceed the exact float-id range "
@@ -167,19 +230,36 @@ def build_partition(mesh: TetMesh, ndev: int,
         np.where(same, nb_glid - owner[:, None].astype(np.int64) * L,
                  -(nb_glid + 2)),
     ).astype(np.float64)
-    # Padding rows have no crossing faces (zero normals) and are never
-    # entered.
-    table = np.zeros((ndev * L, WALK_TABLE_WIDTH), dtype=np.float64)
-    table[:, WALK_TABLE_ADJ] = -1.0
-    table[glid_of_orig, WALK_TABLE_NORMALS] = normals.reshape(ne, 12)
-    table[glid_of_orig, WALK_TABLE_OFFSETS] = offsets
-    table[glid_of_orig, WALK_TABLE_ADJ] = local_adj
+    # Padding rows have no crossing faces (zero normals), adjacency -1,
+    # and are never entered.
+    table_hi = None
+    if two_tier:
+        lo = np.zeros((ndev * L, WALK_TABLE_LO_WIDTH), dtype=np.float64)
+        lo[glid_of_orig, WALK_TABLE_LO_NORMALS] = normals.reshape(ne, 12)
+        lo[glid_of_orig, WALK_TABLE_LO_OFFSETS] = offsets
+        hi = np.zeros((ndev * L, 4, WALK_PLANE_WIDTH), dtype=np.float64)
+        hi[:, :, 4] = -1.0
+        hi[glid_of_orig, :, 0:3] = normals
+        hi[glid_of_orig, :, 3] = offsets
+        hi[glid_of_orig, :, 4] = local_adj
+        table = torch.as_tensor(lo).to(device=device, dtype=torch.bfloat16)
+        table_hi = torch.as_tensor(
+            hi.reshape(ndev * L * 4, WALK_PLANE_WIDTH), dtype=dtype,
+            device=device,
+        )
+    else:
+        packed = np.zeros((ndev * L, WALK_TABLE_WIDTH), dtype=np.float64)
+        packed[:, WALK_TABLE_ADJ] = -1.0
+        packed[glid_of_orig, WALK_TABLE_NORMALS] = normals.reshape(ne, 12)
+        packed[glid_of_orig, WALK_TABLE_OFFSETS] = offsets
+        packed[glid_of_orig, WALK_TABLE_ADJ] = local_adj
+        table = torch.as_tensor(packed, dtype=dtype, device=device)
     return MeshPartition(
         ndev=ndev, nelems=ne, L=L, owner=owner,
         glid_of_orig=torch.as_tensor(glid_of_orig.astype(np.int32),
                                      device=device),
         orig_of_glid=torch.as_tensor(orig_of_glid, device=device),
-        table=torch.as_tensor(table, dtype=dtype, device=device),
+        table=table, table_hi=table_hi,
     )
 
 
@@ -254,6 +334,18 @@ def _locate_chunk(table: torch.Tensor, valid: torch.Tensor,
     )
 
 
+def _locate_chunk_hi(table_hi: torch.Tensor, valid: torch.Tensor,
+                     pts: torch.Tensor, tol: float) -> torch.Tensor:
+    """``_locate_chunk`` over the two-tier refinement tier: point
+    location reads the full-precision planes (bf16 planes would misplace
+    points near faces), whose per-face rows are the layout the
+    half-space test wants."""
+    L = table_hi.shape[0] // 4
+    return locate_chunk_by_planes(
+        table_hi[:, 0:3], table_hi[:, 3].reshape(L, 4), valid, pts, tol,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Round-driving engine
 # ---------------------------------------------------------------------------
@@ -275,26 +367,40 @@ class PartitionedEngine:
         max_rounds: int = 64,
         check_found_all: bool = True,
         vmem_walk_max_elems: Optional[int] = None,
+        block_kernel: str = "vmem",
+        table_dtype: str = "float32",
     ):
-        if vmem_walk_max_elems is None:
-            raise NotImplementedError(
-                "the partitioned engine without walk_vmem_max_elems runs "
-                f"the gather walk, which is not ported yet "
-                f"({ROADMAP_GATHER_BLOCKS})"
-            )
+        """``block_kernel`` "vmem" runs W1 on the packed tables and needs
+        ``vmem_walk_max_elems``; "pallas" runs W2 on the two-tier tables
+        (``table_dtype="bfloat16"``), where the bound only sizes the
+        blocks: unset, one block holds the whole mesh."""
+        block_kernel = resolve_block_kernel(block_kernel, table_dtype)
+        if block_kernel == "vmem":
+            if vmem_walk_max_elems is None:
+                raise NotImplementedError(
+                    "the partitioned engine without walk_vmem_max_elems "
+                    f"runs the gather walk, which is not ported yet "
+                    f"({ROADMAP_GATHER_BLOCKS})"
+                )
+            bound = effective_vmem_bound(vmem_walk_max_elems, mesh.dtype,
+                                         mesh.device)
+        else:
+            # W2 has a global-memory regime: no ceiling to clamp to.
+            bound = vmem_walk_max_elems
+        self.use_pallas_walk = block_kernel == "pallas"
         self.check_found_all = check_found_all
         self.n = int(num_particles)
         self.device = mesh.device
-        bound = effective_vmem_bound(vmem_walk_max_elems, mesh.dtype,
-                                     mesh.device)
         self.part = build_partition(mesh, derive_blocks_per_chip(
-            mesh.nelems, 1, block_elems_bound(bound)
-        ))
+            mesh.nelems, 1, block_elems_bound(bound, table_dtype)
+        ), table_dtype=table_dtype)
+        self.two_tier = self.part.table_hi is not None
         self.nparts = self.part.ndev
         cap_b = int(-(-self.n // self.nparts) * capacity_factor + 1)
         if self.nparts > 1:
-            # The JAX engine rounds the per-block capacity up to whole
-            # particle tiles; kept so the slot layouts agree.
+            # The JAX engine rounds the per-block capacity of both block
+            # kernels up to whole particle tiles; kept so the slot
+            # layouts agree.
             cap_b = -(-cap_b // W_TILE_DEFAULT) * W_TILE_DEFAULT
         self.cap_per_block = cap_b
         self.cap = self.nparts * cap_b
@@ -352,9 +458,12 @@ class PartitionedEngine:
         """[n] padded glid per point (``nparts*L`` = in no element)."""
         rows = self.nparts * self.part.L
         c = min(2048, max(8, (1 << 23) // max(rows, 1)), self.n)
+        if self.two_tier:
+            chunk, table = _locate_chunk_hi, self.part.table_hi
+        else:
+            chunk, table = _locate_chunk, self.part.table
         le = torch.cat([
-            _locate_chunk(self.part.table, self._valid, pts_n[i:i + c],
-                          self.tol)
+            chunk(table, self._valid, pts_n[i:i + c], self.tol)
             for i in range(0, self.n, c)
         ])
         return torch.where(le >= 0, le, torch.full_like(le, rows))
@@ -407,13 +516,17 @@ class PartitionedEngine:
 
     # -- phases ----------------------------------------------------------
     def _round(self, st, tally: bool):
-        x, lelem, done, exited, pending, _, _ = vmem_walk_local(
-            self.part.table, st["x"], st["lelem"], st["dest"], st["fly"],
-            st["w"], st["done"], st["exited"],
-            self.flux_padded if tally else None,
-            tally=tally, tol=self.tol, max_iters=self.max_iters,
-            blocks=self.nparts,
-        )
+        args = (st["x"], st["lelem"], st["dest"], st["fly"], st["w"],
+                st["done"], st["exited"],
+                self.flux_padded if tally else None)
+        kw = dict(tally=tally, tol=self.tol, max_iters=self.max_iters,
+                  blocks=self.nparts)
+        if self.use_pallas_walk:
+            x, lelem, done, exited, pending, _, _ = pallas_walk_local(
+                self.part.table, self.part.table_hi, *args, **kw)
+        else:
+            x, lelem, done, exited, pending, _, _ = vmem_walk_local(
+                self.part.table, *args, **kw)
         return dict(st, x=x, lelem=lelem, done=done, exited=exited,
                     pending=pending)
 

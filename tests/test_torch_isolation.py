@@ -1,11 +1,13 @@
 """PyTorch port, isolation and device rules:
 
 - importing ``pumiumtally_tpu_torch`` (every module) and ``chip_smoke``
-  with ``jax`` blocked works and loads no ``pumiumtally_tpu`` module;
-- no port source or ``chip_smoke.py`` imports jax or pumiumtally_tpu;
+  with ``jax`` and ``ml_dtypes`` blocked works and loads no
+  ``pumiumtally_tpu`` module;
+- no port source or ``chip_smoke.py`` imports jax, ml_dtypes or
+  pumiumtally_tpu;
 - a facade built without ``device=`` raises when no GPU is present;
-- on the CPU every wrapper runs its plain version: the kernel launch
-  counters stay 0;
+- on the CPU every wrapper runs its plain version (both tiers, both
+  facades): the kernel launch counters stay 0;
 - the CUDA-side argument checks and the build refuse what they cannot
   take, and ``chip_smoke.py`` exits non-zero without a GPU."""
 
@@ -34,7 +36,7 @@ _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith("jax."):
+        if name.split(".")[0] in ("jax", "ml_dtypes"):
             raise ImportError(f"blocked: {name}")
         return None
 sys.meta_path.insert(0, _Block())
@@ -42,9 +44,8 @@ import pumiumtally_tpu_torch as p
 for m in pkgutil.walk_packages(p.__path__, "pumiumtally_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.")
-             or m == "pumiumtally_tpu" or m.startswith("pumiumtally_tpu."))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "ml_dtypes", "pumiumtally_tpu"))
 print("LOADED", bad)
 """
 
@@ -70,7 +71,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     assert len(files) > 10
     for f in files:
         roots = set(_imported_roots(f))
-        assert not roots & {"jax", "jaxlib", "pumiumtally_tpu"}, f
+        assert not roots & {"jax", "jaxlib", "pumiumtally_tpu",
+                            "ml_dtypes"}, f
 
 
 def test_facade_without_device_raises_when_no_gpu():
@@ -87,9 +89,16 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
     kernels.reset_launch_counts()
     mesh = build_box(1, 1, 1, 3, 3, 3, dtype=torch.float64)
     pts = np.random.default_rng(2).uniform(0.05, 0.95, (50, 3))
+    bf16 = dict(walk_table_dtype="bfloat16")
     for t in (PumiTally(mesh, 50, device="cpu"),
               PartitionedPumiTally(mesh, 50,
                                    TallyConfig(walk_vmem_max_elems=40),
+                                   device="cpu"),
+              PumiTally(mesh, 50, TallyConfig(**bf16), device="cpu"),
+              PartitionedPumiTally(mesh, 50,
+                                   TallyConfig(walk_kernel="pallas",
+                                               walk_vmem_max_elems=40,
+                                               **bf16),
                                    device="cpu")):
         t.CopyInitialPosition(pts.reshape(-1).copy())
         t.MoveToNextLocation(None, (1.0 - pts).reshape(-1).copy())
@@ -97,7 +106,9 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
             t.flux.sum().item(),
             np.linalg.norm(1.0 - 2 * pts, axis=1).sum(), rtol=1e-10,
         )
-    assert kernels.launch_counts == {"walk": 0, "block_walk": 0}
+    assert kernels.launch_counts == {"walk": 0, "walk_twotier": 0,
+                                     "block_walk": 0,
+                                     "twotier_block_walk": 0}
 
 
 def test_cuda_argument_checks():

@@ -194,17 +194,34 @@ def test_capacity_overflow_raises_over_intact_state():
 def test_config_subset_and_refusals():
     with pytest.raises(TypeError):
         TallyConfig(cap_frontier=4)  # a knob the port does not have
-    for kw in ({"walk_kernel": "pallas"}, {"walk_block_kernel": "gather"},
-               {"walk_table_dtype": "bfloat16"}, {"scoring": object()},
-               {"dtype": torch.bfloat16}):
+    for kw in ({"walk_block_kernel": "gather"}, {"scoring": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TallyConfig(**kw)
+    # A bf16 WORKING dtype stays refused; the bf16 table tier is
+    # walk_table_dtype, which both facades accept.
+    with pytest.raises(NotImplementedError, match="walk_table_dtype"):
+        TallyConfig(dtype=torch.bfloat16)
+    # The pallas block walk is two-tier only: the JAX package's message.
+    with pytest.raises(ValueError, match="needs the bf16 select tier"):
+        TallyConfig(walk_kernel="pallas")
+    with pytest.raises(ValueError, match="needs the bf16 select tier"):
+        TallyConfig(walk_kernel="pallas", walk_table_dtype="float32")
+    bf16 = TallyConfig(walk_table_dtype="bfloat16", walk_kernel="pallas")
+    assert bf16.resolved_table_dtype() == "bfloat16"
+    assert bf16.resolved_walk_kernel() == "pallas"
+    assert TallyConfig().resolved_walk_kernel() == "vmem"
     with pytest.raises(ValueError):
         TallyConfig(localization="bogus")
     mesh = convert.tetmesh_from_arrays(
         convert.mesh_arrays(jax_build_box(1, 1, 1, 2, 2, 2)))
     with pytest.raises(NotImplementedError, match="gather walk"):
         PartitionedPumiTally(mesh, 8, TallyConfig(), device="cpu")
+    # bf16 tables with the vmem block walk run the gather block walk in
+    # the JAX package: not ported, so refused with its ROADMAP item.
+    with pytest.raises(NotImplementedError, match="item 8"):
+        PartitionedPumiTally(mesh, 8, TallyConfig(
+            walk_table_dtype="bfloat16", walk_vmem_max_elems=4),
+            device="cpu")
     cfg = TallyConfig()
     assert cfg.resolved_tolerance(torch.float64) == 1e-8
     assert cfg.resolved_tolerance(torch.float32) == 1e-6
