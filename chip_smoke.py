@@ -21,12 +21,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    one round, in both regimes: 24 blocks of <= 2,000 elements (the bf16
    tier doubles the 1024 bound; rows staged in shared memory) and one
    block of all 48,000 (rows read from global memory).
-7. Yardsticks for the kernels still to port: K3's bound at
-   tools/exp_r3_vmem.py's largest shape, K4/K5's bound and
-   ``torch.index_select`` at their shapes (nothing in the port calls it).
-8. Oracle: the reference's 6-tet unit-cube oracle in float64 through
+7. W3 (csrc/resident_walk.cu) through its experiment entry point
+   (``experiments/r3_vmem.py`` bench: the L sweep of
+   tools/exp_r3_vmem.py with W3 and W0, launches counted over it), then
+   at each L = 750, 1,296, 2,058, 3,072 (500,000 particles, the tool's
+   trajectory) against ``walk_vmem_plain``, with W0's time on the same
+   input.
+8. G1 (csrc/row_gather.cu) through its experiment entry point
+   (``experiments/pallas_gather.py``, both probes, launches counted over
+   them), then both fill modes against ``gather_plain`` at the probes'
+   shape, on in-range indices and on wrapped and out-of-range ones,
+   with ``torch.index_select`` as the yardstick (nothing in the port
+   calls it).
+9. Oracle: the reference's 6-tet unit-cube oracle in float64 through
    both facades on the card, held at 1e-8.
-9. Main paths at bench.py's size (48,000 tets, 500,000 particles):
+10. Main paths at bench.py's size (48,000 tets, 500,000 particles):
    ``PumiTally`` and ``PartitionedPumiTally`` on the float32 table, then
    both on the two-tier tables (``walk_table_dtype="bfloat16"``; the
    partitioned one with ``walk_kernel="pallas"``). Each:
@@ -37,14 +46,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    the kernels that take it. A two-tier run's flux stays within the
    JAX package's tie-class band of the float32 run's (L1 < 1e-2 of the
    total track length, tests/test_walk_twotier.py).
-10. One JSON line with each kernel's launches, times, bound and error,
+11. The 3x3 pincell assembly (FLAGSHIP_PINCELL cells, 60 layers:
+   984,960 tets), written with the port's ``write_osh`` into a
+   temporary directory: W0 on both tiers against its plain version on
+   that mesh (first move, beside the box's), then ``PumiTally`` built
+   from the ``.osh`` path on both tiers through the main path of phase
+   10 on bench.py's trajectory over the assembly's box. The two-tier
+   flux is held to conservation and its L1 against the float32 flux
+   reported (on this geometry the select tier moves more track length
+   than the box's tie band, in the JAX package too).
+12. One JSON line with each kernel's launches, times, bound and error,
    then the card's name and power limit, then the result line.
 
 Kernel comparisons: element ids, done/exited/pending masks and ``iters``
 must be equal; positions and ray coordinates are expected bitwise equal
 (both sides build with no fused multiply-add): W0 and W1 hold them at
-1e-6 absolute in float32, the two-tier kernels bitwise; flux sums in
-another order (float atomics) and is held at rtol 1e-4.
+1e-6 absolute in float32, the two-tier kernels and W3 bitwise; flux
+sums in another order (float atomics) and is held at rtol 1e-4. G1 moves
+values without arithmetic and is held bitwise, NaN fills by position.
 
 It imports nothing of JAX; it needs one CUDA device and exits non-zero
 without one.
@@ -72,8 +91,10 @@ POS_ATOL = 1e-6
 FLUX_RTOL = 1e-4
 TIE_BAND = 1e-2  # two-tier vs float32 flux, L1 over total track length
 BF16 = dict(walk_table_dtype="bfloat16")
-K3_DIV, K3_N = 8, 500_000  # tools/exp_r3_vmem.py bench: L=3072, N
-K4_ROWS, K4_WIDTH, K4_IDX = 48_000, 32, 8192  # tools/exp_pallas_gather.py
+K3_N = 500_000  # tools/exp_r3_vmem.py bench's default N
+# The 3x3 pincell assembly (BASELINE.json configs[0-1] geometry at
+# assembly scale): FLAGSHIP_PINCELL cells, 60 layers -> 984,960 tets.
+LATTICE, LATTICE_NZ = (3, 3), 60
 # H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -88,13 +109,14 @@ FLOPS_PER_CROSSING = 4 * 17 + 2
 FLOPS_PER_CROSSING_TWO_TIER = 4 * 17 + 16 + 2
 
 
-def make_trajectory(rng, n: int, moves: int) -> list:
+def make_trajectory(rng, n: int, moves: int, box=None) -> list:
     """bench.py's generator: a source and ``moves`` destination arrays,
-    all strictly inside the unit cube."""
-    pts = [rng.uniform(0.05, 0.95, (n, 3))]
+    all strictly inside the box (the unit cube by default)."""
+    box = np.ones(3) if box is None else np.asarray(box, np.float64)
+    pts = [rng.uniform(0.05, 0.95, (n, 3)) * box]
     for _ in range(moves):
         step = rng.normal(scale=MEAN_STEP / np.sqrt(3.0), size=(n, 3))
-        pts.append(np.clip(pts[-1] + step, 0.02, 0.98))
+        pts.append(np.clip(pts[-1] + step, 0.02 * box, 0.98 * box))
     return pts
 
 
@@ -227,7 +249,7 @@ def phase_build() -> None:
                 print(f"#   {name}: {line.strip()}")
 
 
-def phase_w0(mesh, pts) -> dict:
+def phase_w0(mesh, pts, label: str = "") -> dict:
     """W0 vs walk_plain at the main path's shapes."""
     import torch
 
@@ -262,15 +284,16 @@ def phase_w0(mesh, pts) -> dict:
                                 0, t._tol)
     per_particle = 12 + 12 + 4 + 1 + 4 + 12 + 4 + 1 + 1 + 4
     nbytes = N * per_particle + mesh.nelems * (80 + 2 * 4)
-    print(f"# W0: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain; "
+    bound = bound_entry(nbytes, crossings)
+    print(f"# W0{label}: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain; "
           f"{crossings} crossings; x bitwise={err_x == 0.0}, "
-          f"s bitwise={err_s == 0.0}, flux max abs diff {err_f:.3e}")
+          f"s bitwise={err_s == 0.0}, flux max abs diff {err_f:.3e}; "
+          f"bound {bound}")
     return {"name": "W0 walk", "route": "cuda",
             "source": "pumiumtally_tpu_torch/csrc/walk.cu",
             "replaces": "pumiumtally_tpu/ops/walk.py:449",
             "max_abs_err": max(err_x, err_s, err_f), "ms": ms,
-            "plain_ms": plain_ms, **bound_entry(nbytes, crossings),
-            "library_ms": None}
+            "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
 def phase_w1(mesh, pts) -> dict:
@@ -339,7 +362,7 @@ def phase_w1(mesh, pts) -> dict:
             "library_ms": None}
 
 
-def phase_w0_twotier(mesh, pts) -> dict:
+def phase_w0_twotier(mesh, pts, label: str = "") -> dict:
     """W0's two-tier variant vs the two-tier walk_plain at the main
     path's shapes: ids, masks, iters, positions and s all equal."""
     import torch
@@ -374,14 +397,14 @@ def phase_w0_twotier(mesh, pts) -> dict:
     per_particle = 12 + 12 + 4 + 1 + 4 + 12 + 4 + 1 + 1 + 4
     # Select row 32 B and four 20 B refinement rows per tet, flux r+w.
     nbytes = N * per_particle + mesh.nelems * (32 + 4 * 20 + 2 * 4)
-    print(f"# W0 two-tier: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain; "
-          f"{crossings} crossings; x, s bitwise; flux max abs diff "
-          f"{err_f:.3e}")
+    bound = bound_entry(nbytes, crossings, FLOPS_PER_CROSSING_TWO_TIER)
+    print(f"# W0 two-tier{label}: {ms:.3f} ms kernel, {plain_ms:.3f} ms "
+          f"plain; {crossings} crossings; x, s bitwise; flux max abs diff "
+          f"{err_f:.3e}; bound {bound}")
     return {"name": "W0 walk (two-tier)", "route": "cuda",
             "source": "pumiumtally_tpu_torch/csrc/walk.cu",
             "replaces": "pumiumtally_tpu/ops/walk.py:425",
-            "max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms,
-            **bound_entry(nbytes, crossings, FLOPS_PER_CROSSING_TWO_TIER),
+            "max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms, **bound,
             "library_ms": None}
 
 
@@ -458,39 +481,162 @@ def phase_w2(mesh, pts, bound, shared: bool) -> dict:
             "library_ms": None}
 
 
-def phase_yardsticks() -> None:
-    """Bounds of the kernels still to port, at their own shapes, and
-    the one PyTorch call that computes K4/K5's function."""
+def phase_w3() -> dict:
+    """W3 (csrc/resident_walk.cu) through its experiment entry point
+    ``r3_vmem.bench`` (the tool's L sweep with W3 and W0), launches
+    counted over that run; then, at each L, W3 against
+    ``walk_vmem_plain`` on the tool's inputs and W0's time on them."""
     import torch
 
-    from pumiumtally_tpu_torch import PumiTally, TallyConfig, build_box
+    from pumiumtally_tpu_torch import kernels
+    from pumiumtally_tpu_torch.experiments import r3_vmem
+    from pumiumtally_tpu_torch.ops.walk import walk
 
-    # K3: the whole-mesh one-hot walk of tools/exp_r3_vmem.py bench at
-    # its largest mesh, on that tool's trajectory (seed 0).
-    mesh = build_box(1, 1, 1, K3_DIV, K3_DIV, K3_DIV, dtype=torch.float32)
-    rng = np.random.default_rng(0)
-    src = rng.uniform(0.05, 0.95, (K3_N, 3)).astype(np.float32)
-    dst = np.clip(src + rng.normal(scale=MEAN_STEP / np.sqrt(3),
-                                   size=(K3_N, 3)), 0.02, 0.98)
-    t = PumiTally(mesh, K3_N, TallyConfig(check_found_all=False))
-    t.CopyInitialPosition(flat(src.astype(np.float64)))
-    dest = torch.as_tensor(dst, dtype=torch.float32, device=t.device)
-    crossings = count_crossings(packed_step(t.mesh.walk_table), t.x, t.elem,
-                                dest, torch.ones_like(t.elem, dtype=bool), 0,
-                                t._tol)
-    per_particle = 12 + 12 + 4 + 1 + 4 + 12 + 4 + 1 + 1 + 4  # as W0
-    k3 = bound_entry(K3_N * per_particle + mesh.nelems * (32 * 4 + 2 * 4),
-                     crossings)
-    print(f"# K3 bound (tools/exp_r3_vmem.py, L={mesh.nelems}, N={K3_N}, "
-          f"{crossings} crossings): {k3}")
-    # K4/K5: gather K4_IDX rows of a [K4_ROWS, K4_WIDTH] f32 table.
-    g = torch.Generator(device=t.device).manual_seed(0)
-    tab = torch.randn((K4_ROWS, K4_WIDTH), device=t.device, generator=g)
-    idx = torch.randint(0, K4_ROWS, (K4_IDX,), device=t.device, generator=g)
-    nbytes = K4_IDX * 4 + 2 * K4_IDX * K4_WIDTH * 4  # idx, rows read, out
-    ms = cuda_ms(lambda: torch.index_select(tab, 0, idx), reps=100)
-    print(f"# K4/K5 ([{K4_ROWS},{K4_WIDTH}] f32, {K4_IDX} rows): bound "
-          f"{bound_entry(nbytes, 0)}; torch.index_select {ms:.5f} ms")
+    kernels.reset_launch_counts()
+    r3_vmem.bench(K3_N)
+    launches = kernels.launch_counts["resident_walk"]
+    if launches == 0:
+        raise AssertionError("W3: r3_vmem.bench never launched it")
+    entry = None
+    for divs in r3_vmem.BENCH_DIVS:
+        mesh, x, elem, dest = r3_vmem.setup(divs, K3_N, seed=0)
+        L, dev = mesh.nelems, x.device
+        fly = torch.ones((K3_N,), dtype=torch.int8, device=dev)
+        w = torch.ones((K3_N,), dtype=torch.float32, device=dev)
+        kw = dict(tol=r3_vmem.TOL, max_iters=r3_vmem.MAX_ITERS)
+
+        def run(fn):
+            flux = torch.zeros((L,), dtype=torch.float32, device=dev)
+            return fn(mesh, x, elem, dest, fly, w, flux, **kw)
+
+        rk, rp = run(r3_vmem.walk_vmem), run(r3_vmem.walk_vmem_plain)
+        sync()
+        for f in ("elem", "done", "exited", "x", "s"):
+            check_equal(f"W3 (L={L}) {f}", getattr(rk, f), getattr(rp, f))
+        err_f = check_flux(f"W3 (L={L})", rk.flux, rp.flux)
+        # Kernel time from the profiler: W3's wrapper can take longer on
+        # the host than the kernel on the card (events per call beside).
+        ms = device_us(lambda: run(r3_vmem.walk_vmem), 5,
+                       "resident_walk_kernel") / 1e3
+        call_ms = cuda_ms(lambda: run(r3_vmem.walk_vmem))
+        plain_ms = wall_ms(lambda: run(r3_vmem.walk_vmem_plain))
+        w0_ms = device_us(lambda: run(lambda *a, **k: walk(*a, tally=True,
+                                                            **k)),
+                          5, "walk_kernel<") / 1e3
+        crossings = count_crossings(packed_step(mesh.walk_table), x, elem,
+                                    dest, torch.ones_like(fly, dtype=bool),
+                                    0, r3_vmem.TOL)
+        per_particle = 12 + 12 + 4 + 1 + 4 + 12 + 4 + 1 + 1 + 4  # as W0
+        # Plane row 64 B, adjacency 16 B, flux read and written.
+        nbytes = K3_N * per_particle + L * (64 + 16 + 2 * 4)
+        bound = bound_entry(nbytes, crossings)
+        print(f"# W3 (L={L}, N={K3_N}, table resident in shared memory): "
+              f"{ms:.3f} ms kernel (profiler; {call_ms:.3f} ms per call "
+              f"with events), {plain_ms:.3f} ms plain, W0 {w0_ms:.3f} ms "
+              f"(profiler) on the same input; {crossings} crossings; x, s "
+              f"bitwise; flux max abs diff {err_f:.3e}; bound {bound}")
+        entry = {"name": f"W3 resident_walk (L={L})", "route": "cuda",
+                 "source": "pumiumtally_tpu_torch/csrc/resident_walk.cu",
+                 "replaces": "tools/exp_r3_vmem.py:172",
+                 "launches": launches, "max_abs_err": err_f, "ms": ms,
+                 "plain_ms": plain_ms, **bound, "library_ms": None}
+    return entry  # the tool's largest mesh, L = 3,072
+
+
+def device_us(fn, reps: int = 100, name: str = "") -> float:
+    """Device time per call of ``fn`` in microseconds: the summed
+    duration of the device activities whose name contains ``name`` that
+    torch.profiler records over ``reps`` calls. Unlike CUDA events
+    around back-to-back calls it holds no host gaps, which matter for a
+    kernel that takes less time on the card than its wrapper takes to
+    launch it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name)
+    if us <= 0:
+        raise AssertionError(f"the profiler saw no device activity "
+                             f"named {name!r}")
+    return us / reps
+
+
+def same_bits(what: str, got, want) -> None:
+    """NaN at the same places and every other value bit for bit."""
+    import torch
+
+    nan = want.isnan()
+    check_equal(f"{what} NaN mask", got.isnan(), nan)
+    check_equal(what, got[~nan].view(torch.int32),
+                want[~nan].view(torch.int32))
+
+
+def phase_g1() -> list:
+    """G1 (csrc/row_gather.cu) through its experiment entry point, the
+    probe ``pallas_gather.main`` in both fill modes (launches counted
+    over those runs); then each mode against ``gather_plain`` bitwise on
+    the probe's input and on one with wrapped and out-of-range indices,
+    and its time beside ``torch.index_select``'s (the yardstick; nothing
+    in the port calls it)."""
+    import torch
+
+    from pumiumtally_tpu_torch import kernels
+    from pumiumtally_tpu_torch.experiments import pallas_gather as pg
+
+    kernels.reset_launch_counts()
+    for variant in pg.VARIANTS:
+        if not pg.main(variant)["ok"]:
+            raise AssertionError(f"G1 {variant}: the probe's check failed")
+    counts = dict(kernels.launch_counts)
+    tab, idx = pg.probe_inputs("cuda")
+    rng = np.random.default_rng(1)
+    wild = rng.integers(-2 * pg.E, 2 * pg.E, pg.T)
+    wild[:6] = [0, pg.E - 1, -1, -pg.E, pg.E, -pg.E - 1]
+    wild = torch.as_tensor(wild.astype(np.int32), device=tab.device)
+    nbytes = pg.T * 4 + 2 * pg.T * pg.W * 4  # idx, rows read, rows written
+    entries = []
+    for variant, (tool, line) in (("take", ("exp_pallas_gather.py", 14)),
+                                  ("take_along_axis",
+                                   ("exp_pallas_gather2.py", 15))):
+        fill = pg.VARIANTS[variant][1]
+        for ix in (idx, wild):
+            same_bits(f"G1 {variant}", pg.gather(tab, ix, fill),
+                      pg.gather_plain(tab, ix, fill))
+        # Kernel times from the profiler: G1's ctypes wrapper takes
+        # longer on the host than the kernel on the card, so events
+        # around back-to-back calls (printed beside) time the launches.
+        ms = device_us(lambda: pg.gather(tab, idx, fill), 100,
+                       "row_gather_kernel") / 1e3
+        lib_ms = device_us(lambda: torch.index_select(tab, 0, idx)) / 1e3
+        call_ms = cuda_ms(lambda: pg.gather(tab, idx, fill), reps=100)
+        lib_call_ms = cuda_ms(lambda: torch.index_select(tab, 0, idx),
+                              reps=100)
+        plain_ms = wall_ms(lambda: pg.gather_plain(tab, idx, fill))
+        entry_name = f"row_gather_{variant}"
+        bound = bound_entry(nbytes, 0)
+        print(f"# G1 {variant} ([{pg.E},{pg.W}] f32, {pg.T} rows): "
+              f"{ms * 1e3:.3f} us kernel, torch.index_select "
+              f"{lib_ms * 1e3:.3f} us (profiler); per call with events "
+              f"over 100 back-to-back calls {call_ms * 1e3:.3f} us and "
+              f"{lib_call_ms * 1e3:.3f} us; {plain_ms:.3f} ms plain; "
+              f"bitwise incl. wrapped and out-of-range indices; bound "
+              f"{bound}")
+        entries.append({
+            "name": f"G1 {entry_name}", "route": "cuda",
+            "source": "pumiumtally_tpu_torch/csrc/row_gather.cu",
+            "replaces": f"tools/{tool}:{line}",
+            "launches": counts[entry_name], "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, **bound, "library_ms": lib_ms})
+        if counts[entry_name] == 0:
+            raise AssertionError(f"G1: the probe never launched "
+                                 f"{entry_name}")
+    return entries
 
 
 def phase_oracle() -> None:
@@ -544,9 +690,10 @@ def phase_oracle() -> None:
 
 
 def phase_main_path(facade, mesh, pts, config, card: str) -> tuple:
-    """CopyInitialPosition, one two-phase move, then continue moves at
-    bench.py's size; conservation, output file, launch counts, rate.
-    Returns the launch counts and the flux after the continue moves."""
+    """CopyInitialPosition, one two-phase move, then continue moves of N
+    particles; conservation, output file, launch counts, rate. ``mesh``
+    is a TetMesh or a mesh file's path. Returns the launch counts and
+    the flux after the continue moves."""
     from pumiumtally_tpu_torch import kernels
 
     kernels.reset_launch_counts()
@@ -577,7 +724,7 @@ def phase_main_path(facade, mesh, pts, config, card: str) -> tuple:
           f"moves/s on {card} "
           f"over "
           f"{CONTINUE_MOVES} continue moves of {N} particles on "
-          f"{mesh.nelems} tets (per move ms: "
+          f"{t.mesh.nelems} tets (per move ms: "
           f"{', '.join(f'{v:.3f}' for v in move_ms)}); conservation rel "
           f"err {rel:.3e}; launches {counts}")
     profile_move(t, pts[CONTINUE_MOVES + 2])
@@ -624,6 +771,43 @@ def profile_move(t, dests: np.ndarray) -> None:
         print(f"#   {us / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
 
 
+def write_lattice(directory: str) -> tuple:
+    """The 3x3 lattice written with the port's ``write_osh``: its path,
+    and bench.py's trajectory over its box (``run_pincell``'s seed)."""
+    from pumiumtally_tpu_torch.io.osh import write_osh
+    from pumiumtally_tpu_torch.mesh.pincell import (
+        FLAGSHIP_PINCELL,
+        lattice_arrays,
+    )
+
+    params = dict(FLAGSHIP_PINCELL, nz=LATTICE_NZ)
+    t0 = time.perf_counter()
+    coords, tets, _, _ = lattice_arrays(*LATTICE, **params)
+    path = f"{directory}/lattice.osh"
+    write_osh(path, coords, tets)
+    box = [LATTICE[0] * params["pitch"], LATTICE[1] * params["pitch"],
+           params["height"]]
+    print(f"# lattice: {LATTICE[0]}x{LATTICE[1]} FLAGSHIP_PINCELL cells, "
+          f"nz={LATTICE_NZ}: {tets.shape[0]} tets, {coords.shape[0]} "
+          f"vertices, box {box}; generated and written as .osh in "
+          f"{time.perf_counter() - t0:.1f} s")
+    pts = make_trajectory(np.random.default_rng(1), N, CONTINUE_MOVES + 2,
+                          box=box)
+    return path, pts
+
+
+def check_tie_band(what: str, flux_bf16, flux_f32, band=TIE_BAND) -> None:
+    """Two-tier vs float32 flux: on the box, face ties below bf16
+    precision move track length between neighbouring tets, within the
+    tie-class band. ``band=None`` reports the L1 only."""
+    l1 = float((flux_bf16 - flux_f32).abs().sum()) / float(flux_f32.sum())
+    print(f"# two-tier vs float32 flux ({what}): L1 {l1:.3e} of the total "
+          f"track length")
+    if band is not None and l1 > band:
+        raise AssertionError(f"{what}: two-tier flux L1 {l1} outside the "
+                             f"tie-class band {TIE_BAND}")
+
+
 def main() -> int:
     import torch
 
@@ -637,6 +821,7 @@ def main() -> int:
         TallyConfig,
         build_box,
     )
+    from pumiumtally_tpu_torch.io.load import load_mesh
 
     torch.manual_seed(0)
     mesh = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
@@ -647,7 +832,8 @@ def main() -> int:
     w0t = phase_w0_twotier(mesh, pts)
     w2 = phase_w2(mesh, pts, VMEM_BOUND, shared=True)
     phase_w2(mesh, pts, None, shared=False)
-    phase_yardsticks()
+    w3 = phase_w3()
+    g1 = phase_g1()
     phase_oracle()
     part_cfg = dict(capacity_factor=CAPACITY_FACTOR,
                     walk_vmem_max_elems=VMEM_BOUND)
@@ -662,22 +848,40 @@ def main() -> int:
     for key, (facade, config) in runs.items():
         counts[key], fluxes[key] = phase_main_path(facade, mesh, pts, config,
                                                    smi)
+    # The lattice, loaded from its .osh path as users load a mesh: W0
+    # on both tiers against the plain versions, then PumiTally's main
+    # path on both tiers.
+    with tempfile.TemporaryDirectory() as d:
+        path, lat_pts = write_lattice(d)
+        lat_mesh = load_mesh(path, dtype=torch.float32)
+        lw0 = phase_w0(lat_mesh, lat_pts, " (lattice)")
+        lw0t = phase_w0_twotier(lat_mesh, lat_pts, " (lattice)")
+        print(f"# W0 first move: lattice {lw0['ms']:.3f} ms vs box "
+              f"{w0['ms']:.3f} ms; two-tier lattice {lw0t['ms']:.3f} ms vs "
+              f"box {w0t['ms']:.3f} ms")
+        del lat_mesh
+        for key, config in (("lat", TallyConfig(check_found_all=True)),
+                            ("lat_bf16", TallyConfig(**BF16))):
+            counts[key], fluxes[key] = phase_main_path(PumiTally, path,
+                                                       lat_pts, config, smi)
     needs = {"mono": "walk", "part": "block_walk", "mono_bf16": "walk_twotier",
-             "part_bf16": "twotier_block_walk"}
+             "part_bf16": "twotier_block_walk", "lat": "walk",
+             "lat_bf16": "walk_twotier"}
     for key, entry in needs.items():
         if counts[key][entry] == 0:
             raise AssertionError(f"{key}: kernel {entry} never launched on "
                                  f"its main path: {counts[key]}")
-    # Two-tier vs float32 flux: face ties below bf16 precision move
-    # track length between neighbouring tets, within the tie-class band.
-    total = float(fluxes["mono"].sum())
     for arm in ("mono", "part"):
-        l1 = float((fluxes[f"{arm}_bf16"] - fluxes[arm]).abs().sum()) / total
-        print(f"# two-tier vs float32 flux ({arm}): L1 {l1:.3e} of the "
-              f"total track length")
-        if l1 > TIE_BAND:
-            raise AssertionError(f"{arm}: two-tier flux L1 {l1} outside "
-                                 f"the tie-class band {TIE_BAND}")
+        check_tie_band(arm, fluxes[f"{arm}_bf16"], fluxes[arm])
+    # On the lattice the bf16 plane offsets (coordinates up to 3.78, an
+    # ulp of 2^-6 above 2) are coarse against its 1/60-thick layers, so
+    # the select tier misattributes a share of the track length that is
+    # not a tie class; the JAX package does the same
+    # (tests/test_torch_pincell.py holds the port's two-tier flux to
+    # it). Here the two-tier run is held to conservation and W0's
+    # two-tier variant to its plain version on this mesh; the L1 is
+    # reported.
+    check_tie_band("lat", fluxes["lat_bf16"], fluxes["lat"], band=None)
     for e, entry in ((w0, "walk"), (w1, "block_walk"), (w0t, "walk_twotier"),
                      (w2, "twotier_block_walk")):
         e["launches"] = sum(c[entry] for c in counts.values())
@@ -685,7 +889,7 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in (w0, w1, w0t, w2)]}))
+                                  for e in (w0, w1, w0t, w2, w3, *g1)]}))
     print(f"# total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

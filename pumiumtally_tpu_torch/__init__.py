@@ -13,6 +13,7 @@ from pumiumtally_tpu_torch.api.partitioned import PartitionedPumiTally
 from pumiumtally_tpu_torch.api.tally import PumiTally, TallyTimes
 from pumiumtally_tpu_torch.config import TallyConfig
 from pumiumtally_tpu_torch.mesh.box import build_box
+from pumiumtally_tpu_torch.mesh.pincell import build_lattice, build_pincell
 from pumiumtally_tpu_torch.mesh.tetmesh import TetMesh
 
 __all__ = [
@@ -22,4 +23,6 @@ __all__ = [
     "TallyTimes",
     "TetMesh",
     "build_box",
+    "build_lattice",
+    "build_pincell",
 ]

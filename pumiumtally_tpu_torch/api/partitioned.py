@@ -17,7 +17,7 @@ the sentinel/scoring hooks.
 from __future__ import annotations
 
 import time
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
@@ -32,7 +32,8 @@ class PartitionedPumiTally(PumiTally):
     """Track-length tally with the tet mesh split into blocks that each
     walk against their own table, particles migrating between them."""
 
-    def __init__(self, mesh: TetMesh, num_particles: int = 100_000,
+    def __init__(self, mesh: Union[TetMesh, str],
+                 num_particles: int = 100_000,
                  config: Optional[TallyConfig] = None, device: Any = None):
         t0 = time.perf_counter()
         mesh = self._init_common(mesh, num_particles, config, device,

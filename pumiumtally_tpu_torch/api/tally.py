@@ -35,18 +35,17 @@ from __future__ import annotations
 import time
 import warnings
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
 
 from pumiumtally_tpu_torch.config import TallyConfig
+from pumiumtally_tpu_torch.io.load import load_mesh
 from pumiumtally_tpu_torch.io.vtk import merge_cell_data, write_vtk
 from pumiumtally_tpu_torch.mesh.tetmesh import TetMesh
 from pumiumtally_tpu_torch.ops.geometry import locate_by_planes
 from pumiumtally_tpu_torch.ops.walk import walk
-
-ROADMAP_MESH_IO = "ROADMAP.md queue 1, 'IO: osh, gmsh and load'"
 
 
 @dataclass
@@ -202,13 +201,15 @@ class PumiTally:
     """Track-length tally over an unstructured tet mesh.
 
     Args:
-      mesh: a ``TetMesh`` (moved to ``device`` and the working dtype).
+      mesh: a ``TetMesh`` (moved to ``device`` and the working dtype),
+        or the path of a ``.osh`` or ``.msh`` mesh file.
       num_particles: particle-batch capacity.
       config: engine knobs; see ``TallyConfig``.
       device: "cuda" (default) or "cpu".
     """
 
-    def __init__(self, mesh: TetMesh, num_particles: int = 100_000,
+    def __init__(self, mesh: Union[TetMesh, str],
+                 num_particles: int = 100_000,
                  config: Optional[TallyConfig] = None, device: Any = None):
         t0 = time.perf_counter()
         mesh = self._init_common(mesh, num_particles, config, device)
@@ -232,13 +233,16 @@ class PumiTally:
         self.config = config or TallyConfig()
         self.device = resolve_device(device)
         if isinstance(mesh, str):
-            raise NotImplementedError(
-                f"loading a mesh file is not ported yet ({ROADMAP_MESH_IO})"
-            )
-        # A prebuilt mesh fixes the working dtype unless the config asks
-        # for one explicitly.
-        self.dtype = mesh.dtype if self.config.dtype is None \
-            else self.config.dtype
+            # A mesh file is built in the config's dtype (float32 when
+            # it sets none, the JAX package's default off x64 mode).
+            self.dtype = (torch.float32 if self.config.dtype is None
+                          else self.config.dtype)
+            mesh = load_mesh(mesh, dtype=self.dtype)
+        else:
+            # A prebuilt mesh fixes the working dtype unless the config
+            # asks for one explicitly.
+            self.dtype = mesh.dtype if self.config.dtype is None \
+                else self.config.dtype
         mesh = mesh.to(dtype=self.dtype, device=self.device)
         if lowp_mesh and self.config.resolved_table_dtype() == "bfloat16":
             mesh = mesh.with_lowp_tables()

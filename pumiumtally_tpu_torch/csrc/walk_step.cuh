@@ -1,5 +1,6 @@
-// One crossing of the fixed-ray tet walk, shared by both walk kernels
-// (walk.cu, block_walk.cu). Templated on float / double.
+// One crossing of the fixed-ray tet walk, shared by the walk kernels
+// (walk.cu, block_walk.cu, resident_walk.cu). Templated on float /
+// double.
 //
 // The ray is parametrised by s in [0,1] along x0 -> dest with
 // x0 = dest - d0. For face f with outward unit normal n_f and offset
@@ -37,17 +38,17 @@ __device__ __forceinline__ double walk_inf<double>() {
   return __longlong_as_double(0x7ff0000000000000LL);
 }
 
-// Advance one crossing from ray coordinate s inside the tet whose row
-// is `row`. (dx,dy,dz) = d0 and (px,py,pz) = dest are walk constants.
-// Returns the new coordinate (1 when the destination lies inside this
-// tet) and, through `next`, the neighbour across the exit face.
+// The exit face of the tet whose 16 plane values (4 normals, 4 offsets)
+// start at `row`: returns its crossing s_f (infinite when no face lies
+// ahead) and, through `f_exit`, the first minimal face.
+// (dx,dy,dz) = d0 and (px,py,pz) = dest are walk constants.
 template <typename T>
-__device__ __forceinline__ T walk_step(const T* row, T s, T dx, T dy, T dz,
+__device__ __forceinline__ T walk_exit(const T* row, T s, T dx, T dy, T dz,
                                        T px, T py, T pz, T tol,
-                                       int* next, bool* reached) {
+                                       int* f_exit) {
   const T one = T(1);
   T s_exit = walk_inf<T>();
-  int f_exit = 0;
+  int f_min = 0;
 #pragma unroll
   for (int f = 0; f < 4; ++f) {
     const T nx = row[3 * f], ny = row[3 * f + 1], nz = row[3 * f + 2];
@@ -59,12 +60,26 @@ __device__ __forceinline__ T walk_step(const T* row, T s, T dx, T dy, T dz,
     s_f = s_f > s ? s_f : s;
     if (f == 0 || s_f < s_exit) {
       s_exit = s_f;
-      f_exit = f;
+      f_min = f;
     }
   }
-  *reached = s_exit >= one;
+  *f_exit = f_min;
+  return s_exit;
+}
+
+// Advance one crossing from ray coordinate s inside the tet whose packed
+// row is `row`. Returns the new coordinate (1 when the destination lies
+// inside this tet) and, through `next`, the neighbour across the exit
+// face.
+template <typename T>
+__device__ __forceinline__ T walk_step(const T* row, T s, T dx, T dy, T dz,
+                                       T px, T py, T pz, T tol,
+                                       int* next, bool* reached) {
+  int f_exit;
+  const T s_exit = walk_exit(row, s, dx, dy, dz, px, py, pz, tol, &f_exit);
+  *reached = s_exit >= T(1);
   *next = static_cast<int>(row[WALK_TABLE_ADJ + f_exit]);
-  return *reached ? one : s_exit;
+  return *reached ? T(1) : s_exit;
 }
 
 // The per-particle walk constants: segment length and premultiplied

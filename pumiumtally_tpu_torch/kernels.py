@@ -16,7 +16,9 @@ it launches its kernel, and nowhere else, so a caller can show that a
 path really went through the kernels (``reset_launch_counts`` first).
 An entry is one C entry point of a library: ``walk`` (W0),
 ``walk_twotier`` (W0's two-tier variant, in the same library),
-``block_walk`` (W1) and ``twotier_block_walk`` (W2).
+``block_walk`` (W1), ``twotier_block_walk`` (W2), ``resident_walk`` (W3)
+and the two entries of the row gather G1, ``row_gather_take`` (K4's
+counterpart) and ``row_gather_take_along_axis`` (K5's).
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ SOURCES = {
     "walk": "walk.cu",
     "block_walk": "block_walk.cu",
     "twotier_block_walk": "twotier_block_walk.cu",
+    "resident_walk": "resident_walk.cu",
+    "row_gather": "row_gather.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,14 +53,26 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-# C entry points: entry -> (library, argtypes); both dtypes share them
-# (``pumi_<entry>_f32`` / ``pumi_<entry>_f64``).
+_BOTH = ("f32", "f64")
+# C entry points: entry -> (library, argtypes, dtypes); the entry's
+# dtypes share its argtypes (``pumi_<entry>_f32`` / ``pumi_<entry>_f64``).
 _ENTRY_ARGS = {
-    "walk": ("walk", [_P] * 14 + [_I, _D, _I, _I, _P]),
-    "walk_twotier": ("walk", [_P] * 15 + [_I, _D, _I, _I, _P]),
-    "block_walk": ("block_walk", [_P] * 15 + [_I, _I, _I, _D, _I, _I, _P]),
+    "walk": ("walk", [_P] * 14 + [_I, _D, _I, _I, _P], _BOTH),
+    "walk_twotier": ("walk", [_P] * 15 + [_I, _D, _I, _I, _P], _BOTH),
+    "block_walk": (
+        "block_walk", [_P] * 15 + [_I, _I, _I, _D, _I, _I, _P], _BOTH,
+    ),
     "twotier_block_walk": (
         "twotier_block_walk", [_P] * 16 + [_I, _I, _I, _D, _I, _I, _I, _P],
+        _BOTH,
+    ),
+    "resident_walk": (
+        "resident_walk", [_P] * 13 + [_I, _I, _D, _I, _P], ("f32",),
+    ),
+    "row_gather_take": ("row_gather", [_P] * 3 + [_I, _I, _I, _D, _P],
+                        ("f32",)),
+    "row_gather_take_along_axis": (
+        "row_gather", [_P] * 3 + [_I, _I, _I, _D, _P], ("f32",),
     ),
 }
 
@@ -134,10 +150,10 @@ def _lib(name: str) -> ctypes.CDLL:
             if not path.exists():
                 build([name])
             lib = ctypes.CDLL(str(path))
-            for entry, (lib_name, argtypes) in _ENTRY_ARGS.items():
+            for entry, (lib_name, argtypes, dtypes) in _ENTRY_ARGS.items():
                 if lib_name != name:
                     continue
-                for dt in ("f32", "f64"):
+                for dt in dtypes:
                     fn = getattr(lib, f"pumi_{entry}_{dt}")
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
@@ -156,6 +172,8 @@ def launch(entry: str, dtype: torch.dtype, device: torch.device,
     stream of ``device``, count the launch, and raise if the launch was
     refused."""
     suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    if suffix not in _ENTRY_ARGS[entry][2]:
+        raise TypeError(f"CUDA kernel {entry} has no {dtype} entry")
     fn = getattr(_lib(_ENTRY_ARGS[entry][0]), f"pumi_{entry}_{suffix}")
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):

@@ -132,7 +132,10 @@ def mesh_geometry(coords: np.ndarray, tet2vert: np.ndarray):
     """Host-side float64 precompute shared by ``TetMesh.from_arrays``:
     (coords, oriented tet2vert, unit outward normals [E,4,3], offsets
     [E,4], face_adj [E,4], volumes [E])."""
-    coords = np.asarray(coords, dtype=np.float64)
+    # Contiguous: a reader may hand over a strided view (the binary
+    # Gmsh v2 node records interleave ids and coordinates), which
+    # torch.tensor refuses.
+    coords = np.ascontiguousarray(coords, dtype=np.float64)
     tet2vert = np.array(tet2vert, dtype=np.int32, copy=True)
     if coords.ndim != 2 or coords.shape[1] != 3:
         raise ValueError(f"coords must be [V,3], got {coords.shape}")

@@ -121,7 +121,9 @@ def test_protocol_order_and_device_checks():
         port.MoveToNextLocation(None, _flat(np.zeros((N, 3))))
     with pytest.raises(ValueError, match="size"):
         port.CopyInitialPosition(_flat(np.zeros((N, 3))), 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # A mesh path is loaded (tests/test_torch_io.py); a missing one
+    # raises the loader's error, as in the JAX package.
+    with pytest.raises(ValueError, match="DIRECTORY"):
         PumiTally("mesh.osh", 4, device="cpu")
     mesh32 = port.mesh.to(torch.float32)
     t = PumiTally(mesh32, 4, TallyConfig(dtype=torch.float64), device="cpu")

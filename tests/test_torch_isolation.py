@@ -28,6 +28,8 @@ from pumiumtally_tpu_torch import (
     build_box,
     kernels,
 )
+from pumiumtally_tpu_torch.experiments.pallas_gather import gather
+from pumiumtally_tpu_torch.experiments.r3_vmem import setup, walk_vmem
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "pumiumtally_tpu_torch"
@@ -69,6 +71,11 @@ def _imported_roots(path: Path):
 def test_no_port_source_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    # The experiment entry points, the mesh IO and the pincell geometry
+    # are under the check too.
+    for rel in ("experiments/r3_vmem.py", "experiments/pallas_gather.py",
+                "io/osh.py", "io/gmsh.py", "io/load.py", "mesh/pincell.py"):
+        assert PORT / rel in files, rel
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "pumiumtally_tpu",
@@ -106,9 +113,23 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
             t.flux.sum().item(),
             np.linalg.norm(1.0 - 2 * pts, axis=1).sum(), rtol=1e-10,
         )
+    # W3 and both entries of G1 run their plain versions on the CPU.
+    n = 40
+    m32, x, elem, dest = setup(2, n, device="cpu")
+    r = walk_vmem(m32, x, elem, dest, torch.ones(n, dtype=torch.int8),
+                  torch.ones(n), torch.zeros(m32.nelems), tol=1e-6,
+                  max_iters=4096)
+    assert bool(r.done.all())
+    tab = torch.arange(24, dtype=torch.float32).reshape(6, 4)
+    idx = torch.tensor([5, -6], dtype=torch.int32)
+    for fill in (0.0, float("nan")):
+        assert torch.equal(gather(tab, idx, fill), tab[[5, 0]])
     assert kernels.launch_counts == {"walk": 0, "walk_twotier": 0,
                                      "block_walk": 0,
-                                     "twotier_block_walk": 0}
+                                     "twotier_block_walk": 0,
+                                     "resident_walk": 0,
+                                     "row_gather_take": 0,
+                                     "row_gather_take_along_axis": 0}
 
 
 def test_cuda_argument_checks():
@@ -126,6 +147,12 @@ def test_cuda_argument_checks():
     with pytest.raises(ValueError, match="is on"):
         kernels.check_cuda_args("k", torch.device("meta"),
                                 [("x", t, torch.float32, (4, 3))])
+    # W3 and G1 are float32 only: a float64 launch is refused before
+    # any library is loaded.
+    for entry in ("resident_walk", "row_gather_take",
+                  "row_gather_take_along_axis"):
+        with pytest.raises(TypeError, match="no torch.float64 entry"):
+            kernels.launch(entry, torch.float64, dev)
 
 
 def test_build_needs_nvcc_and_keys_on_the_sources(monkeypatch, tmp_path):
