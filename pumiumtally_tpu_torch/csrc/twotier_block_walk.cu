@@ -20,140 +20,170 @@
 // materialised from x0 itself, x0 + s*d0 (dest for a particle that
 // reached it).
 //
-// What bounds it on an H100: per crossing one 32 B select row and one
-// 20 B (f32) refinement row, one flux add, at data-dependent addresses;
-// the device-memory floor is the per-slot state read and written once
-// plus the tables once (32 + 80 B per element in f32).
+// What bounds it on an H100 (80GB HBM3, 700 W power limit): the contract
+// rewrites every slot each round, walking or not. An active slot reads
+// and writes 57 B in f32; an idle one 40 B, 52 B if it left the mesh; the
+// tables of the blocks that walk are read once (32 + 80 B per element)
+// and their flux read and written. On chip_smoke.py's box (24 blocks,
+// 1,007,616 slots) that is about 16 us for the first round and 12-14 us
+// for a late one at 3.35 TB/s. Per crossing one 32 B select row, one 20 B
+// refinement row and one flux add at data-dependent addresses, a
+// dependent chain, so in practice latency bounds the early rounds; the
+// measured times per round stand in PERF.md.
 //
-// What the design does about it: one thread walks one slot until it is
-// done or paused; a CUDA block covers (partition block b, chunk of b's
-// slots). Two regimes, one kernel (the kShared flag):
-// - shared: when L*(32 + sizeof(T)) fits the 227 KB of dynamic shared
-//   memory (L <= 6,456 in f32, 5,811 in f64), the block stages b's [L,16]
-//   bf16 select rows and a zeroed [L] flux partial in shared memory,
-//   walks, then adds the partial's nonzero entries into global flux
-//   once. A chunk with no active slot skips the staging. The refinement
-//   rows are read from global memory (through L2): only the winning
-//   face's row is ever touched.
-// - global: otherwise (one block holding a whole large mesh), the select
-//   rows come from global memory and flux goes straight to global
-//   atomics.
-// `iters` is the atomicMax of per-thread step counts, which equals the
-// JAX kernel's per-tile loop count, max-reduced.
+// What the design does about it (csrc/block_walk_sched.cuh): a persistent
+// grid of (blocks, k) CUDA blocks of 512 threads, k from the occupancy
+// query; each CUDA block owns every k-th 512-slot chunk of its
+// partition block's slots, writes out the idle slots in one coalesced
+// pass while compacting the active ones into a shared work list, and
+// then:
+// - with an empty list it stages nothing;
+// - when the block's select rows do not fit shared memory (`use_shared`
+//   false: one block holding a large mesh) it reads them from global
+//   memory and adds flux with global atomics;
+// - otherwise it copies the block's [L,16] bf16 select rows into shared
+//   memory with one TMA bulk copy (32 B rows), started during the pass
+//   as soon as the list holds a particle, and walks with a shared [L]
+//   flux partial whose nonzero entries are added into global flux once.
+// The refinement rows are always read from global memory (through L2):
+// only the winning face's row is ever touched. Threads pull list entries
+// through a shared counter; `iters` is reduced per warp and max-ed into
+// global memory once per CUDA block. Shared memory when staging: 32 B of
+// select row and the partial per element, plus the list (2 KB at
+// least): L <= 6,399 in f32, 5,759 in f64.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_walk_sched.cuh"
 #include "twotier_step.cuh"
 
-// Dynamic shared memory one CUDA block may use on an H100 (227 KB).
-#define SMEM_BYTES_PER_BLOCK 232448
+template <typename T>
+struct TwoTierArgs {
+  const uint16_t* table_lo;
+  const T* table_hi;
+  const T* x;
+  const int* lelem_in;
+  const T* dest;
+  const signed char* fly;
+  const T* w;
+  const bool* done_in;
+  const bool* exited_in;
+  T* flux;
+  T* x_out;
+  int* lelem_out;
+  bool* done_out;
+  bool* exited_out;
+  int* pending_out;
+  int* iters;
+  int* counts;
+  int L, cap_b, list_cap, stage_bytes, max_iters, tally;
+  T tol;
+};
 
-template <typename T, bool kShared>
-__global__ void twotier_block_walk_kernel(
-    const uint16_t* __restrict__ table_lo, const T* __restrict__ table_hi,
-    const T* __restrict__ x, const int* __restrict__ lelem_in,
-    const T* __restrict__ dest, const signed char* __restrict__ fly,
-    const T* __restrict__ w, const bool* __restrict__ done_in,
-    const bool* __restrict__ exited_in, T* __restrict__ flux,
-    T* __restrict__ x_out, int* __restrict__ lelem_out,
-    bool* __restrict__ done_out, bool* __restrict__ exited_out,
-    int* __restrict__ pending_out, int* __restrict__ iters, int L, int cap_b,
-    T tol, int max_iters, int tally) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int b = blockIdx.x;
-  const int slot = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool in_range = slot < cap_b;
-  const size_t i = (size_t)b * cap_b + (in_range ? slot : 0);
-  const bool active0 = in_range && !done_in[i];
+// Commit slot i: dest bit-exactly for a particle that reached it, else
+// x0 + s*d0 from the original x0 (K2's rule).
+template <typename T>
+__device__ __forceinline__ void commit(const TwoTierArgs<T>& a, size_t i,
+                                       T x0x, T x0y, T x0z, T dx, T dy, T dz,
+                                       T s, int e, bool done, bool exited,
+                                       int pending) {
+  const bool at_dest = done && !exited;
+  a.x_out[3 * i] = at_dest ? a.dest[3 * i] : x0x + s * dx;
+  a.x_out[3 * i + 1] = at_dest ? a.dest[3 * i + 1] : x0y + s * dy;
+  a.x_out[3 * i + 2] = at_dest ? a.dest[3 * i + 2] : x0z + s * dz;
+  a.lelem_out[i] = e;
+  a.done_out[i] = done;
+  a.exited_out[i] = exited;
+  a.pending_out[i] = pending;
+}
 
-  T x0x = 0, x0y = 0, x0z = 0, dx = 0, dy = 0, dz = 0, s = 0;
-  int e = 0, pending = -1;
-  bool done = true, exited = false;
-  if (in_range) {
-    x0x = x[3 * i];
-    x0y = x[3 * i + 1];
-    x0z = x[3 * i + 2];
-    dx = dest[3 * i] - x0x;
-    dy = dest[3 * i + 1] - x0y;
-    dz = dest[3 * i + 2] - x0z;
-    e = lelem_in[i];
-    done = done_in[i];
-    exited = exited_in[i];
-  }
+// Walk slot i until it is done or paused; `lo` is the block's select
+// tier (shared or global), `hi_b` its refinement tier, `acc` its flux
+// (partial or global). Returns steps.
+template <typename T>
+__device__ __forceinline__ int walk_slot(const TwoTierArgs<T>& a, size_t i,
+                                         const uint16_t* lo, const T* hi_b,
+                                         T* acc) {
+  const T x0x = a.x[3 * i], x0y = a.x[3 * i + 1], x0z = a.x[3 * i + 2];
+  const T dx = a.dest[3 * i] - x0x, dy = a.dest[3 * i + 1] - x0y,
+          dz = a.dest[3 * i + 2] - x0z;
   // The ray's destination as the JAX kernel rebuilds it from the carried
   // invariants (not the input dest: x0 + (dest - x0) may differ from
   // dest by an ulp).
   const T cx = x0x + dx, cy = x0y + dy, cz = x0z + dz;
-
-  const uint16_t* lo_b = table_lo + (size_t)b * L * WALK_TABLE_LO_WIDTH;
-  const T* hi_b = table_hi + (size_t)b * L * 4 * WALK_PLANE_WIDTH;
-  T* flux_b = flux + (size_t)b * L;
-  uint16_t* lo_s = reinterpret_cast<uint16_t*>(smem_raw);
-  T* part = reinterpret_cast<T*>(smem_raw + (size_t)L * 32);
-
-  bool any_active = active0;
-  if constexpr (kShared) any_active = __syncthreads_or(active0);
-  if (any_active) {
-    if constexpr (kShared) {
-      const uint4* src = reinterpret_cast<const uint4*>(lo_b);
-      uint4* dst = reinterpret_cast<uint4*>(lo_s);
-      for (int k = threadIdx.x; k < 2 * L; k += blockDim.x) dst[k] = src[k];
-      if (tally)
-        for (int k = threadIdx.x; k < L; k += blockDim.x) part[k] = T(0);
-      __syncthreads();
+  int e = a.lelem_in[i], pending = -1;
+  bool done = false, exited = a.exited_in[i];
+  const T eff_w =
+      a.tally ? walk_eff_weight(dx, dy, dz, a.fly[i], a.w[i]) : T(0);
+  T s = 0;
+  int steps = 0;
+  while (steps < a.max_iters) {
+    int next;
+    bool reached;
+    const T s_new =
+        twotier_step(lo + (size_t)e * WALK_TABLE_LO_WIDTH, hi_b, e, s, dx,
+                     dy, dz, cx, cy, cz, a.tol, &next, &reached);
+    const bool hit_boundary = !reached && next == -1;
+    if (a.tally) {
+      const T c = (s_new - s) * eff_w;
+      if (c != T(0)) atomicAdd(acc + e, c);
     }
-    if (active0) {
-      const T eff_w =
-          tally ? walk_eff_weight(dx, dy, dz, fly[i], w[i]) : T(0);
-      const uint16_t* lo = kShared ? lo_s : lo_b;
-      T* acc = kShared ? part : flux_b;
-      int steps = 0;
-      while (steps < max_iters) {
-        int next;
-        bool reached;
-        const T s_new = twotier_step(lo + (size_t)e * WALK_TABLE_LO_WIDTH,
-                                     hi_b, e, s, dx, dy, dz, cx, cy, cz, tol,
-                                     &next, &reached);
-        const bool hit_boundary = !reached && next == -1;
-        if (tally) {
-          const T c = (s_new - s) * eff_w;
-          if (c != T(0)) atomicAdd(acc + e, c);
-        }
-        s = s_new;
-        ++steps;
-        if (reached || hit_boundary) {
-          done = true;
-          exited = exited || hit_boundary;
-          break;
-        }
-        if (next <= -2) {
-          pending = -next - 2;
-          break;
-        }
-        e = next;
-      }
-      atomicMax(iters, steps);
+    s = s_new;
+    ++steps;
+    if (reached || hit_boundary) {
+      done = true;
+      exited = exited || hit_boundary;
+      break;
     }
-    if constexpr (kShared) {
-      if (tally) {
-        __syncthreads();
-        for (int k = threadIdx.x; k < L; k += blockDim.x)
-          if (part[k] != T(0)) atomicAdd(flux_b + k, part[k]);
-      }
+    if (next <= -2) {
+      pending = -next - 2;
+      break;
     }
+    e = next;
   }
+  commit(a, i, x0x, x0y, x0z, dx, dy, dz, s, e, done, exited, pending);
+  return steps;
+}
 
-  if (in_range) {
-    const bool at_dest = done && !exited;
-    x_out[3 * i] = at_dest ? dest[3 * i] : x0x + s * dx;
-    x_out[3 * i + 1] = at_dest ? dest[3 * i + 1] : x0y + s * dy;
-    x_out[3 * i + 2] = at_dest ? dest[3 * i + 2] : x0z + s * dz;
-    lelem_out[i] = e;
-    done_out[i] = done;
-    exited_out[i] = exited;
-    pending_out[i] = pending;
-  }
+template <typename T>
+__global__ void __launch_bounds__(SCHED_THREADS, 2)
+    twotier_block_walk_kernel(const TwoTierArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x;
+  const size_t base = (size_t)b * a.cap_b;
+  const uint16_t* lo_b = a.table_lo + (size_t)b * a.L * WALK_TABLE_LO_WIDTH;
+  const T* hi_b = a.table_hi + (size_t)b * a.L * 4 * WALK_PLANE_WIDTH;
+  T* flux_b = a.tally ? a.flux + (size_t)b * a.L : nullptr;
+  const uint16_t* lo_s =
+      reinterpret_cast<const uint16_t*>(smem_raw + SCHED_HEADER_BYTES);
+  T* part = reinterpret_cast<T*>(smem_raw + sched_part_offset(a.stage_bytes));
+
+  sched_block<T>(
+      smem_raw, blockIdx.y, gridDim.y, a.cap_b, a.list_cap, lo_b,
+      a.stage_bytes, a.L, a.tally != 0, flux_b, a.iters, a.counts,
+      [&](int slot) { return !a.done_in[base + slot]; },
+      [&](int slot) {
+        // An idle slot commits dest unless it left the mesh, so x is read
+        // only for one that did.
+        const size_t i = base + slot;
+        const bool exited = a.exited_in[i];
+        T x0x = 0, x0y = 0, x0z = 0, dx = 0, dy = 0, dz = 0;
+        if (exited) {
+          x0x = a.x[3 * i];
+          x0y = a.x[3 * i + 1];
+          x0z = a.x[3 * i + 2];
+          dx = a.dest[3 * i] - x0x;
+          dy = a.dest[3 * i + 1] - x0y;
+          dz = a.dest[3 * i + 2] - x0z;
+        }
+        commit(a, i, x0x, x0y, x0z, dx, dy, dz, T(0), a.lelem_in[i], true,
+               exited, -1);
+      },
+      [&](int slot, bool staged) {
+        return staged ? walk_slot(a, base + slot, lo_s, hi_b, part)
+                      : walk_slot(a, base + slot, lo_b, hi_b, flux_b);
+      });
 }
 
 template <typename T>
@@ -162,36 +192,54 @@ static int launch_twotier_block_walk(
     const void* lelem, const void* dest, const void* fly, const void* w,
     const void* done, const void* exited, void* flux, void* x_out,
     void* lelem_out, void* done_out, void* exited_out, void* pending_out,
-    void* iters, int blocks, int L, int cap_b, double tol, int max_iters,
-    int tally, int use_shared, void* stream) {
-  const int threads = 256;
-  const size_t smem =
-      use_shared ? (size_t)L * (32 + sizeof(T)) : static_cast<size_t>(0);
-  if (smem > SMEM_BYTES_PER_BLOCK) {
+    void* iters, void* counts, int blocks, int L, int cap_b, double tol,
+    int max_iters, int tally, int use_shared, void* stream) {
+  // Without staging the block reserves only the header and the list.
+  const size_t table_bytes =
+      use_shared ? (size_t)L * WALK_TABLE_LO_WIDTH * sizeof(uint16_t) : 0;
+  const size_t part_bytes = use_shared ? (size_t)L * sizeof(T) : 0;
+  size_t smem = 0;
+  int list_cap = 0;
+  if (!sched_layout(table_bytes, part_bytes, &smem, &list_cap))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  auto kernel = use_shared ? twotier_block_walk_kernel<T, true>
-                           : twotier_block_walk_kernel<T, false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (blocks > 0 && cap_b > 0) {
-    const dim3 grid(blocks, (cap_b + threads - 1) / threads);
-    kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint16_t*>(table_lo),
-        static_cast<const T*>(table_hi), static_cast<const T*>(x),
-        static_cast<const int*>(lelem), static_cast<const T*>(dest),
-        static_cast<const signed char*>(fly), static_cast<const T*>(w),
-        static_cast<const bool*>(done), static_cast<const bool*>(exited),
-        static_cast<T*>(flux), static_cast<T*>(x_out),
-        static_cast<int*>(lelem_out), static_cast<bool*>(done_out),
-        static_cast<bool*>(exited_out), static_cast<int*>(pending_out),
-        static_cast<int*>(iters), L, cap_b, static_cast<T>(tol), max_iters,
-        tally);
-  }
+  if (blocks <= 0 || cap_b <= 0) return static_cast<int>(cudaGetLastError());
+  const void* kernel =
+      reinterpret_cast<const void*>(twotier_block_walk_kernel<T>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  int k = 0;
+  if (err != cudaSuccess ||
+      (err = sched_blocks_per_part(kernel, smem, blocks, &k)) != cudaSuccess)
+    return static_cast<int>(err);
+  TwoTierArgs<T> a;
+  a.table_lo = static_cast<const uint16_t*>(table_lo);
+  a.table_hi = static_cast<const T*>(table_hi);
+  a.x = static_cast<const T*>(x);
+  a.lelem_in = static_cast<const int*>(lelem);
+  a.dest = static_cast<const T*>(dest);
+  a.fly = static_cast<const signed char*>(fly);
+  a.w = static_cast<const T*>(w);
+  a.done_in = static_cast<const bool*>(done);
+  a.exited_in = static_cast<const bool*>(exited);
+  a.flux = static_cast<T*>(flux);
+  a.x_out = static_cast<T*>(x_out);
+  a.lelem_out = static_cast<int*>(lelem_out);
+  a.done_out = static_cast<bool*>(done_out);
+  a.exited_out = static_cast<bool*>(exited_out);
+  a.pending_out = static_cast<int*>(pending_out);
+  a.iters = static_cast<int*>(iters);
+  a.counts = static_cast<int*>(counts);
+  a.L = L;
+  a.cap_b = cap_b;
+  a.list_cap = list_cap;
+  a.stage_bytes = static_cast<int>(table_bytes);
+  a.max_iters = max_iters;
+  a.tally = tally;
+  a.tol = static_cast<T>(tol);
+  const dim3 grid(blocks, k);
+  twotier_block_walk_kernel<T><<<grid, SCHED_THREADS, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -200,12 +248,12 @@ extern "C" int pumi_twotier_block_walk_f32(
     const void* lelem, const void* dest, const void* fly, const void* w,
     const void* done, const void* exited, void* flux, void* x_out,
     void* lelem_out, void* done_out, void* exited_out, void* pending_out,
-    void* iters, int blocks, int L, int cap_b, double tol, int max_iters,
-    int tally, int use_shared, void* stream) {
+    void* iters, void* counts, int blocks, int L, int cap_b, double tol,
+    int max_iters, int tally, int use_shared, void* stream) {
   return launch_twotier_block_walk<float>(
       table_lo, table_hi, x, lelem, dest, fly, w, done, exited, flux, x_out,
-      lelem_out, done_out, exited_out, pending_out, iters, blocks, L, cap_b,
-      tol, max_iters, tally, use_shared, stream);
+      lelem_out, done_out, exited_out, pending_out, iters, counts, blocks, L,
+      cap_b, tol, max_iters, tally, use_shared, stream);
 }
 
 extern "C" int pumi_twotier_block_walk_f64(
@@ -213,10 +261,10 @@ extern "C" int pumi_twotier_block_walk_f64(
     const void* lelem, const void* dest, const void* fly, const void* w,
     const void* done, const void* exited, void* flux, void* x_out,
     void* lelem_out, void* done_out, void* exited_out, void* pending_out,
-    void* iters, int blocks, int L, int cap_b, double tol, int max_iters,
-    int tally, int use_shared, void* stream) {
+    void* iters, void* counts, int blocks, int L, int cap_b, double tol,
+    int max_iters, int tally, int use_shared, void* stream) {
   return launch_twotier_block_walk<double>(
       table_lo, table_hi, x, lelem, dest, fly, w, done, exited, flux, x_out,
-      lelem_out, done_out, exited_out, pending_out, iters, blocks, L, cap_b,
-      tol, max_iters, tally, use_shared, stream);
+      lelem_out, done_out, exited_out, pending_out, iters, counts, blocks, L,
+      cap_b, tol, max_iters, tally, use_shared, stream);
 }

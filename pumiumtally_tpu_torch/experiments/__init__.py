@@ -1,5 +1,6 @@
 """The port's counterparts of the JAX package's experiment tools that
-hold TPU kernels (tools/exp_r3_vmem.py, tools/exp_pallas_gather*.py)."""
+hold TPU kernels (tools/exp_r3_vmem.py, tools/exp_pallas_gather*.py),
+and block_rounds.py, which times the block walks round by round."""
 
 from __future__ import annotations
 

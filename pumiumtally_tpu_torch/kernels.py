@@ -37,7 +37,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-HEADERS = ("walk_step.cuh", "twotier_step.cuh")
+HEADERS = ("walk_step.cuh", "twotier_step.cuh", "block_walk_sched.cuh")
 SOURCES = {
     "walk": "walk.cu",
     "block_walk": "block_walk.cu",
@@ -60,11 +60,11 @@ _ENTRY_ARGS = {
     "walk": ("walk", [_P] * 14 + [_I, _D, _I, _I, _P], _BOTH),
     "walk_twotier": ("walk", [_P] * 15 + [_I, _D, _I, _I, _P], _BOTH),
     "block_walk": (
-        "block_walk", [_P] * 15 + [_I, _I, _I, _D, _I, _I, _P], _BOTH,
+        "block_walk", [_P] * 16 + [_I, _I, _I, _D, _I, _I, _P], _BOTH,
     ),
     "twotier_block_walk": (
-        "twotier_block_walk", [_P] * 16 + [_I, _I, _I, _D, _I, _I, _I, _P],
-        _BOTH,
+        "twotier_block_walk",
+        [_P] * 17 + [_I, _I, _I, _D, _I, _I, _I, _P], _BOTH,
     ),
     "resident_walk": (
         "resident_walk", [_P] * 13 + [_I, _I, _D, _I, _P], ("f32",),

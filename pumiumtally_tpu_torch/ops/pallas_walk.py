@@ -12,15 +12,20 @@ with ``pending = -nxt-2``, boundary exits clamp and finish. The TPU
 mechanics are gone: the one-hot MXU row fetch (an indexed load here),
 the ``Lp``/TILE_1D block padding (``pack_hi_blocks``, ``pad_lo_blocks``:
 W2 reads ``table_hi`` in its ``[blocks*L*4,5]`` layout directly), the
-particle tiles and the grid's double-buffered streaming. On the card a
-block whose bf16 rows and flux partial fit shared memory stages them
-there (``w2_uses_shared``); a larger one reads them from global memory.
+particle tiles and the grid's double-buffered streaming. On the card W2
+runs W1's schedule (csrc/block_walk_sched.cuh, ops/vmem_walk.py): a CUDA
+block whose work list holds a particle copies its partition block's
+bf16 rows into shared memory if they fit with a flux partial and the
+list (``w2_uses_shared``); a larger block reads them from global
+memory.
 
 Scoring lanes (the JAX kernel's ``scoring=``) are not in this port
 (ROADMAP.md queue 1 item 10). ``flux`` is updated IN PLACE.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -30,7 +35,10 @@ from pumiumtally_tpu_torch.mesh.tetmesh import (
     WALK_TABLE_LO_WIDTH,
     WALK_TABLE_WIDTH,
 )
-from pumiumtally_tpu_torch.ops.vmem_walk import SMEM_BYTES_PER_BLOCK
+from pumiumtally_tpu_torch.ops.vmem_walk import (
+    check_sched_counts,
+    sched_smem_layout,
+)
 from pumiumtally_tpu_torch.ops.walk import (
     eff_weight,
     refine_face_hi,
@@ -70,11 +78,13 @@ def modeled_walk_bytes(kernel: str, table_dtype: str = "float32") -> int:
 
 
 def w2_uses_shared(L: int, dtype: torch.dtype) -> bool:
-    """Whether W2 stages a block of L elements in shared memory (its
-    [L,16] bf16 select rows and an [L] flux partial: L <= 6,456 in f32,
-    5,811 in f64) or reads it from global memory."""
+    """Whether W2 may stage a block of L elements in shared memory (its
+    [L,16] bf16 select rows, an [L] flux partial and one pass of work
+    list: L <= 6,399 in f32, 5,759 in f64) or always reads it from
+    global memory."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return L * (WALK_TABLE_LO_WIDTH * 2 + itemsize) <= SMEM_BYTES_PER_BLOCK
+    return sched_smem_layout(L * WALK_TABLE_LO_WIDTH * 2,
+                             L * itemsize) is not None
 
 
 def _check_layout(table_lo, table_hi, n: int, blocks: int) -> int:
@@ -156,7 +166,8 @@ def pallas_walk_local_plain(
 
 
 def _pallas_walk_cuda(table_lo, table_hi, x, lelem, dest, flying, weight,
-                      done, exited, flux, *, tally, tol, max_iters, blocks):
+                      done, exited, flux, *, tally, tol, max_iters, blocks,
+                      sched_counts=None):
     dev, dt = x.device, x.dtype
     n = x.shape[0]
     L = _check_layout(table_lo, table_hi, n, blocks)
@@ -186,8 +197,8 @@ def _pallas_walk_cuda(table_lo, table_hi, x, lelem, dest, flying, weight,
         "twotier_block_walk", dt, dev, p(table_lo), p(table_hi), p(x),
         p(lelem), p(dest), p(flying), p(weight), p(done), p(exited),
         p(flux if tally else None), p(x_out), p(lelem_out), p(done_out),
-        p(exited_out), p(pending), p(iters), blocks, L, n // blocks,
-        float(tol), int(max_iters), int(bool(tally)),
+        p(exited_out), p(pending), p(iters), p(sched_counts), blocks, L,
+        n // blocks, float(tol), int(max_iters), int(bool(tally)),
         int(w2_uses_shared(L, dt)),
     )
     return x_out, lelem_out, done_out, exited_out, pending, flux, iters
@@ -196,6 +207,7 @@ def _pallas_walk_cuda(table_lo, table_hi, x, lelem, dest, flying, weight,
 def pallas_walk_local(
     table_lo, table_hi, x, lelem, dest, flying, weight, done, exited, flux,
     *, tally: bool, tol: float, max_iters: int, blocks: int = 1,
+    sched_counts: Optional[torch.Tensor] = None,
 ):
     """Two-tier block walk: returns ``(x, lelem, done, exited, pending,
     flux, iters)``, the JAX function's tuple.
@@ -205,14 +217,18 @@ def pallas_walk_local(
     slots are grouped by block (``S // blocks`` each) with block-local
     ``lelem``; ``flux`` is [blocks*L] and is updated in place (None when
     not tallying). CUDA tensors launch kernel W2; CPU tensors run
-    ``pallas_walk_local_plain``."""
+    ``pallas_walk_local_plain``. ``sched_counts`` (CUDA only,
+    ops/vmem_walk.py ``check_sched_counts``) collects what the kernel's
+    CUDA blocks did."""
     blocks = int(blocks)
     if tally and flux is None:
         raise ValueError("a tallying walk needs a flux tensor")
+    check_sched_counts("pallas_walk_local", sched_counts, x.device)
     if x.is_cuda:
         return _pallas_walk_cuda(table_lo, table_hi, x, lelem, dest, flying,
                                  weight, done, exited, flux, tally=tally,
-                                 tol=tol, max_iters=max_iters, blocks=blocks)
+                                 tol=tol, max_iters=max_iters, blocks=blocks,
+                                 sched_counts=sched_counts)
     if x.device.type != "cpu":
         raise ValueError(
             f"pallas_walk_local runs on CUDA or CPU tensors, not {x.device}"
