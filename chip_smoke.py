@@ -2,16 +2,21 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --w0-times   # W0's times alone, no checks
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: the card's name, and its name and power limit as nvidia-smi
    reports them.
 2. Build: every kernel of the port, compiled from csrc/ with nvcc for
-   sm_90a (build seconds and the ptxas register/shared-memory report).
+   sm_90a (build seconds and the ptxas register/shared-memory report;
+   W0's registers and spills on a line of their own).
 3. W0 (csrc/walk.cu) against its plain PyTorch version ``walk_plain`` on
    the card: a 48,000-tet box, 500,000 particles on bench.py's random
-   trajectory, float32, tallying.
+   trajectory, float32, tallying. The kernel counts the particles it
+   walked, which must be all of them, and its time, tallying and not,
+   stands beside the crossings per second and the SM cycles per
+   crossing.
 4. W1 (csrc/block_walk.cu) against ``vmem_walk_local_plain``: the same
    mesh sub-split into blocks of at most 1024 elements, every tallied
    round of the first move (round 1; round 2 is round 1's output after
@@ -25,7 +30,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    staged and found empty shares, and never read rows from global
    memory.
 5. W0's two-tier variant (csrc/walk.cu, bf16 select + f32 refinement
-   tables) against the two-tier ``walk_plain``, as phase 3.
+   tables) against the two-tier ``walk_plain``, as phase 3; then W0 in
+   float64 on the box (100,000 particles) against ``walk_plain``.
 6. W2 (csrc/twotier_block_walk.cu) against ``pallas_walk_local_plain``
    as phase 4, in both regimes: 24 blocks of <= 2,000 elements (the bf16
    tier doubles the 1024 bound; rows may be staged in shared memory),
@@ -73,10 +79,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Kernel comparisons: element ids, done/exited/pending masks and ``iters``
 must be equal; positions and ray coordinates are expected bitwise equal
-(both sides build with no fused multiply-add): W0 and W1 hold them at
-1e-6 absolute in float32, the two-tier kernels and W3 bitwise; flux
+(both sides build with no fused multiply-add): W1 holds them at 1e-6
+absolute in float32, W0 (both tiers, both dtypes), W2 and W3 bitwise; flux
 sums in another order (float atomics) and is held at rtol 1e-4. G1 moves
 values without arithmetic and is held bitwise, NaN fills by position.
+
+``--w0-times`` runs phases 1-2, then prints W0's times (tallying and
+not, crossings, SM cycles per crossing) on the box and the lattice, on
+both tiers, one JSON line a cell. It calls only what every checkout of
+the port has (``PumiTally``, the ``walk`` wrapper, the plain steps), so
+a copy of this file in another checkout times that checkout: an A/B of
+two trees runs each tree's copy in turn.
 
 It imports nothing of JAX; it needs one CUDA device and exits non-zero
 without one.
@@ -84,7 +97,9 @@ without one.
 
 from __future__ import annotations
 
+import functools
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -110,10 +125,12 @@ K3_N = 500_000  # tools/exp_r3_vmem.py bench's default N
 # The 3x3 pincell assembly (BASELINE.json configs[0-1] geometry at
 # assembly scale): FLAGSHIP_PINCELL cells, 60 layers -> 984,960 tets.
 LATTICE, LATTICE_NZ = (3, 3), 60
-# H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s
+# H100 SXM datasheet peaks: HBM bytes/s, f32 and f64 FLOP/s
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 34e12
+W0_F64_N = 100_000  # particles of the float64 W0 check on the box
 # Operations per crossing in csrc/walk_step.cuh: per face two 3-term dot
 # products (10), b (2), the crossing test (2), one division, the clamp
 # and the running minimum (2); then the tally's subtract and multiply.
@@ -218,11 +235,29 @@ def twotier_step(lo, hi):
 
 
 def bound_entry(nbytes: float, crossings: int,
-                flops_per_crossing: int = FLOPS_PER_CROSSING) -> dict:
+                flops_per_crossing: int = FLOPS_PER_CROSSING,
+                flops: float = F32_FLOPS) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = crossings * flops_per_crossing / F32_FLOPS * 1e3
+    t_ops = crossings * flops_per_crossing / flops * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nvidia_smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock() -> tuple:
+    """The card's SM count and maximum SM clock in Hz (SM cycles per
+    crossing are counted at that clock)."""
+    import torch
+
+    hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    return torch.cuda.get_device_properties(0).multi_processor_count, hz
 
 
 def phase_device() -> tuple:
@@ -231,11 +266,7 @@ def phase_device() -> tuple:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi("name,power.limit")
     print(f"# device: {name} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}); nvidia-smi: {smi}")
     return name, smi
@@ -251,53 +282,125 @@ def phase_build() -> None:
             if any(k in line for k in ("entry function", "registers",
                                        "spill")):
                 print(f"#   {name}: {line.strip()}")
+    # W0's instances (float / double, packed table / two tiers):
+    # registers and spills, from ptxas's report.
+    kernel, spills = None, "spills not reported"
+    for line in kernels.build_log("walk").splitlines():
+        m = re.search(r"properties for _Z\d+walk_kernelI(\w)Lb(\d)E", line)
+        if m:
+            dtype = {"f": "float", "d": "double"}[m[1]]
+            tier = ("packed", "two-tier")[int(m[2])]
+            kernel = f"walk_kernel<{dtype}> ({tier})"
+        elif kernel and "spill" in line:
+            spills = line.strip()
+        elif kernel and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)[1]
+            print(f"# W0 {kernel}: {regs} registers; {spills}")
+            kernel = None
 
 
-def phase_w0(mesh, pts, label: str = "") -> dict:
-    """W0 vs walk_plain at the main path's shapes."""
+def w0_inputs(mesh, pts, two_tier: bool = False, n: int = N) -> tuple:
+    """The first move's walk inputs, localised by ``PumiTally``: the
+    ``walk`` wrapper's positional arguments (``flux`` left out) and its
+    keywords."""
     import torch
 
     from pumiumtally_tpu_torch import PumiTally, TallyConfig
+
+    t = PumiTally(mesh, n, TallyConfig(check_found_all=False,
+                                       **(BF16 if two_tier else {})))
+    t.CopyInitialPosition(flat(pts[0][:n]))
+    dev, dt = t.device, t.dtype
+    assert t.mesh.two_tier == two_tier
+    args = (t.mesh, t.x, t.elem,
+            torch.as_tensor(pts[1][:n], dtype=dt, device=dev),
+            torch.ones((n,), dtype=torch.int8, device=dev),
+            torch.ones((n,), dtype=dt, device=dev))
+    return args, dict(tally=True, tol=t._tol, max_iters=t._max_iters)
+
+
+def w0_times(args, kw) -> dict:
+    """W0's kernel time on these inputs, tallying (``ms``) and not
+    (``untallied_ms``: no flux atomics; the main path's localisation and
+    phase A), with CUDA events; the crossings the input needs and the SM
+    cycles each costs at the card's maximum clock. It calls only the
+    ``walk`` wrapper and the plain steps, as every checkout of the port
+    has them."""
+    import torch
+
+    from pumiumtally_tpu_torch.ops.walk import walk
+
+    m, x, elem, dest, fly, w = args
+    zeros = lambda: torch.zeros((m.nelems,), dtype=x.dtype,  # noqa: E731
+                                device=x.device)
+    ms = cuda_ms(lambda: walk(*args, zeros(), **kw))
+    untallied_ms = cuda_ms(lambda: walk(*args, None, **dict(kw, tally=False)))
+    step = (twotier_step(m.walk_table_lo, m.walk_table_hi) if m.two_tier
+            else packed_step(m.walk_table))
+    crossings = count_crossings(step, x, elem, dest,
+                                torch.ones_like(fly, dtype=torch.bool), 0,
+                                kw["tol"])
+    sms, hz = sm_clock()
+    return {"ms": ms, "untallied_ms": untallied_ms, "crossings": crossings,
+            "sm_cycles_per_crossing": ms * 1e-3 * sms * hz / crossings}
+
+
+def phase_w0(mesh, pts, label: str = "", two_tier: bool = False,
+             n: int = N) -> dict:
+    """W0 (with ``two_tier``, its two-tier variant) vs walk_plain at the
+    main path's shapes, in the mesh's dtype: ids, masks, iters, positions
+    and s equal, flux at rtol 1e-4, and the kernel's count of walked
+    particles equal to n. Prints crossings per second and SM cycles per
+    crossing beside the kernel time, tallying and not."""
+    import torch
+
     from pumiumtally_tpu_torch.ops.walk import walk, walk_plain
 
-    t = PumiTally(mesh, N, TallyConfig(check_found_all=False))
-    t.CopyInitialPosition(flat(pts[0]))
-    dev = t.device
-    x, elem = t.x, t.elem
-    dest = torch.as_tensor(pts[1], dtype=torch.float32, device=dev)
-    fly = torch.ones((N,), dtype=torch.int8, device=dev)
-    w = torch.ones((N,), dtype=torch.float32, device=dev)
-    kw = dict(tally=True, tol=t._tol, max_iters=t._max_iters)
+    name = "W0 two-tier" if two_tier else "W0"
+    args, kw = w0_inputs(mesh, pts, two_tier, n)
+    m, x = args[:2]
 
-    def run(fn):
-        flux = torch.zeros((mesh.nelems,), dtype=torch.float32, device=dev)
-        return fn(t.mesh, x, elem, dest, fly, w, flux, **kw)
+    def run(fn, **extra):
+        flux = torch.zeros((m.nelems,), dtype=x.dtype, device=x.device)
+        return fn(*args, flux, **kw, **extra)
 
-    rk, rp = run(walk), run(walk_plain)
+    counts = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    rk, rp = run(walk, counts=counts), run(walk_plain)
     sync()
-    for f in ("elem", "done", "exited", "iters"):
-        check_equal(f"W0 {f}", getattr(rk, f), getattr(rp, f))
-    err_x, err_s = max_abs(rk.x, rp.x), max_abs(rk.s, rp.s)
-    if max(err_x, err_s) > POS_ATOL:
-        raise AssertionError(f"W0 positions differ by {err_x}, s by {err_s}")
-    err_f = check_flux("W0", rk.flux, rp.flux)
-    ms = cuda_ms(lambda: run(walk))
+    for f in ("elem", "done", "exited", "iters", "x", "s"):
+        check_equal(f"{name}{label} {f}", getattr(rk, f), getattr(rp, f))
+    err_f = check_flux(f"{name}{label}", rk.flux, rp.flux)
+    walked = int(counts[0])
+    if walked != n:
+        raise AssertionError(f"{name}{label}: the kernel walked {walked} "
+                             f"particles, not {n}")
+    times = w0_times(args, kw)
+    ms, crossings = times["ms"], times["crossings"]
     plain_ms = wall_ms(lambda: run(walk_plain))
-    crossings = count_crossings(packed_step(t.mesh.walk_table), x, elem,
-                                dest, torch.ones_like(fly, dtype=torch.bool),
-                                0, t._tol)
-    per_particle = 12 + 12 + 4 + 1 + 4 + 12 + 4 + 1 + 1 + 4
-    nbytes = N * per_particle + mesh.nelems * (80 + 2 * 4)
-    bound = bound_entry(nbytes, crossings)
-    print(f"# W0{label}: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain; "
-          f"{crossings} crossings; x bitwise={err_x == 0.0}, "
-          f"s bitwise={err_s == 0.0}, flux max abs diff {err_f:.3e}; "
-          f"bound {bound}")
-    return {"name": "W0 walk", "route": "cuda",
+    k = x.element_size()
+    # x, dest, elem, fly, w in; x, elem, done, exited, s out; each tet's
+    # rows (the packed row, or the select row and four refinement rows)
+    # and its flux read and written.
+    row_bytes = 32 + 4 * 5 * k if two_tier else 20 * k
+    nbytes = n * (11 * k + 11) + m.nelems * (row_bytes + 2 * k)
+    bound = bound_entry(nbytes, crossings,
+                        FLOPS_PER_CROSSING_TWO_TIER if two_tier
+                        else FLOPS_PER_CROSSING,
+                        F32_FLOPS if k == 4 else F64_FLOPS)
+    sms, hz = sm_clock()
+    print(f"# {name}{label}: {ms:.3f} ms kernel ({times['untallied_ms']:.3f}"
+          f" ms untallied), {plain_ms:.3f} ms plain; {crossings} crossings, "
+          f"{crossings / ms / 1e6:.3f} G crossings/s, "
+          f"{times['sm_cycles_per_crossing']:.2f} SM cycles per crossing "
+          f"({sms} SMs at {hz / 1e9:.3f} GHz max); walked {walked} of {n}; "
+          f"x, s bitwise; flux max abs diff {err_f:.3e}; bound {bound}")
+    return {"name": "W0 walk (two-tier)" if two_tier else "W0 walk",
+            "route": "cuda",
             "source": "pumiumtally_tpu_torch/csrc/walk.cu",
-            "replaces": "pumiumtally_tpu/ops/walk.py:449",
-            "max_abs_err": max(err_x, err_s, err_f), "ms": ms,
-            "plain_ms": plain_ms, **bound, "library_ms": None}
+            "replaces": ("pumiumtally_tpu/ops/walk.py:425" if two_tier
+                         else "pumiumtally_tpu/ops/walk.py:449"),
+            "max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms, **bound,
+            "library_ms": None}
 
 
 def phase_block_walk(kind: str, mesh, pts, bound, shared: bool = True):
@@ -448,52 +551,6 @@ def phase_block_walk(kind: str, mesh, pts, bound, shared: bool = True):
     return {"name": name, "route": "cuda",
             "source": f"pumiumtally_tpu_torch/csrc/{src}", "replaces": line,
             "max_abs_err": err, **timed[0], "library_ms": None}, regimes
-
-
-def phase_w0_twotier(mesh, pts, label: str = "") -> dict:
-    """W0's two-tier variant vs the two-tier walk_plain at the main
-    path's shapes: ids, masks, iters, positions and s all equal."""
-    import torch
-
-    from pumiumtally_tpu_torch import PumiTally, TallyConfig
-    from pumiumtally_tpu_torch.ops.walk import walk, walk_plain
-
-    t = PumiTally(mesh, N, TallyConfig(check_found_all=False, **BF16))
-    t.CopyInitialPosition(flat(pts[0]))
-    dev, m = t.device, t.mesh
-    assert m.two_tier
-    x, elem = t.x, t.elem
-    dest = torch.as_tensor(pts[1], dtype=torch.float32, device=dev)
-    fly = torch.ones((N,), dtype=torch.int8, device=dev)
-    w = torch.ones((N,), dtype=torch.float32, device=dev)
-    kw = dict(tally=True, tol=t._tol, max_iters=t._max_iters)
-
-    def run(fn):
-        flux = torch.zeros((mesh.nelems,), dtype=torch.float32, device=dev)
-        return fn(m, x, elem, dest, fly, w, flux, **kw)
-
-    rk, rp = run(walk), run(walk_plain)
-    sync()
-    for f in ("elem", "done", "exited", "iters", "x", "s"):
-        check_equal(f"W0 two-tier {f}", getattr(rk, f), getattr(rp, f))
-    err_f = check_flux("W0 two-tier", rk.flux, rp.flux)
-    ms = cuda_ms(lambda: run(walk))
-    plain_ms = wall_ms(lambda: run(walk_plain))
-    crossings = count_crossings(
-        twotier_step(m.walk_table_lo, m.walk_table_hi), x, elem, dest,
-        torch.ones_like(fly, dtype=torch.bool), 0, t._tol)
-    per_particle = 12 + 12 + 4 + 1 + 4 + 12 + 4 + 1 + 1 + 4
-    # Select row 32 B and four 20 B refinement rows per tet, flux r+w.
-    nbytes = N * per_particle + mesh.nelems * (32 + 4 * 20 + 2 * 4)
-    bound = bound_entry(nbytes, crossings, FLOPS_PER_CROSSING_TWO_TIER)
-    print(f"# W0 two-tier{label}: {ms:.3f} ms kernel, {plain_ms:.3f} ms "
-          f"plain; {crossings} crossings; x, s bitwise; flux max abs diff "
-          f"{err_f:.3e}; bound {bound}")
-    return {"name": "W0 walk (two-tier)", "route": "cuda",
-            "source": "pumiumtally_tpu_torch/csrc/walk.cu",
-            "replaces": "pumiumtally_tpu/ops/walk.py:425",
-            "max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms, **bound,
-            "library_ms": None}
 
 
 def phase_w3() -> dict:
@@ -895,7 +952,9 @@ def main() -> int:
     pts = make_trajectory(np.random.default_rng(0), N, CONTINUE_MOVES + 2)
     w0 = phase_w0(mesh, pts)
     w1, regimes_w1 = phase_block_walk("W1", mesh, pts, VMEM_BOUND)
-    w0t = phase_w0_twotier(mesh, pts)
+    w0t = phase_w0(mesh, pts, two_tier=True)
+    phase_w0(build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                       dtype=torch.float64), pts, " (float64)", n=W0_F64_N)
     w2, regimes_w2 = phase_block_walk("W2", mesh, pts, VMEM_BOUND)
     _, regimes_w2g = phase_block_walk("W2", mesh, pts, None, shared=False)
     # Which regimes each run can take: a staging launch stages every
@@ -930,7 +989,7 @@ def main() -> int:
         path, lat_pts = write_lattice(d)
         lat_mesh = load_mesh(path, dtype=torch.float32)
         lw0 = phase_w0(lat_mesh, lat_pts, " (lattice)")
-        lw0t = phase_w0_twotier(lat_mesh, lat_pts, " (lattice)")
+        lw0t = phase_w0(lat_mesh, lat_pts, " (lattice)", two_tier=True)
         print(f"# W0 first move: lattice {lw0['ms']:.3f} ms vs box "
               f"{w0['ms']:.3f} ms; two-tier lattice {lw0t['ms']:.3f} ms vs "
               f"box {w0t['ms']:.3f} ms")
@@ -973,5 +1032,34 @@ def main() -> int:
     return 0
 
 
+def main_w0_times() -> int:
+    import torch
+
+    from pumiumtally_tpu_torch import build_box
+    from pumiumtally_tpu_torch.experiments.block_rounds import (
+        make_trajectory,
+    )
+    from pumiumtally_tpu_torch.io.load import load_mesh
+
+    phase_device()
+    phase_build()
+    sms, hz = sm_clock()
+    print(f"# {sms} SMs at up to {hz / 1e9:.3f} GHz; package "
+          f"{sys.modules['pumiumtally_tpu_torch'].__file__}")
+    box = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                    dtype=torch.float32)
+    pts = make_trajectory(np.random.default_rng(0), N, CONTINUE_MOVES + 2)
+    with tempfile.TemporaryDirectory() as d:
+        path, lat_pts = write_lattice(d)
+        lattice = load_mesh(path, dtype=torch.float32)
+        for label, mesh, p in (("box", box, pts),
+                               ("lattice", lattice, lat_pts)):
+            for two_tier in (False, True):
+                times = w0_times(*w0_inputs(mesh, p, two_tier))
+                print(json.dumps({"mesh": label, "two_tier": two_tier,
+                                  "tets": mesh.nelems, "n": N, **times}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_w0_times() if "--w0-times" in sys.argv[1:] else main())

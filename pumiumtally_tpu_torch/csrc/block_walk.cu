@@ -47,50 +47,6 @@
 #include "block_walk_sched.cuh"
 #include "walk_step.cuh"
 
-// One packed row into registers with 16-byte loads (5 x float4 in f32,
-// 10 x double2 in f64); rows are 80 / 160 B and 16 B aligned.
-__device__ __forceinline__ void load_row(const float* row, float r[20]) {
-  const float4* p = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int q = 0; q < 5; ++q) {
-    const float4 v = p[q];
-    r[4 * q] = v.x;
-    r[4 * q + 1] = v.y;
-    r[4 * q + 2] = v.z;
-    r[4 * q + 3] = v.w;
-  }
-}
-
-__device__ __forceinline__ void load_row(const double* row, double r[20]) {
-  const double2* p = reinterpret_cast<const double2*>(row);
-#pragma unroll
-  for (int q = 0; q < 10; ++q) {
-    const double2 v = p[q];
-    r[2 * q] = v.x;
-    r[2 * q + 1] = v.y;
-  }
-}
-
-// walk_step on a row in registers: walk_exit's arithmetic, then the exit
-// face's neighbour picked by selects (indexing the row with the run-time
-// face, as walk_step does, would put it in local memory).
-template <typename T>
-__device__ __forceinline__ T step_row(const T* row, T s, T dx, T dy, T dz,
-                                      T px, T py, T pz, T tol, int* next,
-                                      bool* reached) {
-  T r[WALK_TABLE_WIDTH];
-  load_row(row, r);
-  int f;
-  const T s_exit = walk_exit(r, s, dx, dy, dz, px, py, pz, tol, &f);
-  const T adj = f == 0   ? r[WALK_TABLE_ADJ]
-                : f == 1 ? r[WALK_TABLE_ADJ + 1]
-                : f == 2 ? r[WALK_TABLE_ADJ + 2]
-                         : r[WALK_TABLE_ADJ + 3];
-  *reached = s_exit >= T(1);
-  *next = static_cast<int>(adj);
-  return *reached ? T(1) : s_exit;
-}
-
 template <typename T>
 struct BlockWalkArgs {
   const T* table;
@@ -148,8 +104,10 @@ __device__ __forceinline__ int walk_slot(const BlockWalkArgs<T>& a, size_t i,
   while (steps < a.max_iters) {
     int next;
     bool reached;
-    const T s_new = step_row(rows + (size_t)e * WALK_TABLE_WIDTH, s, dx, dy,
-                             dz, px, py, pz, a.tol, &next, &reached);
+    T r[WALK_TABLE_WIDTH];
+    walk_load_row(rows + (size_t)e * WALK_TABLE_WIDTH, r);
+    const T s_new =
+        walk_step(r, s, dx, dy, dz, px, py, pz, a.tol, &next, &reached);
     const bool hit_boundary = !reached && next == -1;
     if (a.tally) {
       const T c = (s_new - s) * eff_w;

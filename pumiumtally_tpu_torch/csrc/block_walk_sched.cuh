@@ -35,7 +35,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <mutex>
+#include "occupancy.cuh"
 
 #define SCHED_THREADS 512
 #define SCHED_LIST_MAX 4096
@@ -95,38 +95,14 @@ static bool sched_layout(size_t table_bytes, size_t part_bytes,
 }
 
 // k, the CUDA blocks per partition block, for `kernel` at `smem` bytes of
-// dynamic shared memory: the SM count and the occupancy are queried once
-// per device, kernel and size and kept.
+// dynamic shared memory: as many as the device keeps resident at once
+// (occupancy.cuh), shared out among the partition blocks.
 static cudaError_t sched_blocks_per_part(const void* kernel, size_t smem,
                                          int nparts, int* k) {
-  struct Entry {
-    const void* kernel;
-    size_t smem;
-    int device, resident;
-  };
-  static std::mutex mu;
-  static Entry cache[16];
-  static int ncache = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
   int resident = 0;
-  for (int c = 0; c < ncache; ++c)
-    if (cache[c].kernel == kernel && cache[c].smem == smem &&
-        cache[c].device == dev)
-      resident = cache[c].resident;
-  if (resident == 0) {
-    int sms = 0, per_sm = 0;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, SCHED_THREADS, smem)) != cudaSuccess)
-      return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    resident = sms * per_sm;
-    if (ncache < 16) cache[ncache++] = {kernel, smem, dev, resident};
-  }
+  const cudaError_t err =
+      resident_blocks(kernel, SCHED_THREADS, smem, &resident);
+  if (err != cudaSuccess) return err;
   *k = resident / nparts > 1 ? resident / nparts : 1;
   return cudaSuccess;
 }

@@ -38,6 +38,7 @@
 
 #include <cuda_runtime.h>
 
+#include "occupancy.cuh"
 #include "walk_step.cuh"
 
 #define PLANE_WIDTH 16  // 4 normals + 4 offsets per tet
@@ -112,16 +113,13 @@ extern "C" int pumi_resident_walk_f32(
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0 || L <= 0) return static_cast<int>(cudaGetLastError());
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, resident_walk_kernel, kThreads, smem)) != cudaSuccess)
+  int resident = 0;
+  if ((err = resident_blocks(reinterpret_cast<const void*>(
+                                 resident_walk_kernel),
+                             kThreads, smem, &resident)) != cudaSuccess)
     return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int needed = (n + kThreads - 1) / kThreads;
-  const int grid = needed < sms * per_sm ? needed : sms * per_sm;
+  const int grid = needed < resident ? needed : resident;
   resident_walk_kernel<<<grid, kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(planes), static_cast<const int*>(adj),

@@ -1,6 +1,6 @@
 // One crossing of the fixed-ray tet walk, shared by the walk kernels
-// (walk.cu, block_walk.cu, resident_walk.cu). Templated on float /
-// double.
+// (walk.cu, block_walk.cu, resident_walk.cu), and the packed row's
+// 16-byte loaders. Templated on float / double.
 //
 // The ray is parametrised by s in [0,1] along x0 -> dest with
 // x0 = dest - d0. For face f with outward unit normal n_f and offset
@@ -67,18 +67,50 @@ __device__ __forceinline__ T walk_exit(const T* row, T s, T dx, T dy, T dz,
   return s_exit;
 }
 
+// One packed row into registers with 16-byte loads (5 x float4 in f32,
+// 10 x double2 in f64); rows are 80 / 160 B and 16 B aligned, in global
+// memory (W0) or shared memory (W1).
+__device__ __forceinline__ void walk_load_row(const float* row,
+                                              float r[WALK_TABLE_WIDTH]) {
+  const float4* p = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int q = 0; q < 5; ++q) {
+    const float4 v = p[q];
+    r[4 * q] = v.x;
+    r[4 * q + 1] = v.y;
+    r[4 * q + 2] = v.z;
+    r[4 * q + 3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void walk_load_row(const double* row,
+                                              double r[WALK_TABLE_WIDTH]) {
+  const double2* p = reinterpret_cast<const double2*>(row);
+#pragma unroll
+  for (int q = 0; q < 10; ++q) {
+    const double2 v = p[q];
+    r[2 * q] = v.x;
+    r[2 * q + 1] = v.y;
+  }
+}
+
 // Advance one crossing from ray coordinate s inside the tet whose packed
-// row is `row`. Returns the new coordinate (1 when the destination lies
-// inside this tet) and, through `next`, the neighbour across the exit
-// face.
+// row `r` is in registers. Returns the new coordinate (1 when the
+// destination lies inside this tet) and, through `next`, the neighbour
+// across the exit face, picked by selects (indexing the row with the
+// run-time face would put it in local memory).
 template <typename T>
-__device__ __forceinline__ T walk_step(const T* row, T s, T dx, T dy, T dz,
-                                       T px, T py, T pz, T tol,
-                                       int* next, bool* reached) {
-  int f_exit;
-  const T s_exit = walk_exit(row, s, dx, dy, dz, px, py, pz, tol, &f_exit);
+__device__ __forceinline__ T walk_step(const T r[WALK_TABLE_WIDTH], T s,
+                                       T dx, T dy, T dz, T px, T py, T pz,
+                                       T tol, int* next, bool* reached) {
+  int f;
+  const T s_exit = walk_exit(r, s, dx, dy, dz, px, py, pz, tol, &f);
+  const T adj = f == 0   ? r[WALK_TABLE_ADJ]
+                : f == 1 ? r[WALK_TABLE_ADJ + 1]
+                : f == 2 ? r[WALK_TABLE_ADJ + 2]
+                         : r[WALK_TABLE_ADJ + 3];
   *reached = s_exit >= T(1);
-  *next = static_cast<int>(row[WALK_TABLE_ADJ + f_exit]);
+  *next = static_cast<int>(adj);
   return *reached ? T(1) : s_exit;
 }
 

@@ -37,7 +37,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-HEADERS = ("walk_step.cuh", "twotier_step.cuh", "block_walk_sched.cuh")
+HEADERS = ("walk_step.cuh", "twotier_step.cuh", "block_walk_sched.cuh",
+           "occupancy.cuh")
 SOURCES = {
     "walk": "walk.cu",
     "block_walk": "block_walk.cu",
@@ -57,8 +58,8 @@ _BOTH = ("f32", "f64")
 # C entry points: entry -> (library, argtypes, dtypes); the entry's
 # dtypes share its argtypes (``pumi_<entry>_f32`` / ``pumi_<entry>_f64``).
 _ENTRY_ARGS = {
-    "walk": ("walk", [_P] * 14 + [_I, _D, _I, _I, _P], _BOTH),
-    "walk_twotier": ("walk", [_P] * 15 + [_I, _D, _I, _I, _P], _BOTH),
+    "walk": ("walk", [_P] * 16 + [_I, _D, _I, _I, _P], _BOTH),
+    "walk_twotier": ("walk", [_P] * 17 + [_I, _D, _I, _I, _P], _BOTH),
     "block_walk": (
         "block_walk", [_P] * 16 + [_I, _I, _I, _D, _I, _I, _P], _BOTH,
     ),
@@ -183,6 +184,16 @@ def launch(entry: str, dtype: torch.dtype, device: torch.device,
             f"CUDA kernel {entry} failed to launch: error {err}"
         )
     launch_counts[entry] += 1
+
+
+def check_aligned(where: str, specs, boundary: int = 16) -> None:
+    """Raise unless every (name, tensor) pair's data starts on a
+    ``boundary``-byte boundary: the kernels read these tables in 16-byte
+    words. ``None`` tensors are skipped."""
+    for name, t in specs:
+        if t is not None and t.data_ptr() % boundary:
+            raise ValueError(f"{where}: {name} must start on a "
+                             f"{boundary}-byte boundary")
 
 
 def check_cuda_args(where: str, device: torch.device, specs) -> None:

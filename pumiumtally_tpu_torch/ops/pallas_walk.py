@@ -171,8 +171,7 @@ def _pallas_walk_cuda(table_lo, table_hi, x, lelem, dest, flying, weight,
     dev, dt = x.device, x.dtype
     n = x.shape[0]
     L = _check_layout(table_lo, table_hi, n, blocks)
-    if table_lo.data_ptr() % 16:
-        raise ValueError("table_lo must start on a 16-byte boundary")
+    kernels.check_aligned("pallas_walk_local", [("table_lo", table_lo)])
     kernels.check_cuda_args("pallas_walk_local", dev, [
         ("table_lo", table_lo, torch.bfloat16,
          (blocks * L, WALK_TABLE_LO_WIDTH)),

@@ -223,8 +223,7 @@ def _vmem_walk_cuda(table, x, lelem, dest, flying, weight, done, exited,
             f"block length {L} exceeds the shared-memory ceiling "
             f"{smem_ceiling_elems(dt)} for {dt}"
         )
-    if table.data_ptr() % 16:
-        raise ValueError("table must start on a 16-byte boundary")
+    kernels.check_aligned("vmem_walk_local", [("table", table)])
     kernels.check_cuda_args("vmem_walk_local", dev, [
         ("table", table, dt, (blocks * L, WALK_TABLE_WIDTH)),
         ("x", x, dt, (n, 3)),

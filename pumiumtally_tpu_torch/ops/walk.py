@@ -255,7 +255,7 @@ def walk_plain(
 
 
 def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
-               max_iters, s_init):
+               max_iters, s_init, counts):
     dev, dt = x.device, x.dtype
     n, ne = x.shape[0], mesh.nelems
     if mesh.two_tier:
@@ -278,33 +278,34 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
         ("weight", weight, dt, (n,)),
         ("s_init", s_init, dt, (n,)),
         ("flux", flux if tally else None, dt, (ne,)),
+        ("counts", counts, torch.int32, (1,)),
     ])
-    # The kernel reads each 32 B select row as two 16 B words.
-    if mesh.two_tier and mesh.walk_table_lo.data_ptr() % 16:
-        raise ValueError("walk: walk_table_lo must start on a 16-byte "
-                         "boundary")
+    # The kernel reads the packed row or the select row in 16-byte words.
+    kernels.check_aligned("walk", [tables[0][:2]])
     x_out = torch.empty((n, 3), dtype=dt, device=dev)
     elem_out = torch.empty((n,), dtype=torch.int32, device=dev)
     done = torch.empty((n,), dtype=torch.bool, device=dev)
     exited = torch.empty((n,), dtype=torch.bool, device=dev)
     s = torch.empty((n,), dtype=dt, device=dev)
-    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    # iters and the kernel's particle counter, zeroed in one fill.
+    scratch = torch.zeros((2,), dtype=torch.int32, device=dev)
     p = kernels.ptr
     kernels.launch(
         entry, dt, dev, *(p(t) for _, t, _, _ in tables), p(x), p(elem),
         p(dest), p(in_flight), p(weight), p(s_init),
         p(flux if tally else None),
-        p(x_out), p(elem_out), p(done), p(exited), p(s), p(iters), n,
-        float(tol), int(max_iters), int(bool(tally)),
+        p(x_out), p(elem_out), p(done), p(exited), p(s), p(scratch),
+        p(scratch[1:]), p(counts), n, float(tol), int(max_iters),
+        int(bool(tally)),
     )
     return WalkResult(x=x_out, elem=elem_out, done=done, exited=exited,
-                      flux=flux, iters=iters, s=s)
+                      flux=flux, iters=scratch[0], s=s)
 
 
 def walk(
     mesh: TetMesh, x, elem, dest, in_flight, weight, flux, *,
     tally: bool, tol: float, max_iters: int, s_init=None,
-    table_dtype: Optional[str] = None,
+    table_dtype: Optional[str] = None, counts=None,
 ) -> WalkResult:
     """Walk every particle from ``x`` (inside ``elem``) toward ``dest``.
 
@@ -321,9 +322,14 @@ def walk(
     planes.
 
     CUDA tensors launch kernel W0 (its two-tier variant on a two-tier
-    mesh); CPU tensors run ``walk_plain``."""
+    mesh); CPU tensors run ``walk_plain``. ``counts`` (CUDA only: an
+    int32 [1] tensor) gets the number of particles the kernel walked
+    added to it."""
     if tally and flux is None:
         raise ValueError("a tallying walk needs a flux tensor")
+    if counts is not None and not x.is_cuda:
+        raise ValueError("walk: counts are counted by the CUDA kernel; the "
+                         "plain version has no schedule")
     if table_dtype is not None:
         lo_select = resolve_table_dtype(table_dtype) == "bfloat16"
         if lo_select and not mesh.two_tier:
@@ -337,7 +343,7 @@ def walk(
     if x.is_cuda:
         return _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux,
                           tally=tally, tol=tol, max_iters=max_iters,
-                          s_init=s_init)
+                          s_init=s_init, counts=counts)
     if x.device.type != "cpu":
         raise ValueError(f"walk runs on CUDA or CPU tensors, not {x.device}")
     return walk_plain(mesh, x, elem, dest, in_flight, weight, flux,

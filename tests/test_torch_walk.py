@@ -9,14 +9,22 @@ coordinate s to 1e-12 absolute (the JAX walk forms the projections with
 an einsum, the port column by column); flux to rtol 1e-10 (another
 addition order); the oracle to 1e-8 (the reference's tolerance)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from pumiumtally_tpu.mesh.box import build_box as jax_build_box
 from pumiumtally_tpu.ops.walk import walk as jax_walk
-from pumiumtally_tpu_torch import PumiTally, TallyConfig, build_box, convert
-from pumiumtally_tpu_torch.ops.walk import walk, walk_plain
+from pumiumtally_tpu_torch import (
+    PumiTally,
+    TallyConfig,
+    build_box,
+    convert,
+    kernels,
+)
+from pumiumtally_tpu_torch.ops.walk import _walk_cuda, walk, walk_plain
 
 F64 = torch.float64
 TOL = 1e-8
@@ -301,3 +309,53 @@ def test_non_finite_inputs_rejected_before_staging():
     big[2, 0] = 1e300  # finite in f64, inf after the f32 cast
     with pytest.raises(ValueError, match="destinations"):
         t32.MoveToNextLocation(None, _flat(big))
+
+
+def _unaligned(t):
+    """A copy of ``t`` whose data starts 4 bytes (8 for float64) past an
+    allocation boundary (allocations are at least 16-byte aligned)."""
+    off = max(4, t.element_size())
+    buf = torch.empty(t.numel() * t.element_size() + off, dtype=torch.uint8)
+    view = buf[off:].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def test_check_aligned_refuses_a_view_offset_by_4_bytes():
+    table = torch.zeros((6, 20), dtype=torch.float32)
+    kernels.check_aligned("walk", [("walk_table", table), ("none", None)])
+    off = _unaligned(table)
+    assert off.data_ptr() % 16 == 4 and torch.equal(off, table)
+    with pytest.raises(ValueError, match="walk_table must start on a "
+                                         "16-byte boundary"):
+        kernels.check_aligned("walk", [("walk_table", off)])
+
+
+@pytest.mark.parametrize("two_tier", [False, True])
+def test_walk_wrapper_refuses_unaligned_tables(two_tier):
+    """W0's wrapper checks the tables it reads in 16-byte words (the
+    packed row, or the select row) before anything is launched."""
+    _, mesh, d = _workload(seed=6, n=8)
+    if two_tier:
+        mesh = mesh.with_lowp_tables()
+        mesh = dataclasses.replace(
+            mesh, walk_table_lo=_unaligned(mesh.walk_table_lo))
+        name = "walk_table_lo"
+    else:
+        mesh = dataclasses.replace(
+            mesh, walk_table=_unaligned(mesh.walk_table))
+        name = "walk_table"
+    t = {k: torch.tensor(v) for k, v in d.items()}
+    with pytest.raises(ValueError, match=f"{name} must start on a 16-byte"):
+        _walk_cuda(mesh, t["x"], t["elem"], t["dest"], t["fly"], t["w"],
+                   torch.zeros(mesh.nelems, dtype=F64), tally=True, tol=TOL,
+                   max_iters=4096, s_init=None, counts=None)
+
+
+def test_walk_counts_are_the_kernels_own():
+    _, mesh, d = _workload(seed=7, n=8)
+    t = {k: torch.tensor(v) for k, v in d.items()}
+    with pytest.raises(ValueError, match="counts are counted by the CUDA"):
+        walk(mesh, t["x"], t["elem"], t["dest"], t["fly"], t["w"], None,
+             tally=False, tol=TOL, max_iters=4096,
+             counts=torch.zeros((1,), dtype=torch.int32))
