@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --w0-times   # W0's times alone, no checks
+    python3 chip_smoke.py --w0-times      # W0's times alone, no checks
+    python3 chip_smoke.py --w3-g1-times   # W3's and G1's, no checks
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -40,16 +41,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    global rows, so the three per-CUDA-block regimes all run.
 7. W3 (csrc/resident_walk.cu) through its experiment entry point
    (``experiments/r3_vmem.py`` bench: the L sweep of
-   tools/exp_r3_vmem.py with W3 and W0, launches counted over it), then
-   at each L = 750, 1,296, 2,058, 3,072 (500,000 particles, the tool's
-   trajectory) against ``walk_vmem_plain``, with W0's time on the same
-   input.
+   tools/exp_r3_vmem.py with W3 and W0, launches counted over it), its
+   SASS summarised (``cuobjdump -sass``: global and shared loads,
+   atomics; one instance per regime, the shared-adjacency one with one
+   global load fewer), then at each L = 750, 1,296, 2,058, 3,072
+   (neighbour ids in shared memory) and 3,360 (ids read from global
+   memory; each cell's L and regime asserted, both regimes run),
+   500,000 particles on the tool's trajectory, against
+   ``walk_vmem_plain``: the kernel's count of walked particles must be
+   all of them, and its time stands beside the entry point's time a
+   call, W0's on the same input, the SM cycles per crossing and the
+   lanes' busy share (crossings / (32 x warp steps)).
 8. G1 (csrc/row_gather.cu) through its experiment entry point
    (``experiments/pallas_gather.py``, both probes, launches counted over
    them), then both fill modes against ``gather_plain`` at the probes'
-   shape, on in-range indices and on wrapped and out-of-range ones,
-   with ``torch.index_select`` as the yardstick (nothing in the port
-   calls it).
+   shape (8,192 rows of [48000,32] f32) and at 500,000 rows, on in-range
+   indices and on wrapped and out-of-range ones, with its bound,
+   ``torch.index_select`` as the yardstick (nothing in the port calls
+   it), an empty kernel, a fill of the output and a contiguous device
+   copy of as many rows. The bound counts each distinct table row the
+   indices name once.
 9. Oracle: the reference's 6-tet unit-cube oracle in float64 through
    both facades on the card, held at 1e-8.
 10. Main paths at bench.py's size (48,000 tets, 500,000 particles):
@@ -91,6 +102,16 @@ the port has (``PumiTally``, the ``walk`` wrapper, the plain steps), so
 a copy of this file in another checkout times that checkout: an A/B of
 two trees runs each tree's copy in turn.
 
+``--w3-g1-times`` runs phases 1-2, prints the SASS summaries of W3 and
+G1, then one JSON line a cell: W3 at each L of phase 7 (kernel ms over
+four profiled passes, the entry point's ms a call, W0's ms, crossings,
+SM cycles per crossing, the lanes' busy share where the checkout's
+``walk_vmem`` takes ``counts``, the bound), G1 at both row counts in
+both fill modes (microseconds over four passes, the bound,
+``index_select``, the empty kernel, the output fill and the copy). It calls only ``r3_vmem.setup``, ``r3_vmem.walk_vmem``, ``walk``
+and ``pallas_gather.gather``, so a copy times another checkout as
+``--w0-times`` does.
+
 It imports nothing of JAX; it needs one CUDA device and exits non-zero
 without one.
 """
@@ -99,7 +120,10 @@ from __future__ import annotations
 
 import functools
 import json
+import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -122,6 +146,13 @@ FLUX_RTOL = 1e-4
 TIE_BAND = 1e-2  # two-tier vs float32 flux, L1 over total track length
 BF16 = dict(walk_table_dtype="bfloat16")
 K3_N = 500_000  # tools/exp_r3_vmem.py bench's default N
+# W3's boxes (cells a side): the tool's sweep, L = 750, 1,296, 2,058 and
+# 3,072 (neighbour ids in shared memory), and L = 3,360 (ids read from
+# global memory).
+W3_CELLS = ((5, 5, 5), (6, 6, 6), (7, 7, 7), (8, 8, 8), (8, 7, 10))
+W3_REGIMES = {(8, 7, 10): "global adjacency"}  # else "shared adjacency"
+# G1's gathered rows: the probes' T, and the main path's particle count.
+G1_ROWS = (8192, 500_000)
 # The 3x3 pincell assembly (BASELINE.json configs[0-1] geometry at
 # assembly scale): FLAGSHIP_PINCELL cells, 60 layers -> 984,960 tets.
 LATTICE, LATTICE_NZ = (3, 3), 60
@@ -241,6 +272,33 @@ def bound_entry(nbytes: float, crossings: int,
     t_ops = crossings * flops_per_crossing / flops * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def sass_counts(name: str) -> dict:
+    """For each kernel of the named library, from ``cuobjdump -sass``:
+    its global loads (``LDG``), shared loads (``LDS``), and atomic and
+    bulk-copy instructions by opcode. Empty where the toolkit has no
+    cuobjdump."""
+    from pumiumtally_tpu_torch import kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(kernels._library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts = {}
+    for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)",
+                               sass, re.S):
+        ops = re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                         body)
+        c = {"LDG": sum(op.startswith("LDG") for op in ops),
+             "LDS": sum(op.startswith("LDS") for op in ops)}
+        for op in ops:
+            if op.startswith(("ATOM", "RED", "UBLKCP", "SYNCS")):
+                c[op] = c.get(op, 0) + 1
+        counts[fn] = c
+    return counts
 
 
 def nvidia_smi(query: str) -> str:
@@ -553,26 +611,140 @@ def phase_block_walk(kind: str, mesh, pts, bound, shared: bool = True):
             "max_abs_err": err, **timed[0], "library_ms": None}, regimes
 
 
+def w3_setup(dims: tuple):
+    """The tool's W3 inputs (``r3_vmem.setup``: K3_N particles localized
+    in a float32 unit box, destinations one normal step away) on a box
+    of nx x ny x nz cells. ``setup`` builds cubes; a box of other sides
+    goes through the same recipe with its ``build_box`` call widened."""
+    from unittest import mock
+
+    from pumiumtally_tpu_torch.experiments import r3_vmem
+
+    if len(set(dims)) == 1:
+        inputs = r3_vmem.setup(dims[0], K3_N, seed=0)
+    else:
+        box = r3_vmem.build_box
+        with mock.patch.object(r3_vmem, "build_box",
+                               lambda *a, **kw: box(1, 1, 1, *dims, **kw)):
+            inputs = r3_vmem.setup(dims[0], K3_N, seed=0)
+    L = inputs[0].nelems
+    if L != 6 * math.prod(dims):
+        raise AssertionError(f"W3 inputs: a box of {dims} cells gave {L} "
+                             f"tets, not {6 * math.prod(dims)}")
+    return inputs
+
+
+def w3_regime(L: int) -> str:
+    """W3's regime at L in this checkout: where its neighbour ids live
+    (a checkout without the shared-adjacency regime reads them from
+    global memory at every L)."""
+    from pumiumtally_tpu_torch.experiments import r3_vmem
+
+    shared = getattr(r3_vmem, "w3_shared_adj", lambda L: False)(L)
+    return "shared adjacency" if shared else "global adjacency"
+
+
+def w3_times(inputs, passes: int) -> dict:
+    """W3's kernel time on one cell over ``passes`` profiled passes of 5
+    calls, W0's on the same input, the crossings the input needs and the
+    SM cycles each costs at the card's maximum clock, the bytes bound,
+    and, where this checkout's ``walk_vmem`` takes ``counts``, the
+    particles walked, the warp steps and the lanes' busy share
+    (crossings / (32 x warp steps)). ``entry_ms`` is the entry point's
+    own time per call (CUDA events around 10 back-to-back calls of
+    ``walk_vmem``, as ``r3_vmem.bench`` times it): the kernel plus what
+    the wrapper does around it. It calls only ``walk_vmem`` and ``walk``,
+    as every checkout of the port has them."""
+    import inspect
+
+    import torch
+
+    from pumiumtally_tpu_torch.experiments import r3_vmem
+    from pumiumtally_tpu_torch.ops.walk import walk
+
+    mesh, x, elem, dest = inputs
+    L, n, dev = mesh.nelems, x.shape[0], x.device
+    fly = torch.ones((n,), dtype=torch.int8, device=dev)
+    w = torch.ones((n,), dtype=torch.float32, device=dev)
+    kw = dict(tol=r3_vmem.TOL, max_iters=r3_vmem.MAX_ITERS)
+
+    def run(fn, **extra):
+        flux = torch.zeros((L,), dtype=torch.float32, device=dev)
+        return fn(mesh, x, elem, dest, fly, w, flux, **kw, **extra)
+
+    ms = [device_us(lambda: run(r3_vmem.walk_vmem), 5, "resident_walk") / 1e3
+          for _ in range(passes)]
+    entry_ms = cuda_ms(lambda: run(r3_vmem.walk_vmem), 10)
+    w0_ms = device_us(lambda: run(lambda *a, **k: walk(*a, tally=True, **k)),
+                      5, "walk_kernel<") / 1e3
+    crossings = count_crossings(packed_step(mesh.walk_table), x, elem, dest,
+                                torch.ones_like(fly, dtype=torch.bool), 0,
+                                r3_vmem.TOL)
+    sms, hz = sm_clock()
+    # Per particle as W0 (x, dest, elem, fly, w in; x, elem, done,
+    # exited, s out); per element the plane row, the ids, flux in and out.
+    nbytes = n * (12 + 12 + 4 + 1 + 4 + 12 + 4 + 1 + 1 + 4) + L * (64 + 16
+                                                                    + 8)
+    out = {"L": L, "regime": w3_regime(L), "n": n, "ms": ms,
+           "entry_ms": entry_ms, "w0_ms": w0_ms,
+           "crossings": crossings,
+           "sm_cycles_per_crossing": [t * 1e-3 * sms * hz / crossings
+                                      for t in ms],
+           "walked": None, "warp_steps": None, "busy_share": None,
+           **bound_entry(nbytes, crossings)}
+    if "counts" in inspect.signature(r3_vmem.walk_vmem).parameters:
+        counts = torch.zeros((2,), dtype=torch.int32, device=dev)
+        run(r3_vmem.walk_vmem, counts=counts)
+        walked, steps = (int(c) for c in counts.tolist())
+        out.update(walked=walked, warp_steps=steps,
+                   busy_share=crossings / (32 * steps) if steps else None)
+    return out
+
+
 def phase_w3() -> dict:
     """W3 (csrc/resident_walk.cu) through its experiment entry point
     ``r3_vmem.bench`` (the tool's L sweep with W3 and W0), launches
-    counted over that run; then, at each L, W3 against
-    ``walk_vmem_plain`` on the tool's inputs and W0's time on them."""
+    counted over that run; then, at each W3_CELLS box, W3 against
+    ``walk_vmem_plain`` on the tool's inputs (ids, masks, x and s equal,
+    flux at rtol 1e-4, walked == n), its time, busy share and SM cycles
+    per crossing, and W0's time on the same input."""
     import torch
 
     from pumiumtally_tpu_torch import kernels
     from pumiumtally_tpu_torch.experiments import r3_vmem
-    from pumiumtally_tpu_torch.ops.walk import walk
 
     kernels.reset_launch_counts()
     r3_vmem.bench(K3_N)
     launches = kernels.launch_counts["resident_walk"]
     if launches == 0:
         raise AssertionError("W3: r3_vmem.bench never launched it")
-    entry = None
-    for divs in r3_vmem.BENCH_DIVS:
-        mesh, x, elem, dest = r3_vmem.setup(divs, K3_N, seed=0)
+    sass = sass_counts("resident_walk")
+    print(f"# W3 SASS: {sass}")
+    if not sass:
+        raise AssertionError("W3: no cuobjdump in the CUDA toolkit; the "
+                             "global loads of its instances go unchecked")
+    # The two regimes' instances (template kSharedAdj true: ILb1E, false:
+    # ILb0E) differ by the global read of a neighbour id: the
+    # shared-adjacency one reads no mesh data from global memory (its
+    # loads are the staging copy's and a refilled particle's inputs).
+    ldg = {fn: c["LDG"] for fn, c in sass.items()}
+    shared = [n for fn, n in ldg.items() if "ILb1E" in fn]
+    glob = [n for fn, n in ldg.items() if "ILb0E" in fn]
+    if len(shared) != 1 or len(glob) != 1:
+        raise AssertionError(f"W3: global loads per instance {ldg}; "
+                             "expected one instance of each regime")
+    if glob[0] - shared[0] != 1:
+        raise AssertionError(f"W3: global loads per instance {ldg}; the "
+                             "shared-adjacency one should read one fewer")
+    entry, regimes = None, set()
+    for dims in W3_CELLS:
+        mesh, x, elem, dest = inputs = w3_setup(dims)
         L, dev = mesh.nelems, x.device
+        regime = W3_REGIMES.get(dims, "shared adjacency")
+        if w3_regime(L) != regime:
+            raise AssertionError(f"W3 (L={L}): regime {w3_regime(L)!r}, "
+                                 f"expected {regime!r}")
+        regimes.add(regime)
         fly = torch.ones((K3_N,), dtype=torch.int8, device=dev)
         w = torch.ones((K3_N,), dtype=torch.float32, device=dev)
         kw = dict(tol=r3_vmem.TOL, max_iters=r3_vmem.MAX_ITERS)
@@ -586,33 +758,31 @@ def phase_w3() -> dict:
         for f in ("elem", "done", "exited", "x", "s"):
             check_equal(f"W3 (L={L}) {f}", getattr(rk, f), getattr(rp, f))
         err_f = check_flux(f"W3 (L={L})", rk.flux, rp.flux)
-        # Kernel time from the profiler: W3's wrapper can take longer on
-        # the host than the kernel on the card (events per call beside).
-        ms = device_us(lambda: run(r3_vmem.walk_vmem), 5,
-                       "resident_walk_kernel") / 1e3
-        call_ms = cuda_ms(lambda: run(r3_vmem.walk_vmem))
+        t = w3_times(inputs, passes=1)
+        if t["walked"] != K3_N:
+            raise AssertionError(f"W3 (L={L}): the kernel walked "
+                                 f"{t['walked']} particles, not {K3_N}")
+        ms = t["ms"][0]
         plain_ms = wall_ms(lambda: run(r3_vmem.walk_vmem_plain))
-        w0_ms = device_us(lambda: run(lambda *a, **k: walk(*a, tally=True,
-                                                            **k)),
-                          5, "walk_kernel<") / 1e3
-        crossings = count_crossings(packed_step(mesh.walk_table), x, elem,
-                                    dest, torch.ones_like(fly, dtype=bool),
-                                    0, r3_vmem.TOL)
-        per_particle = 12 + 12 + 4 + 1 + 4 + 12 + 4 + 1 + 1 + 4  # as W0
-        # Plane row 64 B, adjacency 16 B, flux read and written.
-        nbytes = K3_N * per_particle + L * (64 + 16 + 2 * 4)
-        bound = bound_entry(nbytes, crossings)
-        print(f"# W3 (L={L}, N={K3_N}, table resident in shared memory): "
-              f"{ms:.3f} ms kernel (profiler; {call_ms:.3f} ms per call "
-              f"with events), {plain_ms:.3f} ms plain, W0 {w0_ms:.3f} ms "
-              f"(profiler) on the same input; {crossings} crossings; x, s "
-              f"bitwise; flux max abs diff {err_f:.3e}; bound {bound}")
-        entry = {"name": f"W3 resident_walk (L={L})", "route": "cuda",
-                 "source": "pumiumtally_tpu_torch/csrc/resident_walk.cu",
-                 "replaces": "tools/exp_r3_vmem.py:172",
-                 "launches": launches, "max_abs_err": err_f, "ms": ms,
-                 "plain_ms": plain_ms, **bound, "library_ms": None}
-    return entry  # the tool's largest mesh, L = 3,072
+        bound = {k: t[k] for k in ("bound_ms", "bound_by")}
+        print(f"# W3 (L={L}, {t['regime']}, N={K3_N}): {ms:.4f} ms kernel "
+              f"(profiler), {t['entry_ms']:.4f} ms a walk_vmem call (events), "
+              f"{plain_ms:.3f} ms plain, W0 {t['w0_ms']:.4f} ms "
+              f"(profiler) on the same input; {t['crossings']} crossings, "
+              f"{t['sm_cycles_per_crossing'][0]:.2f} SM cycles per "
+              f"crossing, lanes busy {t['busy_share']:.3f} "
+              f"({t['warp_steps']} warp steps); walked {t['walked']} of "
+              f"{K3_N}; x, s bitwise; flux max abs diff {err_f:.3e}; bound "
+              f"{bound}")
+        if L == 6 * max(r3_vmem.BENCH_DIVS) ** 3:  # the tool's largest mesh
+            entry = {"name": f"W3 resident_walk (L={L})", "route": "cuda",
+                     "source": "pumiumtally_tpu_torch/csrc/resident_walk.cu",
+                     "replaces": "tools/exp_r3_vmem.py:172",
+                     "launches": launches, "max_abs_err": err_f, "ms": ms,
+                     "plain_ms": plain_ms, **bound, "library_ms": None}
+    if regimes != set(W3_REGIMES.values()) | {"shared adjacency"}:
+        raise AssertionError(f"W3: the cells ran the regimes {regimes}")
+    return entry
 
 
 def queued_ms(fn, reps: int) -> float:
@@ -677,13 +847,66 @@ def same_bits(what: str, got, want) -> None:
                 want[~nan].view(torch.int32))
 
 
+def g1_inputs(rows: int):
+    """The probes' [E,W] table and ``rows`` in-range indices: the probes'
+    own input at their T, else indices from seed 2."""
+    import torch
+
+    from pumiumtally_tpu_torch.experiments import pallas_gather as pg
+
+    tab, idx = pg.probe_inputs("cuda")
+    if rows != pg.T:
+        idx = torch.as_tensor(np.random.default_rng(2).integers(
+            0, pg.E, rows).astype(np.int32), device=tab.device)
+    return tab, idx
+
+
+def g1_times(tab, idx, fill: float, passes: int) -> dict:
+    """G1's kernel time (microseconds, ``passes`` profiled passes) at
+    this input beside its bytes bound, ``torch.index_select``'s time
+    (the yardstick; nothing in the port calls it) and three yardsticks:
+    an empty kernel (``torch.cuda._sleep(0)``, one thread reading the
+    clock once), a fill of the [T, W] output (the gather's writes alone)
+    and a contiguous device copy of T rows (the gather's bytes at the
+    probes' shape; at T above the table's E rows it reads T rows where
+    the gather reads at most E from memory, so it is no floor there).
+    The bound counts each index read once, each distinct table row the
+    indices name read once, and each output row written once. It calls
+    only ``pallas_gather.gather``, as every checkout of the port has it."""
+    import torch
+
+    from pumiumtally_tpu_torch.experiments import pallas_gather as pg
+
+    rows, width = idx.shape[0], tab.shape[1]
+    reps = 100 if rows <= pg.T else 10
+    us = [device_us(lambda: pg.gather(tab, idx, fill), reps, "row_gather")
+          for _ in range(passes)]
+    lib_us = device_us(lambda: torch.index_select(tab, 0, idx), reps)
+    empty_us = device_us(lambda: torch.cuda._sleep(0), reps, "spin")
+    # The copy's source: the table's first rows, or (more rows than the
+    # table has) a contiguous [rows, W] tensor.
+    src = (tab[:rows] if rows <= tab.shape[0]
+           else torch.randn((rows, width), device=tab.device))
+    dst = torch.empty_like(src)
+    copy_us = device_us(lambda: dst.copy_(src), reps, "Memcpy")
+    out = torch.empty((rows, width), dtype=tab.dtype, device=tab.device)
+    fill_us = device_us(lambda: out.fill_(1.0), reps, "Fill")
+    E = tab.shape[0]
+    distinct = int(torch.unique(torch.where(idx < 0, idx + E, idx)).numel())
+    nbytes = rows * 4 + (distinct + rows) * width * 4
+    return {"E": E, "W": width, "T": rows, "distinct_rows": distinct,
+            "us": us, "bound_us": bound_entry(nbytes, 0)["bound_ms"] * 1e3,
+            "index_select_us": lib_us, "empty_kernel_us": empty_us,
+            "fill_us": fill_us, "copy_us": copy_us}
+
+
 def phase_g1() -> list:
     """G1 (csrc/row_gather.cu) through its experiment entry point, the
     probe ``pallas_gather.main`` in both fill modes (launches counted
-    over those runs); then each mode against ``gather_plain`` bitwise on
-    the probe's input and on one with wrapped and out-of-range indices,
-    and its time beside ``torch.index_select``'s (the yardstick; nothing
-    in the port calls it)."""
+    over those runs); then, at each of G1_ROWS, each mode against
+    ``gather_plain`` bitwise on in-range indices and on wrapped and
+    out-of-range ones, and its time (``g1_times``) beside its bound,
+    ``torch.index_select`` and the two floors."""
     import torch
 
     from pumiumtally_tpu_torch import kernels
@@ -694,48 +917,45 @@ def phase_g1() -> list:
         if not pg.main(variant)["ok"]:
             raise AssertionError(f"G1 {variant}: the probe's check failed")
     counts = dict(kernels.launch_counts)
-    tab, idx = pg.probe_inputs("cuda")
-    rng = np.random.default_rng(1)
-    wild = rng.integers(-2 * pg.E, 2 * pg.E, pg.T)
-    wild[:6] = [0, pg.E - 1, -1, -pg.E, pg.E, -pg.E - 1]
-    wild = torch.as_tensor(wild.astype(np.int32), device=tab.device)
-    nbytes = pg.T * 4 + 2 * pg.T * pg.W * 4  # idx, rows read, rows written
     entries = []
-    for variant, (tool, line) in (("take", ("exp_pallas_gather.py", 14)),
-                                  ("take_along_axis",
-                                   ("exp_pallas_gather2.py", 15))):
-        fill = pg.VARIANTS[variant][1]
-        for ix in (idx, wild):
-            same_bits(f"G1 {variant}", pg.gather(tab, ix, fill),
-                      pg.gather_plain(tab, ix, fill))
-        # Kernel times from the profiler: G1's ctypes wrapper takes
-        # longer on the host than the kernel on the card, so events
-        # around back-to-back calls (printed beside) time the launches.
-        ms = device_us(lambda: pg.gather(tab, idx, fill), 100,
-                       "row_gather_kernel") / 1e3
-        lib_ms = device_us(lambda: torch.index_select(tab, 0, idx)) / 1e3
-        call_ms = cuda_ms(lambda: pg.gather(tab, idx, fill), reps=100)
-        lib_call_ms = cuda_ms(lambda: torch.index_select(tab, 0, idx),
-                              reps=100)
-        plain_ms = wall_ms(lambda: pg.gather_plain(tab, idx, fill))
-        entry_name = f"row_gather_{variant}"
-        bound = bound_entry(nbytes, 0)
-        print(f"# G1 {variant} ([{pg.E},{pg.W}] f32, {pg.T} rows): "
-              f"{ms * 1e3:.3f} us kernel, torch.index_select "
-              f"{lib_ms * 1e3:.3f} us (profiler); per call with events "
-              f"over 100 back-to-back calls {call_ms * 1e3:.3f} us and "
-              f"{lib_call_ms * 1e3:.3f} us; {plain_ms:.3f} ms plain; "
-              f"bitwise incl. wrapped and out-of-range indices; bound "
-              f"{bound}")
-        entries.append({
-            "name": f"G1 {entry_name}", "route": "cuda",
-            "source": "pumiumtally_tpu_torch/csrc/row_gather.cu",
-            "replaces": f"tools/{tool}:{line}",
-            "launches": counts[entry_name], "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain_ms, **bound, "library_ms": lib_ms})
-        if counts[entry_name] == 0:
-            raise AssertionError(f"G1: the probe never launched "
-                                 f"{entry_name}")
+    for rows in G1_ROWS:
+        tab, idx = g1_inputs(rows)
+        rng = np.random.default_rng(1)
+        wild = rng.integers(-2 * pg.E, 2 * pg.E, rows)
+        wild[:6] = [0, pg.E - 1, -1, -pg.E, pg.E, -pg.E - 1]
+        wild = torch.as_tensor(wild.astype(np.int32), device=tab.device)
+        for variant, (tool, line) in (("take", ("exp_pallas_gather.py", 14)),
+                                      ("take_along_axis",
+                                       ("exp_pallas_gather2.py", 15))):
+            fill = pg.VARIANTS[variant][1]
+            for ix in (idx, wild):
+                same_bits(f"G1 {variant} (T={rows})",
+                          pg.gather(tab, ix, fill),
+                          pg.gather_plain(tab, ix, fill))
+            t = g1_times(tab, idx, fill, passes=1)
+            plain_ms = wall_ms(lambda: pg.gather_plain(tab, idx, fill))
+            entry_name = f"row_gather_{variant}"
+            print(f"# G1 {variant} ([{pg.E},{pg.W}] f32, {rows} rows): "
+                  f"{t['us'][0]:.3f} us kernel, bound {t['bound_us']:.3f} us "
+                  f"(bytes), torch.index_select {t['index_select_us']:.3f} "
+                  f"us, empty kernel {t['empty_kernel_us']:.3f} us, "
+                  f"output fill {t['fill_us']:.3f} us, contiguous copy of "
+                  f"T rows {t['copy_us']:.3f} us (profiler); "
+                  f"{plain_ms:.3f} ms plain; bitwise incl. wrapped and "
+                  f"out-of-range indices")
+            if rows != pg.T:
+                continue
+            if counts[entry_name] == 0:
+                raise AssertionError(f"G1: the probe never launched "
+                                     f"{entry_name}")
+            entries.append({
+                "name": f"G1 {entry_name}", "route": "cuda",
+                "source": "pumiumtally_tpu_torch/csrc/row_gather.cu",
+                "replaces": f"tools/{tool}:{line}",
+                "launches": counts[entry_name], "max_abs_err": 0.0,
+                "ms": t["us"][0] / 1e3, "plain_ms": plain_ms,
+                "bound_ms": t["bound_us"] / 1e3, "bound_by": "bytes",
+                "library_ms": t["index_select_us"] / 1e3})
     return entries
 
 
@@ -1061,5 +1281,28 @@ def main_w0_times() -> int:
     return 0
 
 
+def main_w3_g1_times() -> int:
+    from pumiumtally_tpu_torch.experiments import pallas_gather as pg
+
+    phase_device()
+    phase_build()
+    sms, hz = sm_clock()
+    print(f"# {sms} SMs at up to {hz / 1e9:.3f} GHz; package "
+          f"{sys.modules['pumiumtally_tpu_torch'].__file__}")
+    for name in ("resident_walk", "row_gather"):
+        print(f"# {name} SASS: {sass_counts(name) or 'cuobjdump not found'}")
+    for dims in W3_CELLS:
+        print(json.dumps({"kernel": "W3", "cells": dims,
+                          **w3_times(w3_setup(dims), passes=4)}))
+    for rows in G1_ROWS:
+        tab, idx = g1_inputs(rows)
+        for variant, (_, fill) in pg.VARIANTS.items():
+            print(json.dumps({"kernel": "G1", "entry": variant,
+                              **g1_times(tab, idx, fill, passes=4)}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main_w0_times() if "--w0-times" in sys.argv[1:] else main())
+    modes = {"--w0-times": main_w0_times, "--w3-g1-times": main_w3_g1_times}
+    sys.exit(next((fn for flag, fn in modes.items()
+                   if flag in sys.argv[1:]), main)())

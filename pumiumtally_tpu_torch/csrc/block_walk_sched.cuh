@@ -22,9 +22,9 @@
 //   [32, +round16(table))   the partition block's table (when it stages)
 //   [.., +round16(partial)) the [L] flux partial (when it stages)
 //   [.., +list_cap*4)       the work list of active slot ids
-// list_cap = min(SCHED_LIST_MAX, what is left of SMEM_BYTES_PER_BLOCK,
-// rounded down to whole chunks); a share longer than the list is
-// processed in batches of list_cap / SCHED_THREADS chunks.
+// list_cap = min(SCHED_LIST_MAX, what is left of SMEM_BYTES_PER_BLOCK
+// (occupancy.cuh), rounded down to whole chunks); a share longer than
+// the list is processed in batches of list_cap / SCHED_THREADS chunks.
 // ops/vmem_walk.py (sched_smem_layout, sched_blocks_per_part,
 // sched_chunks, sched_batches) holds the same arithmetic for the CPU
 // tests; chip_smoke.py checks on the card, from the counts below, that
@@ -40,8 +40,6 @@
 #define SCHED_THREADS 512
 #define SCHED_LIST_MAX 4096
 #define SCHED_HEADER_BYTES 32
-// Dynamic shared memory one CUDA block may use on an H100 (227 KB).
-#define SMEM_BYTES_PER_BLOCK 232448
 
 // The optional counts[SCHED_COUNTS] output: each CUDA block adds one to
 // the count of its regime (no active slot, rows read from global memory,

@@ -1,14 +1,17 @@
 // The size of a persistent grid: how many CUDA blocks of a kernel the
 // current device keeps resident at once (SMs x resident blocks per SM,
-// from the occupancy query). Shared by W0 (walk.cu), W3
-// (resident_walk.cu) and the block walks' schedule
-// (block_walk_sched.cuh).
+// from the occupancy query), and the shared memory one block may ask
+// for. Shared by W0 (walk.cu), W3 (resident_walk.cu) and the block
+// walks' schedule (block_walk_sched.cuh).
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <mutex>
+
+// Dynamic shared memory one CUDA block may use on an H100 (227 KB).
+#define SMEM_BYTES_PER_BLOCK 232448
 
 // The CUDA blocks of `threads` threads and `smem` bytes of dynamic shared
 // memory that `kernel` keeps resident on the current device. The SM count

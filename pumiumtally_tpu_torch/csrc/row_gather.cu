@@ -11,14 +11,30 @@
 // Index rule (both): an index in [-E, 0) wraps to idx + E; one outside
 // [-E, E) gives the fill value for the whole row.
 //
-// What bounds it on an H100: bytes. It reads the T indices and T rows
-// and writes T rows (T*(4 + 2*W*4) bytes, 2.1 MB at the probes' shape);
-// there is no arithmetic to speak of. The probes pin the table in VMEM;
-// here the table stays in global memory and the rows come through L2.
+// What bounds it on an H100: bytes. It reads the T indices and each
+// distinct row they name once, and writes T rows (T*4 + (distinct +
+// T)*W*4 bytes: 2.0 MB at the probes' shape, 72 MB at T = 500,000, where
+// all 48,000 rows of the 6.1 MB table are named); there is no
+// arithmetic to speak of. The probes pin the table in VMEM; here the
+// table stays in global memory and repeated rows come from L2. At the
+// probes' shape the gather is one short wave whose time is the card's
+// fixed cost of a kernel (an empty one takes ~0.89 us) and two
+// dependent round trips, an index load then a row load, before the
+// store: ~1.57 us, where a contiguous copy of the same rows (one round
+// trip) takes ~1.26 us. At T = 500,000 rows it is bandwidth: ~29 us,
+// 1.36x the 21.5 us its bytes take at HBM's rate, where a fill of the
+// 64 MB output alone takes ~20 us.
 //
 // What the design does about it: one thread per 16 B of output (a W = 32
 // row is 8 float4), so neighbouring threads read and write neighbouring
-// 16 B words of a row and a warp moves four whole 128 B rows per access.
+// 16 B words of a row, a warp moves four whole 128 B rows per access,
+// and each of the probes' 2,048 warps waits on one short chain. Designs
+// that give a warp 32 rows (one coalesced index load handed out by
+// __shfl_sync, eight 16-byte row loads a lane in flight, a persistent
+// one-wave grid), with or without a cp.async.bulk copy of each row
+// through a shared tile, were 0.3-1.0 us slower at the probes' shape and
+// -3% to +12% at 500,000 rows; 32-bit index math was 2% slower at the
+// probes' shape (PERF.md).
 // Needs W % 4 == 0 and 16-byte aligned tables (the wrapper checks).
 
 #include <cuda_runtime.h>

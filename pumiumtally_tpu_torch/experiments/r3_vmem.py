@@ -5,11 +5,18 @@ plain PyTorch version beside it.
 The tool's Pallas kernel ``walk_vmem_pallas`` pins a small mesh's table
 in VMEM and runs the whole walk loop of a particle tile in one kernel,
 fetching rows and scattering the tally with one-hot MXU matmuls. W3
-keeps the mesh's 16 plane floats per tet in shared memory instead and
-reads rows by index; the winning face's neighbour comes from an int32
-adjacency table in global memory. The tool's other arm,
-``walk_onehot_jnp``, is XLA code (the MXU formulation, no Pallas
-kernel) and is not ported.
+keeps the mesh in shared memory instead, as an image this module builds
+(``resident_image``): the 16 plane floats of each tet, quad-major, and,
+up to ``w3_shared_adj_max_elems()`` elements (3,140), the four
+neighbour ids packed as 12-bit codes (``pack_ids``), so that a crossing
+reads no mesh data from global memory. Above that, up to
+``w3_max_elems()`` (3,418), the image holds the planes only and the
+kernel reads the winning face's neighbour from the int32 adjacency in
+global memory (``w3_shared_adj`` picks the regime from L). The image is
+built once per mesh and regime (``cached_image``), and its layout is
+worked out here only: the wrapper passes the kernel its byte count. The tool's
+other arm, ``walk_onehot_jnp``, is XLA code (the MXU formulation, no
+Pallas kernel) and is not ported.
 
 Contract (the tool's): every particle walks from ``x`` in ``elem`` to
 ``dest`` (done starts false), only flying ones tally
@@ -32,7 +39,8 @@ from __future__ import annotations
 
 import argparse
 import sys
-from typing import NamedTuple
+import weakref
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,10 +56,21 @@ TOL = 1e-6
 MAX_ITERS = 4096
 BENCH_DIVS = (5, 6, 7, 8)  # L = 750, 1296, 2058, 3072 (the tool's sweep)
 PLANE_WIDTH = 16  # 4 normals + 4 offsets per tet, the resident row
-# Dynamic shared memory a block may use on an H100, and what W3 keeps
-# per element: the 16 plane floats and one flux-partial float.
+# Dynamic shared memory a block may use on an H100, and W3's layout
+# (csrc/resident_walk.cu): a 16 B header, the image (64 B of planes an
+# element, then 6 B of packed ids in the shared-adjacency regime, padded
+# to 16 B), and a 4 B flux partial an element.
 SMEM_BYTES = 232_448
-SMEM_BYTES_PER_ELEM = (PLANE_WIDTH + 1) * 4
+SMEM_HEADER = 16
+PLANE_BYTES = PLANE_WIDTH * 4
+ID_BYTES = 6
+PARTIAL_BYTES = 4
+# A neighbour id in the image: 12 bits, the all-ones code for the
+# boundary (-1).
+ID_BITS = 12
+ID_BOUNDARY = (1 << ID_BITS) - 1
+# The kernel's optional counts, in order (CUDA only).
+W3_COUNTS = ("walked", "warp steps")
 
 
 class ResidentWalkResult(NamedTuple):
@@ -63,9 +82,40 @@ class ResidentWalkResult(NamedTuple):
     s: torch.Tensor  # [N] final ray coordinate along x -> dest
 
 
+def _round16(nbytes: int) -> int:
+    return (nbytes + 15) // 16 * 16
+
+
+def w3_image_bytes(L: int, shared_adj: bool) -> int:
+    """Bytes of W3's mesh image: the planes, then the packed ids."""
+    return PLANE_BYTES * L + (_round16(ID_BYTES * L) if shared_adj else 0)
+
+
+def w3_smem_bytes(L: int, shared_adj: bool) -> int:
+    """Dynamic shared memory W3 asks for at L elements in a regime."""
+    return SMEM_HEADER + w3_image_bytes(L, shared_adj) + PARTIAL_BYTES * L
+
+
 def w3_max_elems() -> int:
-    """The largest mesh W3 holds in shared memory: 3,418 elements."""
-    return SMEM_BYTES // SMEM_BYTES_PER_ELEM
+    """The largest mesh W3 holds in shared memory (planes and partial,
+    neighbours read from global memory): 3,418 elements."""
+    return (SMEM_BYTES - SMEM_HEADER) // (PLANE_BYTES + PARTIAL_BYTES)
+
+
+def w3_shared_adj_max_elems() -> int:
+    """The largest mesh whose neighbour ids W3 also holds in shared
+    memory: 3,140 elements."""
+    L = (SMEM_BYTES - SMEM_HEADER) // (PLANE_BYTES + ID_BYTES
+                                       + PARTIAL_BYTES)
+    while w3_smem_bytes(L, True) > SMEM_BYTES:
+        L -= 1
+    return L
+
+
+def w3_shared_adj(L: int) -> bool:
+    """W3's regime at L elements: True when the neighbour ids are staged
+    in shared memory, False when they are read from global memory."""
+    return L <= w3_shared_adj_max_elems()
 
 
 def resident_tables(mesh: TetMesh):
@@ -74,6 +124,62 @@ def resident_tables(mesh: TetMesh):
     planes = torch.cat([mesh.face_normals.reshape(-1, 12),
                         mesh.face_offsets], dim=1).contiguous()
     return planes, mesh.face_adj.contiguous()
+
+
+def _wrap(v: torch.Tensor, bits: int, dtype: torch.dtype) -> torch.Tensor:
+    """Unsigned ``bits``-wide values as the signed ``dtype`` of that width
+    (the same bits)."""
+    return torch.where(v >= 1 << (bits - 1), v - (1 << bits), v).to(dtype)
+
+
+def pack_ids(adj: torch.Tensor):
+    """The [L,4] neighbour ids as W3's 6-byte codes: an int32 word
+    ``id0 | id1 << 12 | (id2 & 0xFF) << 24`` and an int16 word
+    ``id2 >> 8 | id3 << 4`` per element, each id 12 bits with
+    ``ID_BOUNDARY`` for the boundary (-1)."""
+    if bool(((adj < -1) | (adj >= ID_BOUNDARY)).any()):
+        raise ValueError(f"pack_ids: neighbour ids must lie in [-1, "
+                         f"{ID_BOUNDARY - 1}]")
+    ids = torch.where(adj < 0, ID_BOUNDARY, adj).long()
+    a = ids[:, 0] | ids[:, 1] << 12 | (ids[:, 2] & 0xFF) << 24
+    b = ids[:, 2] >> 8 | ids[:, 3] << 4
+    return _wrap(a, 32, torch.int32), _wrap(b, 16, torch.int16)
+
+
+def resident_image(mesh: TetMesh, shared_adj: bool) -> torch.Tensor:
+    """W3's mesh image as int32 words, the bytes the kernel stages: the
+    plane rows quad-major ([4][L] float4: quad q of element e holds its
+    row's floats 4q..4q+3), then, when ``shared_adj``, the [L] int32 and
+    [L] int16 words of ``pack_ids``, padded to 16 bytes."""
+    planes, adj = resident_tables(mesh)
+    L = planes.shape[0]
+    quads = planes.reshape(L, 4, 4).transpose(0, 1).contiguous()
+    words = [quads.reshape(-1).view(torch.int32)]
+    if shared_adj:
+        a, b = pack_ids(adj)
+        pad = (w3_image_bytes(L, True) - PLANE_BYTES * L - 4 * L) // 2 - L
+        words += [a, torch.cat([b, b.new_zeros(pad)]).view(torch.int32)]
+    return torch.cat(words)
+
+
+# Built images, by mesh and regime: id(mesh) -> (a weak reference to the
+# mesh, {shared_adj: image}). An entry goes when its mesh is collected.
+_IMAGES: Dict[int, Tuple[weakref.ref, Dict[bool, torch.Tensor]]] = {}
+
+
+def cached_image(mesh: TetMesh, shared_adj: bool) -> torch.Tensor:
+    """``resident_image(mesh, shared_adj)``, built (and its ids' range
+    checked) once per mesh and regime and kept while the mesh lives; a
+    TetMesh is immutable, so the image stays its mesh's."""
+    key = id(mesh)
+    hit = _IMAGES.get(key)
+    if hit is None or hit[0]() is not mesh:
+        hit = _IMAGES[key] = (
+            weakref.ref(mesh, lambda _, key=key: _IMAGES.pop(key, None)), {})
+    images = hit[1]
+    if shared_adj not in images:
+        images[shared_adj] = resident_image(mesh, shared_adj)
+    return images[shared_adj]
 
 
 def walk_vmem_plain(mesh: TetMesh, x, elem, dest, in_flight, weight, flux,
@@ -115,18 +221,23 @@ def walk_vmem_plain(mesh: TetMesh, x, elem, dest, in_flight, weight, flux,
 
 
 def _walk_vmem_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tol,
-                    max_iters) -> ResidentWalkResult:
+                    max_iters, counts) -> ResidentWalkResult:
     dev, n, L = x.device, x.shape[0], mesh.nelems
     if L > w3_max_elems():
         raise ValueError(
             f"walk_vmem: {L} elements do not fit in shared memory (W3 holds "
-            f"at most {w3_max_elems()}: {SMEM_BYTES_PER_ELEM} B each of "
-            f"{SMEM_BYTES} B)"
+            f"at most {w3_max_elems()}: {PLANE_BYTES + PARTIAL_BYTES} B each "
+            f"of {SMEM_BYTES - SMEM_HEADER} B)"
         )
-    planes, adj = resident_tables(mesh)
     f32 = torch.float32
+    if mesh.dtype != f32:
+        raise TypeError(f"walk_vmem: W3 walks float32 meshes, not "
+                        f"{mesh.dtype}")
+    shared_adj = w3_shared_adj(L)
+    image = cached_image(mesh, shared_adj)
+    adj = mesh.face_adj.contiguous()
     kernels.check_cuda_args("walk_vmem", dev, [
-        ("planes", planes, f32, (L, PLANE_WIDTH)),
+        ("image", image, torch.int32, (w3_image_bytes(L, shared_adj) // 4,)),
         ("adj", adj, torch.int32, (L, 4)),
         ("x", x, f32, (n, 3)),
         ("elem", elem, torch.int32, (n,)),
@@ -134,36 +245,44 @@ def _walk_vmem_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tol,
         ("in_flight", in_flight, torch.int8, (n,)),
         ("weight", weight, f32, (n,)),
         ("flux", flux, f32, (L,)),
+        ("counts", counts, torch.int32, (len(W3_COUNTS),)),
     ])
-    if planes.data_ptr() % 16:  # staged as float4
-        raise ValueError("walk_vmem: the plane table must start on a "
-                         "16-byte boundary")
+    kernels.check_aligned("walk_vmem", [("the mesh image", image)])
     x_out = torch.empty((n, 3), dtype=f32, device=dev)
     elem_out = torch.empty((n,), dtype=torch.int32, device=dev)
     done = torch.empty((n,), dtype=torch.bool, device=dev)
     exited = torch.empty((n,), dtype=torch.bool, device=dev)
     s = torch.empty((n,), dtype=f32, device=dev)
+    nxt = torch.zeros((1,), dtype=torch.int32, device=dev)
     p = kernels.ptr
     kernels.launch(
-        "resident_walk", f32, dev, p(planes), p(adj), p(x), p(elem), p(dest),
+        "resident_walk", f32, dev, p(image), p(adj), p(x), p(elem), p(dest),
         p(in_flight), p(weight), p(flux), p(x_out), p(elem_out), p(done),
-        p(exited), p(s), n, L, float(tol), int(max_iters),
+        p(exited), p(s), p(nxt), p(counts), n, L, int(shared_adj),
+        w3_image_bytes(L, shared_adj), float(tol), int(max_iters),
     )
     return ResidentWalkResult(x=x_out, elem=elem_out, done=done,
                               exited=exited, flux=flux, s=s)
 
 
 def walk_vmem(mesh: TetMesh, x, elem, dest, in_flight, weight, flux, *,
-              tol: float, max_iters: int) -> ResidentWalkResult:
+              tol: float, max_iters: int,
+              counts: Optional[torch.Tensor] = None) -> ResidentWalkResult:
     """Walk every particle to ``dest`` with the mesh resident on chip.
     CUDA tensors launch W3 (float32, at most ``w3_max_elems()``
-    elements); CPU tensors run ``walk_vmem_plain``."""
+    elements); CPU tensors run ``walk_vmem_plain``. ``counts`` (CUDA
+    only: an int32 tensor, one entry per ``W3_COUNTS`` name) gets the
+    particles the kernel walked and the loop iterations its warps ran
+    added to it."""
     if x.is_cuda:
         return _walk_vmem_cuda(mesh, x, elem, dest, in_flight, weight, flux,
-                               tol=tol, max_iters=max_iters)
+                               tol=tol, max_iters=max_iters, counts=counts)
     if x.device.type != "cpu":
         raise ValueError(f"walk_vmem runs on CUDA or CPU tensors, not "
                          f"{x.device}")
+    if counts is not None:
+        raise ValueError("walk_vmem: counts are counted by the CUDA kernel; "
+                         "the plain version has no schedule")
     return walk_vmem_plain(mesh, x, elem, dest, in_flight, weight, flux,
                            tol=tol, max_iters=max_iters)
 

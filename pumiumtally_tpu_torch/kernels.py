@@ -68,7 +68,7 @@ _ENTRY_ARGS = {
         [_P] * 17 + [_I, _I, _I, _D, _I, _I, _I, _P], _BOTH,
     ),
     "resident_walk": (
-        "resident_walk", [_P] * 13 + [_I, _I, _D, _I, _P], ("f32",),
+        "resident_walk", [_P] * 15 + [_I] * 4 + [_D, _I, _P], ("f32",),
     ),
     "row_gather_take": ("row_gather", [_P] * 3 + [_I, _I, _I, _D, _P],
                         ("f32",)),

@@ -9,8 +9,14 @@ exact; positions within 1e-6 absolute (the tool's own check bound is
 projections, so equal ids give equal rounding); flux within rtol 1e-5
 and atol 1e-6 (the tool sums each 256-particle tile with a one-hot
 matmul and then the tiles, the port scatter-adds crossing by crossing).
+
+The Python side of the kernel's layout is held here too: the packed
+12-bit neighbour ids round-trip exactly, the image holds what the
+kernel reads, and the shared-adjacency regime ends where shared memory
+does.
 """
 
+import gc
 import importlib.util
 from pathlib import Path
 
@@ -57,6 +63,15 @@ def _workload(divs, n, seed):
     fly = (rng.random(n) > 0.3).astype(np.int8)
     w = rng.uniform(0.5, 1.5, n).astype(np.float32)
     return jmesh, mesh, dict(x=x, elem=elem, dest=dest, fly=fly, w=w)
+
+
+def _unpack_ids(a, b):
+    """``r3_vmem.pack_ids``'s inverse, as csrc/resident_walk.cu decodes:
+    the [L,4] int32 neighbour ids, -1 at the boundary."""
+    v = (a.long() & 0xFFFFFFFF) | (b.long() & 0xFFFF) << 32
+    shifts = r3_vmem.ID_BITS * torch.arange(4, device=a.device)
+    ids = (v[:, None] >> shifts) & r3_vmem.ID_BOUNDARY
+    return torch.where(ids == r3_vmem.ID_BOUNDARY, -1, ids).to(torch.int32)
 
 
 def _run_tool(tool, jmesh, d, max_iters):
@@ -110,7 +125,82 @@ def test_check_entry_point_passes_on_cpu(capsys):
 
 
 def test_shared_memory_ceiling():
-    # 232,448 B of dynamic shared memory, 68 B per element (16 plane
-    # floats and one flux-partial float): the tool's L = 3,072 fits.
+    # 232,448 B of dynamic shared memory, 16 B of header and 68 B per
+    # element in the global-adjacency regime (16 plane floats and one
+    # flux-partial float): the tool's L = 3,072 fits.
     assert r3_vmem.w3_max_elems() == 3418
     assert 6 * max(r3_vmem.BENCH_DIVS) ** 3 == 3072 <= r3_vmem.w3_max_elems()
+    assert r3_vmem.w3_smem_bytes(3418, False) <= r3_vmem.SMEM_BYTES
+    assert r3_vmem.w3_smem_bytes(3419, False) > r3_vmem.SMEM_BYTES
+
+
+def test_regime_flips_at_the_shared_limit():
+    # 6 B more per element (four 12-bit ids), padded to 16 B: the ids
+    # stay in shared memory up to 3,140 elements, the tool's sweep
+    # included, and are read from global memory above, to 3,418.
+    limit = r3_vmem.w3_shared_adj_max_elems()
+    assert limit == 3140
+    assert r3_vmem.w3_smem_bytes(limit, True) <= r3_vmem.SMEM_BYTES
+    assert r3_vmem.w3_smem_bytes(limit + 1, True) > r3_vmem.SMEM_BYTES
+    assert r3_vmem.w3_shared_adj(limit)
+    assert not r3_vmem.w3_shared_adj(limit + 1)
+    assert all(r3_vmem.w3_shared_adj(6 * d ** 3) for d in r3_vmem.BENCH_DIVS)
+    assert not r3_vmem.w3_shared_adj(6 * 8 * 7 * 10)  # L = 3,360
+    assert r3_vmem.w3_max_elems() == 3418
+
+
+@pytest.mark.parametrize("dims", [(3, 3, 3), (8, 7, 10)])
+def test_packed_ids_round_trip(dims):
+    jmesh = jax_build_box(1, 1, 1, *dims, dtype=jnp.float32)
+    mesh = convert.tetmesh_from_arrays(convert.mesh_arrays(jmesh))
+    a, b = r3_vmem.pack_ids(mesh.face_adj)
+    assert a.dtype == torch.int32 and b.dtype == torch.int16
+    assert (mesh.face_adj == -1).any()
+    assert torch.equal(_unpack_ids(a, b), mesh.face_adj)
+    # Every id the 12 bits hold, the boundary code's neighbour included.
+    ids = torch.arange(-1, r3_vmem.ID_BOUNDARY, dtype=torch.int32)
+    adj = ids[torch.randperm(ids.numel(),
+                             generator=torch.Generator().manual_seed(0))]
+    adj = adj[: adj.numel() // 4 * 4].reshape(-1, 4)
+    assert torch.equal(_unpack_ids(*r3_vmem.pack_ids(adj)), adj)
+    with pytest.raises(ValueError, match="neighbour ids"):
+        r3_vmem.pack_ids(torch.tensor([[0, 1, 2, r3_vmem.ID_BOUNDARY]]))
+
+
+@pytest.mark.parametrize("shared_adj", [True, False])
+def test_resident_image_layout(shared_adj):
+    _, mesh, _ = _workload(3, n=1, seed=0)
+    L = mesh.nelems
+    image = r3_vmem.resident_image(mesh, shared_adj)
+    assert image.dtype == torch.int32
+    assert image.numel() * 4 == r3_vmem.w3_image_bytes(L, shared_adj)
+    planes, adj = r3_vmem.resident_tables(mesh)
+    quads = image[: 16 * L].view(torch.float32).reshape(4, L, 4)
+    assert torch.equal(quads.transpose(0, 1).reshape(L, 16), planes)
+    if shared_adj:  # the kernel's words: [L] int32, then [L] int16
+        a, b = image[16 * L: 17 * L], image[17 * L:].view(torch.int16)[:L]
+        assert torch.equal(_unpack_ids(a, b), adj)
+
+
+def test_image_is_built_once_per_mesh_and_regime():
+    _, mesh, _ = _workload(3, n=1, seed=0)
+    first = {r: r3_vmem.cached_image(mesh, r) for r in (True, False)}
+    for shared_adj, image in first.items():
+        assert r3_vmem.cached_image(mesh, shared_adj) is image
+        assert torch.equal(image, r3_vmem.resident_image(mesh, shared_adj))
+    assert first[True].numel() > first[False].numel()
+    key = id(mesh)
+    assert key in r3_vmem._IMAGES
+    del mesh, first
+    gc.collect()
+    assert key not in r3_vmem._IMAGES
+
+
+def test_counts_are_refused_on_cpu():
+    _, mesh, d = _workload(3, n=8, seed=1)
+    with pytest.raises(ValueError, match="counts"):
+        walk_vmem(mesh, *(torch.from_numpy(d[k]) for k in ("x", "elem",
+                                                           "dest", "fly",
+                                                           "w")),
+                  torch.zeros((mesh.nelems,), dtype=torch.float32), tol=TOL,
+                  max_iters=16, counts=torch.zeros((2,), dtype=torch.int32))
