@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --w0-times      # W0's times alone, no checks
     python3 chip_smoke.py --w3-g1-times   # W3's and G1's, no checks
+    python3 chip_smoke.py --staging-times # PumiTally's staging, no checks
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -17,7 +18,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    trajectory, float32, tallying. The kernel counts the particles it
    walked, which must be all of them, and its time, tallying and not,
    stands beside the crossings per second and the SM cycles per
-   crossing.
+   crossing. Then W0's ``skip`` flag (the move's device-side phase-A
+   skip) on both tiers: set, it walks no particle and returns its
+   inputs bitwise, as ``walk_plain(skip=...)`` does; clear, it walks
+   all.
 4. W1 (csrc/block_walk.cu) against ``vmem_walk_local_plain``: the same
    mesh sub-split into blocks of at most 1024 elements, every tallied
    round of the first move (round 1; round 2 is round 1's output after
@@ -76,6 +80,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    sum. A two-tier run's flux stays within the
    JAX package's tie-class band of the float32 run's (L1 < 1e-2 of the
    total track length, tests/test_walk_twotier.py).
+10b. Staging (500,000 particles, box): with ``check_found_all=False,
+   fenced_timing=False`` an echoing two-phase move and a continue move
+   run under ``torch.cuda.set_sync_debug_mode("error")`` behind ~50 ms
+   of queued device work and must return while it still runs; the
+   protocol with the echo on and off, fenced and not (and unvalidated)
+   gives bitwise positions, equal ids and flux within rtol 1e-4.
+10c. The streaming cell: 10,000,000 particles in 1,000,000-particle
+   chunks on the box, ``StreamingTally`` on both tiers and
+   ``StreamingPartitionedTally`` (W1) beside ``PumiTally`` on both
+   tiers, in lockstep on bench.py's trajectory generated a move at a
+   time (CopyInitialPosition, one two-phase move, continue moves; the
+   partitioned one stops after one). Streaming vs monolithic: ids
+   equal, positions bitwise, flux at rtol 1e-4; each conserving at rtol
+   1e-6; the partitioned ids equal but for face ties; moves/s; then one
+   profiled streaming move: idle share and the host-to-device copy time
+   that overlaps kernel time, which must be > 0 (the double buffer).
 11. The 3x3 pincell assembly (FLAGSHIP_PINCELL cells, 60 layers:
    984,960 tets), written with the port's ``write_osh`` into a
    temporary directory: W0 on both tiers against its plain version on
@@ -111,6 +131,16 @@ both fill modes (microseconds over four passes, the bound,
 ``index_select``, the empty kernel, the output fill and the copy). It calls only ``r3_vmem.setup``, ``r3_vmem.walk_vmem``, ``walk``
 and ``pallas_gather.gather``, so a copy times another checkout as
 ``--w0-times`` does.
+
+``--staging-times`` runs phases 1-2, then ``PumiTally`` at 500,000
+particles on the box in bench.py's protocols (``two_phase``: origins
+echo the previous destinations; ``two_phase_forced``: the same with
+``auto_continue=False``, where the checkout's config has the field;
+``continue``), each with the default knobs and, where the fields exist,
+``validate_inputs=False, fenced_timing=False``: one JSON line an arm
+with moves/s, the calls' host ms a move and the device-busy ms of a
+profiled move, four passes each. It calls only ``PumiTally``,
+``TallyConfig`` and ``build_box``, so a copy times another checkout.
 
 It imports nothing of JAX; it needs one CUDA device and exits non-zero
 without one.
@@ -162,6 +192,18 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 F64_FLOPS = 34e12
 W0_F64_N = 100_000  # particles of the float64 W0 check on the box
+# The streaming cell (BASELINE.json configs[4]: 10M particles a batch,
+# staged host -> device double-buffered), the JAX facade's default chunk.
+STREAM_N = 10_000_000
+STREAM_CHUNK = 1_000_000
+STREAM_CONTINUE_MOVES = 2
+STREAM_PART_CONTINUE_MOVES = 1  # the partitioned chunks are slower
+# --staging-times: passes per arm, timed moves per pass.
+STAGING_PASSES = 4
+STAGING_MOVES = 4
+# ~50 ms of SM cycles queued ahead of a call that must not wait for the
+# device: it has to return while this still runs.
+SLEEP_CYCLES = 100_000_000
 # Operations per crossing in csrc/walk_step.cuh: per face two 3-term dot
 # products (10), b (2), the crossing test (2), one division, the clamp
 # and the running minimum (2); then the tally's subtract and multiply.
@@ -1028,13 +1070,9 @@ def phase_main_path(facade, mesh, pts, config, card: str) -> tuple:
         ))
     dt = sum(move_ms) / 1e3
     counts = dict(kernels.launch_counts)
-    total = float(t.flux.double().sum())
     expect = sum(float(np.linalg.norm(pts[m] - pts[m - 1], axis=1).sum())
                  for m in range(1, CONTINUE_MOVES + 2))
-    rel = abs(total - expect) / expect
-    if rel > CONSERVATION_RTOL:
-        raise AssertionError(f"{facade.__name__}: conservation off by "
-                             f"{rel:.3e} (got {total}, want {expect})")
+    rel = check_conservation(facade.__name__, t.flux, expect)
     flux = t.flux.double().clone()
     with tempfile.TemporaryDirectory() as d:
         t.WriteTallyResults(f"{d}/fluxresult.vtk")
@@ -1069,14 +1107,7 @@ def profile_move(t, dests: np.ndarray) -> None:
         t.MoveToNextLocation(None, flat(dests))
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
+    busy_us = span_us(union(device_spans(prof)))
     name = type(t).__name__
     if busy_us == 0:
         print(f"# profile {name}: wall {wall_ms:.3f} ms; device time not "
@@ -1105,6 +1136,341 @@ def profile_move(t, dests: np.ndarray) -> None:
               f"{', '.join(f'{ms:.4f}' for _, ms in walks)}; "
               f"{len(walks)} launches profiled of {launched} made, "
               f"{sum(ms for _, ms in walks):.4f} ms per move")
+
+
+def device_spans(prof, kind: str = "all") -> list:
+    """(start, end) in microseconds of the device activities a
+    torch.profiler window recorded: ``kind`` "all", "h2d" (host-to-device
+    copies) or "kernels" (everything but copies and fills)."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        is_h2d = e.name.startswith("Memcpy HtoD")
+        is_kernel = not e.name.startswith(("Memcpy", "Memset"))
+        if kind == "all" or (kind == "h2d" and is_h2d) or (
+                kind == "kernels" and is_kernel):
+            out.append((e.time_range.start, e.time_range.end))
+    return out
+
+
+def union(spans) -> list:
+    """Disjoint, sorted intervals covering ``spans``."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
+def span_us(spans) -> float:
+    return sum(b - a for a, b in spans)
+
+
+def overlap_us(u, v) -> float:
+    """Time covered by both of two unions of intervals."""
+    total, i, j = 0.0, 0, 0
+    while i < len(u) and j < len(v):
+        lo, hi = max(u[i][0], v[j][0]), min(u[i][1], v[j][1])
+        total += max(0.0, hi - lo)
+        if u[i][1] < v[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def phase_w0_skip(mesh, pts) -> None:
+    """W0's ``skip`` flag (the JAX move's device-side phase-A skip), on
+    both tiers: set, the kernel walks no particle (its count stays 0)
+    and returns its inputs bitwise, equal to ``walk_plain(skip=...)``;
+    clear, it walks all n."""
+    for two_tier in (False, True):
+        w0_skip(*w0_inputs(mesh, pts, two_tier))
+    print(f"# W0 skip, both tiers: set, 0 particles walked, x/elem/s "
+          f"returned bitwise (with and without s_init), equal to "
+          f"walk_plain; clear, {N} walked")
+
+
+def w0_skip(args, kw) -> None:
+    import torch
+
+    from pumiumtally_tpu_torch.ops.walk import walk, walk_plain
+
+    m, x, elem = args[:3]
+    dev = x.device
+    for s_init in (None, torch.full((N,), 0.25, device=dev)):
+        flux = torch.zeros((m.nelems,), dtype=x.dtype, device=dev)
+        counts = torch.zeros((1,), dtype=torch.int32, device=dev)
+        yes = torch.ones((), dtype=torch.bool, device=dev)
+        rk = walk(*args, flux, **kw, s_init=s_init, counts=counts, skip=yes)
+        rp = walk_plain(*args, torch.zeros_like(flux), **kw, s_init=s_init,
+                        skip=yes)
+        sync()
+        for f in ("x", "elem", "done", "exited", "s", "iters"):
+            check_equal(f"W0 skip {f}", getattr(rk, f), getattr(rp, f))
+        check_equal("W0 skip x is the input", rk.x, x)
+        check_equal("W0 skip elem is the input", rk.elem, elem)
+        if int(counts[0]) != 0 or bool(flux.any()):
+            raise AssertionError(f"W0 skip: walked {int(counts[0])} "
+                                 "particles or tallied")
+    counts.zero_()
+    walk(*args, torch.zeros_like(flux), **kw, counts=counts,
+         skip=torch.zeros((), dtype=torch.bool, device=dev))
+    if int(counts[0]) != N:
+        raise AssertionError(f"W0 skip clear: walked {int(counts[0])} of {N}")
+
+
+def phase_staging(mesh, pts) -> None:
+    """The staging knobs at N particles. With ``check_found_all=False,
+    fenced_timing=False``, an echoing two-phase move and a continue move
+    each run under ``torch.cuda.set_sync_debug_mode("error")`` (any host
+    synchronization raises) behind ~50 ms of queued device work, and
+    must return while that still runs. Then the protocol (localize, two
+    two-phase moves, the second echoing, a continue move) with the echo
+    on and off, fenced and not, validated and not: positions bitwise,
+    ids equal, flux at rtol 1e-4 against the defaults' run."""
+    import torch
+
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig, kernels
+
+    def fly():
+        return np.ones(N, np.int8)
+
+    t = PumiTally(mesh, N, TallyConfig(check_found_all=False,
+                                       fenced_timing=False))
+    t.CopyInitialPosition(flat(pts[0]))
+    t.MoveToNextLocation(flat(pts[0]), flat(pts[1]), fly(), np.ones(N))
+    calls = (
+        ("echoing two-phase move",
+         lambda: t.MoveToNextLocation(flat(pts[1]), flat(pts[2]), fly(),
+                                      np.ones(N))),
+        ("continue move", lambda: t.MoveToNextLocation(None, flat(pts[3]))),
+    )
+    for label, call in calls:
+        sync()
+        before = dict(kernels.launch_counts)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        ahead = torch.cuda.Event()
+        ahead.record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            call()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            busy = not ahead.query()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if not busy:
+            raise AssertionError(f"staging: the {label} returned after the "
+                                 "device work queued ahead of it had ended")
+        launched = {k: kernels.launch_counts[k] - v
+                    for k, v in before.items() if kernels.launch_counts[k] > v}
+        print(f"# staging: {label}, unfenced and unchecked: no host "
+              f"synchronization (sync debug mode 'error'), returned after "
+              f"{host_ms:.3f} ms with the ~50 ms queued ahead still running; "
+              f"launches {launched}")
+    sync()
+    if t.auto_continue_hits != 1:
+        raise AssertionError(f"staging: {t.auto_continue_hits} echo hits, "
+                             "not 1")
+    base = None
+    for auto, fenced, validate in ((True, True, True), (False, True, True),
+                                   (True, False, True), (False, False, True),
+                                   (True, False, False)):
+        t = PumiTally(mesh, N, TallyConfig(
+            check_found_all=False, auto_continue=auto,
+            fenced_timing=fenced, validate_inputs=validate))
+        t.CopyInitialPosition(flat(pts[0]))
+        t.MoveToNextLocation(flat(pts[0]), flat(pts[1]), fly(), np.ones(N))
+        t.MoveToNextLocation(flat(pts[1]), flat(pts[2]), fly(), np.ones(N))
+        t.MoveToNextLocation(None, flat(pts[3]))
+        sync()
+        if t.auto_continue_hits != int(auto):
+            raise AssertionError(f"staging: {t.auto_continue_hits} echo "
+                                 f"hits with auto_continue={auto}")
+        got = (t.positions, t.elem_ids, t.flux.clone())
+        label = (f"auto_continue={auto}, fenced_timing={fenced}, "
+                 f"validate_inputs={validate}")
+        if base is None:
+            base = got
+            continue
+        if not np.array_equal(got[0], base[0]):
+            raise AssertionError(f"staging {label}: positions differ")
+        if not np.array_equal(got[1], base[1]):
+            raise AssertionError(f"staging {label}: ids differ")
+        check_flux(f"staging {label}", got[2], base[2])
+    print("# staging: echo on/off x fenced/unfenced (and unvalidated): "
+          "positions bitwise, ids equal, flux within rtol 1e-4 of the "
+          "defaults' run")
+
+
+def trajectory_moves(seed: int, n: int):
+    """bench.py's trajectory (``make_trajectory``), one array at a time:
+    yields the source points, then each move's destinations."""
+    from pumiumtally_tpu_torch.experiments.block_rounds import MEAN_STEP
+
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(0.05, 0.95, (n, 3))
+    while True:
+        yield p
+        step = rng.normal(scale=MEAN_STEP / np.sqrt(3.0), size=(n, 3))
+        p = np.clip(p + step, 0.02, 0.98)
+
+
+def contains(mesh, pts, elem, tol: float):
+    """Whether each point lies in its element within ``tol`` (the
+    half-space test on the element's four planes)."""
+    import torch
+
+    p = torch.as_tensor(pts, dtype=mesh.dtype, device=mesh.device)
+    e = torch.as_tensor(elem, dtype=torch.long, device=mesh.device)
+    proj = (mesh.face_normals[e] * p[:, None, :]).sum(dim=2)
+    return (proj <= mesh.face_offsets[e] + tol).all(dim=1).cpu().numpy()
+
+
+def phase_streaming(mesh, card: str) -> dict:
+    """The streaming cell: STREAM_N particles on the box in
+    STREAM_CHUNK chunks. ``StreamingTally`` on both tiers and
+    ``StreamingPartitionedTally`` (W1) beside ``PumiTally`` on both
+    tiers, in lockstep on one trajectory generated a move at a time:
+    CopyInitialPosition, one two-phase move, then continue moves (the
+    partitioned one stops after STREAM_PART_CONTINUE_MOVES). Held:
+    streaming against monolithic ids equal, positions bitwise, flux at
+    rtol 1e-4; every facade's conservation at rtol 1e-6; the partitioned
+    ids equal to the monolithic ones but for face ties (a point within
+    the tolerance of both elements), its W1 launches > 0. Then one
+    profiled continue move of the float32 ``StreamingTally``: idle
+    share, and the host-to-device copy time that overlaps kernel time
+    (the double buffering), which must be > 0. Returns each run's launch
+    counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pumiumtally_tpu_torch import (
+        PumiTally,
+        StreamingPartitionedTally,
+        StreamingTally,
+        TallyConfig,
+        kernels,
+    )
+
+    n = STREAM_N
+    t0 = time.perf_counter()
+    chunked = dict(chunk_size=STREAM_CHUNK)
+    facades = {
+        "stream": StreamingTally(mesh, n, config=TallyConfig(), **chunked),
+        "stream_bf16": StreamingTally(mesh, n, config=TallyConfig(**BF16),
+                                      **chunked),
+        "stream_part": StreamingPartitionedTally(
+            mesh, n, config=TallyConfig(capacity_factor=CAPACITY_FACTOR,
+                                        walk_vmem_max_elems=VMEM_BOUND),
+            **chunked),
+        "mono_10m": PumiTally(mesh, n, TallyConfig()),
+        "mono_10m_bf16": PumiTally(mesh, n, TallyConfig(**BF16)),
+    }
+    counts = {k: dict.fromkeys(kernels.launch_counts, 0) for k in facades}
+    move_ms = {k: [] for k in facades}
+    setup_ms = {}  # CopyInitialPosition and the two-phase move
+
+    def call(key, method, *args):
+        before = dict(kernels.launch_counts)
+        ms = wall_ms(lambda: getattr(facades[key], method)(*args))
+        for k, v in kernels.launch_counts.items():
+            counts[key][k] += v - before[k]
+        return ms
+
+    traj = trajectory_moves(0, n)
+    prev = next(traj)
+    print(f"# streaming cell: facades built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for key in facades:
+        setup_ms[key] = [call(key, "CopyInitialPosition", flat(prev))]
+    expect = 0.0
+    for m in range(1 + STREAM_CONTINUE_MOVES):
+        cur = next(traj)
+        expect += float(np.linalg.norm(cur - prev, axis=1).sum())
+        for key in list(facades):
+            if m == 0:  # the two-phase move (origins: the sources)
+                setup_ms[key].append(call(
+                    key, "MoveToNextLocation", flat(prev), flat(cur),
+                    np.ones(n, np.int8), np.ones(n)))
+            else:
+                move_ms[key].append(call(key, "MoveToNextLocation", None,
+                                         flat(cur)))
+        if m == STREAM_PART_CONTINUE_MOVES:
+            sp, mono = facades.pop("stream_part"), facades["mono_10m"]
+            check_conservation("StreamingPartitionedTally", sp.flux, expect)
+            ids_sp, ids = sp.elem_ids, mono.elem_ids
+            diff = np.flatnonzero(ids_sp != ids)
+            pos = mono.positions[diff]
+            ties = (contains(mono.mesh, pos, ids_sp[diff], 1e-5)
+                    & contains(mono.mesh, pos, ids[diff], 1e-5))
+            if not ties.all():
+                raise AssertionError(
+                    f"StreamingPartitionedTally: {int((~ties).sum())} ids "
+                    "differ from PumiTally's outside a face tie")
+            print(f"# streaming partitioned (W1, {len(sp.engines)} chunk "
+                  f"engines, {sp.engines[0].nparts} blocks): ids equal to "
+                  f"PumiTally's at {n} particles but {diff.size} face ties; "
+                  f"conserving; launches {counts['stream_part']}")
+            del sp
+        prev = cur
+    sync()
+    for tier in ("", "_bf16"):
+        st, mono = facades[f"stream{tier}"], facades[f"mono_10m{tier}"]
+        label = f"StreamingTally{tier or ' (float32)'}"
+        check_equal(f"{label} ids", torch.as_tensor(st.elem_ids),
+                    torch.as_tensor(mono.elem_ids))
+        check_equal(f"{label} positions", torch.as_tensor(st.positions),
+                    torch.as_tensor(mono.positions))
+        check_flux(label, st.flux, mono.flux)
+        for t, name in ((st, label), (mono, f"PumiTally{tier}")):
+            check_conservation(name, t.flux, expect)
+    for key, ms in move_ms.items():
+        print(f"# streaming {key}: {n * len(ms) / (sum(ms) / 1e3):.1f} "
+              f"moves/s on {card} over {len(ms)} continue moves of {n} "
+              f"particles (per move ms: {', '.join(f'{v:.1f}' for v in ms)}"
+              f"; CopyInitialPosition, two-phase move ms: "
+              f"{', '.join(f'{v:.1f}' for v in setup_ms[key])})")
+    # One profiled continue move of the float32 streaming facade.
+    st = facades["stream"]
+    cur = next(traj)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        st.MoveToNextLocation(None, flat(cur))
+        sync()
+        wall = (time.perf_counter() - t1) * 1e3
+    busy = union(device_spans(prof))
+    h2d, kern = (union(device_spans(prof, k)) for k in ("h2d", "kernels"))
+    over = overlap_us(h2d, kern)
+    print(f"# profile StreamingTally ({n} particles, {st.nchunks} chunks): "
+          f"wall {wall:.3f} ms (under the profiler), device busy "
+          f"{span_us(busy) / 1e3:.3f} ms, idle share "
+          f"{1 - span_us(busy) / 1e3 / wall:.3f}; host-to-device copies "
+          f"{span_us(h2d) / 1e3:.3f} ms, kernels {span_us(kern) / 1e3:.3f} "
+          f"ms, copy time overlapping kernel time {over / 1e3:.3f} ms")
+    if not over > 0:
+        raise AssertionError("StreamingTally: no host-to-device copy "
+                             "overlapped a kernel (double buffering)")
+    print(f"# streaming cell: {time.perf_counter() - t0:.1f} s in all")
+    return counts
+
+
+def check_conservation(what: str, flux, expect: float) -> float:
+    """Total flux against the analytic track length, at rtol 1e-6;
+    returns the relative error."""
+    total = float(flux.double().sum())
+    rel = abs(total - expect) / expect
+    if rel > CONSERVATION_RTOL:
+        raise AssertionError(f"{what}: conservation off by {rel:.3e} "
+                             f"(got {total}, want {expect})")
+    return rel
 
 
 def write_lattice(directory: str) -> tuple:
@@ -1171,6 +1537,7 @@ def main() -> int:
                      dtype=torch.float32)
     pts = make_trajectory(np.random.default_rng(0), N, CONTINUE_MOVES + 2)
     w0 = phase_w0(mesh, pts)
+    phase_w0_skip(mesh, pts)
     w1, regimes_w1 = phase_block_walk("W1", mesh, pts, VMEM_BOUND)
     w0t = phase_w0(mesh, pts, two_tier=True)
     phase_w0(build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
@@ -1202,6 +1569,8 @@ def main() -> int:
     for key, (facade, config) in runs.items():
         counts[key], fluxes[key] = phase_main_path(facade, mesh, pts, config,
                                                    smi)
+    phase_staging(mesh, pts)
+    counts.update(phase_streaming(mesh, smi))
     # The lattice, loaded from its .osh path as users load a mesh: W0
     # on both tiers against the plain versions, then PumiTally's main
     # path on both tiers.
@@ -1220,7 +1589,9 @@ def main() -> int:
                                                        lat_pts, config, smi)
     needs = {"mono": "walk", "part": "block_walk", "mono_bf16": "walk_twotier",
              "part_bf16": "twotier_block_walk", "lat": "walk",
-             "lat_bf16": "walk_twotier"}
+             "lat_bf16": "walk_twotier", "stream": "walk",
+             "stream_bf16": "walk_twotier", "stream_part": "block_walk",
+             "mono_10m": "walk", "mono_10m_bf16": "walk_twotier"}
     for key, entry in needs.items():
         if counts[key][entry] == 0:
             raise AssertionError(f"{key}: kernel {entry} never launched on "
@@ -1302,7 +1673,83 @@ def main_w3_g1_times() -> int:
     return 0
 
 
+def staging_arms(fields) -> list:
+    """(protocol, knobs) of ``--staging-times``: bench.py's three
+    protocols (``two_phase_forced`` where the checkout's TallyConfig has
+    ``auto_continue``), each with the defaults and, where the fields
+    exist, unvalidated and unfenced."""
+    protocols = [("two_phase", {}), ("continue", {})]
+    if "auto_continue" in fields:
+        protocols.insert(1, ("two_phase_forced", {"auto_continue": False}))
+    lean = {"validate_inputs": False, "fenced_timing": False}
+    knobs = [{}] + ([lean] if set(lean) <= fields else [])
+    return [(p, {**kw, **k}) for p, kw in protocols for k in knobs]
+
+
+def main_staging_times() -> int:
+    """``PumiTally``'s staging at N particles on the box, per protocol
+    and knobs: STAGING_PASSES passes of STAGING_MOVES timed moves (host
+    clock from the first call to a synchronize after the last: moves/s;
+    the calls' own host time: host ms a move), then one profiled move
+    (device-busy ms). It calls only ``PumiTally``, ``TallyConfig`` and
+    ``build_box``, so a copy times another checkout."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig, build_box
+    from pumiumtally_tpu_torch.experiments.block_rounds import (
+        make_trajectory,
+    )
+
+    phase_device()
+    phase_build()
+    print(f"# package {sys.modules['pumiumtally_tpu_torch'].__file__}")
+    mesh = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                     dtype=torch.float32)
+    moves = 1 + STAGING_PASSES * (STAGING_MOVES + 1)
+    pts = make_trajectory(np.random.default_rng(0), N, moves)
+    fields = {f.name for f in dataclasses.fields(TallyConfig)}
+    for protocol, knobs in staging_arms(fields):
+        t = PumiTally(mesh, N, TallyConfig(check_found_all=False, **knobs))
+        t.CopyInitialPosition(flat(pts[0]))
+
+        def move(m):
+            if protocol == "continue":
+                t.MoveToNextLocation(None, flat(pts[m]))
+            else:
+                t.MoveToNextLocation(flat(pts[m - 1]), flat(pts[m]),
+                                     np.ones(N, np.int8), np.ones(N))
+
+        move(1)  # warm-up
+        sync()
+        m, rates, host_ms, busy_ms = 2, [], [], []
+        for _ in range(STAGING_PASSES):
+            calls = 0.0
+            t0 = time.perf_counter()
+            for _ in range(STAGING_MOVES):
+                t1 = time.perf_counter()
+                move(m)
+                calls += time.perf_counter() - t1
+                m += 1
+            sync()
+            rates.append(N * STAGING_MOVES / (time.perf_counter() - t0))
+            host_ms.append(calls / STAGING_MOVES * 1e3)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                move(m)
+                sync()
+            m += 1
+            busy_ms.append(span_us(union(device_spans(prof))) / 1e3)
+        print(json.dumps({"protocol": protocol, "knobs": knobs, "n": N,
+                          "moves_per_s": rates, "host_ms": host_ms,
+                          "device_busy_ms": busy_ms}))
+    return 0
+
+
 if __name__ == "__main__":
-    modes = {"--w0-times": main_w0_times, "--w3-g1-times": main_w3_g1_times}
+    modes = {"--w0-times": main_w0_times, "--w3-g1-times": main_w3_g1_times,
+             "--staging-times": main_staging_times}
     sys.exit(next((fn for flag, fn in modes.items()
                    if flag in sys.argv[1:]), main)())

@@ -2,7 +2,8 @@
 
 Track-length tallies over a tetrahedral mesh, driven through the
 reference's three-call protocol (``CopyInitialPosition`` /
-``MoveToNextLocation`` / ``WriteTallyResults``), on one NVIDIA H100. The
+``MoveToNextLocation`` / ``WriteTallyResults``), on one NVIDIA H100; ``StreamingTally`` and
+``StreamingPartitionedTally`` take batches of any size in chunks. The
 device work runs in hand-written CUDA kernels (``csrc/``, built by
 ``kernels.py`` at first use); every kernel's plain PyTorch version runs
 when the caller asks for ``device="cpu"``. The package imports torch
@@ -10,6 +11,10 @@ and numpy, never jax and nothing of ``pumiumtally_tpu``.
 """
 
 from pumiumtally_tpu_torch.api.partitioned import PartitionedPumiTally
+from pumiumtally_tpu_torch.api.streaming import (
+    StreamingPartitionedTally,
+    StreamingTally,
+)
 from pumiumtally_tpu_torch.api.tally import PumiTally, TallyTimes
 from pumiumtally_tpu_torch.config import TallyConfig
 from pumiumtally_tpu_torch.mesh.box import build_box
@@ -19,6 +24,8 @@ from pumiumtally_tpu_torch.mesh.tetmesh import TetMesh
 __all__ = [
     "PartitionedPumiTally",
     "PumiTally",
+    "StreamingPartitionedTally",
+    "StreamingTally",
     "TallyConfig",
     "TallyTimes",
     "TetMesh",

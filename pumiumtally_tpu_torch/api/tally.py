@@ -22,12 +22,21 @@ Semantics kept from the reference and the JAX package:
 (``TetMesh.with_lowp_tables``, W0's two-tier variant); point location and
 ``WriteTallyResults`` read the full-precision planes and volumes.
 
+Staging follows the JAX facade (api/tally.py:533-640, :1156-1295): the
+``auto_continue`` origin-echo upload skip with its disarm/re-arm state
+machine, the device all-ones and weights caches, ``validate_inputs``
+and ``fenced_timing``. Each caller buffer is cast and copied in one pass
+into a page-locked buffer and uploaded without blocking (api/staging.py).
+The phase-A skip is decided on the device (W0's ``skip`` flag) and the
+found-all verdict is fetched only when ``check_found_all`` is on, so with
+``check_found_all=False, fenced_timing=False`` a continue move and an
+echoing two-phase move make no host synchronization.
+
 The facades run on ``device="cuda"`` by default and raise when no GPU is
 present, unless the caller asks for ``device="cpu"`` (where every
-kernel's plain PyTorch version runs). Left out so far (ROADMAP.md): the
-host origin-echo ``auto_continue`` upload skip (results are identical
-without it), sentinels, resilience, batch statistics, scoring, the
-service-fusion surface and ``intersection_points``.
+kernel's plain PyTorch version runs). Left out so far (ROADMAP.md):
+sentinels, resilience, batch statistics, scoring, the service-fusion
+surface and ``intersection_points``.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
+from pumiumtally_tpu_torch.api.staging import HostStaging
 from pumiumtally_tpu_torch.config import TallyConfig
 from pumiumtally_tpu_torch.io.load import load_mesh
 from pumiumtally_tpu_torch.io.vtk import merge_cell_data, write_vtk
@@ -48,10 +58,20 @@ from pumiumtally_tpu_torch.ops.geometry import locate_by_planes
 from pumiumtally_tpu_torch.ops.walk import walk
 
 
+# Consecutive origin-echo misses after which a facade stops paying for
+# echo snapshots (the caller has proven it resamples every move).
+_ECHO_MISS_LIMIT = 8
+# While disarmed, one snapshot is retained every this-many moves so the
+# next move can probe again: a caller that echoes intermittently
+# regains the upload skip within a period.
+_ECHO_REARM_PERIOD = 64
+
+
 @dataclass
 class TallyTimes:
     """Per-phase wall-clock accumulation (reference PumiTallyImpl.h:18-27).
-    Every protocol call synchronizes the device before its end stamp."""
+    With ``fenced_timing`` (the default) every protocol call
+    synchronizes the device before its end stamp."""
 
     initialization_time: float = 0.0
     total_time_to_tally: float = 0.0
@@ -115,16 +135,21 @@ def check_finite(a: np.ndarray, what: str, offset: int = 0) -> None:
         raise ValueError(
             f"{what} contains {bad.size} non-finite value(s); first at "
             f"flat index {offset + bad[0]} ({flat[bad[0]]!r}). Fix the "
-            "host buffer"
+            "host buffer, or set TallyConfig(validate_inputs=False) to "
+            "stage unchecked"
         )
 
 
 def zero_flying_side_effect(flying, n: int) -> None:
     """Zero the caller's flying buffer in place after staging (the
     reference's documented host side effect, cpp:169-172). Unwritable
-    buffers get a warning, never a silent skip."""
+    buffers get a warning, never a silent skip. A contiguous array is
+    zeroed through a flat view: ``ndarray.flat`` (which writes through
+    any strides) takes milliseconds per 500,000 flags."""
     if isinstance(flying, np.ndarray):
-        if flying.flags.writeable:
+        if flying.flags.writeable and flying.flags.c_contiguous:
+            flying.reshape(-1)[:n] = 0
+        elif flying.flags.writeable:
             flying.flat[:n] = 0
         else:
             warnings.warn(
@@ -154,6 +179,16 @@ def adopt_located(x, elem, dest, e0):
             torch.where(missing, elem, e0))
 
 
+def owned_snapshot(keep: Optional[np.ndarray], src: np.ndarray) -> np.ndarray:
+    """``src``'s values in a host array the facade owns: ``keep`` refilled
+    when it has the shape and dtype, else a new copy. The caller drops
+    its reference to ``keep`` before the refill."""
+    if keep is None or keep.shape != src.shape or keep.dtype != src.dtype:
+        return src.copy()
+    np.copyto(keep, src)
+    return keep
+
+
 def _localize_step(mesh, x, elem, dest, *, tol, max_iters):
     """Non-tallying walk of every particle to ``dest``."""
     n = x.shape[0]
@@ -180,16 +215,16 @@ def move_step_continue(mesh, x, elem, dests, flying, weights, flux, *, tol,
 def move_step(mesh, x, elem, origins, dests, flying, weights, flux, *, tol,
               max_iters):
     """One full MoveToNextLocation: phase A (relocate, no tally) then
-    phase B (transport, tally). Phase A is skipped when every staged
+    phase B (transport, tally). Phase A walks nothing when every staged
     origin already equals the committed position (it would walk zero
-    distance for everyone). Returns (x, elem, done, s)."""
+    distance for everyone), decided on the device: the JAX move's
+    ``lax.cond(trivial, skip_a, run_a)`` as W0's ``skip`` flag. Returns
+    (x, elem, done, s)."""
     dest_a = torch.where((flying == 1)[:, None], origins, x)
-    if bool((dest_a == x).all()):  # the `trivial` skip
-        done_a = torch.ones_like(elem, dtype=torch.bool)
-    else:
-        ra = walk(mesh, x, elem, dest_a, flying, torch.zeros_like(weights),
-                  None, tally=False, tol=tol, max_iters=max_iters)
-        x, elem, done_a = ra.x, ra.elem, ra.done
+    ra = walk(mesh, x, elem, dest_a, flying, torch.zeros_like(weights),
+              None, tally=False, tol=tol, max_iters=max_iters,
+              skip=(dest_a == x).all())
+    x, elem, done_a = ra.x, ra.elem, ra.done
     x2, elem2, done_b, s_b = move_step_continue(
         mesh, x, elem, dests, flying, weights, flux, tol=tol,
         max_iters=max_iters,
@@ -258,44 +293,150 @@ class PumiTally:
         self.is_initialized = False
         self.tally_times = TallyTimes()
         self._lost_total = 0
+        self._staging = HostStaging(self.device)
+        # Auto-continue bookkeeping: the working-dtype destinations of
+        # the previous move, as an owned host array (the echo compare)
+        # and as the device tensor that staged them (substituted for the
+        # caller's origins on an echo). Reset whenever something other
+        # than a move changes particle state.
+        self._last_dests_host: Optional[np.ndarray] = None
+        self._last_dests_dev = None
+        # Pure input caches: device all-ones flying/weights, and the
+        # previous move's weights for the unchanged-weights echo.
+        self._ones_cache: dict = {}
+        self._last_weights_host: Optional[np.ndarray] = None
+        self._last_weights_dev = None
+        self.auto_continue_hits = 0  # moves that skipped the origin upload
+        self._echo_misses = 0  # consecutive non-echo moves
         return self.mesh
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _fence(self) -> None:
+        """The end-of-call fence of ``TallyConfig.fenced_timing``."""
+        if self.config.fenced_timing:
+            self._sync()
+
     # -- staging helpers -------------------------------------------------
-    def _as_positions(self, buf, size: Optional[int],
-                      what: str = "positions") -> torch.Tensor:
-        """[n,3] working-dtype tensor on the device, checked finite after
-        the cast."""
-        a = host_positions(buf, size, self.num_particles)
-        cast = np.asarray(a.reshape(self.num_particles, 3),
-                          dtype=_np_dtype(self.dtype))
-        check_finite(cast, what)
-        return torch.from_numpy(cast.copy()).to(self.device)
+    def _position_spec(self, a: np.ndarray, name: str, what: Optional[str]):
+        """Staging spec of a flat [3n] float64 host array as [n,3] in the
+        working dtype, checked finite after the cast (``what=None``: not
+        checked)."""
+        n = self.num_particles
+
+        def fill(dst: np.ndarray) -> None:
+            np.copyto(dst, a.reshape(n, 3), casting="unsafe")
+            if what is not None and self.config.validate_inputs:
+                check_finite(dst, what)
+
+        return (name, (n, 3), self.dtype, fill)
+
+    def _stage_positions(self, a: np.ndarray, name: str,
+                         what: Optional[str]) -> torch.Tensor:
+        return self._staging.stage(name, [self._position_spec(a, name,
+                                                              what)])[0]
+
+    def _cached_ones(self, kind: str) -> torch.Tensor:
+        """Device all-ones [n] (int8 flying / working-dtype weights),
+        allocated once and reused every move (never written to)."""
+        a = self._ones_cache.get(kind)
+        if a is None:
+            dt = torch.int8 if kind == "fly" else self.dtype
+            a = torch.ones((self.num_particles,), dtype=dt,
+                           device=self.device)
+            self._ones_cache[kind] = a
+        return a
+
+    def _origins_echo_raw(self, raw: Optional[np.ndarray]) -> bool:
+        """The echo rule (JAX ``_origins_echo_raw``): the caller's
+        origins, cast to the working dtype, equal the previous move's
+        destinations bit for bit. Counts the hit. A 64-point strided
+        sample is compared before the whole batch, so origin streams
+        that never echo pay almost nothing; after _ECHO_MISS_LIMIT
+        consecutive misses the snapshots are dropped (see
+        ``_retain_echo_snapshots``)."""
+        if raw is None or not self.config.auto_continue:
+            return False
+        if self._last_dests_host is None:
+            # Nothing to compare against (start of a batch, or
+            # disarmed): the move still counts, so the periodic re-arm
+            # clock advances.
+            self._echo_misses += 1
+            return False
+        prev = self._last_dests_host  # [n,3] working dtype, owned
+        n = self.num_particles
+        raw = raw.reshape(n, 3)
+        idx = np.linspace(0, n - 1, num=min(n, 64), dtype=np.int64)
+        if np.array_equal(
+            np.asarray(raw[idx], dtype=prev.dtype), prev[idx]
+        ) and np.array_equal(np.asarray(raw, dtype=prev.dtype), prev):
+            self.auto_continue_hits += 1
+            self._echo_misses = 0
+            return True
+        self._echo_misses += 1
+        if self._echo_misses >= _ECHO_MISS_LIMIT:
+            # A caller that resamples every move: stop paying for
+            # snapshots it never hits until CopyInitialPosition or a
+            # periodic retry re-arms the detector.
+            self._last_dests_host = None
+            self._last_dests_dev = None
+        return False
+
+    def _retain_echo_snapshots(self) -> bool:
+        """Whether this move's destinations are kept for the next move's
+        echo check: origin-passing callers that have not proven
+        themselves never-echoing, plus one retry snapshot per
+        _ECHO_REARM_PERIOD while disarmed."""
+        return self.config.auto_continue and (
+            self._echo_misses < _ECHO_MISS_LIMIT
+            or self._echo_misses % _ECHO_REARM_PERIOD
+            == _ECHO_REARM_PERIOD - 1
+        )
 
     def _stage_flying(self, flying) -> torch.Tensor:
         n = self.num_particles
         if flying is None:
-            return torch.ones((n,), dtype=torch.int8, device=self.device)
+            return self._cached_ones("fly")
         flying_np = np.asarray(flying)
         if flying_np.size < n:
             raise ValueError(
                 f"flying buffer has {flying_np.size} values, need {n}"
             )
-        # Copy BEFORE the caller's buffer is zeroed below.
-        fly = np.array(flying_np.reshape(-1)[:n], dtype=np.int8)
-        return torch.from_numpy(fly).to(self.device)
+        fly = flying_np.reshape(-1)[:n].astype(np.int8, copy=False)
+        if self.config.auto_continue and np.all(fly == 1):
+            # All in flight, the common physics batch: the cached ones.
+            return self._cached_ones("fly")
+        # Staged (copied) BEFORE the caller's buffer is zeroed.
+        return self._staging.stage("fly", [(
+            "fly", (n,), torch.int8,
+            lambda dst: np.copyto(dst, fly, casting="unsafe"),
+        )])[0]
 
     def _stage_weights(self, weights) -> torch.Tensor:
         n = self.num_particles
         if weights is None:
-            return torch.ones((n,), dtype=self.dtype, device=self.device)
-        w = np.asarray(host_scalar_field(weights, n, "weights"),
-                       dtype=_np_dtype(self.dtype))
-        check_finite(w, "weights")
-        return torch.from_numpy(w.copy()).to(self.device)
+            return self._cached_ones("w")
+        w_raw = host_scalar_field(weights, n, "weights")
+
+        def fill(dst: np.ndarray) -> None:
+            np.copyto(dst, w_raw, casting="unsafe")
+            if self.config.validate_inputs:
+                check_finite(dst, "weights")
+
+        (w_host,) = self._staging.fill("w", [("w", (n,), self.dtype, fill)])
+        if (self.config.auto_continue
+                and self._last_weights_host is not None
+                and np.array_equal(w_host, self._last_weights_host)):
+            # Unchanged weights: the device tensor already holds them.
+            return self._last_weights_dev
+        (w,) = self._staging.upload("w")
+        if self.config.auto_continue:
+            keep, self._last_weights_host = self._last_weights_host, None
+            self._last_weights_host = owned_snapshot(keep, w_host)
+            self._last_weights_dev = w
+        return w
 
     # -- the three-call protocol ----------------------------------------
     def CopyInitialPosition(self, init_particle_positions,
@@ -306,14 +447,21 @@ class PumiTally:
         # Fold the closing batch's still-lost particles into the
         # cumulative counter before the new localization resets them.
         self._lost_total += self._current_lost()
-        dest = self._as_positions(init_particle_positions, size)
+        self._last_dests_host = None  # localization rewrites the state
+        self._last_dests_dev = None
+        self._echo_misses = 0  # a new batch re-arms the echo detector
+        # Staged through the destinations' buffer: one pinned [n,3].
+        dest = self._stage_positions(
+            host_positions(init_particle_positions, size,
+                           self.num_particles), "dests", "positions")
         found_all, n_exited = self._dispatch_localize(dest)
         if self.config.check_found_all:
-            if not found_all:
+            if not bool(found_all):
                 print(
                     "ERROR: Not all particles are found. May need more loops "
                     "in search"
                 )
+            n_exited = int(n_exited)
             if n_exited:
                 print(
                     f"WARNING: {n_exited} particles exited the domain during "
@@ -321,11 +469,12 @@ class PumiTally:
                     "the boundary"
                 )
         self.is_initialized = True
-        self._sync()
+        self._fence()
         self.tally_times.initialization_time += time.perf_counter() - t0
 
     def _dispatch_localize(self, dest: torch.Tensor):
-        """Non-tallying localization; returns (found_all, n_exited)."""
+        """Non-tallying localization; returns (found_all, n_exited),
+        device scalars that are fetched only when they are read."""
         x, elem = self.x, self.elem
         if self.config.localization == "locate":
             # Half-space point location first: located particles enter
@@ -338,7 +487,7 @@ class PumiTally:
             self.mesh, x, elem, dest, tol=self._tol,
             max_iters=self._max_iters,
         )
-        return bool(done.all()), int(exited.sum())
+        return done.all(), exited.sum()
 
     def MoveToNextLocation(self, particle_origin, particle_destinations,
                            flying=None, weights=None,
@@ -354,23 +503,44 @@ class PumiTally:
                 "(reference invariant, PumiTallyImpl.cpp:437-438)"
             )
         t0 = time.perf_counter()
-        dests = self._as_positions(particle_destinations, size,
-                                   "destinations")
-        origins = (None if particle_origin is None
-                   else self._as_positions(particle_origin, size, "origins"))
+        n = self.num_particles
+        dests_raw = host_positions(particle_destinations, size, n)
+        origins_raw = (None if particle_origin is None
+                       else host_positions(particle_origin, size, n))
+        dests = self._stage_positions(dests_raw, "dests", "destinations")
+        if self._origins_echo_raw(origins_raw):
+            # The origins echo the previous destinations in the working
+            # dtype: the device tensor that staged those holds exactly
+            # the caller's origins. Phase A still runs on the device
+            # (and skips its walk when every particle is there).
+            origins = self._last_dests_dev
+        elif origins_raw is None:
+            origins = None
+        else:
+            origins = self._stage_positions(origins_raw, "origins",
+                                            "origins")
         fly = self._stage_flying(flying)
         w = self._stage_weights(weights)
-        zero_flying_side_effect(flying, self.num_particles)
+        zero_flying_side_effect(flying, n)
         found_all = self._dispatch_move(origins, dests, fly, w)
+        if origins_raw is not None and self._retain_echo_snapshots():
+            # Only origin-passing callers can echo. The device tensor is
+            # this move's own (staging allocates anew each upload).
+            keep, self._last_dests_host = self._last_dests_host, None
+            self._last_dests_dev = None
+            self._last_dests_host = owned_snapshot(
+                keep, self._staging.host("dests")[0])
+            self._last_dests_dev = dests
         self.iter_count += 1
-        if self.config.check_found_all and not found_all:
+        if self.config.check_found_all and not bool(found_all):
             print("ERROR: Not all particles are found. May need more loops in search")
-        self._sync()
+        self._fence()
         self.tally_times.total_time_to_tally += time.perf_counter() - t0
 
-    def _dispatch_move(self, origins, dests, fly, w) -> bool:
+    def _dispatch_move(self, origins, dests, fly, w):
         """One tallied move from staged inputs (origins None: continue
-        mode). Returns whether every particle finished."""
+        mode). Returns whether every particle finished, as a device
+        scalar fetched only when read."""
         if origins is None:
             self.x, self.elem, done, _ = move_step_continue(
                 self.mesh, self.x, self.elem, dests, fly, w, self.flux,
@@ -381,7 +551,7 @@ class PumiTally:
                 self.mesh, self.x, self.elem, origins, dests, fly, w,
                 self.flux, tol=self._tol, max_iters=self._max_iters,
             )
-        return bool(done.all())
+        return done.all()
 
     def WriteTallyResults(self, filename: Optional[str] = None) -> None:
         """Normalize flux by element volume and write a legacy VTK file
@@ -433,6 +603,3 @@ class PumiTally:
         """Committed particle positions."""
         return self.x.cpu().numpy()[: self.num_particles]
 
-
-def _np_dtype(dtype: torch.dtype):
-    return {torch.float32: np.float32, torch.float64: np.float64}[dtype]

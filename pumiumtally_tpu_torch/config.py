@@ -4,8 +4,9 @@ that the PyTorch port implements so far.
 A knob the port does not have is not a field, so passing it is a
 ``TypeError``. The few values the JAX package accepts but the port does
 not run yet raise ``NotImplementedError`` naming the ROADMAP.md item
-that brings them. Validation and resolution otherwise follow the JAX
-package's ``TallyConfig`` (config.py:592-660, :728-746).
+that brings them (by title: the items are renumbered now and then).
+Validation and resolution otherwise follow the JAX package's
+``TallyConfig`` (config.py:576-660, :728-746).
 """
 
 from __future__ import annotations
@@ -17,9 +18,11 @@ import torch
 
 # ROADMAP.md items named by the refusals below.
 ROADMAP_GATHER_BLOCKS = (
-    "ROADMAP.md queue 1 item 8, 'partitioned gather walk (walk_local)'"
+    "ROADMAP.md queue 1, 'The rest of the partitioned engine': the "
+    "gather block walk walk_local"
 )
-ROADMAP_SCORING = "ROADMAP.md queue 1, 'scoring, stats and sentinel'"
+ROADMAP_SCORING = "ROADMAP.md queue 1, 'Scoring, stats and sentinel'"
+ROADMAP_MULTI_DEVICE = "ROADMAP.md queue 1, 'Multi-device'"
 
 
 @dataclasses.dataclass
@@ -53,6 +56,31 @@ class TallyConfig:
         float32).
       scoring: no scoring lanes yet.
       output_filename: default VTK output path.
+      auto_continue: ``MoveToNextLocation`` detects on the host when the
+        staged origins echo the previous move's destinations bit for
+        bit in the working dtype and reuses the device tensor that
+        staged them instead of uploading them again (phase A still
+        runs on the device, and W0 skips its walk when every particle
+        already sits at its origin); also caches the device all-ones
+        flying and weights and reuses the weights when they echo the
+        previous move's. After 8 consecutive misses the snapshots stop,
+        with one retry every 64 moves; ``CopyInitialPosition`` re-arms.
+      fenced_timing: each protocol call synchronizes the device before
+        its end stamp, so ``TallyTimes`` measures device work. False
+        lets calls return after dispatch; with ``check_found_all=False``
+        too, a continue move and an echoing two-phase move make no
+        host synchronization at all.
+      validate_inputs: the host finite check of staged positions and
+        weights (after the working-dtype cast). False skips it.
+      walk_cond_every, walk_perm_mode, walk_window_factor,
+        walk_min_window, walk_partition_method: the JAX walk's
+        compaction-cascade knobs, validated as the JAX package
+        validates them and otherwise without effect: the port's kernels
+        walk each particle to completion and have no cascade. They are
+        accepted so that a JAX configuration crosses over
+        (``convert.tally_config``).
+      device_groups: the JAX partitioned streaming facade's disjoint
+        device groups; the port runs on one device, so only 1.
     """
 
     dtype: Any = None
@@ -68,12 +96,60 @@ class TallyConfig:
     walk_table_dtype: Optional[str] = None
     scoring: Optional[Any] = None
     output_filename: str = "fluxresult.vtk"
+    auto_continue: bool = True
+    fenced_timing: bool = True
+    validate_inputs: bool = True
+    walk_cond_every: Optional[int] = None
+    walk_perm_mode: Optional[str] = None
+    walk_window_factor: Optional[int] = None
+    walk_min_window: Optional[int] = None
+    walk_partition_method: Optional[str] = None
+    device_groups: int = 1
 
     def __post_init__(self) -> None:
         if self.localization not in ("walk", "locate"):
             raise ValueError(
                 "localization must be 'walk' or 'locate', "
                 f"got {self.localization!r}"
+            )
+        if int(self.device_groups) < 1:
+            raise ValueError(
+                f"device_groups must be >= 1, got {self.device_groups!r}"
+            )
+        if int(self.device_groups) > 1:
+            raise NotImplementedError(
+                f"device_groups={self.device_groups} needs several "
+                f"devices, which the port does not run yet: "
+                f"{ROADMAP_MULTI_DEVICE}"
+            )
+        if self.walk_perm_mode is not None and self.walk_perm_mode not in (
+            "auto", "arrays", "packed", "indirect", "sorted"
+        ):
+            raise ValueError(
+                "walk_perm_mode must be auto/arrays/packed/indirect/"
+                f"sorted, got {self.walk_perm_mode!r}"
+            )
+        if self.walk_partition_method is not None and (
+            self.walk_partition_method not in ("rank", "argsort")
+        ):
+            raise ValueError(
+                "walk_partition_method must be 'rank' or 'argsort', "
+                f"got {self.walk_partition_method!r}"
+            )
+        if self.walk_window_factor is not None and int(
+            self.walk_window_factor
+        ) < 2:
+            raise ValueError(
+                f"walk_window_factor must be >= 2, "
+                f"got {self.walk_window_factor!r}"
+            )
+        if self.walk_cond_every is not None and int(self.walk_cond_every) < 1:
+            raise ValueError(
+                f"walk_cond_every must be >= 1, got {self.walk_cond_every!r}"
+            )
+        if self.walk_min_window is not None and int(self.walk_min_window) < 1:
+            raise ValueError(
+                f"walk_min_window must be >= 1, got {self.walk_min_window!r}"
             )
         if self.dtype is not None:
             if self.dtype == torch.bfloat16:

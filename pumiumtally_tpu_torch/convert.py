@@ -11,7 +11,8 @@ no JAX import here) and build the port's object from such a dict:
 - a ``MeshPartition``: the block tables (``table_hi`` too when two-tier;
   a bf16 ``table`` as its uint16 bits) and the id maps;
 - a facade: its particle state and flux (``PumiTally``: x, elem, flux;
-  ``PartitionedPumiTally``: every engine slot row plus the padded flux).
+  ``PartitionedPumiTally``: every engine slot row plus the padded flux);
+- a ``TallyConfig``: the fields both packages have (``tally_config``).
 
 Tests build an input once, hand it to both packages through here, and
 compare what comes out. A bf16 tensor crosses as its uint16 bit pattern:
@@ -27,6 +28,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from pumiumtally_tpu_torch.config import TallyConfig
 from pumiumtally_tpu_torch.mesh.tetmesh import (
     WALK_TABLE_ADJ,
     WALK_TABLE_NORMALS,
@@ -182,3 +184,29 @@ def load_facade_state(tally, arrays: Dict[str, np.ndarray]) -> None:
         tally.elem = t(arrays["elem"], torch.int32)
         tally.flux = t(arrays["flux"], tally.dtype)
     tally.is_initialized = True
+
+
+def tally_config(cfg) -> TallyConfig:
+    """The port's ``TallyConfig`` with every field that ``cfg`` (a JAX
+    package ``TallyConfig``, read duck-typed) shares with it; the port's
+    own validation runs on the values. A field the port does not have
+    is refused with ``NotImplementedError`` unless ``cfg`` leaves it at
+    its default. The working dtype crosses by name (float32/float64)."""
+    port = {f.name for f in dataclasses.fields(TallyConfig)}
+    kw = {}
+    for f in dataclasses.fields(cfg):
+        value = getattr(cfg, f.name)
+        if f.name in port:
+            kw[f.name] = value
+            continue
+        default = (f.default_factory() if f.default_factory
+                   is not dataclasses.MISSING else f.default)
+        if value is not default and value != default:
+            raise NotImplementedError(
+                f"TallyConfig.{f.name}={value!r} has no counterpart in the "
+                "port yet (ROADMAP.md queue 1)"
+            )
+    if kw.get("dtype") is not None:
+        kw["dtype"] = {"float32": torch.float32, "float64": torch.float64,
+                       "bfloat16": torch.bfloat16}[np.dtype(kw["dtype"]).name]
+    return TallyConfig(**kw)

@@ -43,6 +43,13 @@
 // contract). No compaction cascade: the lanes that pull work have no
 // lock-step waste to bound.
 //
+// `skip` (optional, device int32): the port of the JAX move's
+// `lax.cond(trivial, skip_a, run_a)` (api/tally.py:326), decided on the
+// device so that the host never waits for it. Each CUDA block reads it
+// once; when it is non-zero the kernel walks nothing and writes every
+// particle's inputs back out: x_out = x, elem_out = elem, done = 1,
+// exited = 0, s = s_init (or 0), leaving counts and iters alone.
+//
 // The two-tier variant (kTwoTier; the JAX walk's lo_select branch,
 // ops/walk.py _advance_geometry :425-431) reads, per crossing, the tet's
 // 32 B bf16 select row as two 16-byte loads and then the winning face's
@@ -81,6 +88,7 @@ struct WalkArgs {
   int* iters;
   int* next;  // the global particle counter, zeroed by the caller
   int* counts;
+  const int* skip;
   int n, max_iters, tally;
   T tol;
 };
@@ -138,7 +146,7 @@ __device__ __forceinline__ void walk_flush(const WalkArgs<T>& a,
 template <typename T, bool kTwoTier>
 __global__ void __launch_bounds__(WALK_THREADS)
     walk_kernel(const WalkArgs<T> a) {
-  __shared__ int block_iters, block_walked;
+  __shared__ int block_iters, block_walked, block_skip;
   __shared__ WalkStage<T> stage[WALK_THREADS / 32];
   WalkStage<T>& st = stage[threadIdx.x >> 5];
   const int lane = threadIdx.x & 31;
@@ -146,8 +154,22 @@ __global__ void __launch_bounds__(WALK_THREADS)
   if (threadIdx.x == 0) {
     block_iters = 0;
     block_walked = 0;
+    block_skip = a.skip != nullptr && *a.skip != 0;
   }
   __syncthreads();
+  if (block_skip) {
+    // Nothing to walk: every output is its input, grid-stride.
+    const int stride = gridDim.x * WALK_THREADS;
+    const int first = blockIdx.x * WALK_THREADS + threadIdx.x;
+    for (int k = first; k < 3 * a.n; k += stride) a.x_out[k] = a.x[k];
+    for (int j = first; j < a.n; j += stride) {
+      a.elem_out[j] = a.elem_in[j];
+      a.done_out[j] = true;
+      a.exited_out[j] = false;
+      a.s_out[j] = a.s_init ? a.s_init[j] : T(0);
+    }
+    return;
+  }
 
   // The warp's share of particle indices [pool, pool_end), the same in
   // every lane; `drained`: the global counter has passed n. Shares start
@@ -319,8 +341,8 @@ static WalkArgs<T> walk_args(const void* table, const void* table_lo,
                              const void* s_init, void* flux, void* x_out,
                              void* elem_out, void* done_out, void* exited_out,
                              void* s_out, void* iters, void* next,
-                             void* counts, int n, double tol, int max_iters,
-                             int tally) {
+                             void* counts, const void* skip, int n,
+                             double tol, int max_iters, int tally) {
   WalkArgs<T> a;
   a.table = static_cast<const T*>(table);
   a.table_lo = static_cast<const uint16_t*>(table_lo);
@@ -340,6 +362,7 @@ static WalkArgs<T> walk_args(const void* table, const void* table_lo,
   a.iters = static_cast<int*>(iters);
   a.next = static_cast<int*>(next);
   a.counts = static_cast<int*>(counts);
+  a.skip = static_cast<const int*>(skip);
   a.n = n;
   a.max_iters = max_iters;
   a.tally = tally;
@@ -352,11 +375,11 @@ static WalkArgs<T> walk_args(const void* table, const void* table_lo,
   const void *x, const void *elem, const void *dest, const void *fly,      \
       const void *w, const void *s_init, void *flux, void *x_out,           \
       void *elem_out, void *done_out, void *exited_out, void *s_out,        \
-      void *iters, void *next, void *counts, int n, double tol,             \
-      int max_iters, int tally, void *stream
+      void *iters, void *next, void *counts, const void *skip, int n,       \
+      double tol, int max_iters, int tally, void *stream
 #define WALK_PARTICLE_ARGS                                                  \
   x, elem, dest, fly, w, s_init, flux, x_out, elem_out, done_out,           \
-      exited_out, s_out, iters, next, counts, n, tol, max_iters, tally
+      exited_out, s_out, iters, next, counts, skip, n, tol, max_iters, tally
 
 extern "C" int pumi_walk_f32(const void* table, WALK_PARTICLE_PARAMS) {
   return launch_walk<float, false>(

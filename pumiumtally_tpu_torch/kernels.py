@@ -58,8 +58,8 @@ _BOTH = ("f32", "f64")
 # C entry points: entry -> (library, argtypes, dtypes); the entry's
 # dtypes share its argtypes (``pumi_<entry>_f32`` / ``pumi_<entry>_f64``).
 _ENTRY_ARGS = {
-    "walk": ("walk", [_P] * 16 + [_I, _D, _I, _I, _P], _BOTH),
-    "walk_twotier": ("walk", [_P] * 17 + [_I, _D, _I, _I, _P], _BOTH),
+    "walk": ("walk", [_P] * 17 + [_I, _D, _I, _I, _P], _BOTH),
+    "walk_twotier": ("walk", [_P] * 18 + [_I, _D, _I, _I, _P], _BOTH),
     "block_walk": (
         "block_walk", [_P] * 16 + [_I, _I, _I, _D, _I, _I, _P], _BOTH,
     ),

@@ -20,7 +20,8 @@ list (``w2_uses_shared``); a larger block reads them from global
 memory.
 
 Scoring lanes (the JAX kernel's ``scoring=``) are not in this port
-(ROADMAP.md queue 1 item 10). ``flux`` is updated IN PLACE.
+(ROADMAP.md queue 2, "K2's in-kernel scoring lanes", which comes with
+queue 1's "Scoring, stats and sentinel"). ``flux`` is updated IN PLACE.
 """
 
 from __future__ import annotations

@@ -26,7 +26,11 @@ per-particle step budget; the JAX walk checks it every ``cond_every``
 
 ``walk`` launches W0 for CUDA tensors and runs ``walk_plain`` only for
 CPU tensors. Flux is accumulated IN PLACE into the ``flux`` argument
-(the JAX walk returns a new array).
+(the JAX walk returns a new array). ``skip``, a 0-d bool tensor, is the
+JAX move's device-side phase-A skip (``lax.cond(trivial, skip_a,
+run_a)``, api/tally.py:326): when true the walk returns its inputs and
+walks nothing, and on the card W0 reads the flag itself, so the host
+never waits for it.
 """
 
 from __future__ import annotations
@@ -208,13 +212,29 @@ def eff_weight(d0, in_flight, weight):
     return torch.where(in_flight != 0, weight * seg, torch.zeros_like(seg))
 
 
+def _skipped(x, elem, s_init) -> WalkResult:
+    """A walk that walked nothing: every output is its input."""
+    n = x.shape[0]
+    s = (torch.zeros((n,), dtype=x.dtype, device=x.device) if s_init is None
+         else s_init.to(x.dtype).clone())
+    return WalkResult(
+        x=x.clone(), elem=elem.to(torch.int32).clone(),
+        done=torch.ones((n,), dtype=torch.bool, device=x.device),
+        exited=torch.zeros((n,), dtype=torch.bool, device=x.device),
+        flux=None, iters=torch.tensor(0, dtype=torch.int32, device=x.device),
+        s=s,
+    )
+
+
 def walk_plain(
     mesh: TetMesh, x, elem, dest, in_flight, weight, flux, *,
-    tally: bool, tol: float, max_iters: int, s_init=None,
+    tally: bool, tol: float, max_iters: int, s_init=None, skip=None,
 ) -> WalkResult:
     """W0's plain PyTorch version: a masked lock-step loop, one crossing
     of every unfinished particle per iteration (two-tier when the mesh
-    carries the two-tier tables)."""
+    carries the two-tier tables). ``skip`` true: nothing is walked."""
+    if skip is not None and bool(skip):
+        return _skipped(x, elem, s_init)._replace(flux=flux)
     n = x.shape[0]
     d0 = dest - x
     eff_w = eff_weight(d0, in_flight, weight) if tally else None
@@ -255,7 +275,7 @@ def walk_plain(
 
 
 def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
-               max_iters, s_init, counts):
+               max_iters, s_init, counts, skip=None):
     dev, dt = x.device, x.dtype
     n, ne = x.shape[0], mesh.nelems
     if mesh.two_tier:
@@ -279,6 +299,7 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
         ("s_init", s_init, dt, (n,)),
         ("flux", flux if tally else None, dt, (ne,)),
         ("counts", counts, torch.int32, (1,)),
+        ("skip", skip, torch.bool, ()),
     ])
     # The kernel reads the packed row or the select row in 16-byte words.
     kernels.check_aligned("walk", [tables[0][:2]])
@@ -289,14 +310,16 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
     s = torch.empty((n,), dtype=dt, device=dev)
     # iters and the kernel's particle counter, zeroed in one fill.
     scratch = torch.zeros((2,), dtype=torch.int32, device=dev)
+    # The kernel reads the flag as an int32 (held until after launch).
+    skip_i = None if skip is None else skip.to(torch.int32)
     p = kernels.ptr
     kernels.launch(
         entry, dt, dev, *(p(t) for _, t, _, _ in tables), p(x), p(elem),
         p(dest), p(in_flight), p(weight), p(s_init),
         p(flux if tally else None),
         p(x_out), p(elem_out), p(done), p(exited), p(s), p(scratch),
-        p(scratch[1:]), p(counts), n, float(tol), int(max_iters),
-        int(bool(tally)),
+        p(scratch[1:]), p(counts), p(skip_i), n, float(tol),
+        int(max_iters), int(bool(tally)),
     )
     return WalkResult(x=x_out, elem=elem_out, done=done, exited=exited,
                       flux=flux, iters=scratch[0], s=s)
@@ -305,7 +328,7 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
 def walk(
     mesh: TetMesh, x, elem, dest, in_flight, weight, flux, *,
     tally: bool, tol: float, max_iters: int, s_init=None,
-    table_dtype: Optional[str] = None, counts=None,
+    table_dtype: Optional[str] = None, counts=None, skip=None,
 ) -> WalkResult:
     """Walk every particle from ``x`` (inside ``elem``) toward ``dest``.
 
@@ -324,7 +347,9 @@ def walk(
     CUDA tensors launch kernel W0 (its two-tier variant on a two-tier
     mesh); CPU tensors run ``walk_plain``. ``counts`` (CUDA only: an
     int32 [1] tensor) gets the number of particles the kernel walked
-    added to it."""
+    added to it. ``skip`` (a 0-d bool tensor on the particles' device):
+    when true, nothing is walked and the inputs come back (x, elem, s
+    = ``s_init`` or 0, done, not exited)."""
     if tally and flux is None:
         raise ValueError("a tallying walk needs a flux tensor")
     if counts is not None and not x.is_cuda:
@@ -343,9 +368,9 @@ def walk(
     if x.is_cuda:
         return _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux,
                           tally=tally, tol=tol, max_iters=max_iters,
-                          s_init=s_init, counts=counts)
+                          s_init=s_init, counts=counts, skip=skip)
     if x.device.type != "cpu":
         raise ValueError(f"walk runs on CUDA or CPU tensors, not {x.device}")
     return walk_plain(mesh, x, elem, dest, in_flight, weight, flux,
                       tally=tally, tol=tol, max_iters=max_iters,
-                      s_init=s_init)
+                      s_init=s_init, skip=skip)

@@ -350,6 +350,39 @@ def _locate_chunk_hi(table_hi: torch.Tensor, valid: torch.Tensor,
 # Round-driving engine
 # ---------------------------------------------------------------------------
 
+def engine_block_bound(mesh: TetMesh, vmem_walk_max_elems: Optional[int],
+                       block_kernel: str, table_dtype: str):
+    """(block kernel, block element bound) of an engine: "vmem" runs W1
+    on the packed tables and needs ``vmem_walk_max_elems`` (clamped to
+    what W1's shared memory holds); "pallas" runs W2 on the two-tier
+    tables, where the bound only sizes the blocks (unset: one block
+    holds the whole mesh; W2 has a global-memory regime, so nothing is
+    clamped)."""
+    block_kernel = resolve_block_kernel(block_kernel, table_dtype)
+    if block_kernel != "vmem":
+        return block_kernel, vmem_walk_max_elems
+    if vmem_walk_max_elems is None:
+        raise NotImplementedError(
+            "the partitioned engine without walk_vmem_max_elems "
+            f"runs the gather walk, which is not ported yet "
+            f"({ROADMAP_GATHER_BLOCKS})"
+        )
+    return block_kernel, effective_vmem_bound(vmem_walk_max_elems,
+                                              mesh.dtype, mesh.device)
+
+
+def engine_partition(mesh: TetMesh, vmem_walk_max_elems: Optional[int],
+                     block_kernel: str, table_dtype: str) -> MeshPartition:
+    """The partition an engine with these knobs builds for itself; the
+    partitioned streaming facade builds it once for all its chunk
+    engines (``PartitionedEngine(part=...)``)."""
+    _, bound = engine_block_bound(mesh, vmem_walk_max_elems, block_kernel,
+                                  table_dtype)
+    return build_partition(mesh, derive_blocks_per_chip(
+        mesh.nelems, 1, block_elems_bound(bound, table_dtype)
+    ), table_dtype=table_dtype)
+
+
 class PartitionedEngine:
     """Owns the partitioned particle state on one device and drives
     walk/migrate rounds. ``cap = nparts * cap_per_block`` slots; block b
@@ -369,31 +402,26 @@ class PartitionedEngine:
         vmem_walk_max_elems: Optional[int] = None,
         block_kernel: str = "vmem",
         table_dtype: str = "float32",
+        part: Optional[MeshPartition] = None,
     ):
-        """``block_kernel`` "vmem" runs W1 on the packed tables and needs
-        ``vmem_walk_max_elems``; "pallas" runs W2 on the two-tier tables
-        (``table_dtype="bfloat16"``), where the bound only sizes the
-        blocks: unset, one block holds the whole mesh."""
-        block_kernel = resolve_block_kernel(block_kernel, table_dtype)
-        if block_kernel == "vmem":
-            if vmem_walk_max_elems is None:
-                raise NotImplementedError(
-                    "the partitioned engine without walk_vmem_max_elems "
-                    f"runs the gather walk, which is not ported yet "
-                    f"({ROADMAP_GATHER_BLOCKS})"
-                )
-            bound = effective_vmem_bound(vmem_walk_max_elems, mesh.dtype,
-                                         mesh.device)
+        """``block_kernel`` and ``vmem_walk_max_elems`` as in
+        ``engine_block_bound``. ``part``: a prebuilt partition (shared
+        by several engines) whose tables fix the tier, as in the JAX
+        engine; by default the engine builds its own
+        (``engine_partition``)."""
+        if part is not None:
+            table_dtype = ("bfloat16" if part.table_hi is not None
+                           else "float32")
         else:
-            # W2 has a global-memory regime: no ceiling to clamp to.
-            bound = vmem_walk_max_elems
+            part = engine_partition(mesh, vmem_walk_max_elems, block_kernel,
+                                    table_dtype)
+        block_kernel, _ = engine_block_bound(mesh, vmem_walk_max_elems,
+                                             block_kernel, table_dtype)
         self.use_pallas_walk = block_kernel == "pallas"
         self.check_found_all = check_found_all
         self.n = int(num_particles)
         self.device = mesh.device
-        self.part = build_partition(mesh, derive_blocks_per_chip(
-            mesh.nelems, 1, block_elems_bound(bound, table_dtype)
-        ), table_dtype=table_dtype)
+        self.part = part
         self.two_tier = self.part.table_hi is not None
         self.nparts = self.part.ndev
         cap_b = int(-(-self.n // self.nparts) * capacity_factor + 1)

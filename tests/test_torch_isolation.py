@@ -24,6 +24,8 @@ import torch
 from pumiumtally_tpu_torch import (
     PartitionedPumiTally,
     PumiTally,
+    StreamingPartitionedTally,
+    StreamingTally,
     TallyConfig,
     build_box,
     kernels,
@@ -74,7 +76,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     # The experiment entry points, the mesh IO and the pincell geometry
     # are under the check too.
     for rel in ("experiments/r3_vmem.py", "experiments/pallas_gather.py",
-                "io/osh.py", "io/gmsh.py", "io/load.py", "mesh/pincell.py"):
+                "io/osh.py", "io/gmsh.py", "io/load.py", "mesh/pincell.py",
+                "api/staging.py", "api/streaming.py"):
         assert PORT / rel in files, rel
     for f in files:
         roots = set(_imported_roots(f))
@@ -90,6 +93,11 @@ def test_facade_without_device_raises_when_no_gpu():
         PumiTally(mesh, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PartitionedPumiTally(mesh, 4, TallyConfig(walk_vmem_max_elems=2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingTally(mesh, 4, chunk_size=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingPartitionedTally(mesh, 4, chunk_size=2,
+                                  config=TallyConfig(walk_vmem_max_elems=2))
 
 
 def test_cpu_runs_plain_versions_and_counts_no_launch():
@@ -106,7 +114,12 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
                                    TallyConfig(walk_kernel="pallas",
                                                walk_vmem_max_elems=40,
                                                **bf16),
-                                   device="cpu")):
+                                   device="cpu"),
+              StreamingTally(mesh, 50, chunk_size=20, device="cpu"),
+              StreamingPartitionedTally(mesh, 50, chunk_size=20,
+                                        config=TallyConfig(
+                                            walk_vmem_max_elems=40),
+                                        device="cpu")):
         t.CopyInitialPosition(pts.reshape(-1).copy())
         t.MoveToNextLocation(None, (1.0 - pts).reshape(-1).copy())
         np.testing.assert_allclose(

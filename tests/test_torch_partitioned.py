@@ -218,7 +218,8 @@ def test_config_subset_and_refusals():
         PartitionedPumiTally(mesh, 8, TallyConfig(), device="cpu")
     # bf16 tables with the vmem block walk run the gather block walk in
     # the JAX package: not ported, so refused with its ROADMAP item.
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError,
+                       match="The rest of the partitioned engine"):
         PartitionedPumiTally(mesh, 8, TallyConfig(
             walk_table_dtype="bfloat16", walk_vmem_max_elems=4),
             device="cpu")
