@@ -12,7 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    reports them.
 2. Build: every kernel of the port, compiled from csrc/ with nvcc for
    sm_90a (build seconds and the ptxas register/shared-memory report;
-   W0's registers and spills on a line of their own).
+   W0's registers and spills on a line of their own, per instantiation:
+   float / double, packed / two-tier, scoring off / on).
 3. W0 (csrc/walk.cu) against its plain PyTorch version ``walk_plain`` on
    the card: a 48,000-tet box, 500,000 particles on bench.py's random
    trajectory, float32, tallying. The kernel counts the particles it
@@ -43,6 +44,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    and one block of all 48,000 (rows read from global memory, one
    round); the first must stage and find empty shares, the second read
    global rows, so the three per-CUDA-block regimes all run.
+6b. The scoring slice's kernels, with the stride-96 spec (an energy
+   filter of 8 bins, a time filter of 4, the scores flux, heating and
+   events; 1% of the energies out of range, dropped): the registers of
+   every W0 and W2 instantiation, the scoring-off ones equal to the
+   counts before scoring existed (REGS_BEFORE_SCORING); W0's scoring
+   instantiation on both tiers (and in float64) against
+   ``walk_plain(scoring=)``, and W2's in both regimes on every round of
+   the first move against ``pallas_walk_local_plain(scoring=)``: ids,
+   masks, iters, positions and s bitwise, and equal to the same
+   kernel's scoring-off run; flux at rtol 1e-4 of its largest element,
+   each track lane at rtol 1e-4 of its own value, the event lanes equal
+   and whole; scoring-on and scoring-off kernel times (into standing
+   buffers; W0 by CUDA events, W2 by torch.profiler) in turns, four
+   passes each, beside the bytes bound (each bank lane the run touched
+   read and written once, each particle's bin offset and factors read
+   once).
 7. W3 (csrc/resident_walk.cu) through its experiment entry point
    (``experiments/r3_vmem.py`` bench: the L sweep of
    tools/exp_r3_vmem.py with W3 and W0, launches counted over it), its
@@ -86,6 +103,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    of queued device work and must return while it still runs; the
    protocol with the echo on and off, fenced and not (and unvalidated)
    gives bitwise positions, equal ids and flux within rtol 1e-4.
+10b'. Scoring without a host sync: an unfenced, unchecked continue move
+   with scoring (energy and time staged, bins resolved on the device)
+   under ``set_sync_debug_mode("error")`` behind ~50 ms of queued device
+   work must return while it still runs.
 10c. The streaming cell: 10,000,000 particles in 1,000,000-particle
    chunks on the box, ``StreamingTally`` on both tiers and
    ``StreamingPartitionedTally`` (W1) beside ``PumiTally`` on both
@@ -105,8 +126,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    flux is held to conservation and its L1 against the float32 flux
    reported (on this geometry the select tier moves more track length
    than the box's tie band, in the JAX package too).
-12. One JSON line with each kernel's launches, times, bound and error,
-   then the card's name and power limit, then the result line.
+   Then W0's scoring instantiation on both tiers on the lattice, as in
+   phase 6b.
+12. The scoring slice's main path: ``PumiTally`` on both tiers on the
+   box and on the lattice (from its path), ``PartitionedPumiTally`` on
+   W2, ``StreamingTally`` at 10M (float32) and
+   ``StreamingPartitionedTally`` (W2, 10M, one two-phase move a batch),
+   each with the spec and ``batch_stats=True`` over 3 batches
+   (CopyInitialPosition, a two-phase move, continue moves, energies all
+   in range), launch counts reset before each and read after:
+   conservation at rtol 1e-6, the flux score summed over bins against
+   the flux lane at rtol 1e-4, the event lanes whole, ``rel_err``
+   finite where flux > 0, the score and statistics arrays written by
+   WriteTallyResults; one profiled continue move of the box
+   ``PumiTally`` with scoring.
+13. One JSON line with each kernel's launches, times, bound and error
+   (W0 and W2 with scoring as entries of their own), then the card's
+   name and power limit, then the result line.
 
 Kernel comparisons: element ids, done/exited/pending masks and ``iters``
 must be equal; positions and ray coordinates are expected bitwise equal
@@ -382,15 +418,17 @@ def phase_build() -> None:
             if any(k in line for k in ("entry function", "registers",
                                        "spill")):
                 print(f"#   {name}: {line.strip()}")
-    # W0's instances (float / double, packed table / two tiers):
-    # registers and spills, from ptxas's report.
+    # W0's instances (float / double, packed table / two tiers, scoring
+    # off / on): registers and spills, from ptxas's report.
     kernel, spills = None, "spills not reported"
     for line in kernels.build_log("walk").splitlines():
-        m = re.search(r"properties for _Z\d+walk_kernelI(\w)Lb(\d)E", line)
+        m = re.search(r"properties for _Z\d+walk_kernelI(\w)Lb(\d)ELb(\d)E",
+                      line)
         if m:
             dtype = {"f": "float", "d": "double"}[m[1]]
             tier = ("packed", "two-tier")[int(m[2])]
-            kernel = f"walk_kernel<{dtype}> ({tier})"
+            kernel = (f"walk_kernel<{dtype}> ({tier}"
+                      f"{', scoring' if m[3] == '1' else ''})")
         elif kernel and "spill" in line:
             spills = line.strip()
         elif kernel and "Used" in line and "registers" in line:
@@ -1089,7 +1127,7 @@ def phase_main_path(facade, mesh, pts, config, card: str) -> tuple:
     return counts, flux
 
 
-def profile_move(t, dests: np.ndarray) -> None:
+def profile_move(t, dests: np.ndarray, move_kw=None) -> None:
     """Where one continue move's time goes: wall time on the host clock,
     device-busy time as the union of the device activity intervals that
     torch.profiler records (kernels and copies; the CPU ops that launch
@@ -1104,11 +1142,11 @@ def profile_move(t, dests: np.ndarray) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        t.MoveToNextLocation(None, flat(dests))
+        t.MoveToNextLocation(None, flat(dests), **(move_kw or {}))
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_us = span_us(union(device_spans(prof)))
-    name = type(t).__name__
+    name = type(t).__name__ + (" (scoring)" if move_kw else "")
     if busy_us == 0:
         print(f"# profile {name}: wall {wall_ms:.3f} ms; device time not "
               "measured (the profiler saw none)")
@@ -1131,7 +1169,8 @@ def profile_move(t, dests: np.ndarray) -> None:
         # The profiler now and then misses kernels: the wrappers' own
         # count of this move's launches stands beside its list.
         launched = sum(kernels.launch_counts[k] - before[k]
-                       for k in ("block_walk", "twotier_block_walk"))
+                       for k in ("block_walk", "twotier_block_walk",
+                                 "twotier_block_walk_scored"))
         print(f"#   block walk per round (ms): "
               f"{', '.join(f'{ms:.4f}' for _, ms in walks)}; "
               f"{len(walks)} launches profiled of {launched} made, "
@@ -1473,6 +1512,15 @@ def check_conservation(what: str, flux, expect: float) -> float:
     return rel
 
 
+def lattice_box() -> list:
+    """The lattice's bounding box (its lower corner is the origin)."""
+    from pumiumtally_tpu_torch.mesh.pincell import FLAGSHIP_PINCELL
+
+    return [LATTICE[0] * FLAGSHIP_PINCELL["pitch"],
+            LATTICE[1] * FLAGSHIP_PINCELL["pitch"],
+            FLAGSHIP_PINCELL["height"]]
+
+
 def write_lattice(directory: str) -> tuple:
     """The 3x3 lattice written with the port's ``write_osh``: its path,
     and bench.py's trajectory over its box (``run_pincell``'s seed)."""
@@ -1490,8 +1538,7 @@ def write_lattice(directory: str) -> tuple:
     coords, tets, _, _ = lattice_arrays(*LATTICE, **params)
     path = f"{directory}/lattice.osh"
     write_osh(path, coords, tets)
-    box = [LATTICE[0] * params["pitch"], LATTICE[1] * params["pitch"],
-           params["height"]]
+    box = lattice_box()
     print(f"# lattice: {LATTICE[0]}x{LATTICE[1]} FLAGSHIP_PINCELL cells, "
           f"nz={LATTICE_NZ}: {tets.shape[0]} tets, {coords.shape[0]} "
           f"vertices, box {box}; generated and written as .osh in "
@@ -1511,6 +1558,524 @@ def check_tie_band(what: str, flux_bf16, flux_f32, band=TIE_BAND) -> None:
     if band is not None and l1 > band:
         raise AssertionError(f"{what}: two-tier flux L1 {l1} outside the "
                              f"tie-class band {TIE_BAND}")
+
+
+# The scoring phase's spec (8 energy bins x 4 time bins x 3 scores:
+# stride 96) and its inputs: energies log-uniform over the edges with
+# SCORE_OUT of them below or above (the DROP sentinel), times uniform.
+SCORE_E_EDGES = np.geomspace(1e-5, 2e7, 9)
+SCORE_T_EDGES = np.linspace(0.0, 1.0, 5)
+SCORE_NAMES = ("flux", "heating", "events")
+SCORE_OUT = 0.01
+SCORE_BATCHES = 3
+SCORE_PASSES = 4  # scoring-on / scoring-off timing passes
+# The scoring-off instantiations' registers (ptxas, sm_90a, this
+# script's flags) as walk.cu and twotier_block_walk.cu built them before
+# they had any scoring code: scoring must not move them.
+REGS_BEFORE_SCORING = {
+    ("walk", "float", "packed"): 54,
+    ("walk", "float", "two-tier"): 44,
+    ("walk", "double", "packed"): 89,
+    ("walk", "double", "two-tier"): 64,
+    ("twotier_block_walk", "float", ""): 55,
+    ("twotier_block_walk", "double", ""): 64,
+}
+
+
+def score_spec():
+    from pumiumtally_tpu_torch import EnergyFilter, ScoringSpec, TimeFilter
+
+    return ScoringSpec([EnergyFilter(SCORE_E_EDGES),
+                        TimeFilter(SCORE_T_EDGES)], SCORE_NAMES)
+
+
+def score_attrs(seed: int, n: int, out: float = SCORE_OUT) -> tuple:
+    """(energy, time) for n particles from ``seed``: log-uniform energies
+    over the edges, a share ``out`` of them a decade below or above."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.log10(SCORE_E_EDGES[0]), np.log10(SCORE_E_EDGES[-1])
+    energy = 10.0 ** rng.uniform(lo, hi, n)
+    pick = rng.random(n)
+    energy = np.where(pick < out / 2, SCORE_E_EDGES[0] / 10, energy)
+    energy = np.where(pick > 1 - out / 2, SCORE_E_EDGES[-1] * 10, energy)
+    return energy, rng.uniform(0.0, 1.0, n)
+
+
+def instance_registers(lib: str) -> dict:
+    """(dtype, variant, scoring) -> registers of each instantiation of
+    the library's walk kernel, from ptxas's report: variant "packed" or
+    "two-tier" for W0, "" for W2."""
+    from pumiumtally_tpu_torch import kernels
+
+    pat = (r"properties for _Z\d+walk_kernelI(\w)Lb(\d)ELb(\d)E" if
+           lib == "walk" else
+           r"properties for _Z\d+twotier_block_walk_kernelI(\w)Lb(\d)E")
+    out, key = {}, None
+    for line in kernels.build_log(lib).splitlines():
+        m = re.search(pat, line)
+        if m:
+            dtype = {"f": "float", "d": "double"}[m[1]]
+            if lib == "walk":
+                variant = ("packed", "two-tier")[int(m[2])]
+                key = (dtype, variant, bool(int(m[3])))
+            else:
+                key = (dtype, "", bool(int(m[2])))
+        elif key and "Used" in line and "registers" in line:
+            out[key] = int(re.search(r"Used (\d+) registers", line)[1])
+            key = None
+    return out
+
+
+def phase_scoring_registers() -> None:
+    """Registers of every instantiation, scoring off and on; the off ones
+    must equal REGS_BEFORE_SCORING."""
+    for lib in ("walk", "twotier_block_walk"):
+        regs = instance_registers(lib)
+        for (dtype, variant, score), r in sorted(regs.items()):
+            print(f"# registers {lib}<{dtype}> {variant or ''} scoring "
+                  f"{'on' if score else 'off'}: {r}")
+            want = REGS_BEFORE_SCORING[(lib, dtype, variant)]
+            if not score and r != want:
+                raise AssertionError(
+                    f"{lib}<{dtype}> {variant}: the scoring-off "
+                    f"instantiation uses {r} registers, {want} before "
+                    "scoring")
+        if len(regs) != (8 if lib == "walk" else 4):
+            raise AssertionError(f"{lib}: ptxas reported {sorted(regs)}")
+
+
+def score_lanes(runtime, n: int, seed: int):
+    """The resolved (bin_off, fac) of ``score_attrs(seed, n)`` on the
+    card, and the mask of particles that score (not dropped)."""
+    import torch
+
+    e, t = (torch.as_tensor(a, dtype=runtime.dtype, device=runtime.device)
+            for a in score_attrs(seed, n))
+    sbin, sfac = runtime.resolve(e, t, n)
+    return sbin, sfac, sbin < runtime.bank_size
+
+
+def check_bank(what: str, got, want, kinds) -> float:
+    """Every track lane at rtol 1e-4 of its own value (the lanes sum
+    positive terms, so only the order of the sum differs; the atol is the
+    dtype's smallest normal), count lanes equal and whole; returns the
+    track lanes' max abs difference."""
+    import torch
+
+    S = len(kinds)
+    err = 0.0
+    for k, kind in enumerate(kinds):
+        g, w = got[k::S], want[k::S]
+        if kind == "count":
+            check_equal(f"{what} lane {k} (count)", g, w)
+            if not torch.equal(g, torch.round(g)):
+                raise AssertionError(f"{what}: count lane {k} not whole")
+            continue
+        diff = (g.double() - w.double()).abs()
+        limit = FLUX_RTOL * w.double().abs() + torch.finfo(w.dtype).tiny
+        bad = diff > limit
+        if bool(bad.any()):
+            i = int(bad.nonzero()[0])
+            raise AssertionError(
+                f"{what} lane {k}: {int(bad.sum())} lanes differ by more "
+                f"than rtol {FLUX_RTOL}, first at {i}: {float(g[i])!r} vs "
+                f"{float(w[i])!r}")
+        err = max(err, max_abs(g, w))
+    return err
+
+
+def bank_bytes(bank, k: int) -> int:
+    """The bank's bytes a scoring walk must move: each lane it touched
+    read and written once. A lane is touched iff it holds a non-zero sum
+    (every value added is positive), so this counts the plain run's
+    non-zero lanes."""
+    return int((bank != 0).sum()) * 2 * k
+
+
+def timed_pair(off, on, passes: int = SCORE_PASSES, timer=None) -> tuple:
+    """Scoring-off and scoring-on times of two calls, in turns (off, on,
+    on, off, ...), ``passes`` of each: (off list, on list)."""
+    timer = timer or cuda_ms
+    t_off, t_on = [], []
+    for p in range(passes):
+        for fn, out in ((off, t_off), (on, t_on))[::1 if p % 2 == 0 else -1]:
+            out.append(timer(fn))
+    return t_off, t_on
+
+
+def phase_w0_scoring(mesh, pts, label: str, two_tier: bool,
+                     n: int = N) -> dict:
+    """W0's scoring instantiation at the main path's shapes with the
+    stride-96 spec against ``walk_plain(scoring=)``: ids, masks, iters,
+    x and s bitwise and equal to the scoring-off kernel's; flux and the
+    track lanes at rtol 1e-4; the event lanes equal and whole. Then the
+    scoring-off and scoring-on times in turns."""
+    import torch
+
+    from pumiumtally_tpu_torch.ops.walk import walk, walk_plain
+    from pumiumtally_tpu_torch.scoring import ScoringRuntime
+
+    name = f"W0{' two-tier' if two_tier else ''} scoring{label}"
+    args, kw = w0_inputs(mesh, pts, two_tier, n)
+    m, x = args[:2]
+    spec = score_spec()
+    rt = ScoringRuntime(spec, m.nelems, x.dtype, x.device)
+    sbin, sfac, scoring = score_lanes(rt, n, 5)
+
+    def zeros():
+        return (torch.zeros((m.nelems,), dtype=x.dtype, device=x.device),
+                rt.zero_bank())
+
+    def run(fn, score=True, bufs=None):
+        flux, bank = bufs or zeros()
+        sc = (spec.kinds, bank, sbin, sfac) if score else None
+        return fn(*args, flux, **kw, scoring=sc), bank
+
+    (rk, bank_k), (ro, _), (rp, bank_p) = (run(walk), run(walk, False),
+                                           run(walk_plain))
+    sync()
+    for f in ("elem", "done", "exited", "iters", "x", "s"):
+        check_equal(f"{name} {f}", getattr(rk, f), getattr(rp, f))
+        check_equal(f"{name} {f} (scoring off)", getattr(rk, f),
+                    getattr(ro, f))
+    err = max(check_flux(name, rk.flux, rp.flux),
+              check_flux(f"{name} (scoring off)", rk.flux, ro.flux),
+              check_bank(name, bank_k, bank_p, spec.kinds))
+    dropped = int((~scoring).sum())
+    if not 0 < dropped < n // 20 or not bool(bank_k[2::3].sum() > 0):
+        raise AssertionError(f"{name}: {dropped} of {n} dropped")
+    # Timed calls add into standing flux and bank buffers: zeroing them
+    # is not the kernel's work. CUDA events, as W0's other times: the
+    # profiler drops some of the lattice walks' activities.
+    bufs = zeros()
+    t_off, t_on = timed_pair(lambda: run(walk, False, bufs),
+                             lambda: run(walk, True, bufs))
+    plain_ms = wall_ms(lambda: run(walk_plain))
+    step = (twotier_step(m.walk_table_lo, m.walk_table_hi) if two_tier
+            else packed_step(m.walk_table))
+    crossings = count_crossings(step, x, args[2], args[3],
+                                torch.ones_like(scoring), 0, kw["tol"])
+    scored = count_crossings(step, x, args[2], args[3], scoring, 0,
+                             kw["tol"])
+    k = x.element_size()
+    S = spec.n_scores
+    row_bytes = 32 + 4 * 5 * k if two_tier else 20 * k
+    # W0's bytes, then each bank lane the run touched read and written
+    # once and each particle's bin offset and factors read once.
+    nbytes = (n * (11 * k + 11) + m.nelems * (row_bytes + 2 * k)
+              + bank_bytes(bank_p, k) + n * (4 + S * k))
+    flops = (FLOPS_PER_CROSSING_TWO_TIER if two_tier
+             else FLOPS_PER_CROSSING) + S
+    bound = bound_entry(nbytes, crossings, flops,
+                        F32_FLOPS if k == 4 else F64_FLOPS)
+    ms = float(np.median(t_on))
+    print(f"# {name}: scoring on {', '.join(f'{v:.4f}' for v in t_on)} ms, "
+          f"off {', '.join(f'{v:.4f}' for v in t_off)} ms (CUDA events, in "
+          f"turns); plain {plain_ms:.3f} ms; {crossings} crossings, "
+          f"{scored} by scoring particles, {dropped} of {n} particles "
+          f"dropped; bank "
+          f"{rt.bank_size} lanes; ids/x/s bitwise and equal to scoring "
+          f"off; lanes max abs diff {err:.3e}, events exact; bound {bound}")
+    return {"name": f"W0 walk ({'two-tier, ' if two_tier else ''}scoring)",
+            "route": "cuda",
+            "source": "pumiumtally_tpu_torch/csrc/walk.cu",
+            "replaces": ("pumiumtally_tpu/ops/walk.py:425" if two_tier
+                         else "pumiumtally_tpu/ops/walk.py:177"),
+            "max_abs_err": err, "ms": ms, "off_ms": float(np.median(t_off)),
+            "plain_ms": plain_ms, **bound, "library_ms": None}
+
+
+def phase_w2_scoring(mesh, pts, bound, shared: bool) -> dict:
+    """W2's scoring instantiation against ``pallas_walk_local_plain(
+    scoring=)`` on every tallied round of the first move (each round's
+    input migrated, ``sbin``/``sfac`` rows with it, from the kernel's
+    previous output), in the regime ``shared`` asks for: ids, masks,
+    pending, iters and x bitwise and equal to the scoring-off kernel's;
+    flux and track lanes at rtol 1e-4, events exact. Rounds 1 and 2
+    timed scoring off and on, in turns."""
+    import torch
+
+    from pumiumtally_tpu_torch import PartitionedPumiTally, TallyConfig
+    from pumiumtally_tpu_torch.experiments.block_rounds import round_bytes
+    from pumiumtally_tpu_torch.ops.pallas_walk import (
+        pallas_walk_local,
+        pallas_walk_local_plain,
+        w2_uses_shared,
+    )
+
+    spec = score_spec()
+    t = PartitionedPumiTally(
+        mesh, N, TallyConfig(capacity_factor=CAPACITY_FACTOR,
+                             walk_vmem_max_elems=bound, scoring=spec,
+                             check_found_all=False, walk_kernel="pallas",
+                             **BF16))
+    t.CopyInitialPosition(flat(pts[0]))
+    eng, rt = t.engine, t._scoring
+    L, dev = eng.part.L, t.device
+    label = f"W2 scoring ({'shared' if shared else 'global'})"
+    if w2_uses_shared(L, torch.float32) != shared:
+        raise AssertionError(f"{label}: blocks of {L} elements")
+    tables = (eng.part.table, eng.part.table_hi)
+    kw = dict(tally=True, tol=eng.tol, max_iters=eng.max_iters,
+              blocks=eng.nparts)
+    sbin_n, sfac_n, _ = score_lanes(rt, N, 6)
+    st = dict(eng.state)
+    st["fly"] = st["alive"].to(torch.int8)
+    st["w"] = st["fly"].to(torch.float32)
+    st["done"] = ~st["alive"]
+    st["exited"] = torch.zeros_like(st["done"])
+    st["dest"] = eng._by_pid(torch.as_tensor(pts[1], dtype=torch.float32,
+                                             device=dev), 0.0)
+    st["sbin"] = eng._by_pid(sbin_n, 0)
+    st["sfac"] = eng._by_pid(sfac_n, 0.0)
+
+    def run(fn, st, score=True, bufs=None):
+        flux, bank = bufs or (torch.zeros_like(eng.flux_padded),
+                              torch.zeros_like(eng.score_padded))
+        sc = (spec.kinds, bank, st["sbin"], st["sfac"]) if score else None
+        return fn(*tables, st["x"], st["lelem"], st["dest"], st["fly"],
+                  st["w"], st["done"], st["exited"], flux, **kw,
+                  scoring=sc), bank
+
+    err, timed = 0.0, []
+    S = st["x"].shape[0]
+    base = (torch.arange(S, device=dev) // eng.cap_per_block) * L
+    for r in range(1, eng.max_rounds + 1):
+        (rk, bank_k), (ro, _), (rp, bank_p) = (
+            run(pallas_walk_local, st), run(pallas_walk_local, st, False),
+            run(pallas_walk_local_plain, st))
+        sync()
+        for i, f in ((0, "x"), (1, "lelem"), (2, "done"), (3, "exited"),
+                     (4, "pending"), (6, "iters")):
+            check_equal(f"{label} round {r} {f}", rk[i], rp[i])
+            check_equal(f"{label} round {r} {f} (scoring off)", rk[i],
+                        ro[i])
+        err = max(err, check_flux(f"{label} round {r}", rk[5], rp[5]),
+                  check_bank(f"{label} round {r}", bank_k, bank_p,
+                             spec.kinds))
+        if r <= 2:
+            x0 = st["x"]
+            crossings = count_crossings(
+                twotier_step(*tables), x0, st["lelem"], x0 + (st["dest"] - x0),
+                ~st["done"], base, eng.tol)
+            scoring = ~st["done"] & (st["sbin"] < rt.bank_size)
+            scored = count_crossings(
+                twotier_step(*tables), x0, st["lelem"], x0 + (st["dest"] - x0),
+                scoring, base, eng.tol)
+            nbytes = (round_bytes(st["done"], st["exited"], eng.nparts, L,
+                                  32 + 4 * 20, 4)
+                      + bank_bytes(bank_p, 4)
+                      + int((~st["done"]).sum()) * 16)
+            b = bound_entry(nbytes, crossings, FLOPS_PER_CROSSING_TWO_TIER + 3)
+            us = functools.partial(device_us, reps=5,
+                                   name="twotier_block_walk_kernel")
+            # Into standing buffers, as W0's times.
+            bufs = (torch.zeros_like(eng.flux_padded),
+                    torch.zeros_like(eng.score_padded))
+            t_off, t_on = timed_pair(
+                lambda: run(pallas_walk_local, st, False, bufs),
+                lambda: run(pallas_walk_local, st, True, bufs),
+                timer=lambda fn: us(fn) / 1e3)
+            plain_ms = wall_ms(lambda: run(pallas_walk_local_plain, st))
+            timed.append(dict(ms=float(np.median(t_on)),
+                              off_ms=float(np.median(t_off)),
+                              plain_ms=plain_ms, **b))
+            print(f"# {label} round {r}: {eng.nparts} blocks of <= {L}, "
+                  f"{int((~st['done']).sum())} active; scoring on "
+                  f"{', '.join(f'{v:.4f}' for v in t_on)} ms, off "
+                  f"{', '.join(f'{v:.4f}' for v in t_off)} ms (profiler, in "
+                  f"turns); plain {plain_ms:.3f} ms; {crossings} crossings, "
+                  f"{scored} scoring; bound {b}")
+        if not bool((rk[4] >= 0).any()):
+            break
+        st = eng._migrate(dict(st, x=rk[0], lelem=rk[1], done=rk[2],
+                               exited=rk[3], pending=rk[4]))
+    print(f"# {label}: {r} rounds, each bitwise to the plain version and to "
+          f"scoring off; lanes max abs diff {err:.3e}, events exact")
+    return {"name": "W2 twotier_block_walk (scoring)", "route": "cuda",
+            "source": "pumiumtally_tpu_torch/csrc/twotier_block_walk.cu",
+            "replaces": "pumiumtally_tpu/ops/pallas_walk.py:381",
+            "max_abs_err": err, **timed[0], "library_ms": None}
+
+
+def score_batches(facade, mesh, config, trajs, n: int, label: str,
+                  continue_moves: int, profile: bool = False) -> tuple:
+    """The scoring slice's main path on one facade: SCORE_BATCHES batches,
+    each CopyInitialPosition, a two-phase move and ``continue_moves``
+    continue moves on ``trajs(b)`` (the batch's points, an iterator), all
+    with energies and times from ``score_attrs`` (every energy in range),
+    then ``finalize``. The launch counts are reset just before and read
+    just after. Held: conservation at rtol 1e-6; the flux score summed
+    over bins equal to the flux lane at rtol 1e-4; the event lanes whole;
+    ``rel_err`` finite where flux > 0; WriteTallyResults writes the score
+    and statistics arrays. ``profile``: then one profiled continue move
+    along the last batch's trajectory. Returns (launch counts, the
+    facade)."""
+    import torch
+
+    from pumiumtally_tpu_torch import kernels
+    from pumiumtally_tpu_torch.io.vtk import read_vtk_cell_scalars
+
+    kernels.reset_launch_counts()
+    t = facade(mesh, n, config=config)
+    expect, move_ms = 0.0, []
+    for b in range(SCORE_BATCHES):
+        energy, tm = score_attrs(20 + b, n, out=0.0)
+        kw = dict(energy=energy, time=tm)
+        traj = trajs(b)
+        prev = next(traj)
+        t.CopyInitialPosition(flat(prev))
+        for m in range(1 + continue_moves):
+            cur = next(traj)
+            expect += float(np.linalg.norm(cur - prev, axis=1).sum())
+            if m == 0:
+                t.MoveToNextLocation(flat(prev), flat(cur),
+                                     np.ones(n, np.int8), np.ones(n), **kw)
+            else:
+                move_ms.append(wall_ms(lambda: t.MoveToNextLocation(
+                    None, flat(cur), **kw)))
+            prev = cur
+    st = t.finalize()
+    sync()
+    counts = dict(kernels.launch_counts)
+    rel = check_conservation(label, t.flux, expect)
+    arr = t.score_array()
+    err = check_flux(f"{label} flux score over bins",
+                     arr[:, :, 0].sum(dim=1), t.flux)
+    events = arr[:, :, 2]
+    if not torch.equal(events, torch.round(events)) or not bool(
+            events.sum() > 0):
+        raise AssertionError(f"{label}: event lanes not whole or empty")
+    flux = t.flux
+    rel_err = st.rel_err
+    if st.num_batches != SCORE_BATCHES or not bool(
+            torch.isfinite(rel_err[flux > 0]).all()):
+        raise AssertionError(f"{label}: {st.num_batches} batches, rel_err "
+                             "not finite where flux > 0")
+    score_st = t.score_statistics()
+    with tempfile.TemporaryDirectory() as d:
+        out = f"{d}/scored.vtk"
+        t.WriteTallyResults(out)
+        for name in ("flux_bin0", "heating_bin31", "events_bin17",
+                     "flux_mean", "rel_err"):
+            if read_vtk_cell_scalars(out, name).shape[0] != t.mesh.nelems:
+                raise AssertionError(f"{label}: {name} not written")
+    print(f"# scoring {label}: {SCORE_BATCHES} batches of {n} particles, "
+          f"conservation rel err {rel:.3e}; flux score over bins vs flux "
+          f"max abs diff {err:.3e}; events {float(events.sum()):.0f}, whole; "
+          f"rel_err finite where flux > 0 (median "
+          f"{float(rel_err[flux > 0].median()):.3e}); score statistics "
+          f"{score_st.num_batches} batches; VTK score and statistics arrays "
+          f"written; continue move ms with scoring "
+          f"{', '.join(f'{v:.2f}' for v in move_ms) or 'none'}; launches "
+          f"{counts}")
+    if profile:
+        # One more continue move along the last batch's trajectory,
+        # after the checks (it adds to the flux).
+        profile_move(t, next(traj), kw)
+    return counts, t
+
+
+def phase_scoring_sync(mesh, pts) -> None:
+    """An unfenced, unchecked continue move with scoring (energy and time
+    staged, bins resolved on the device, W0's scoring lanes) under
+    ``torch.cuda.set_sync_debug_mode("error")``, behind ~50 ms of queued
+    device work: it must return while that still runs."""
+    import torch
+
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+
+    t = PumiTally(mesh, N, TallyConfig(
+        check_found_all=False, fenced_timing=False, scoring=score_spec(),
+        batch_stats=True))
+    energy, tm = score_attrs(30, N)
+    t.CopyInitialPosition(flat(pts[0]))
+    t.MoveToNextLocation(flat(pts[0]), flat(pts[1]), np.ones(N, np.int8),
+                         np.ones(N), energy=energy, time=tm)
+    t.MoveToNextLocation(None, flat(pts[2]), energy=energy, time=tm)
+    sync()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    ahead = torch.cuda.Event()
+    ahead.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        t.MoveToNextLocation(None, flat(pts[3]), energy=energy, time=tm)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        busy = not ahead.query()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not busy:
+        raise AssertionError("scoring: the unfenced continue move returned "
+                             "after the device work queued ahead had ended")
+    print(f"# scoring: an unfenced, unchecked continue move with scoring "
+          f"made no host synchronization (sync debug mode 'error') and "
+          f"returned after {host_ms:.3f} ms with the ~50 ms queued ahead "
+          "still running")
+
+
+def phase_scoring_facades(mesh, pts, lat_path: str, lat_box, card: str):
+    """The four facades with the stride-96 spec and ``batch_stats=True``
+    (``score_batches``): ``PumiTally`` on both tiers on the box and the
+    lattice (from its path), ``PartitionedPumiTally`` on W2, then
+    ``StreamingTally`` at 10M (float32) and ``StreamingPartitionedTally``
+    (W2, at 10M, one two-phase move a batch); one profiled continue move
+    of the box ``PumiTally`` with scoring. Returns each run's launch
+    counts."""
+    from pumiumtally_tpu_torch import (
+        PartitionedPumiTally,
+        PumiTally,
+        StreamingPartitionedTally,
+        StreamingTally,
+        TallyConfig,
+    )
+    from pumiumtally_tpu_torch.experiments.block_rounds import (
+        make_trajectory,
+    )
+
+    def cfg(**kw):
+        return TallyConfig(scoring=score_spec(), batch_stats=True, **kw)
+
+    def box_trajs(b):
+        return iter(pts if b == 0 else make_trajectory(
+            np.random.default_rng(40 + b), N, CONTINUE_MOVES + 2))
+
+    def lat_trajs(b):
+        return iter(make_trajectory(np.random.default_rng(50 + b), N,
+                                    CONTINUE_MOVES + 2, box=lat_box))
+
+    def stream_trajs(b):
+        return trajectory_moves(60 + b, STREAM_N)
+
+    w2 = dict(walk_kernel="pallas", capacity_factor=CAPACITY_FACTOR,
+              walk_vmem_max_elems=VMEM_BOUND, **BF16)
+    chunked = dict(chunk_size=STREAM_CHUNK)
+    runs = {
+        "score_mono": (PumiTally, mesh, cfg(), box_trajs, N,
+                       CONTINUE_MOVES),
+        "score_mono_bf16": (PumiTally, mesh, cfg(**BF16), box_trajs, N,
+                            CONTINUE_MOVES),
+        "score_part": (PartitionedPumiTally, mesh, cfg(**w2), box_trajs, N,
+                       CONTINUE_MOVES),
+        "score_lat": (PumiTally, lat_path, cfg(), lat_trajs, N,
+                      CONTINUE_MOVES),
+        "score_lat_bf16": (PumiTally, lat_path, cfg(**BF16), lat_trajs, N,
+                           CONTINUE_MOVES),
+        "score_stream": (functools.partial(StreamingTally, **chunked), mesh,
+                         cfg(), stream_trajs, STREAM_N,
+                         STREAM_CONTINUE_MOVES),
+        "score_stream_part": (
+            functools.partial(StreamingPartitionedTally, **chunked), mesh,
+            cfg(**w2), stream_trajs, STREAM_N, 0),
+    }
+    counts = {}
+    for key, (facade, m, config, trajs, n, moves) in runs.items():
+        t0 = time.perf_counter()
+        counts[key], t = score_batches(facade, m, config, trajs, n, key,
+                                       moves, profile=key == "score_mono")
+        del t
+        print(f"# scoring {key}: {time.perf_counter() - t0:.1f} s on {card}")
+    return counts
 
 
 def main() -> int:
@@ -1544,6 +2109,18 @@ def main() -> int:
                        dtype=torch.float64), pts, " (float64)", n=W0_F64_N)
     w2, regimes_w2 = phase_block_walk("W2", mesh, pts, VMEM_BOUND)
     _, regimes_w2g = phase_block_walk("W2", mesh, pts, None, shared=False)
+    # The scoring slice's kernels: registers of every instantiation, then
+    # W0 (both tiers, and float64) and W2 (both regimes) with the
+    # stride-96 spec against their plain versions and their scoring-off
+    # runs.
+    phase_scoring_registers()
+    sw0 = phase_w0_scoring(mesh, pts, "", False)
+    sw0t = phase_w0_scoring(mesh, pts, "", True)
+    phase_w0_scoring(build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                               dtype=torch.float64), pts, " (float64)",
+                     False, n=W0_F64_N)
+    sw2 = phase_w2_scoring(mesh, pts, VMEM_BOUND, True)
+    phase_w2_scoring(mesh, pts, None, False)
     # Which regimes each run can take: a staging launch stages every
     # non-empty share, so only W2's global run reads global rows.
     for label, regimes, ran in (("W1", regimes_w1, (1, 0, 1)),
@@ -1570,6 +2147,7 @@ def main() -> int:
         counts[key], fluxes[key] = phase_main_path(facade, mesh, pts, config,
                                                    smi)
     phase_staging(mesh, pts)
+    phase_scoring_sync(mesh, pts)
     counts.update(phase_streaming(mesh, smi))
     # The lattice, loaded from its .osh path as users load a mesh: W0
     # on both tiers against the plain versions, then PumiTally's main
@@ -1579,6 +2157,8 @@ def main() -> int:
         lat_mesh = load_mesh(path, dtype=torch.float32)
         lw0 = phase_w0(lat_mesh, lat_pts, " (lattice)")
         lw0t = phase_w0(lat_mesh, lat_pts, " (lattice)", two_tier=True)
+        for two_tier in (False, True):
+            phase_w0_scoring(lat_mesh, lat_pts, " (lattice)", two_tier)
         print(f"# W0 first move: lattice {lw0['ms']:.3f} ms vs box "
               f"{w0['ms']:.3f} ms; two-tier lattice {lw0t['ms']:.3f} ms vs "
               f"box {w0t['ms']:.3f} ms")
@@ -1587,11 +2167,21 @@ def main() -> int:
                             ("lat_bf16", TallyConfig(**BF16))):
             counts[key], fluxes[key] = phase_main_path(PumiTally, path,
                                                        lat_pts, config, smi)
+        # The scoring slice's main path on the four facades.
+        counts.update(phase_scoring_facades(mesh, pts, path, lattice_box(),
+                                            smi))
     needs = {"mono": "walk", "part": "block_walk", "mono_bf16": "walk_twotier",
              "part_bf16": "twotier_block_walk", "lat": "walk",
              "lat_bf16": "walk_twotier", "stream": "walk",
              "stream_bf16": "walk_twotier", "stream_part": "block_walk",
-             "mono_10m": "walk", "mono_10m_bf16": "walk_twotier"}
+             "mono_10m": "walk", "mono_10m_bf16": "walk_twotier",
+             "score_mono": "walk_scored",
+             "score_mono_bf16": "walk_twotier_scored",
+             "score_part": "twotier_block_walk_scored",
+             "score_lat": "walk_scored",
+             "score_lat_bf16": "walk_twotier_scored",
+             "score_stream": "walk_scored",
+             "score_stream_part": "twotier_block_walk_scored"}
     for key, entry in needs.items():
         if counts[key][entry] == 0:
             raise AssertionError(f"{key}: kernel {entry} never launched on "
@@ -1608,13 +2198,16 @@ def main() -> int:
     # reported.
     check_tie_band("lat", fluxes["lat_bf16"], fluxes["lat"], band=None)
     for e, entry in ((w0, "walk"), (w1, "block_walk"), (w0t, "walk_twotier"),
-                     (w2, "twotier_block_walk")):
+                     (w2, "twotier_block_walk"), (sw0, "walk_scored"),
+                     (sw0t, "walk_twotier_scored"),
+                     (sw2, "twotier_block_walk_scored")):
         e["launches"] = sum(c[entry] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in (w0, w1, w0t, w2, w3, *g1)]}))
+                                  for e in (w0, w1, w0t, w2, sw0, sw0t, sw2,
+                                            w3, *g1)]}))
     print(f"# total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,10 @@
 Track-length tallies over a tetrahedral mesh, driven through the
 reference's three-call protocol (``CopyInitialPosition`` /
 ``MoveToNextLocation`` / ``WriteTallyResults``), on one NVIDIA H100; ``StreamingTally`` and
-``StreamingPartitionedTally`` take batches of any size in chunks. The
+``StreamingPartitionedTally`` take batches of any size in chunks.
+``TallyConfig(scoring=ScoringSpec(...))`` adds energy/time-binned
+scoring lanes and ``TallyConfig(batch_stats=True)`` per-batch
+statistics (``TriggerSpec`` for convergence triggers). The
 device work runs in hand-written CUDA kernels (``csrc/``, built by
 ``kernels.py`` at first use); every kernel's plain PyTorch version runs
 when the caller asks for ``device="cpu"``. The package imports torch
@@ -20,16 +23,36 @@ from pumiumtally_tpu_torch.config import TallyConfig
 from pumiumtally_tpu_torch.mesh.box import build_box
 from pumiumtally_tpu_torch.mesh.pincell import build_lattice, build_pincell
 from pumiumtally_tpu_torch.mesh.tetmesh import TetMesh
+from pumiumtally_tpu_torch.scoring import (
+    SCORES,
+    EnergyFilter,
+    ScoringSpec,
+    TimeFilter,
+)
+from pumiumtally_tpu_torch.stats import (
+    BatchStatistics,
+    TriggerResult,
+    TriggerSpec,
+    evaluate_trigger,
+)
 
 __all__ = [
+    "SCORES",
+    "BatchStatistics",
+    "EnergyFilter",
     "PartitionedPumiTally",
     "PumiTally",
+    "ScoringSpec",
     "StreamingPartitionedTally",
     "StreamingTally",
     "TallyConfig",
     "TallyTimes",
     "TetMesh",
+    "TimeFilter",
+    "TriggerResult",
+    "TriggerSpec",
     "build_box",
     "build_lattice",
     "build_pincell",
+    "evaluate_trigger",
 ]

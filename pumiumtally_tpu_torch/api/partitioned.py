@@ -10,8 +10,12 @@ side effect, timing and the legacy VTK output are inherited from
 own tables: the engine builds the block tables of the configured tier.
 
 W1 requires ``TallyConfig.walk_vmem_max_elems`` (the gather walk that
-runs without it is not ported yet). Left out: multi-device meshes and
-the sentinel/scoring hooks.
+runs without it is not ported yet). Scoring and batch statistics are the
+base facade's; the engine owns the padded bank (its size fixes the DROP
+sentinel) and ``score_bank`` assembles it in original element order.
+Scoring needs W2: on the float32 tables the engine raises, naming the
+gather walk the JAX package scores through. Left out: multi-device
+meshes and the sentinel hooks.
 """
 
 from __future__ import annotations
@@ -49,7 +53,11 @@ class PartitionedPumiTally(PumiTally):
             vmem_walk_max_elems=self.config.walk_vmem_max_elems,
             block_kernel=self.config.resolved_walk_kernel(),
             table_dtype=self.config.resolved_table_dtype(),
+            scoring=self.config.scoring,
         )
+        # After the engine: the DROP sentinel is its padded bank's size.
+        self._arm_scoring(bank_size=self.engine.score_padded.numel()
+                          if self.config.scoring is not None else None)
         self._sync()
         self.tally_times.initialization_time += time.perf_counter() - t0
 
@@ -60,8 +68,11 @@ class PartitionedPumiTally(PumiTally):
     def _current_lost(self) -> int:
         return self.engine.n_lost
 
-    def _dispatch_move(self, origins, dests, fly, w) -> bool:
-        return self.engine.move(origins, dests, fly, w)
+    def _dispatch_move(self, origins, dests, fly, w, sbin=None,
+                       sfac=None) -> bool:
+        # Scoring operands are caller-order [n] rows: the engine routes
+        # them by pid and migrates them with their particles.
+        return self.engine.move(origins, dests, fly, w, sbin, sfac)
 
     def WriteTallyResults(self, filename: Optional[str] = None) -> None:
         """Normalize and write results; a ``.pvtu`` filename writes one
@@ -83,7 +94,7 @@ class PartitionedPumiTally(PumiTally):
                 "flux": self.normalized_flux().cpu().numpy(),
                 "volume": self.mesh.volumes.cpu().numpy(),
                 "owner": owner.astype(np.float64),
-            }),
+            }, *self._optional_cell_data()),
             field_data=self._vtk_field_data(),
             nparts=1,
         )
@@ -99,6 +110,12 @@ class PartitionedPumiTally(PumiTally):
     def flux(self) -> torch.Tensor:
         """Block-owned flux assembled into original element order."""
         return self.engine.flux_original()
+
+    @property
+    def score_bank(self) -> torch.Tensor:
+        """The engine's scoring lanes in the canonical [E*B*S] layout."""
+        self._require_scoring()
+        return self.engine.score_original()
 
     @property
     def positions(self) -> np.ndarray:

@@ -30,12 +30,20 @@ the batch into ``chunk_size`` chunks:
 ``PartitionedEngine`` (W1, or W2 with the two-tier tables); all chunk
 engines share one partition, and their owned flux is summed on read.
 
-Left out against the JAX package (ROADMAP.md): the scoring, sentinel,
-stats and resilience hooks, the service-fusion surface
-(``_fused_move_stage``), sharded chunks and ``device_groups`` (one
-device here), and the partitioned chunks' deferred overflow-recovery
-ladder (a chunk overflow raises over intact state, as the port's
-engine does).
+Scoring and batch statistics are the base facade's, chunk-wise: each
+chunk has its own bank (``StreamingTally``) or its engine's
+(``StreamingPartitionedTally``), summed when ``score_bank`` is read; a
+move's ``energy=`` / ``time=`` are checked before any chunk dispatches
+and staged with the chunk's other inputs (on the copy stream, with
+``record_stream`` on the compute stream, api/staging.py), and each
+chunk's bins are resolved on the compute stream after it waits for that
+upload. Pad slots never fly, so they never score.
+
+Left out against the JAX package (ROADMAP.md): the sentinel and
+resilience hooks, the service-fusion surface (``_fused_move_stage``),
+sharded chunks and ``device_groups`` (one device here), and the
+partitioned chunks' deferred overflow-recovery ladder (a chunk overflow
+raises over intact state, as the port's engine does).
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from pumiumtally_tpu_torch.api.tally import (
     PumiTally,
     TallyConfig,
     _localize_step,
+    _perf_counter,
     adopt_located,
     check_finite,
     host_positions,
@@ -94,8 +103,16 @@ class StreamingTally(PumiTally):
         self._snapshot_keep: Optional[np.ndarray] = None
         self._narrow_scratch: Optional[np.ndarray] = None
         self._alloc_chunks(mesh)
+        self._arm_chunk_scoring()
         self._sync()
         self.tally_times.initialization_time += time.perf_counter() - t0
+
+    def _arm_chunk_scoring(self) -> None:
+        """Scoring runtime and one bank per chunk."""
+        self._arm_scoring()
+        if self._scoring is not None:
+            self._score = [self._scoring.zero_bank()
+                           for _ in range(self.nchunks)]
 
     def _alloc_chunks(self, mesh: TetMesh) -> None:
         """Per-chunk device state (the partitioned facade has engines)."""
@@ -196,7 +213,8 @@ class StreamingTally(PumiTally):
             self._ones_cache[key] = a
         return a
 
-    def _prevalidate_narrow(self, dests_h, origins_h, w_h) -> None:
+    def _prevalidate_narrow(self, dests_h, origins_h, w_h, e_h=None,
+                            t_h=None) -> None:
         """The working-dtype finite check of a move's buffers, chunk by
         chunk into one scratch array, BEFORE any chunk dispatches (so a
         refused move commits nothing). Nothing to do in float64 (the
@@ -211,7 +229,9 @@ class StreamingTally(PumiTally):
             lo, hi = self._chunk_bounds(k)
             for buf, what, a, b in ((dests_h, "destinations", 3 * lo, 3 * hi),
                                     (origins_h, "origins", 3 * lo, 3 * hi),
-                                    (w_h, "weights", lo, hi)):
+                                    (w_h, "weights", lo, hi),
+                                    (e_h, "energy", lo, hi),
+                                    (t_h, "time", lo, hi)):
                 if buf is not None:
                     np.copyto(scratch[:b - a], buf[a:b], casting="unsafe")
                     check_finite(scratch[:b - a], what, offset=a)
@@ -220,6 +240,7 @@ class StreamingTally(PumiTally):
     def CopyInitialPosition(self, init_particle_positions,
                             size: Optional[int] = None):
         t0 = time.perf_counter()
+        self._stats_roll_batch()  # each sourcing opens a new batch
         self._lost_total += self._current_lost()
         self._last_dests_host = None  # localization rewrites the state
         self._last_dests_dev = None
@@ -242,13 +263,19 @@ class StreamingTally(PumiTally):
 
     def MoveToNextLocation(self, particle_origin, particle_destinations,
                            flying=None, weights=None,
-                           size: Optional[int] = None):
+                           size: Optional[int] = None, energy=None,
+                           time=None):
         if not self.is_initialized:
             raise RuntimeError(
                 "CopyInitialPosition must be called before MoveToNextLocation"
             )
-        t0 = time.perf_counter()
+        t0 = _perf_counter()
         n = self.num_particles
+        # The scoring attributes are checked before anything is staged.
+        self._score_args_check(energy, time)
+        e_h = None if energy is None else host_scalar_field(energy, n,
+                                                            "energy")
+        t_h = None if time is None else host_scalar_field(time, n, "time")
         dests_h = host_positions(particle_destinations, size, n)
         origins_h = (None if particle_origin is None
                      else host_positions(particle_origin, size, n))
@@ -268,9 +295,13 @@ class StreamingTally(PumiTally):
                     f"flying buffer has {fly_h.size} values, need {n}")
         w_h = (None if weights is None
                else host_scalar_field(weights, n, "weights"))
-        if self.config.validate_inputs and w_h is not None:
-            check_finite(w_h, "weights")
-        self._prevalidate_narrow(dests_h, None if echo else origins_h, w_h)
+        if self.config.validate_inputs:
+            for buf, what in ((w_h, "weights"), (e_h, "energy"),
+                              (t_h, "time")):
+                if buf is not None:
+                    check_finite(buf, what)
+        self._prevalidate_narrow(dests_h, None if echo else origins_h, w_h,
+                                 e_h, t_h)
         retain = origins_h is not None and self._retain_echo_snapshots()
         snapshot = None
         if retain:
@@ -291,6 +322,10 @@ class StreamingTally(PumiTally):
                 specs.append(self._vec_spec(fly_h, k, "fly", torch.int8, 0))
             if w_h is not None:
                 specs.append(self._vec_spec(w_h, k, "w", self.dtype, 0.0))
+            for buf, name in ((e_h, "energy"), (t_h, "time")):
+                if buf is not None:
+                    specs.append(self._vec_spec(buf, k, name, self.dtype,
+                                                0.0))
             return specs
 
         dest_chunks: List[torch.Tensor] = []
@@ -308,7 +343,12 @@ class StreamingTally(PumiTally):
                 orig = echo_chunks[k]
             else:
                 orig = st["orig"]
-            return self._chunk_move(k, orig, st["dest"], fly, w)
+            sbin = sfac = None
+            if self._scoring is not None:
+                # On the compute stream, after it waited for the upload.
+                sbin, sfac = self._scoring.resolve(
+                    st.get("energy"), st.get("time"), self.chunk_size)
+            return self._chunk_move(k, orig, st["dest"], fly, w, sbin, sfac)
 
         oks = self._pipeline(specs_of, dispatch)
         zero_flying_side_effect(flying, n)
@@ -317,12 +357,13 @@ class StreamingTally(PumiTally):
             self._last_dests_host = snapshot
             self._last_dests_dev = dest_chunks
         self.iter_count += 1
+        self._stats_note_move()
         self._after_chunk_dispatch()
         if self.config.check_found_all and not all(bool(o) for o in oks):
             print("ERROR: Not all particles are found. May need more loops "
                   "in search")
         self._fence()
-        self.tally_times.total_time_to_tally += time.perf_counter() - t0
+        self.tally_times.total_time_to_tally += _perf_counter() - t0
 
     def _after_chunk_dispatch(self) -> None:
         """Hook: per-call checks after every chunk dispatched
@@ -344,20 +385,21 @@ class StreamingTally(PumiTally):
         )
         return done.all()
 
-    def _chunk_move(self, k: int, orig, dest, fly, w):
+    def _chunk_move(self, k: int, orig, dest, fly, w, sbin=None, sfac=None):
         """One tallied move of chunk k (orig None: continue mode) into
-        the chunk's own flux; returns whether every particle finished,
-        as a device scalar."""
+        the chunk's own flux and bank; returns whether every particle
+        finished, as a device scalar."""
+        bank = None if self._scoring is None else self._score[k]
+        kw = dict(tol=self._tol, max_iters=self._max_iters,
+                  scoring=self._score_ops(bank, sbin, sfac))
         if orig is None:
             x, elem, done, _ = move_step_continue(
                 self.mesh, self._x[k], self._elem[k], dest, fly, w,
-                self._flux[k], tol=self._tol, max_iters=self._max_iters,
-            )
+                self._flux[k], **kw)
         else:
             x, elem, done, _ = move_step(
                 self.mesh, self._x[k], self._elem[k], orig, dest, fly, w,
-                self._flux[k], tol=self._tol, max_iters=self._max_iters,
-            )
+                self._flux[k], **kw)
         self._x[k], self._elem[k] = x, elem
         return done.all()
 
@@ -375,6 +417,15 @@ class StreamingTally(PumiTally):
         total = self._flux[0].clone()
         for f in self._flux[1:]:
             total += f
+        return total
+
+    @property
+    def score_bank(self) -> torch.Tensor:
+        """The scoring lanes summed over the chunks' banks."""
+        self._require_scoring()
+        total = self._score[0].clone()
+        for b in self._score[1:]:
+            total += b
         return total
 
 
@@ -404,19 +455,27 @@ class StreamingPartitionedTally(StreamingTally):
                 max_rounds=cfg.max_migration_rounds,
                 # The lost-source warning is printed once per call, for
                 # every chunk (_after_chunk_dispatch).
-                check_found_all=False, part=part, **kw,
+                check_found_all=False, part=part, scoring=cfg.scoring, **kw,
             ))
         self._dispatched_localize = False
+
+    def _arm_chunk_scoring(self) -> None:
+        # The DROP sentinel is the shared partition's padded bank size.
+        eng = self.engines[0]
+        self._arm_scoring(bank_size=None if eng.score_padded is None
+                          else eng.score_padded.numel())
 
     def _chunk_localize(self, k: int, dest: torch.Tensor):
         self._dispatched_localize = True
         eng = self.engines[k]
         return eng.localize(dest[: eng.n])  # engines hold only real slots
 
-    def _chunk_move(self, k: int, orig, dest, fly, w):
+    def _chunk_move(self, k: int, orig, dest, fly, w, sbin=None, sfac=None):
         n = self.engines[k].n
-        return self.engines[k].move(None if orig is None else orig[:n],
-                                    dest[:n], fly[:n], w[:n])
+        return self.engines[k].move(
+            None if orig is None else orig[:n], dest[:n], fly[:n], w[:n],
+            None if sbin is None else sbin[:n],
+            None if sfac is None else sfac[:n])
 
     def _after_chunk_dispatch(self) -> None:
         was_localize, self._dispatched_localize = (
@@ -444,6 +503,16 @@ class StreamingPartitionedTally(StreamingTally):
         total = self.engines[0].flux_original().clone()
         for e in self.engines[1:]:
             total += e.flux_original()
+        return total
+
+    @property
+    def score_bank(self) -> torch.Tensor:
+        """The scoring lanes summed over the chunk engines' canonical
+        views."""
+        self._require_scoring()
+        total = self.engines[0].score_original()
+        for e in self.engines[1:]:
+            total += e.score_original()
         return total
 
     @property

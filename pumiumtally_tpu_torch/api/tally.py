@@ -32,11 +32,27 @@ found-all verdict is fetched only when ``check_found_all`` is on, so with
 ``check_found_all=False, fenced_timing=False`` a continue move and an
 echoing two-phase move make no host synchronization.
 
+Filtered scoring (``TallyConfig.scoring``, a ``ScoringSpec``) follows
+the JAX facade (api/tally.py:849-1062): ``MoveToNextLocation`` takes
+``energy=`` / ``time=`` (refused, naming the argument, where the spec
+reads no such attribute or needs one that is missing), stages them
+through the pinned path, resolves each particle's bin on the device and
+hands the bank to the walk (W0's scoring instantiation), so staging
+stays sync-free: an unfenced, unchecked continue move with scoring makes
+no host synchronization. ``score_bank`` / ``score_array()`` read the
+lanes. Batch statistics (``TallyConfig.batch_stats``): each
+``CopyInitialPosition`` closes the open batch and opens the next;
+``close_batch()`` / ``finalize()`` close one explicitly;
+``batch_statistics()`` and, with scoring, ``score_statistics()`` read
+the lanes. ``WriteTallyResults`` adds ``flux_mean``/``rel_err`` and
+``<score>_bin<k>`` cell arrays beside flux and volume. With both off
+nothing of either is constructed.
+
 The facades run on ``device="cuda"`` by default and raise when no GPU is
 present, unless the caller asks for ``device="cpu"`` (where every
 kernel's plain PyTorch version runs). Left out so far (ROADMAP.md):
-sentinels, resilience, batch statistics, scoring, the service-fusion
-surface and ``intersection_points``.
+sentinels, resilience, the service-fusion surface and
+``intersection_points``.
 """
 
 from __future__ import annotations
@@ -52,10 +68,27 @@ import torch
 from pumiumtally_tpu_torch.api.staging import HostStaging
 from pumiumtally_tpu_torch.config import TallyConfig
 from pumiumtally_tpu_torch.io.load import load_mesh
-from pumiumtally_tpu_torch.io.vtk import merge_cell_data, write_vtk
+from pumiumtally_tpu_torch.io.vtk import (
+    merge_cell_data,
+    stats_cell_data,
+    write_vtk,
+)
 from pumiumtally_tpu_torch.mesh.tetmesh import TetMesh
 from pumiumtally_tpu_torch.ops.geometry import locate_by_planes
 from pumiumtally_tpu_torch.ops.walk import walk
+from pumiumtally_tpu_torch.scoring.binding import (
+    ScoringRuntime,
+    score_cell_data,
+)
+from pumiumtally_tpu_torch.stats import (
+    BatchAccumulator,
+    BatchStatistics,
+    evaluate_trigger,
+)
+
+# MoveToNextLocation's ``time`` keyword (the TimeFilter attribute)
+# shadows the module inside that method.
+_perf_counter = time.perf_counter
 
 
 # Consecutive origin-echo misses after which a facade stops paying for
@@ -202,24 +235,25 @@ def _localize_step(mesh, x, elem, dest, *, tol, max_iters):
 
 
 def move_step_continue(mesh, x, elem, dests, flying, weights, flux, *, tol,
-                       max_iters):
+                       max_iters, scoring=None):
     """Phase-B-only move: transport from the committed state straight
-    to the destinations, tallying into ``flux`` (in place). Returns
+    to the destinations, tallying into ``flux`` (in place) and, with
+    ``scoring=(kinds, bank, bin_off, fac)``, into the bank. Returns
     (x, elem, done, s)."""
     dest_b = torch.where((flying == 1)[:, None], dests, x)  # stopped: hold
     rb = walk(mesh, x, elem, dest_b, flying, weights, flux, tally=True,
-              tol=tol, max_iters=max_iters)
+              tol=tol, max_iters=max_iters, scoring=scoring)
     return rb.x, rb.elem, rb.done, rb.s
 
 
 def move_step(mesh, x, elem, origins, dests, flying, weights, flux, *, tol,
-              max_iters):
+              max_iters, scoring=None):
     """One full MoveToNextLocation: phase A (relocate, no tally) then
     phase B (transport, tally). Phase A walks nothing when every staged
     origin already equals the committed position (it would walk zero
     distance for everyone), decided on the device: the JAX move's
     ``lax.cond(trivial, skip_a, run_a)`` as W0's ``skip`` flag. Returns
-    (x, elem, done, s)."""
+    (x, elem, done, s). Phase A never scores."""
     dest_a = torch.where((flying == 1)[:, None], origins, x)
     ra = walk(mesh, x, elem, dest_a, flying, torch.zeros_like(weights),
               None, tally=False, tol=tol, max_iters=max_iters,
@@ -227,7 +261,7 @@ def move_step(mesh, x, elem, origins, dests, flying, weights, flux, *, tol,
     x, elem, done_a = ra.x, ra.elem, ra.done
     x2, elem2, done_b, s_b = move_step_continue(
         mesh, x, elem, dests, flying, weights, flux, tol=tol,
-        max_iters=max_iters,
+        max_iters=max_iters, scoring=scoring,
     )
     return x2, elem2, done_a & done_b, s_b
 
@@ -256,6 +290,9 @@ class PumiTally:
                                 device=self.device)
         self.flux = torch.zeros((mesh.nelems,), dtype=self.dtype,
                                 device=self.device)
+        self._arm_scoring()
+        if self._scoring is not None:
+            self._score_bank = self._scoring.zero_bank()
         self._sync()
         self.tally_times.initialization_time += time.perf_counter() - t0
 
@@ -308,6 +345,14 @@ class PumiTally:
         self._last_weights_dev = None
         self.auto_continue_hits = 0  # moves that skipped the origin upload
         self._echo_misses = 0  # consecutive non-echo moves
+        # Batch statistics over the [E] flux (None: off). Scoring is
+        # armed by each facade once its bank geometry is known
+        # (``_arm_scoring``).
+        self._stats = (BatchAccumulator(mesh.nelems, self.dtype, self.device)
+                       if self.config.batch_stats else None)
+        self._scoring = None
+        self._score_bank = None
+        self._score_stats = None
         return self.mesh
 
     def _sync(self) -> None:
@@ -438,12 +483,193 @@ class PumiTally:
             self._last_weights_dev = w
         return w
 
+    # -- batch statistics (TallyConfig.batch_stats) ----------------------
+    def _stats_roll_batch(self) -> None:
+        """Batch boundary: every ``CopyInitialPosition`` closes the open
+        batch (if a move landed in it) and opens the next."""
+        if self._stats is not None:
+            self._close_lanes(reopen=True)
+
+    def _close_lanes(self, reopen: bool) -> None:
+        """Close the open batch of the flux lanes and, with scoring, of
+        the bank's lanes."""
+        self._stats.close(self.flux, reopen=reopen)
+        if self._score_stats is not None:
+            self._score_stats.close(self.score_bank, reopen=reopen)
+
+    def _stats_note_move(self) -> None:
+        if self._stats is not None:
+            self._stats.note_move()
+        if self._score_stats is not None:
+            self._score_stats.note_move()
+
+    def _require_stats(self) -> BatchAccumulator:
+        if self._stats is None:
+            raise RuntimeError(
+                "batch statistics are disabled; construct the tally "
+                "with TallyConfig(batch_stats=True)"
+            )
+        return self._stats
+
+    def _stats_elapsed(self) -> Optional[float]:
+        """Transport seconds for the figure of merit; None before any
+        move."""
+        t = self.tally_times.total_time_to_tally
+        return t if t > 0.0 else None
+
+    def close_batch(self, trigger=None):
+        """Close the open batch into the statistics lanes and open the
+        next (elementwise on the device, no host sync). With a
+        ``TriggerSpec`` (passed, or ``TallyConfig.batch_stats_trigger``)
+        the trigger is evaluated right after (one reduction and one
+        scalar read) and its ``TriggerResult`` returned; else None. A
+        batch with no move closes as a no-op."""
+        stats = self._require_stats()
+        self._close_lanes(reopen=True)
+        spec = trigger if trigger is not None \
+            else self.config.batch_stats_trigger
+        return None if spec is None else evaluate_trigger(stats, spec)
+
+    def finalize(self) -> BatchStatistics:
+        """Close the open batch without opening another and return the
+        final ``BatchStatistics``; later moves belong to no batch until
+        the next ``CopyInitialPosition`` (or ``close_batch``)."""
+        self._require_stats()
+        self._close_lanes(reopen=False)
+        return self.batch_statistics()
+
+    def batch_statistics(self) -> BatchStatistics:
+        """The closed batches' ``BatchStatistics`` (>= 1 closed batch
+        for ``mean``, >= 2 for the variance-derived fields)."""
+        stats = self._require_stats()
+        return BatchStatistics(
+            flux_sum=stats.flux_sum, flux_sq_sum=stats.flux_sq_sum,
+            num_batches=stats.num_batches,
+            elapsed_seconds=self._stats_elapsed(),
+        )
+
+    # -- filtered scoring (TallyConfig.scoring) ---------------------------
+    def _arm_scoring(self, bank_size: Optional[int] = None) -> None:
+        """Build the ScoringRuntime once the facade's bank geometry is
+        known (``bank_size``: the padded bank of a partitioned facade;
+        None: ``E*B*S``), and with ``batch_stats`` the bank's own
+        statistics lanes."""
+        if self.config.scoring is None:
+            return
+        self._scoring = ScoringRuntime(self.config.scoring,
+                                       self.mesh.nelems, self.dtype,
+                                       self.device, bank_size=bank_size)
+        if self.config.batch_stats:
+            self._score_stats = BatchAccumulator(
+                self.mesh.nelems * self._scoring.stride, self.dtype,
+                self.device)
+
+    def _require_scoring(self) -> ScoringRuntime:
+        if self._scoring is None:
+            raise RuntimeError(
+                "filtered scoring is disabled; construct the tally "
+                "with TallyConfig(scoring=scoring.ScoringSpec(...))"
+            )
+        return self._scoring
+
+    @property
+    def score_bank(self) -> torch.Tensor:
+        """The scoring lanes, flattened [E*B*S] in original element
+        order (the partitioned and streaming facades assemble theirs)."""
+        self._require_scoring()
+        return self._score_bank
+
+    def score_array(self) -> torch.Tensor:
+        """The scoring lanes as [E, n_bins, n_scores]; ``spec.scores``
+        names the last axis."""
+        spec = self._require_scoring().spec
+        return self.score_bank.reshape(self.mesh.nelems, spec.n_bins,
+                                       spec.n_scores)
+
+    def score_statistics(self) -> BatchStatistics:
+        """Per-batch ``BatchStatistics`` over the flattened scoring lanes;
+        needs both ``batch_stats=True`` and a scoring spec."""
+        self._require_scoring()
+        self._require_stats()
+        return BatchStatistics(
+            flux_sum=self._score_stats.flux_sum,
+            flux_sq_sum=self._score_stats.flux_sq_sum,
+            num_batches=self._score_stats.num_batches,
+            elapsed_seconds=self._stats_elapsed(),
+        )
+
+    def _score_args_check(self, energy, time_) -> None:
+        """Refuse mismatched energy=/time= with errors that name the
+        argument."""
+        if self._scoring is None:
+            if energy is not None or time_ is not None:
+                raise ValueError(
+                    "energy=/time= require TallyConfig(scoring="
+                    "scoring.ScoringSpec(...)); this tally has no "
+                    "scoring lanes to bin them into"
+                )
+            return
+        spec = self._scoring.spec
+        if spec.needs_energy and energy is None:
+            raise ValueError(
+                "this ScoringSpec bins (or scales) by energy: pass "
+                "energy= (one value per particle) to MoveToNextLocation"
+            )
+        if spec.needs_time and time_ is None:
+            raise ValueError(
+                "this ScoringSpec bins by time: pass time= (one value "
+                "per particle) to MoveToNextLocation"
+            )
+        if energy is not None and not spec.needs_energy:
+            raise ValueError(
+                "energy= passed but this ScoringSpec has no "
+                "EnergyFilter and no energy-scaled score"
+            )
+        if time_ is not None and not spec.needs_time:
+            raise ValueError(
+                "time= passed but this ScoringSpec has no TimeFilter"
+            )
+
+    def _stage_move_attr(self, buf, what: str) -> Optional[torch.Tensor]:
+        """Validate and stage one per-particle move attribute ([n],
+        working dtype, checked finite after the cast) through the pinned
+        path."""
+        if buf is None:
+            return None
+        a = host_scalar_field(buf, self.num_particles, what)
+
+        def fill(dst: np.ndarray) -> None:
+            np.copyto(dst, a, casting="unsafe")
+            if self.config.validate_inputs:
+                check_finite(dst, what)
+
+        return self._staging.stage(what, [(what, (self.num_particles,),
+                                           self.dtype, fill)])[0]
+
+    def _resolve_move_scoring(self, energy, time_):
+        """The move's scoring operands (sbin, sfac), resolved on the
+        device, or (None, None) with scoring off."""
+        self._score_args_check(energy, time_)
+        if self._scoring is None:
+            return None, None
+        return self._scoring.resolve(self._stage_move_attr(energy, "energy"),
+                                     self._stage_move_attr(time_, "time"),
+                                     self.num_particles)
+
+    def _score_ops(self, bank, sbin, sfac):
+        """The walk's ``scoring=`` bundle over ``bank``, or None with
+        scoring off."""
+        if self._scoring is None:
+            return None
+        return (self._scoring.spec.kinds, bank, sbin, sfac)
+
     # -- the three-call protocol ----------------------------------------
     def CopyInitialPosition(self, init_particle_positions,
                             size: Optional[int] = None):
         """Localize particles to the host app's sampled source points
         (reference PumiTally.h:66-67; non-tallying initial search)."""
         t0 = time.perf_counter()
+        self._stats_roll_batch()  # each sourcing opens a new batch
         # Fold the closing batch's still-lost particles into the
         # cumulative counter before the new localization resets them.
         self._lost_total += self._current_lost()
@@ -491,18 +717,21 @@ class PumiTally:
 
     def MoveToNextLocation(self, particle_origin, particle_destinations,
                            flying=None, weights=None,
-                           size: Optional[int] = None):
+                           size: Optional[int] = None, energy=None,
+                           time=None):
         """Two-phase tracked move (reference PumiTally.h:87-89).
 
         ``particle_origin=None`` continues from the committed positions
         (phase A skipped); ``flying=None`` means every particle flies
-        (nothing to zero); ``weights=None`` means unit weights."""
+        (nothing to zero); ``weights=None`` means unit weights.
+        ``energy=`` / ``time=``: per-particle [n] attributes for the
+        scoring spec's filters and energy-scaled scores."""
         if not self.is_initialized:
             raise RuntimeError(
                 "CopyInitialPosition must be called before MoveToNextLocation "
                 "(reference invariant, PumiTallyImpl.cpp:437-438)"
             )
-        t0 = time.perf_counter()
+        t0 = _perf_counter()
         n = self.num_particles
         dests_raw = host_positions(particle_destinations, size, n)
         origins_raw = (None if particle_origin is None
@@ -521,8 +750,11 @@ class PumiTally:
                                             "origins")
         fly = self._stage_flying(flying)
         w = self._stage_weights(weights)
+        # Before the flying side effect: a move refused for its energy=
+        # or time= leaves the caller's buffers untouched.
+        sbin, sfac = self._resolve_move_scoring(energy, time)
         zero_flying_side_effect(flying, n)
-        found_all = self._dispatch_move(origins, dests, fly, w)
+        found_all = self._dispatch_move(origins, dests, fly, w, sbin, sfac)
         if origins_raw is not None and self._retain_echo_snapshots():
             # Only origin-passing callers can echo. The device tensor is
             # this move's own (staging allocates anew each upload).
@@ -532,25 +764,26 @@ class PumiTally:
                 keep, self._staging.host("dests")[0])
             self._last_dests_dev = dests
         self.iter_count += 1
+        self._stats_note_move()
         if self.config.check_found_all and not bool(found_all):
             print("ERROR: Not all particles are found. May need more loops in search")
         self._fence()
-        self.tally_times.total_time_to_tally += time.perf_counter() - t0
+        self.tally_times.total_time_to_tally += _perf_counter() - t0
 
-    def _dispatch_move(self, origins, dests, fly, w):
+    def _dispatch_move(self, origins, dests, fly, w, sbin=None, sfac=None):
         """One tallied move from staged inputs (origins None: continue
-        mode). Returns whether every particle finished, as a device
-        scalar fetched only when read."""
+        mode; sbin/sfac: the scoring operands, None with scoring off).
+        Returns whether every particle finished, as a device scalar
+        fetched only when read."""
+        kw = dict(tol=self._tol, max_iters=self._max_iters,
+                  scoring=self._score_ops(self._score_bank, sbin, sfac))
         if origins is None:
             self.x, self.elem, done, _ = move_step_continue(
-                self.mesh, self.x, self.elem, dests, fly, w, self.flux,
-                tol=self._tol, max_iters=self._max_iters,
-            )
+                self.mesh, self.x, self.elem, dests, fly, w, self.flux, **kw)
         else:
             self.x, self.elem, done, _ = move_step(
                 self.mesh, self.x, self.elem, origins, dests, fly, w,
-                self.flux, tol=self._tol, max_iters=self._max_iters,
-            )
+                self.flux, **kw)
         return done.all()
 
     def WriteTallyResults(self, filename: Optional[str] = None) -> None:
@@ -564,11 +797,26 @@ class PumiTally:
             cell_data=merge_cell_data({
                 "flux": self.normalized_flux().cpu().numpy(),
                 "volume": self.mesh.volumes.cpu().numpy(),
-            }),
+            }, *self._optional_cell_data()),
             field_data=self._vtk_field_data(),
         )
         self.tally_times.vtk_file_write_time += time.perf_counter() - t0
         self.tally_times.print_times()
+
+    def _optional_cell_data(self) -> tuple:
+        """The statistics and scoring cell arrays (each {} when off, so
+        the default payload is the reference's flux and volume)."""
+        vol = self.mesh.volumes.cpu().numpy()
+        stats, scores = {}, {}
+        if self._stats is not None and self._stats.num_batches >= 1:
+            st = self.batch_statistics()
+            stats = stats_cell_data(BatchStatistics(
+                flux_sum=st.flux_sum.cpu(), flux_sq_sum=st.flux_sq_sum.cpu(),
+                num_batches=st.num_batches), vol)
+        if self._scoring is not None:
+            scores = score_cell_data(self._scoring.spec,
+                                     self.score_bank.cpu().numpy(), vol)
+        return stats, scores
 
     def _vtk_field_data(self) -> dict:
         """Campaign-level payload: the cumulative lost-particle count."""

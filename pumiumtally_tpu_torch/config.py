@@ -21,7 +21,6 @@ ROADMAP_GATHER_BLOCKS = (
     "ROADMAP.md queue 1, 'The rest of the partitioned engine': the "
     "gather block walk walk_local"
 )
-ROADMAP_SCORING = "ROADMAP.md queue 1, 'Scoring, stats and sentinel'"
 ROADMAP_MULTI_DEVICE = "ROADMAP.md queue 1, 'Multi-device'"
 
 
@@ -54,7 +53,21 @@ class TallyConfig:
         two-tier tables, both facades) or "auto"/None (the
         PUMIUMTALLY_WALK_TABLE_DTYPE environment variable, else
         float32).
-      scoring: no scoring lanes yet.
+      batch_stats: per-batch (sum, sum-of-squares) lanes over the flux
+        (and over the scoring bank when ``scoring`` is set), closed at
+        each ``CopyInitialPosition`` and by ``close_batch()`` /
+        ``finalize()``; ``WriteTallyResults`` then adds ``flux_mean``
+        (from 1 closed batch) and ``rel_err`` (from 2). Off: nothing is
+        allocated.
+      batch_stats_trigger: a ``stats.TriggerSpec`` that ``close_batch()``
+        evaluates when the caller passes none (needs ``batch_stats``).
+      scoring: a ``scoring.ScoringSpec``: energy/time-binned scoring
+        lanes, a flattened [E*B*S] bank on the device, fed by the
+        ``energy=``/``time=`` arguments of ``MoveToNextLocation`` and
+        committed inside the walk kernels (W0 and W2). The partitioned
+        facades need the two-tier tables with ``walk_kernel="pallas"``:
+        the JAX package scores the float32 block walk through its gather
+        walk, which is not ported. None: no scoring code runs.
       output_filename: default VTK output path.
       auto_continue: ``MoveToNextLocation`` detects on the host when the
         staged origins echo the previous move's destinations bit for
@@ -94,6 +107,8 @@ class TallyConfig:
     walk_kernel: str = "gather"
     walk_block_kernel: str = "vmem"
     walk_table_dtype: Optional[str] = None
+    batch_stats: bool = False
+    batch_stats_trigger: Optional[Any] = None
     scoring: Optional[Any] = None
     output_filename: str = "fluxresult.vtk"
     auto_continue: bool = True
@@ -193,10 +208,27 @@ class TallyConfig:
                 f"walk_block_kernel='gather' is not ported yet: "
                 f"{ROADMAP_GATHER_BLOCKS}"
             )
+        if self.batch_stats_trigger is not None:
+            from pumiumtally_tpu_torch.stats.triggers import TriggerSpec
+
+            if not isinstance(self.batch_stats_trigger, TriggerSpec):
+                raise ValueError(
+                    "batch_stats_trigger must be a stats.TriggerSpec, "
+                    f"got {self.batch_stats_trigger!r}"
+                )
+            if not self.batch_stats:
+                raise ValueError(
+                    "batch_stats_trigger needs batch_stats=True (no "
+                    "lanes are accumulated otherwise)"
+                )
         if self.scoring is not None:
-            raise NotImplementedError(
-                f"scoring is not ported yet: {ROADMAP_SCORING}"
-            )
+            from pumiumtally_tpu_torch.scoring.binding import ScoringSpec
+
+            if not isinstance(self.scoring, ScoringSpec):
+                raise ValueError(
+                    "scoring must be a scoring.ScoringSpec, "
+                    f"got {self.scoring!r}"
+                )
         if self.walk_vmem_max_elems is not None and int(
             self.walk_vmem_max_elems
         ) < 1:

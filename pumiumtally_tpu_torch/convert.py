@@ -11,8 +11,13 @@ no JAX import here) and build the port's object from such a dict:
 - a ``MeshPartition``: the block tables (``table_hi`` too when two-tier;
   a bf16 ``table`` as its uint16 bits) and the id maps;
 - a facade: its particle state and flux (``PumiTally``: x, elem, flux;
-  ``PartitionedPumiTally``: every engine slot row plus the padded flux);
-- a ``TallyConfig``: the fields both packages have (``tally_config``).
+  ``PartitionedPumiTally``: every engine slot row, ``sbin``/``sfac``
+  included, plus the padded flux), its scoring bank (``score_bank``, or
+  the engine's ``score_padded``) and its statistics lanes
+  (``stats_*`` over the flux, ``sstats_*`` over the bank: the JAX
+  checkpoint's names);
+- a ``TallyConfig``: the fields both packages have (``tally_config``),
+  a JAX ``ScoringSpec`` and ``TriggerSpec`` turned into the port's.
 
 Tests build an input once, hand it to both packages through here, and
 compare what comes out. A bf16 tensor crosses as its uint16 bit pattern:
@@ -37,6 +42,12 @@ from pumiumtally_tpu_torch.mesh.tetmesh import (
     TetMesh,
 )
 from pumiumtally_tpu_torch.parallel.partition import MeshPartition
+from pumiumtally_tpu_torch.scoring import (
+    EnergyFilter,
+    ScoringSpec,
+    TimeFilter,
+)
+from pumiumtally_tpu_torch.stats import TriggerSpec
 
 MESH_KEYS = ("coords", "tet2vert", "face_normals", "face_offsets",
              "face_adj", "volumes", "walk_table")
@@ -150,17 +161,40 @@ def partition_from_arrays(arrays: Dict[str, Any],
     )
 
 
+_STATS_LANES = ("flux_sum", "flux_sq_sum")
+
+
+def _stats_arrays(acc, prefix: str) -> Dict[str, Any]:
+    """A BatchAccumulator of either package as host values."""
+    out = {f"{prefix}_{k}": host(getattr(acc, k)) for k in _STATS_LANES}
+    out[f"{prefix}_num_batches"] = int(acc.num_batches)
+    out[f"{prefix}_moves_in_batch"] = int(acc.moves_in_batch)
+    if acc.open_flux is not None:
+        out[f"{prefix}_open_flux"] = host(acc.open_flux)
+    return out
+
+
 def facade_state(tally) -> Dict[str, np.ndarray]:
-    """A facade's particle state and flux as host arrays: the engine's
-    slot rows plus ``flux_padded`` for a partitioned facade, else
-    ``x``, ``elem`` and ``flux``."""
+    """A facade's particle state, flux, scoring bank and statistics
+    lanes as host arrays: the engine's slot rows plus ``flux_padded``
+    (and ``score_padded``) for a partitioned facade, else ``x``,
+    ``elem`` and ``flux`` (and ``score_bank``); ``stats_*`` and
+    ``sstats_*`` where statistics are on."""
     engine = getattr(tally, "engine", None)
     if engine is not None:
         out = {k: host(v) for k, v in engine.state.items()}
         out["flux_padded"] = host(engine.flux_padded)
-        return out
-    return {"x": host(tally.x), "elem": host(tally.elem),
-            "flux": host(tally.flux)}
+        if getattr(engine, "score_padded", None) is not None:
+            out["score_padded"] = host(engine.score_padded)
+    else:
+        out = {"x": host(tally.x), "elem": host(tally.elem),
+               "flux": host(tally.flux)}
+        if getattr(tally, "_score_bank", None) is not None:
+            out["score_bank"] = host(tally._score_bank)
+    for attr, prefix in (("_stats", "stats"), ("_score_stats", "sstats")):
+        if getattr(tally, attr, None) is not None:
+            out.update(_stats_arrays(getattr(tally, attr), prefix))
+    return out
 
 
 def load_facade_state(tally, arrays: Dict[str, np.ndarray]) -> None:
@@ -178,11 +212,22 @@ def load_facade_state(tally, arrays: Dict[str, np.ndarray]) -> None:
         for k, v in engine.state.items():
             engine.state[k] = t(arrays[k], v.dtype).reshape(v.shape)
         engine.flux_padded = t(arrays["flux_padded"], tally.dtype)
+        if engine.score_padded is not None:
+            engine.score_padded = t(arrays["score_padded"], tally.dtype)
         engine.n_lost = int(np.sum(arrays["lost"]))
     else:
         tally.x = t(arrays["x"], tally.dtype).reshape(-1, 3)
         tally.elem = t(arrays["elem"], torch.int32)
         tally.flux = t(arrays["flux"], tally.dtype)
+        if tally._score_bank is not None:
+            tally._score_bank = t(arrays["score_bank"], tally.dtype)
+    for attr, prefix in (("_stats", "stats"), ("_score_stats", "sstats")):
+        acc = getattr(tally, attr)
+        if acc is not None:
+            acc.restore(*(arrays[f"{prefix}_{k}"] for k in _STATS_LANES),
+                        arrays[f"{prefix}_num_batches"],
+                        arrays[f"{prefix}_moves_in_batch"],
+                        arrays.get(f"{prefix}_open_flux"))
     tally.is_initialized = True
 
 
@@ -209,4 +254,24 @@ def tally_config(cfg) -> TallyConfig:
     if kw.get("dtype") is not None:
         kw["dtype"] = {"float32": torch.float32, "float64": torch.float64,
                        "bfloat16": torch.bfloat16}[np.dtype(kw["dtype"]).name]
+    if kw.get("scoring") is not None:
+        kw["scoring"] = scoring_spec(kw["scoring"])
+    if kw.get("batch_stats_trigger") is not None:
+        trig = kw["batch_stats_trigger"]
+        kw["batch_stats_trigger"] = TriggerSpec(
+            threshold=trig.threshold, metric=trig.metric,
+            quantile=trig.quantile)
     return TallyConfig(**kw)
+
+
+def scoring_spec(spec) -> ScoringSpec:
+    """The port's ``ScoringSpec`` from a spec of either package, read
+    duck-typed: its filters' edges, its scores and its overflow
+    policy."""
+    filters = []
+    for attr, cls in (("energy_filter", EnergyFilter),
+                      ("time_filter", TimeFilter)):
+        f = getattr(spec, attr)
+        if f is not None:
+            filters.append(cls(np.asarray(f.edges)))
+    return ScoringSpec(filters, tuple(spec.scores), spec.overflow)

@@ -51,12 +51,28 @@
 // global memory once per CUDA block. Shared memory when staging: 32 B of
 // select row and the partial per element, plus the list (2 KB at
 // least): L <= 6,399 in f32, 5,759 in f64.
+//
+// Scoring (kScore; K2's in-kernel scoring lanes, pallas_walk.py:381-418):
+// block b's lanes are the [L*stride] slice at b*L*stride of the padded
+// bank, and each crossing adds score_pair's values (the track score's
+// c * fac[k], the count score's fac[k] when the step crossed a face:
+// interior step, block-face pause or boundary exit) into lane
+// lelem*stride + bin_off + k with one atomicAdd into global memory, in
+// both regimes: a [L, stride] partial does not fit beside the staged
+// table (2,000 x 96 x 4 B = 768 KB). K2 sums a per-tile matmul partial
+// instead, so only the order of the additions differs. A lane with
+// bin_off + k >= stride (the DROP sentinel's) matches no lane of the
+// slice and is dropped; a zero value is not added. The slot's bin offset
+// and factors are read once per slot; the scoring-off instantiation is
+// the kernel without any of this (the same shared-memory layout), and
+// scoring changes no position, element, pause or flag.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "block_walk_sched.cuh"
 #include "twotier_step.cuh"
+#include "walk_step.cuh"
 
 template <typename T>
 struct TwoTierArgs {
@@ -79,6 +95,12 @@ struct TwoTierArgs {
   int* counts;
   int L, cap_b, list_cap, stage_bytes, max_iters, tally;
   T tol;
+  // Scoring (kScore only): the padded bank, each slot's lane offset and
+  // its [nscores] factors; `kinds` has bit k set for a "count" score.
+  T* bank;
+  const int* bin_off;
+  const T* fac;
+  int stride, nscores, kinds;
 };
 
 // Commit slot i: dest bit-exactly for a particle that reached it, else
@@ -100,11 +122,12 @@ __device__ __forceinline__ void commit(const TwoTierArgs<T>& a, size_t i,
 
 // Walk slot i until it is done or paused; `lo` is the block's select
 // tier (shared or global), `hi_b` its refinement tier, `acc` its flux
-// (partial or global). Returns steps.
-template <typename T>
+// (partial or global), `bank_b` its scoring lanes (kScore). Returns
+// steps.
+template <typename T, bool kScore>
 __device__ __forceinline__ int walk_slot(const TwoTierArgs<T>& a, size_t i,
                                          const uint16_t* lo, const T* hi_b,
-                                         T* acc) {
+                                         T* acc, T* bank_b) {
   const T x0x = a.x[3 * i], x0y = a.x[3 * i + 1], x0z = a.x[3 * i + 2];
   const T dx = a.dest[3 * i] - x0x, dy = a.dest[3 * i + 1] - x0y,
           dz = a.dest[3 * i + 2] - x0z;
@@ -118,6 +141,14 @@ __device__ __forceinline__ int walk_slot(const TwoTierArgs<T>& a, size_t i,
       a.tally ? walk_eff_weight(dx, dy, dz, a.fly[i], a.w[i]) : T(0);
   T s = 0;
   int steps = 0;
+  int sbin = 0;
+  T sfac[3] = {0, 0, 0};
+  if constexpr (kScore) {
+    sbin = a.bin_off[i];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      sfac[k] = k < a.nscores ? a.fac[i * a.nscores + k] : T(0);
+  }
   while (steps < a.max_iters) {
     int next;
     bool reached;
@@ -128,6 +159,10 @@ __device__ __forceinline__ int walk_slot(const TwoTierArgs<T>& a, size_t i,
     if (a.tally) {
       const T c = (s_new - s) * eff_w;
       if (c != T(0)) atomicAdd(acc + e, c);
+      // Outside the c != 0 guard: a zero-length step is a crossing.
+      if constexpr (kScore)
+        score_lanes(bank_b + (size_t)e * a.stride, sbin, a.stride,
+                    a.nscores, a.kinds, c, !reached, sfac);
     }
     s = s_new;
     ++steps;
@@ -146,7 +181,7 @@ __device__ __forceinline__ int walk_slot(const TwoTierArgs<T>& a, size_t i,
   return steps;
 }
 
-template <typename T>
+template <typename T, bool kScore>
 __global__ void __launch_bounds__(SCHED_THREADS, 2)
     twotier_block_walk_kernel(const TwoTierArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -155,6 +190,7 @@ __global__ void __launch_bounds__(SCHED_THREADS, 2)
   const uint16_t* lo_b = a.table_lo + (size_t)b * a.L * WALK_TABLE_LO_WIDTH;
   const T* hi_b = a.table_hi + (size_t)b * a.L * 4 * WALK_PLANE_WIDTH;
   T* flux_b = a.tally ? a.flux + (size_t)b * a.L : nullptr;
+  T* bank_b = kScore ? a.bank + (size_t)b * a.L * a.stride : nullptr;
   const uint16_t* lo_s =
       reinterpret_cast<const uint16_t*>(smem_raw + SCHED_HEADER_BYTES);
   T* part = reinterpret_cast<T*>(smem_raw + sched_part_offset(a.stage_bytes));
@@ -181,19 +217,31 @@ __global__ void __launch_bounds__(SCHED_THREADS, 2)
                exited, -1);
       },
       [&](int slot, bool staged) {
-        return staged ? walk_slot(a, base + slot, lo_s, hi_b, part)
-                      : walk_slot(a, base + slot, lo_b, hi_b, flux_b);
+        return staged
+                   ? walk_slot<T, kScore>(a, base + slot, lo_s, hi_b, part,
+                                          bank_b)
+                   : walk_slot<T, kScore>(a, base + slot, lo_b, hi_b, flux_b,
+                                          bank_b);
       });
 }
 
+// The scoring arguments of a scoring entry (null bank: scoring off).
+struct ScoreArgs {
+  void* bank;
+  const void* bin_off;
+  const void* fac;
+  int stride, nscores, kinds;
+};
+
 template <typename T>
 static int launch_twotier_block_walk(
-    const void* table_lo, const void* table_hi, const void* x,
-    const void* lelem, const void* dest, const void* fly, const void* w,
-    const void* done, const void* exited, void* flux, void* x_out,
-    void* lelem_out, void* done_out, void* exited_out, void* pending_out,
-    void* iters, void* counts, int blocks, int L, int cap_b, double tol,
-    int max_iters, int tally, int use_shared, void* stream) {
+    const ScoreArgs& sc, const void* table_lo, const void* table_hi,
+    const void* x, const void* lelem, const void* dest, const void* fly,
+    const void* w, const void* done, const void* exited, void* flux,
+    void* x_out, void* lelem_out, void* done_out, void* exited_out,
+    void* pending_out, void* iters, void* counts, int blocks, int L,
+    int cap_b, double tol, int max_iters, int tally, int use_shared,
+    void* stream) {
   // Without staging the block reserves only the header and the list.
   const size_t table_bytes =
       use_shared ? (size_t)L * WALK_TABLE_LO_WIDTH * sizeof(uint16_t) : 0;
@@ -203,8 +251,10 @@ static int launch_twotier_block_walk(
   if (!sched_layout(table_bytes, part_bytes, &smem, &list_cap))
     return static_cast<int>(cudaErrorInvalidValue);
   if (blocks <= 0 || cap_b <= 0) return static_cast<int>(cudaGetLastError());
+  const bool score = sc.bank != nullptr;
   const void* kernel =
-      reinterpret_cast<const void*>(twotier_block_walk_kernel<T>);
+      score ? reinterpret_cast<const void*>(twotier_block_walk_kernel<T, true>)
+            : reinterpret_cast<const void*>(twotier_block_walk_kernel<T, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -237,34 +287,56 @@ static int launch_twotier_block_walk(
   a.max_iters = max_iters;
   a.tally = tally;
   a.tol = static_cast<T>(tol);
+  a.bank = static_cast<T*>(sc.bank);
+  a.bin_off = static_cast<const int*>(sc.bin_off);
+  a.fac = static_cast<const T*>(sc.fac);
+  a.stride = sc.stride;
+  a.nscores = sc.nscores;
+  a.kinds = sc.kinds;
   const dim3 grid(blocks, k);
-  twotier_block_walk_kernel<T><<<grid, SCHED_THREADS, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (score)
+    twotier_block_walk_kernel<T, true><<<grid, SCHED_THREADS, smem, st>>>(a);
+  else
+    twotier_block_walk_kernel<T, false><<<grid, SCHED_THREADS, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int pumi_twotier_block_walk_f32(
-    const void* table_lo, const void* table_hi, const void* x,
-    const void* lelem, const void* dest, const void* fly, const void* w,
-    const void* done, const void* exited, void* flux, void* x_out,
-    void* lelem_out, void* done_out, void* exited_out, void* pending_out,
-    void* iters, void* counts, int blocks, int L, int cap_b, double tol,
-    int max_iters, int tally, int use_shared, void* stream) {
-  return launch_twotier_block_walk<float>(
-      table_lo, table_hi, x, lelem, dest, fly, w, done, exited, flux, x_out,
-      lelem_out, done_out, exited_out, pending_out, iters, counts, blocks, L,
-      cap_b, tol, max_iters, tally, use_shared, stream);
+// The arguments every entry takes after its scoring arguments.
+#define W2_PARAMS                                                          \
+  const void *table_lo, const void *table_hi, const void *x,              \
+      const void *lelem, const void *dest, const void *fly, const void *w, \
+      const void *done, const void *exited, void *flux, void *x_out,       \
+      void *lelem_out, void *done_out, void *exited_out,                   \
+      void *pending_out, void *iters, void *counts, int blocks, int L,     \
+      int cap_b, double tol, int max_iters, int tally, int use_shared,     \
+      void *stream
+#define W2_ARGS                                                            \
+  table_lo, table_hi, x, lelem, dest, fly, w, done, exited, flux, x_out,   \
+      lelem_out, done_out, exited_out, pending_out, iters, counts, blocks, \
+      L, cap_b, tol, max_iters, tally, use_shared, stream
+#define W2_SCORE_PARAMS                                                    \
+  void *bank, const void *bin_off, const void *fac, int stride,            \
+      int nscores, int kinds
+
+extern "C" int pumi_twotier_block_walk_f32(W2_PARAMS) {
+  return launch_twotier_block_walk<float>(ScoreArgs{}, W2_ARGS);
 }
 
-extern "C" int pumi_twotier_block_walk_f64(
-    const void* table_lo, const void* table_hi, const void* x,
-    const void* lelem, const void* dest, const void* fly, const void* w,
-    const void* done, const void* exited, void* flux, void* x_out,
-    void* lelem_out, void* done_out, void* exited_out, void* pending_out,
-    void* iters, void* counts, int blocks, int L, int cap_b, double tol,
-    int max_iters, int tally, int use_shared, void* stream) {
+extern "C" int pumi_twotier_block_walk_f64(W2_PARAMS) {
+  return launch_twotier_block_walk<double>(ScoreArgs{}, W2_ARGS);
+}
+
+// A block's lanes are its own slice of the bank: the drop rule is
+// bin_off + k >= stride, so no bank size is passed.
+extern "C" int pumi_twotier_block_walk_scored_f32(W2_SCORE_PARAMS,
+                                                  W2_PARAMS) {
+  return launch_twotier_block_walk<float>(
+      ScoreArgs{bank, bin_off, fac, stride, nscores, kinds}, W2_ARGS);
+}
+
+extern "C" int pumi_twotier_block_walk_scored_f64(W2_SCORE_PARAMS,
+                                                  W2_PARAMS) {
   return launch_twotier_block_walk<double>(
-      table_lo, table_hi, x, lelem, dest, fly, w, done, exited, flux, x_out,
-      lelem_out, done_out, exited_out, pending_out, iters, counts, blocks, L,
-      cap_b, tol, max_iters, tally, use_shared, stream);
+      ScoreArgs{bank, bin_off, fac, stride, nscores, kinds}, W2_ARGS);
 }

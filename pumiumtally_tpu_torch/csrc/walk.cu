@@ -50,6 +50,23 @@
 // particle's inputs back out: x_out = x, elem_out = elem, done = 1,
 // exited = 0, s = s_init (or 0), leaving counts and iters alone.
 //
+// Scoring (kScore; the JAX walk's `scoring=` hook, ops/walk.py:449 through
+// `score_pair` :177 and `fused_tally_body` :196): at every crossing each of
+// the spec's S <= 3 scores adds into lane e*stride + bin_off + k of the
+// flattened bank, with one atomicAdd into global memory, the value
+// c * fac[k] for a "track" score (c = (s_new - s) * eff_w, the flux
+// lane's own value) and fac[k] for a "count" score when the step crossed
+// a face (interior step or boundary exit). A lane at or past bank_size
+// (the DROP sentinel's) is dropped; a zero value is not added. The
+// particle's bin offset and factors are loaded into registers once, when
+// a lane takes the particle. The scoring-off instantiation is the code
+// without any of this, and scoring changes no position, element, ray
+// coordinate or flag. Bound: each bank lane the walk touches, read and
+// written once, and bin_off/fac once per particle join the bytes above.
+// The kernel adds S lanes per crossing at scattered addresses of an
+// E*stride bank (18 MB in f32 on the box at stride 96), so each atomic
+// is its own L2 sector.
+//
 // The two-tier variant (kTwoTier; the JAX walk's lo_select branch,
 // ops/walk.py _advance_geometry :425-431) reads, per crossing, the tet's
 // 32 B bf16 select row as two 16-byte loads and then the winning face's
@@ -91,6 +108,12 @@ struct WalkArgs {
   const int* skip;
   int n, max_iters, tally;
   T tol;
+  // Scoring (kScore only): the bank, each particle's lane offset and its
+  // [nscores] factors; `kinds` has bit k set for a "count" score.
+  T* bank;
+  const int* bin_off;
+  const T* fac;
+  int stride, nscores, kinds, bank_size;
 };
 
 // One crossing of the tet `e` with its rows read from global memory.
@@ -143,7 +166,7 @@ __device__ __forceinline__ void walk_flush(const WalkArgs<T>& a,
   __syncwarp();  // the slot may be written again
 }
 
-template <typename T, bool kTwoTier>
+template <typename T, bool kTwoTier, bool kScore>
 __global__ void __launch_bounds__(WALK_THREADS)
     walk_kernel(const WalkArgs<T> a) {
   __shared__ int block_iters, block_walked, block_skip;
@@ -193,6 +216,8 @@ __global__ void __launch_bounds__(WALK_THREADS)
   int slot = -1;  // the ring slot of its share, -1: write directly
   T px = 0, py = 0, pz = 0, dx = 0, dy = 0, dz = 0, eff_w = 0, s = 0;
   int e = 0, steps = 0, steps_max = 0, walked = 0;
+  int sbin = 0;  // scoring: the particle's lane offset and factors
+  T sfac[3] = {0, 0, 0};
   for (;;) {
     // Once WALK_REFILL lanes (or all) have no particle, they take the
     // next indices of the warp's share, in lane order; an empty share is
@@ -236,6 +261,12 @@ __global__ void __launch_bounds__(WALK_THREADS)
         s = a.s_init ? a.s_init[i] : T(0);
         e = a.elem_in[i];
         steps = 0;
+        if constexpr (kScore) {
+          sbin = a.bin_off[i];
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            sfac[k] = k < a.nscores ? a.fac[(size_t)i * a.nscores + k] : T(0);
+        }
       }
       pool = min(pool + __popc(idle), pool_end);
     }
@@ -252,6 +283,10 @@ __global__ void __launch_bounds__(WALK_THREADS)
         if (a.tally) {
           const T c = (s_new - s) * eff_w;
           if (c != T(0)) atomicAdd(a.flux + e, c);
+          // Outside the c != 0 guard: a zero-length step is a crossing.
+          if constexpr (kScore)
+            score_lanes(a.bank, (long long)e * a.stride + sbin, a.bank_size,
+                        a.nscores, a.kinds, c, !reached, sfac);
         }
         if (!reached && !hit_boundary) e = next;
         s = s_new;
@@ -318,16 +353,16 @@ __global__ void __launch_bounds__(WALK_THREADS)
   }
 }
 
-template <typename T, bool kTwoTier>
+template <typename T, bool kTwoTier, bool kScore = false>
 static int launch_walk(const WalkArgs<T>& a, void* stream) {
   if (a.n <= 0) return static_cast<int>(cudaGetLastError());
   int resident = 0;
   const cudaError_t err = resident_blocks(
-      reinterpret_cast<const void*>(walk_kernel<T, kTwoTier>), WALK_THREADS,
-      0, &resident);
+      reinterpret_cast<const void*>(walk_kernel<T, kTwoTier, kScore>),
+      WALK_THREADS, 0, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int needed = (a.n + WALK_THREADS - 1) / WALK_THREADS;
-  walk_kernel<T, kTwoTier>
+  walk_kernel<T, kTwoTier, kScore>
       <<<needed < resident ? needed : resident, WALK_THREADS, 0,
          static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -367,6 +402,26 @@ static WalkArgs<T> walk_args(const void* table, const void* table_lo,
   a.max_iters = max_iters;
   a.tally = tally;
   a.tol = static_cast<T>(tol);
+  a.bank = nullptr;
+  a.bin_off = nullptr;
+  a.fac = nullptr;
+  a.stride = a.nscores = a.kinds = a.bank_size = 0;
+  return a;
+}
+
+// The scoring arguments of a walk_scored entry, set on `a`.
+template <typename T>
+static WalkArgs<T> with_scoring(WalkArgs<T> a, void* bank,
+                                const void* bin_off, const void* fac,
+                                int stride, int nscores, int kinds,
+                                int bank_size) {
+  a.bank = static_cast<T*>(bank);
+  a.bin_off = static_cast<const int*>(bin_off);
+  a.fac = static_cast<const T*>(fac);
+  a.stride = stride;
+  a.nscores = nscores;
+  a.kinds = kinds;
+  a.bank_size = bank_size;
   return a;
 }
 
@@ -404,5 +459,52 @@ extern "C" int pumi_walk_twotier_f64(const void* table_lo,
                                      WALK_PARTICLE_PARAMS) {
   return launch_walk<double, true>(
       walk_args<double>(nullptr, table_lo, table_hi, WALK_PARTICLE_ARGS),
+      stream);
+}
+
+// The scoring entries: the same walk with the scoring lanes (kScore).
+#define WALK_SCORE_PARAMS                                                 \
+  void *bank, const void *bin_off, const void *fac, int stride,           \
+      int nscores, int kinds, int bank_size
+#define WALK_SCORE_ARGS \
+  bank, bin_off, fac, stride, nscores, kinds, bank_size
+
+extern "C" int pumi_walk_scored_f32(WALK_SCORE_PARAMS, const void* table,
+                                    WALK_PARTICLE_PARAMS) {
+  return launch_walk<float, false, true>(
+      with_scoring(walk_args<float>(table, nullptr, nullptr,
+                                    WALK_PARTICLE_ARGS),
+                   WALK_SCORE_ARGS),
+      stream);
+}
+
+extern "C" int pumi_walk_scored_f64(WALK_SCORE_PARAMS, const void* table,
+                                    WALK_PARTICLE_PARAMS) {
+  return launch_walk<double, false, true>(
+      with_scoring(walk_args<double>(table, nullptr, nullptr,
+                                     WALK_PARTICLE_ARGS),
+                   WALK_SCORE_ARGS),
+      stream);
+}
+
+extern "C" int pumi_walk_twotier_scored_f32(WALK_SCORE_PARAMS,
+                                            const void* table_lo,
+                                            const void* table_hi,
+                                            WALK_PARTICLE_PARAMS) {
+  return launch_walk<float, true, true>(
+      with_scoring(walk_args<float>(nullptr, table_lo, table_hi,
+                                    WALK_PARTICLE_ARGS),
+                   WALK_SCORE_ARGS),
+      stream);
+}
+
+extern "C" int pumi_walk_twotier_scored_f64(WALK_SCORE_PARAMS,
+                                            const void* table_lo,
+                                            const void* table_hi,
+                                            WALK_PARTICLE_PARAMS) {
+  return launch_walk<double, true, true>(
+      with_scoring(walk_args<double>(nullptr, table_lo, table_hi,
+                                     WALK_PARTICLE_ARGS),
+                   WALK_SCORE_ARGS),
       stream);
 }

@@ -1,6 +1,7 @@
 // One crossing of the fixed-ray tet walk, shared by the walk kernels
-// (walk.cu, block_walk.cu, resident_walk.cu), and the packed row's
-// 16-byte loaders. Templated on float / double.
+// (walk.cu, block_walk.cu, resident_walk.cu), the packed row's 16-byte
+// loaders, and one crossing's scoring lanes (walk.cu,
+// twotier_block_walk.cu). Templated on float / double.
 //
 // The ray is parametrised by s in [0,1] along x0 -> dest with
 // x0 = dest - d0. For face f with outward unit normal n_f and offset
@@ -122,4 +123,23 @@ __device__ __forceinline__ T walk_eff_weight(T dx, T dy, T dz,
                                              signed char fly, T w) {
   const T seg = sqrt(dx * dx + dy * dy + dz * dz);
   return fly ? w * seg : T(0);
+}
+
+// One crossing's scoring lanes (the JAX `score_pair`): for each of the
+// `nscores` <= 3 scores, c * fac[k] for a "track" score (c is the flux
+// lane's own (s_new - s) * eff_w) or fac[k] for a "count" score (bit k of
+// `kinds`) when the step crossed a face, added into lanes[off + k] with
+// one atomic unless the value is zero or off + k >= limit (the DROP
+// sentinel's lanes; the caller picks the limit its contract drops at).
+template <typename T>
+__device__ __forceinline__ void score_lanes(T* lanes, long long off,
+                                            long long limit, int nscores,
+                                            int kinds, T c, bool crossed,
+                                            const T (&fac)[3]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (k >= nscores) break;
+    const T v = (kinds >> k) & 1 ? (crossed ? fac[k] : T(0)) : c * fac[k];
+    if (v != T(0) && off + k < limit) atomicAdd(lanes + off + k, v);
+  }
 }

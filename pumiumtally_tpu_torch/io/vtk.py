@@ -52,7 +52,8 @@ def _check_len(name: str, arr: np.ndarray, n: int, kind: str) -> np.ndarray:
 
 def stats_cell_data(stats, volumes: np.ndarray) -> Dict[str, np.ndarray]:
     """Optional batch-statistics cell arrays for the tally writers
-    (``stats`` is a ``pumiumtally_tpu.stats.BatchStatistics``):
+    (``stats`` is a ``stats.BatchStatistics`` whose fields numpy can
+    read: host tensors or arrays):
 
     - ``flux_mean``: per-batch mean flux, volume-normalized exactly
       like the ``flux`` array (so flux == flux_mean * num_batches for

@@ -18,7 +18,11 @@ An entry is one C entry point of a library: ``walk`` (W0),
 ``walk_twotier`` (W0's two-tier variant, in the same library),
 ``block_walk`` (W1), ``twotier_block_walk`` (W2), ``resident_walk`` (W3)
 and the two entries of the row gather G1, ``row_gather_take`` (K4's
-counterpart) and ``row_gather_take_along_axis`` (K5's).
+counterpart) and ``row_gather_take_along_axis`` (K5's). The scoring
+instantiations of W0 and W2 are entries of their own, counted apart:
+``walk_scored``, ``walk_twotier_scored`` and
+``twotier_block_walk_scored`` (each takes its scoring arguments ahead
+of the plain entry's).
 """
 
 from __future__ import annotations
@@ -55,17 +59,30 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _BOTH = ("f32", "f64")
+# A scoring entry's leading arguments: bank, bin_off, fac, stride,
+# nscores, kinds, and for W0 bank_size (W2 drops by its slice's stride).
+_W2_SCORE = [_P] * 3 + [_I] * 3
+_SCORE = _W2_SCORE + [_I]
 # C entry points: entry -> (library, argtypes, dtypes); the entry's
 # dtypes share its argtypes (``pumi_<entry>_f32`` / ``pumi_<entry>_f64``).
 _ENTRY_ARGS = {
     "walk": ("walk", [_P] * 17 + [_I, _D, _I, _I, _P], _BOTH),
     "walk_twotier": ("walk", [_P] * 18 + [_I, _D, _I, _I, _P], _BOTH),
+    "walk_scored": ("walk", _SCORE + [_P] * 17 + [_I, _D, _I, _I, _P],
+                    _BOTH),
+    "walk_twotier_scored": (
+        "walk", _SCORE + [_P] * 18 + [_I, _D, _I, _I, _P], _BOTH,
+    ),
     "block_walk": (
         "block_walk", [_P] * 16 + [_I, _I, _I, _D, _I, _I, _P], _BOTH,
     ),
     "twotier_block_walk": (
         "twotier_block_walk",
         [_P] * 17 + [_I, _I, _I, _D, _I, _I, _I, _P], _BOTH,
+    ),
+    "twotier_block_walk_scored": (
+        "twotier_block_walk",
+        _W2_SCORE + [_P] * 17 + [_I, _I, _I, _D, _I, _I, _I, _P], _BOTH,
     ),
     "resident_walk": (
         "resident_walk", [_P] * 15 + [_I] * 4 + [_D, _I, _P], ("f32",),

@@ -19,9 +19,16 @@ bf16 rows into shared memory if they fit with a flux partial and the
 list (``w2_uses_shared``); a larger block reads them from global
 memory.
 
-Scoring lanes (the JAX kernel's ``scoring=``) are not in this port
-(ROADMAP.md queue 2, "K2's in-kernel scoring lanes", which comes with
-queue 1's "Scoring, stats and sentinel"). ``flux`` is updated IN PLACE.
+``scoring=(kinds, bank, bin_off, fac)`` is K2's in-kernel scoring
+lowering: ``bank`` is the engine's padded ``[blocks*L*stride]`` bank,
+block b's lanes the ``[L*stride]`` slice at ``b*L*stride``; each
+crossing adds ``score_pair``'s values (ops/walk.py) into lane
+``lelem*stride + bin_off + k`` of its block's slice, and a lane with
+``bin_off + k >= stride`` (the DROP sentinel's) is dropped, as K2's
+column match drops it. K2 sums a per-tile matmul partial, W2 adds per
+crossing (atomics on the card): only the order of the additions
+differs. ``flux`` and ``bank`` are updated IN PLACE; on the card the
+scoring walk counts as ``twotier_block_walk_scored``.
 """
 
 from __future__ import annotations
@@ -41,8 +48,12 @@ from pumiumtally_tpu_torch.ops.vmem_walk import (
     sched_smem_layout,
 )
 from pumiumtally_tpu_torch.ops.walk import (
+    add_lanes,
+    check_scoring,
+    count_mask,
     eff_weight,
     refine_face_hi,
+    score_pair,
     select_faces_lo,
 )
 
@@ -113,12 +124,21 @@ def _check_layout(table_lo, table_hi, n: int, blocks: int) -> int:
 def pallas_walk_local_plain(
     table_lo, table_hi, x, lelem, dest, flying, weight, done, exited, flux,
     *, tally: bool, tol: float, max_iters: int, blocks: int = 1,
+    scoring=None,
 ):
     """W2's plain PyTorch version: every slot of every block in one
     masked lock-step loop over the stacked tiers."""
     n = x.shape[0]
     blocks = int(blocks)
     L = _check_layout(table_lo, table_hi, n, blocks)
+    if scoring is not None:
+        stride = check_scoring("pallas_walk_local_plain", scoring,
+                               flux if tally else None, n)
+        kinds, bank, bin_off, fac = scoring
+        # K2's column match: a lane past its element's stride is dropped.
+        lane_ok = (bin_off.long()[:, None]
+                   + torch.arange(len(kinds), device=x.device)
+                   < stride).reshape(-1)
     pending = torch.full((n,), -1, dtype=torch.int32, device=x.device)
     if n == 0:
         return (x, lelem, done, exited, pending, flux,
@@ -151,6 +171,11 @@ def pallas_walk_local_plain(
             contrib = torch.where(active, (s_new - s) * eff_w,
                                   torch.zeros_like(s))
             flux.index_add_(0, rows, contrib)
+            if scoring is not None:
+                crossed = (active & ~reached).to(contrib.dtype)
+                sidx, sval = score_pair(kinds, stride, rows, bin_off, fac,
+                                        contrib, crossed)
+                add_lanes(bank, sidx[lane_ok], sval[lane_ok], bank.numel())
         moving = active & ~reached & ~hit_boundary & ~goes_remote
         lelem = torch.where(moving, nxt, lelem)
         s = torch.where(active, s_new, s)
@@ -168,7 +193,7 @@ def pallas_walk_local_plain(
 
 def _pallas_walk_cuda(table_lo, table_hi, x, lelem, dest, flying, weight,
                       done, exited, flux, *, tally, tol, max_iters, blocks,
-                      sched_counts=None):
+                      sched_counts=None, scoring=None):
     dev, dt = x.device, x.dtype
     n = x.shape[0]
     L = _check_layout(table_lo, table_hi, n, blocks)
@@ -186,6 +211,20 @@ def _pallas_walk_cuda(table_lo, table_hi, x, lelem, dest, flying, weight,
         ("exited", exited, torch.bool, (n,)),
         ("flux", flux if tally else None, dt, (blocks * L,)),
     ])
+    entry, score_args = "twotier_block_walk", ()
+    if scoring is not None:
+        stride = check_scoring("pallas_walk_local", scoring,
+                               flux if tally else None, n)
+        kinds, bank, bin_off, fac = scoring
+        kernels.check_cuda_args("pallas_walk_local", dev, [
+            ("bank", bank, dt, (blocks * L * stride,)),
+            ("bin_off", bin_off, torch.int32, (n,)),
+            ("fac", fac, dt, (n, len(kinds))),
+        ])
+        entry = "twotier_block_walk_scored"
+        score_args = (kernels.ptr(bank), kernels.ptr(bin_off),
+                      kernels.ptr(fac), stride, len(kinds),
+                      count_mask(kinds))
     x_out = torch.empty((n, 3), dtype=dt, device=dev)
     lelem_out = torch.empty((n,), dtype=torch.int32, device=dev)
     done_out = torch.empty((n,), dtype=torch.bool, device=dev)
@@ -194,7 +233,7 @@ def _pallas_walk_cuda(table_lo, table_hi, x, lelem, dest, flying, weight,
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     p = kernels.ptr
     kernels.launch(
-        "twotier_block_walk", dt, dev, p(table_lo), p(table_hi), p(x),
+        entry, dt, dev, *score_args, p(table_lo), p(table_hi), p(x),
         p(lelem), p(dest), p(flying), p(weight), p(done), p(exited),
         p(flux if tally else None), p(x_out), p(lelem_out), p(done_out),
         p(exited_out), p(pending), p(iters), p(sched_counts), blocks, L,
@@ -207,7 +246,7 @@ def _pallas_walk_cuda(table_lo, table_hi, x, lelem, dest, flying, weight,
 def pallas_walk_local(
     table_lo, table_hi, x, lelem, dest, flying, weight, done, exited, flux,
     *, tally: bool, tol: float, max_iters: int, blocks: int = 1,
-    sched_counts: Optional[torch.Tensor] = None,
+    sched_counts: Optional[torch.Tensor] = None, scoring=None,
 ):
     """Two-tier block walk: returns ``(x, lelem, done, exited, pending,
     flux, iters)``, the JAX function's tuple.
@@ -219,7 +258,8 @@ def pallas_walk_local(
     not tallying). CUDA tensors launch kernel W2; CPU tensors run
     ``pallas_walk_local_plain``. ``sched_counts`` (CUDA only,
     ops/vmem_walk.py ``check_sched_counts``) collects what the kernel's
-    CUDA blocks did."""
+    CUDA blocks did. ``scoring``: ``(kinds, bank, bin_off, fac)``, see
+    the module docstring."""
     blocks = int(blocks)
     if tally and flux is None:
         raise ValueError("a tallying walk needs a flux tensor")
@@ -228,7 +268,7 @@ def pallas_walk_local(
         return _pallas_walk_cuda(table_lo, table_hi, x, lelem, dest, flying,
                                  weight, done, exited, flux, tally=tally,
                                  tol=tol, max_iters=max_iters, blocks=blocks,
-                                 sched_counts=sched_counts)
+                                 sched_counts=sched_counts, scoring=scoring)
     if x.device.type != "cpu":
         raise ValueError(
             f"pallas_walk_local runs on CUDA or CPU tensors, not {x.device}"
@@ -236,4 +276,5 @@ def pallas_walk_local(
     return pallas_walk_local_plain(
         table_lo, table_hi, x, lelem, dest, flying, weight, done, exited,
         flux, tally=tally, tol=tol, max_iters=max_iters, blocks=blocks,
+        scoring=scoring,
     )

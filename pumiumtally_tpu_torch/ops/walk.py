@@ -18,11 +18,20 @@ the row helpers below are its column-wise form). Select in bf16, commit
 in the working dtype; not bitwise against the packed table (a face tie
 below bf16 precision may pick the adjacent face), and conserving.
 
+``scoring=(kinds, bank, bin_off, fac)`` (tallying walks only) is the JAX
+walk's scoring hook: at every crossing each score adds into lane
+``elem*stride + bin_off + k`` of the flattened ``bank`` (``score_pair``;
+``stride = bank.numel() // flux.numel()``), in place, with lanes at or
+past the bank's end dropped (the DROP sentinel). On the card it is W0's
+scoring instantiation (separate launch counters ``walk_scored`` and
+``walk_twotier_scored``); positions, elements, ``s`` and the flags are
+those of the walk without scoring, and so is the flux.
+
 Left out against the JAX walk: the compaction cascade (a thread that
 walks its particle to completion has no lock-step waste to bound),
-``perm_mode``, ``scoring`` and ``tally_seg``. ``max_iters`` is a
-per-particle step budget; the JAX walk checks it every ``cond_every``
-(4) steps, so it may take up to 3 more.
+``perm_mode`` and ``tally_seg``. ``max_iters`` is a per-particle step
+budget; the JAX walk checks it every ``cond_every`` (4) steps, so it
+may take up to 3 more.
 
 ``walk`` launches W0 for CUDA tensors and runs ``walk_plain`` only for
 CPU tensors. Flux is accumulated IN PLACE into the ``flux`` argument
@@ -52,6 +61,7 @@ from pumiumtally_tpu_torch.mesh.tetmesh import (
     WALK_TABLE_WIDTH,
     TetMesh,
 )
+from pumiumtally_tpu_torch.scoring.scores import MAX_SCORES
 
 _N0 = WALK_TABLE_NORMALS.start
 _O0 = WALK_TABLE_OFFSETS.start
@@ -212,6 +222,52 @@ def eff_weight(d0, in_flight, weight):
     return torch.where(in_flight != 0, weight * seg, torch.zeros_like(seg))
 
 
+def score_pair(kinds, stride: int, elem, bin_off, fac, contrib, crossed):
+    """One crossing's scoring-lane updates (the JAX ``score_pair``):
+    ``sidx[w, k] = elem*stride + bin_off + k``, particle-major and
+    score-minor, and the values ``contrib * fac[:, k]`` for a "track"
+    score (``contrib`` is the flux lane's own update, so a factor-1
+    track score's lanes sum to the flux lane) or ``crossed * fac[:, k]``
+    for a "count" score. Returns flat (sidx int64, sval)."""
+    base = elem.long() * stride + bin_off.long()
+    sidx = base[:, None] + torch.arange(len(kinds), device=elem.device)
+    cols = [contrib if k == "track" else crossed for k in kinds]
+    return sidx.reshape(-1), (torch.stack(cols, dim=1) * fac).reshape(-1)
+
+
+def add_lanes(bank, sidx, sval, limit: int) -> None:
+    """``bank[sidx] += sval`` in order, dropping every index at or past
+    ``limit`` (the JAX scatter's ``mode="drop"``)."""
+    keep = sidx < limit
+    bank.index_add_(0, sidx[keep], sval[keep])
+
+
+def count_mask(kinds) -> int:
+    """The kernels' ``kinds`` argument: bit k set for a "count" score."""
+    return sum(1 << k for k, kind in enumerate(kinds) if kind == "count")
+
+
+def check_scoring(where: str, scoring, flux, n: int) -> int:
+    """Validate a ``(kinds, bank, bin_off, fac)`` bundle against the
+    walk's flux (the bank holds a whole number of lanes per flux lane)
+    and its n particles; returns the stride."""
+    kinds, bank, bin_off, fac = scoring
+    if flux is None:
+        raise ValueError(f"{where}: scoring requires a tallying walk")
+    if not 1 <= len(kinds) <= MAX_SCORES or any(
+            k not in ("track", "count") for k in kinds):
+        raise ValueError(f"{where}: kinds must be 1 to {MAX_SCORES} of "
+                         f"'track'/'count', got {kinds!r}")
+    if bank.numel() % flux.numel():
+        raise ValueError(f"{where}: a bank of {bank.numel()} lanes is no "
+                         f"whole multiple of {flux.numel()} flux lanes")
+    if tuple(bin_off.shape) != (n,) or tuple(fac.shape) != (n, len(kinds)):
+        raise ValueError(
+            f"{where}: bin_off {tuple(bin_off.shape)} and fac "
+            f"{tuple(fac.shape)} need ({n},) and ({n}, {len(kinds)})")
+    return bank.numel() // flux.numel()
+
+
 def _skipped(x, elem, s_init) -> WalkResult:
     """A walk that walked nothing: every output is its input."""
     n = x.shape[0]
@@ -229,13 +285,20 @@ def _skipped(x, elem, s_init) -> WalkResult:
 def walk_plain(
     mesh: TetMesh, x, elem, dest, in_flight, weight, flux, *,
     tally: bool, tol: float, max_iters: int, s_init=None, skip=None,
+    scoring=None,
 ) -> WalkResult:
     """W0's plain PyTorch version: a masked lock-step loop, one crossing
     of every unfinished particle per iteration (two-tier when the mesh
-    carries the two-tier tables). ``skip`` true: nothing is walked."""
+    carries the two-tier tables). ``skip`` true: nothing is walked.
+    ``scoring``: see the module docstring; the bank is updated in
+    place."""
+    n = x.shape[0]
+    if scoring is not None:
+        stride = check_scoring("walk_plain", scoring,
+                               flux if tally else None, n)
+        kinds, bank, bin_off, fac = scoring
     if skip is not None and bool(skip):
         return _skipped(x, elem, s_init)._replace(flux=flux)
-    n = x.shape[0]
     d0 = dest - x
     eff_w = eff_weight(d0, in_flight, weight) if tally else None
     tol_t = torch.tensor(tol, dtype=x.dtype, device=x.device)
@@ -260,6 +323,11 @@ def walk_plain(
             contrib = torch.where(active, (s_new - s) * eff_w,
                                   torch.zeros_like(s))
             flux.index_add_(0, elem.long(), contrib)
+            if scoring is not None:
+                crossed = (active & ~reached).to(contrib.dtype)
+                add_lanes(bank, *score_pair(kinds, stride, elem, bin_off,
+                                            fac, contrib, crossed),
+                          bank.numel())
         moving = active & ~reached & ~hit_boundary
         elem = torch.where(moving, nxt, elem)
         s = torch.where(active, s_new, s)
@@ -275,7 +343,7 @@ def walk_plain(
 
 
 def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
-               max_iters, s_init, counts, skip=None):
+               max_iters, s_init, counts, skip=None, scoring=None):
     dev, dt = x.device, x.dtype
     n, ne = x.shape[0], mesh.nelems
     if mesh.two_tier:
@@ -301,6 +369,22 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
         ("counts", counts, torch.int32, (1,)),
         ("skip", skip, torch.bool, ()),
     ])
+    score_args = ()
+    if scoring is not None:
+        stride = check_scoring("walk", scoring, flux if tally else None, n)
+        kinds, bank, bin_off, fac = scoring
+        kernels.check_cuda_args("walk", dev, [
+            ("bank", bank, dt, (bank.numel(),)),
+            ("bin_off", bin_off, torch.int32, (n,)),
+            ("fac", fac, dt, (n, len(kinds))),
+        ])
+        if bank.numel() >= 2**31:
+            raise ValueError("walk: a bank of 2**31 lanes or more does not "
+                             "fit the kernel's int32 lane count")
+        entry += "_scored"
+        score_args = (kernels.ptr(bank), kernels.ptr(bin_off),
+                      kernels.ptr(fac), stride, len(kinds),
+                      count_mask(kinds), bank.numel())
     # The kernel reads the packed row or the select row in 16-byte words.
     kernels.check_aligned("walk", [tables[0][:2]])
     x_out = torch.empty((n, 3), dtype=dt, device=dev)
@@ -314,7 +398,8 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
     skip_i = None if skip is None else skip.to(torch.int32)
     p = kernels.ptr
     kernels.launch(
-        entry, dt, dev, *(p(t) for _, t, _, _ in tables), p(x), p(elem),
+        entry, dt, dev, *score_args, *(p(t) for _, t, _, _ in tables),
+        p(x), p(elem),
         p(dest), p(in_flight), p(weight), p(s_init),
         p(flux if tally else None),
         p(x_out), p(elem_out), p(done), p(exited), p(s), p(scratch),
@@ -328,7 +413,7 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
 def walk(
     mesh: TetMesh, x, elem, dest, in_flight, weight, flux, *,
     tally: bool, tol: float, max_iters: int, s_init=None,
-    table_dtype: Optional[str] = None, counts=None, skip=None,
+    table_dtype: Optional[str] = None, counts=None, skip=None, scoring=None,
 ) -> WalkResult:
     """Walk every particle from ``x`` (inside ``elem``) toward ``dest``.
 
@@ -349,7 +434,8 @@ def walk(
     int32 [1] tensor) gets the number of particles the kernel walked
     added to it. ``skip`` (a 0-d bool tensor on the particles' device):
     when true, nothing is walked and the inputs come back (x, elem, s
-    = ``s_init`` or 0, done, not exited)."""
+    = ``s_init`` or 0, done, not exited). ``scoring``: ``(kinds, bank,
+    bin_off, fac)``, see the module docstring."""
     if tally and flux is None:
         raise ValueError("a tallying walk needs a flux tensor")
     if counts is not None and not x.is_cuda:
@@ -368,9 +454,10 @@ def walk(
     if x.is_cuda:
         return _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux,
                           tally=tally, tol=tol, max_iters=max_iters,
-                          s_init=s_init, counts=counts, skip=skip)
+                          s_init=s_init, counts=counts, skip=skip,
+                          scoring=scoring)
     if x.device.type != "cpu":
         raise ValueError(f"walk runs on CUDA or CPU tensors, not {x.device}")
     return walk_plain(mesh, x, elem, dest, in_flight, weight, flux,
                       tally=tally, tol=tol, max_iters=max_iters,
-                      s_init=s_init, skip=skip)
+                      s_init=s_init, skip=skip, scoring=scoring)

@@ -23,11 +23,20 @@
 
 Localization is point location against the block tables (the
 full-precision refinement tier when two-tier), as in the JAX engine.
+Scoring (``scoring=`` a ``ScoringSpec``): the engine owns a padded lane
+bank ``score_padded [nparts*L*B*S]`` beside ``flux_padded``, and two
+state rows per slot, the bin offset ``sbin`` and the factor row
+``sfac``, staged each move through ``move(sbin_n=, sfac_n=)`` and
+migrated with their particles. Tallying rounds thread the bank through
+W2's scoring lanes; localization and phase A never score. The JAX engine
+scores the float32 tables through its gather walk ``walk_local``, so a
+scoring engine on W1 raises.
+
 Left out against the JAX engine (ROADMAP.md): the gather block
 walk (``walk_local``, also the JAX route for bf16 tables with the vmem
-kernel), multi-device meshes and collectives, the
-frontier-slab migrate, the overflow-recovery ladder, scoring, the
-sentinel hooks and the profiled per-round programs.
+kernel and for scoring on the float32 tables), multi-device meshes and
+collectives, the frontier-slab migrate, the overflow-recovery ladder,
+the sentinel hooks and the profiled per-round programs.
 """
 
 from __future__ import annotations
@@ -403,12 +412,14 @@ class PartitionedEngine:
         block_kernel: str = "vmem",
         table_dtype: str = "float32",
         part: Optional[MeshPartition] = None,
+        scoring=None,
     ):
         """``block_kernel`` and ``vmem_walk_max_elems`` as in
         ``engine_block_bound``. ``part``: a prebuilt partition (shared
         by several engines) whose tables fix the tier, as in the JAX
         engine; by default the engine builds its own
-        (``engine_partition``)."""
+        (``engine_partition``). ``scoring``: a ``ScoringSpec`` (module
+        docstring)."""
         if part is not None:
             table_dtype = ("bfloat16" if part.table_hi is not None
                            else "float32")
@@ -417,7 +428,17 @@ class PartitionedEngine:
                                     table_dtype)
         block_kernel, _ = engine_block_bound(mesh, vmem_walk_max_elems,
                                              block_kernel, table_dtype)
+        if scoring is not None and block_kernel == "vmem":
+            raise NotImplementedError(
+                "scoring on the float32 block tables runs the gather block "
+                f"walk in the JAX package, which is not ported yet "
+                f"({ROADMAP_GATHER_BLOCKS}); score with "
+                "walk_table_dtype='bfloat16', walk_kernel='pallas'"
+            )
         self.use_pallas_walk = block_kernel == "pallas"
+        self.scoring = scoring
+        self.score_stride = (0 if scoring is None
+                             else scoring.n_bins * scoring.n_scores)
         self.check_found_all = check_found_all
         self.n = int(num_particles)
         self.device = mesh.device
@@ -440,6 +461,11 @@ class PartitionedEngine:
         dtype, dev = mesh.dtype, mesh.device
         self.flux_padded = torch.zeros((self.nparts * self.part.L,),
                                        dtype=dtype, device=dev)
+        # The owned scoring bank, in the padded-glid layout of
+        # flux_padded; None with scoring off.
+        self.score_padded = None if scoring is None else torch.zeros(
+            (self.nparts * self.part.L * self.score_stride,), dtype=dtype,
+            device=dev)
         self._valid = self.part.orig_of_glid >= 0
         pid = torch.full((self.cap,), -1, dtype=torch.int32, device=dev)
         pid[: self.n] = torch.arange(self.n, dtype=torch.int32, device=dev)
@@ -459,6 +485,13 @@ class PartitionedEngine:
             "fly": torch.zeros((self.cap,), dtype=torch.int8, device=dev),
             "w": torch.zeros((self.cap,), dtype=dtype, device=dev),
         }
+        if scoring is not None:
+            # Per-slot scoring rows migrate with their particles;
+            # scoring-off engines never carry these keys.
+            self.state["sbin"] = torch.zeros((self.cap,), dtype=torch.int32,
+                                             device=dev)
+            self.state["sfac"] = torch.zeros((self.cap, scoring.n_scores),
+                                             dtype=dtype, device=dev)
 
     @property
     def blocks_per_chip(self) -> int:
@@ -549,6 +582,10 @@ class PartitionedEngine:
                 self.flux_padded if tally else None)
         kw = dict(tally=tally, tol=self.tol, max_iters=self.max_iters,
                   blocks=self.nparts)
+        if tally and self.scoring is not None:
+            # Tallying rounds only: phase A and localization never score.
+            kw["scoring"] = (self.scoring.kinds, self.score_padded,
+                             st["sbin"], st["sfac"])
         if self.use_pallas_walk:
             x, lelem, done, exited, pending, _, _ = pallas_walk_local(
                 self.part.table, self.part.table_hi, *args, **kw)
@@ -580,9 +617,19 @@ class PartitionedEngine:
         return not bool((~st["done"]).any())
 
     def move(self, origins_n: Optional[torch.Tensor], dests_n: torch.Tensor,
-             fly_n: torch.Tensor, w_n: torch.Tensor) -> bool:
+             fly_n: torch.Tensor, w_n: torch.Tensor,
+             sbin_n: Optional[torch.Tensor] = None,
+             sfac_n: Optional[torch.Tensor] = None) -> bool:
         """Full (origins given) or continue-mode (None) tallied move.
-        Returns whether every particle finished both phases."""
+        Returns whether every particle finished both phases.
+        ``sbin_n``/``sfac_n`` (scoring engines): the move's caller-order
+        bin offsets and factor rows (``ScoringRuntime.resolve``), routed
+        to slots by pid and migrated with their particles."""
+        if self.scoring is not None and (sbin_n is None or sfac_n is None):
+            raise ValueError(
+                "scoring-armed engine needs sbin_n/sfac_n each move "
+                "(scoring.ScoringRuntime.resolve)"
+            )
         if origins_n is not None and self.n_lost:
             self._revive_lost(origins_n)
         st = self.state
@@ -592,6 +639,10 @@ class PartitionedEngine:
         st["fly"] = torch.where(st["lost"], torch.zeros_like(st["fly"]),
                                 st["fly"])
         st["w"] = self._by_pid(w_n, 0.0)
+        if self.scoring is not None:
+            # Dead slots never cross, so their fill never scores.
+            st["sbin"] = self._by_pid(sbin_n.to(torch.int32), 0)
+            st["sfac"] = self._by_pid(sfac_n, 0.0)
         ok_a = True
         if origins_n is not None:
             # Phase A: relocate to origins, weights zeroed (cpp:105).
@@ -629,3 +680,13 @@ class PartitionedEngine:
 
     def flux_original(self) -> torch.Tensor:
         return self.part.flux_to_original(self.flux_padded)
+
+    def score_original(self) -> torch.Tensor:
+        """The owned scoring lanes in the canonical flattened [E*B*S]
+        layout (original element order): ``flux_to_original``'s row
+        gather over ``B*S`` lanes per element."""
+        if self.score_padded is None:
+            raise RuntimeError("engine has no scoring lanes configured")
+        rows = self.score_padded.reshape(self.nparts * self.part.L,
+                                         self.score_stride)
+        return rows[self.part.glid_of_orig.long()].reshape(-1)

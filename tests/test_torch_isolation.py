@@ -22,8 +22,10 @@ import pytest
 import torch
 
 from pumiumtally_tpu_torch import (
+    EnergyFilter,
     PartitionedPumiTally,
     PumiTally,
+    ScoringSpec,
     StreamingPartitionedTally,
     StreamingTally,
     TallyConfig,
@@ -77,7 +79,10 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     # are under the check too.
     for rel in ("experiments/r3_vmem.py", "experiments/pallas_gather.py",
                 "io/osh.py", "io/gmsh.py", "io/load.py", "mesh/pincell.py",
-                "api/staging.py", "api/streaming.py"):
+                "api/staging.py", "api/streaming.py", "scoring/filters.py",
+                "scoring/scores.py", "scoring/binding.py",
+                "stats/accumulators.py", "stats/estimators.py",
+                "stats/triggers.py"):
         assert PORT / rel in files, rel
     for f in files:
         roots = set(_imported_roots(f))
@@ -137,9 +142,23 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
     idx = torch.tensor([5, -6], dtype=torch.int32)
     for fill in (0.0, float("nan")):
         assert torch.equal(gather(tab, idx, fill), tab[[5, 0]])
+    # The scoring instantiations' wrappers (W0 both tiers, W2) too.
+    spec = ScoringSpec([EnergyFilter([0.0, 1.0, 2.0])],
+                       ["flux", "events"])
+    for kw in ({}, bf16, dict(walk_kernel="pallas", walk_vmem_max_elems=40,
+                             **bf16)):
+        facade = PartitionedPumiTally if "walk_kernel" in kw else PumiTally
+        t = facade(mesh, 50, TallyConfig(scoring=spec, **kw), device="cpu")
+        t.CopyInitialPosition(pts.reshape(-1).copy())
+        t.MoveToNextLocation(None, (1.0 - pts).reshape(-1).copy(),
+                             energy=np.full(50, 0.5))
+        assert t.score_bank.sum().item() > 0
     assert kernels.launch_counts == {"walk": 0, "walk_twotier": 0,
+                                     "walk_scored": 0,
+                                     "walk_twotier_scored": 0,
                                      "block_walk": 0,
                                      "twotier_block_walk": 0,
+                                     "twotier_block_walk_scored": 0,
                                      "resident_walk": 0,
                                      "row_gather_take": 0,
                                      "row_gather_take_along_axis": 0}

@@ -24,7 +24,9 @@ from pumiumtally_tpu.ops.bucketize import (
 from pumiumtally_tpu.parallel import make_device_mesh
 from pumiumtally_tpu.parallel.partition import _migrate_impl
 from pumiumtally_tpu_torch import (
+    EnergyFilter,
     PartitionedPumiTally,
+    ScoringSpec,
     TallyConfig,
     convert,
 )
@@ -194,9 +196,21 @@ def test_capacity_overflow_raises_over_intact_state():
 def test_config_subset_and_refusals():
     with pytest.raises(TypeError):
         TallyConfig(cap_frontier=4)  # a knob the port does not have
-    for kw in ({"walk_block_kernel": "gather"}, {"scoring": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TallyConfig(**kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TallyConfig(walk_block_kernel="gather")
+    # A scoring value that is no ScoringSpec: the JAX package's refusal.
+    with pytest.raises(ValueError, match="scoring must be a "
+                       "scoring.ScoringSpec"):
+        TallyConfig(scoring=object())
+    # Scoring on the float32 block tables runs the gather walk in the
+    # JAX package, which the port does not have yet.
+    spec = ScoringSpec([EnergyFilter([0.0, 1.0])])
+    with pytest.raises(NotImplementedError, match="gather block walk"):
+        PartitionedPumiTally(
+            convert.tetmesh_from_arrays(convert.mesh_arrays(
+                jax_build_box(1, 1, 1, 2, 2, 2))), 8,
+            TallyConfig(scoring=spec, walk_vmem_max_elems=BOUND),
+            device="cpu")
     # A bf16 WORKING dtype stays refused; the bf16 table tier is
     # walk_table_dtype, which both facades accept.
     with pytest.raises(NotImplementedError, match="walk_table_dtype"):
