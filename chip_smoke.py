@@ -5,6 +5,7 @@
     python3 chip_smoke.py --w0-times      # W0's times alone, no checks
     python3 chip_smoke.py --w3-g1-times   # W3's and G1's, no checks
     python3 chip_smoke.py --staging-times # PumiTally's staging, no checks
+    python3 chip_smoke.py --scoring-times # the scoring commit's, no checks
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -48,7 +49,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    filter of 8 bins, a time filter of 4, the scores flux, heating and
    events; 1% of the energies out of range, dropped): the registers of
    every W0 and W2 instantiation, the scoring-off ones equal to the
-   counts before scoring existed (REGS_BEFORE_SCORING); W0's scoring
+   counts before scoring existed (REGS_BEFORE_SCORING), beside the
+   vector and scalar global float reductions in its SASS (``cuobjdump``,
+   required: the float32 scoring instantiations must show vector
+   reductions, the scoring commit's cover, and no other any); W0's scoring
    instantiation on both tiers (and in float64) against
    ``walk_plain(scoring=)``, and W2's in both regimes on every round of
    the first move against ``pallas_walk_local_plain(scoring=)``: ids,
@@ -59,7 +63,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    buffers; W0 by CUDA events, W2 by torch.profiler) in turns, four
    passes each, beside the bytes bound (each bank lane the run touched
    read and written once, each particle's bin offset and factors read
-   once).
+   once). On the box's packed float32 walk, the count of crossings that
+   share (warp share, element, bin) with another at the same step
+   (``experiments/score_collisions.py``).
+6c. The scoring commit's edge cases: specs of S = 1, 2 and 3 scores
+   over 3 energy bins (strides 3, 6, 9) through W0 on both tiers in
+   float32 and float64 and W2 in both regimes (rounds 1-2), against
+   their plain versions as in 6b, with 64 particles (W2: active slots
+   of the last block) walking out of the last element in its last bin,
+   so the plain run must touch the last lane of that row (the bank's
+   last lane: the row-boundary split and W0's DROP limit); every
+   float32 kernel also runs on a bank that starts one lane past its
+   allocation's 16-byte alignment.
 7. W3 (csrc/resident_walk.cu) through its experiment entry point
    (``experiments/r3_vmem.py`` bench: the L sweep of
    tools/exp_r3_vmem.py with W3 and W0, launches counted over it), its
@@ -138,8 +153,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    conservation at rtol 1e-6, the flux score summed over bins against
    the flux lane at rtol 1e-4, the event lanes whole, ``rel_err``
    finite where flux > 0, the score and statistics arrays written by
-   WriteTallyResults; one profiled continue move of the box
-   ``PumiTally`` with scoring.
+   WriteTallyResults; one profiled continue move with scoring of the
+   box ``PumiTally`` on both tiers and of ``PartitionedPumiTally`` (its
+   block walk's time in every round and their sum).
 13. One JSON line with each kernel's launches, times, bound and error
    (W0 and W2 with scoring as entries of their own), then the card's
    name and power limit, then the result line.
@@ -177,6 +193,16 @@ echo the previous destinations; ``two_phase_forced``: the same with
 with moves/s, the calls' host ms a move and the device-busy ms of a
 profiled move, four passes each. It calls only ``PumiTally``,
 ``TallyConfig`` and ``build_box``, so a copy times another checkout.
+
+``--scoring-times`` runs phases 1-2, then one JSON line a cell with
+the scoring commit's kernel times, no checks: W2's rounds 1 and 2 in
+the shared regime and its global regime (torch.profiler), W0 on both
+tiers on the box and the lattice (CUDA events), each scoring off, on
+(the stride-96 spec) and on with the padded layout (stride 4B, bin
+offset 4b: every bin's lanes in one 16-byte quad; not the port's
+layout), SCORE_PASSES passes in turns, into standing buffers. It calls
+only what every checkout of the port with scoring has, so a copy times
+another checkout, as ``--w0-times`` does.
 
 It imports nothing of JAX; it needs one CUDA device and exits non-zero
 without one.
@@ -368,7 +394,7 @@ def sass_counts(name: str) -> dict:
     counts = {}
     for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)",
                                sass, re.S):
-        ops = re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+        ops = re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)",
                          body)
         c = {"LDG": sum(op.startswith("LDG") for op in ops),
              "LDS": sum(op.startswith("LDS") for op in ops)}
@@ -1569,6 +1595,14 @@ SCORE_NAMES = ("flux", "heating", "events")
 SCORE_OUT = 0.01
 SCORE_BATCHES = 3
 SCORE_PASSES = 4  # scoring-on / scoring-off timing passes
+# The scoring commit's edge cases (phase 6c): S = 1, 2 and 3 scores over
+# 3 energy bins (strides 3, 6 and 9: odd, even, odd), the energies of
+# SCORE_E_EDGES' range; EDGE_LEAD particles walk out of the last element
+# in its last bin.
+EDGE_E_EDGES = np.geomspace(SCORE_E_EDGES[0], SCORE_E_EDGES[-1], 4)
+EDGE_SCORES = (("flux",), ("flux", "events"), ("flux", "heating", "events"))
+EDGE_LEAD = 64
+EDGE_ROUNDS = 2  # W2's rounds per edge case: the leads score in round 1
 # The scoring-off instantiations' registers (ptxas, sm_90a, this
 # script's flags) as walk.cu and twotier_block_walk.cu built them before
 # they had any scoring code: scoring must not move them.
@@ -1589,6 +1623,40 @@ def score_spec():
                         TimeFilter(SCORE_T_EDGES)], SCORE_NAMES)
 
 
+def edge_specs() -> list:
+    from pumiumtally_tpu_torch import EnergyFilter, ScoringSpec
+
+    return [ScoringSpec([EnergyFilter(EDGE_E_EDGES)], names)
+            for names in EDGE_SCORES]
+
+
+def phase_score_edges(mesh, pts) -> None:
+    """Phase 6c: the scoring commit's edge cases. Each spec of
+    ``edge_specs`` (S = 1, 2, 3; strides 3, 6, 9) through W0 on both
+    tiers in float32 (500,000 particles) and float64 (100,000) and W2 in
+    both regimes (rounds 1-2), each against its plain version, with
+    particles that score the last element's last lane; float32 kernels
+    on two bank alignments."""
+    import torch
+
+    from pumiumtally_tpu_torch import build_box
+
+    t0 = time.perf_counter()
+    box64 = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                      dtype=torch.float64)
+    for m, n, dtype in ((mesh, N, ""), (box64, W0_F64_N, " (float64)")):
+        for two_tier in (False, True):
+            inputs = w0_inputs(m, pts, two_tier, n)
+            for spec in edge_specs():
+                phase_w0_scoring(m, pts, f" (edge, S={spec.n_scores}){dtype}",
+                                 two_tier, n=n, spec=spec, edge=True,
+                                 inputs=inputs)
+    for spec in edge_specs():
+        phase_w2_scoring(mesh, pts, VMEM_BOUND, True, spec=spec, edge=True)
+        phase_w2_scoring(mesh, pts, None, False, spec=spec, edge=True)
+    print(f"# scoring commit edge cases: {time.perf_counter() - t0:.1f} s")
+
+
 def score_attrs(seed: int, n: int, out: float = SCORE_OUT) -> tuple:
     """(energy, time) for n particles from ``seed``: log-uniform energies
     over the edges, a share ``out`` of them a decade below or above."""
@@ -1607,39 +1675,72 @@ def instance_registers(lib: str) -> dict:
     "two-tier" for W0, "" for W2."""
     from pumiumtally_tpu_torch import kernels
 
-    pat = (r"properties for _Z\d+walk_kernelI(\w)Lb(\d)ELb(\d)E" if
-           lib == "walk" else
-           r"properties for _Z\d+twotier_block_walk_kernelI(\w)Lb(\d)E")
     out, key = {}, None
     for line in kernels.build_log(lib).splitlines():
-        m = re.search(pat, line)
-        if m:
-            dtype = {"f": "float", "d": "double"}[m[1]]
-            if lib == "walk":
-                variant = ("packed", "two-tier")[int(m[2])]
-                key = (dtype, variant, bool(int(m[3])))
-            else:
-                key = (dtype, "", bool(int(m[2])))
+        if "properties for" in line and instance_key(lib, line):
+            key = instance_key(lib, line)
         elif key and "Used" in line and "registers" in line:
             out[key] = int(re.search(r"Used (\d+) registers", line)[1])
             key = None
     return out
 
 
+def instance_key(lib: str, text: str):
+    """(dtype, variant, scoring) of the walk kernel instantiation a
+    mangled name in ``text`` names (``instance_registers``' keys), or
+    None."""
+    pat = (r"_Z\d+walk_kernelI(\w)Lb(\d)ELb(\d)E" if lib == "walk" else
+           r"_Z\d+twotier_block_walk_kernelI(\w)Lb(\d)E")
+    m = re.search(pat, text)
+    if not m:
+        return None
+    dtype = {"f": "float", "d": "double"}[m[1]]
+    if lib == "walk":
+        return dtype, ("packed", "two-tier")[int(m[2])], bool(int(m[3]))
+    return dtype, "", bool(int(m[2]))
+
+
+def float_reductions(ops: dict) -> tuple:
+    """(vector, scalar) global float additions among one kernel's SASS
+    opcode counts (``sass_counts``): REDG/ATOMG ``.ADD.F32x4`` and
+    ``.F32x2`` against ``.ADD.F32`` and ``.ADD.F64``."""
+    vec = sca = 0
+    for op, c in ops.items():
+        if re.match(r"(RED|ATOM)G\.E\.ADD\.F32x[24]", op):
+            vec += c
+        elif re.match(r"(RED|ATOM)G\.E\.ADD\.F(32|64)(\.|$)", op):
+            sca += c
+    return vec, sca
+
+
 def phase_scoring_registers() -> None:
-    """Registers of every instantiation, scoring off and on; the off ones
-    must equal REGS_BEFORE_SCORING."""
+    """Registers of every instantiation, scoring off and on, beside its
+    vector and scalar global float reductions in SASS (``cuobjdump``,
+    required); the off ones must equal REGS_BEFORE_SCORING, the float32
+    scoring instantiations must issue vector reductions (the scoring
+    commit's cover) and no other instantiation any."""
     for lib in ("walk", "twotier_block_walk"):
         regs = instance_registers(lib)
+        sass = {instance_key(lib, fn): ops
+                for fn, ops in sass_counts(lib).items()}
+        if set(sass) != set(regs):
+            raise AssertionError(f"{lib}: SASS of {sorted(sass, key=str)}, "
+                                 f"ptxas reported {sorted(regs)}")
         for (dtype, variant, score), r in sorted(regs.items()):
+            vec, sca = float_reductions(sass[(dtype, variant, score)])
             print(f"# registers {lib}<{dtype}> {variant or ''} scoring "
-                  f"{'on' if score else 'off'}: {r}")
+                  f"{'on' if score else 'off'}: {r}; global float "
+                  f"reductions in SASS: {vec} vector, {sca} scalar")
             want = REGS_BEFORE_SCORING[(lib, dtype, variant)]
             if not score and r != want:
                 raise AssertionError(
                     f"{lib}<{dtype}> {variant}: the scoring-off "
                     f"instantiation uses {r} registers, {want} before "
                     "scoring")
+            if (vec > 0) != (score and dtype == "float"):
+                raise AssertionError(
+                    f"{lib}<{dtype}> {variant} scoring "
+                    f"{'on' if score else 'off'}: {vec} vector reductions")
         if len(regs) != (8 if lib == "walk" else 4):
             raise AssertionError(f"{lib}: ptxas reported {sorted(regs)}")
 
@@ -1692,39 +1793,68 @@ def bank_bytes(bank, k: int) -> int:
     return int((bank != 0).sum()) * 2 * k
 
 
-def timed_pair(off, on, passes: int = SCORE_PASSES, timer=None) -> tuple:
-    """Scoring-off and scoring-on times of two calls, in turns (off, on,
-    on, off, ...), ``passes`` of each: (off list, on list)."""
-    timer = timer or cuda_ms
-    t_off, t_on = [], []
+def in_turns(arms: dict, timer, passes: int = SCORE_PASSES) -> dict:
+    """``passes`` times of each arm, in turns (a, b, c, c, b, a, ...)."""
+    out = {k: [] for k in arms}
     for p in range(passes):
-        for fn, out in ((off, t_off), (on, t_on))[::1 if p % 2 == 0 else -1]:
-            out.append(timer(fn))
-    return t_off, t_on
+        for k in list(arms)[::1 if p % 2 == 0 else -1]:
+            out[k].append(timer(arms[k]))
+    return out
+
+
+def zero_bank(size: int, like, offset: int = 0):
+    """A zeroed bank of ``size`` lanes that starts ``offset`` lanes into
+    its allocation (offset 1: 4 bytes past the allocator's alignment in
+    float32, so the rows' places in their 16-byte quads shift)."""
+    import torch
+
+    return torch.zeros((size + offset,), dtype=like.dtype,
+                       device=like.device)[offset:]
 
 
 def phase_w0_scoring(mesh, pts, label: str, two_tier: bool,
-                     n: int = N) -> dict:
+                     n: int = N, spec=None, edge: bool = False,
+                     inputs=None) -> dict:
     """W0's scoring instantiation at the main path's shapes with the
     stride-96 spec against ``walk_plain(scoring=)``: ids, masks, iters,
     x and s bitwise and equal to the scoring-off kernel's; flux and the
     track lanes at rtol 1e-4; the event lanes equal and whole. Then the
-    scoring-off and scoring-on times in turns."""
+    scoring-off and scoring-on times in turns, and (packed float32 tier)
+    the count of a warp's particles that share lanes at a step.
+
+    ``edge`` (phase 6c, the scoring commit's edge cases): ``spec`` in
+    place of the stride-96 one; EDGE_LEAD particles start at the last
+    element's centroid in its last bin, so the plain run must touch the
+    bank's last lane (the row-boundary split and W0's DROP limit); in
+    float32 the kernel runs again on a bank one lane off the
+    allocation's alignment, held to the same plain run; no times.
+    ``inputs``: ``w0_inputs``' result to reuse (the edge cases override
+    the same leading particles each time)."""
     import torch
 
+    from pumiumtally_tpu_torch.experiments.score_collisions import (
+        warp_collisions,
+    )
     from pumiumtally_tpu_torch.ops.walk import walk, walk_plain
     from pumiumtally_tpu_torch.scoring import ScoringRuntime
 
     name = f"W0{' two-tier' if two_tier else ''} scoring{label}"
-    args, kw = w0_inputs(mesh, pts, two_tier, n)
+    args, kw = inputs or w0_inputs(mesh, pts, two_tier, n)
     m, x = args[:2]
-    spec = score_spec()
+    spec = spec or score_spec()
     rt = ScoringRuntime(spec, m.nelems, x.dtype, x.device)
     sbin, sfac, scoring = score_lanes(rt, n, 5)
+    S = spec.n_scores
+    if edge:
+        last = m.nelems - 1
+        x[:EDGE_LEAD] = m.coords[m.tet2vert[last].long()].mean(dim=0)
+        args[2][:EDGE_LEAD] = last
+        sbin[:EDGE_LEAD] = (spec.n_bins - 1) * S
+        scoring = sbin < rt.bank_size
 
-    def zeros():
+    def zeros(offset=0):
         return (torch.zeros((m.nelems,), dtype=x.dtype, device=x.device),
-                rt.zero_bank())
+                zero_bank(rt.bank_size, x, offset))
 
     def run(fn, score=True, bufs=None):
         flux, bank = bufs or zeros()
@@ -1733,23 +1863,38 @@ def phase_w0_scoring(mesh, pts, label: str, two_tier: bool,
 
     (rk, bank_k), (ro, _), (rp, bank_p) = (run(walk), run(walk, False),
                                            run(walk_plain))
+    runs = [("", rk, bank_k)]
+    if edge and x.dtype == torch.float32:
+        runs.append((" (bank off alignment)",
+                     *run(walk, bufs=zeros(offset=1))))
     sync()
-    for f in ("elem", "done", "exited", "iters", "x", "s"):
-        check_equal(f"{name} {f}", getattr(rk, f), getattr(rp, f))
-        check_equal(f"{name} {f} (scoring off)", getattr(rk, f),
-                    getattr(ro, f))
-    err = max(check_flux(name, rk.flux, rp.flux),
-              check_flux(f"{name} (scoring off)", rk.flux, ro.flux),
-              check_bank(name, bank_k, bank_p, spec.kinds))
+    err = check_flux(f"{name} (scoring off)", rk.flux, ro.flux)
+    for arm, r, bank in runs:
+        for f in ("elem", "done", "exited", "iters", "x", "s"):
+            check_equal(f"{name}{arm} {f}", getattr(r, f), getattr(rp, f))
+            check_equal(f"{name}{arm} {f} (scoring off)", getattr(r, f),
+                        getattr(ro, f))
+        err = max(err, check_flux(f"{name}{arm}", r.flux, rp.flux),
+                  check_bank(f"{name}{arm}", bank, bank_p, spec.kinds))
     dropped = int((~scoring).sum())
-    if not 0 < dropped < n // 20 or not bool(bank_k[2::3].sum() > 0):
+    if not 0 < dropped < n // 20 or not bool(bank_k[S - 1::S].sum() > 0):
         raise AssertionError(f"{name}: {dropped} of {n} dropped")
+    if edge:
+        if not bool(bank_p[-1] != 0):
+            raise AssertionError(f"{name}: the bank's last lane untouched")
+        print(f"# {name}: {S} scores, stride {rt.stride}, {len(runs)} "
+              f"bank alignment(s); ids/x/s bitwise and equal to scoring "
+              f"off; lanes max abs diff {err:.3e}, count lanes exact; the "
+              f"bank's last lane {float(bank_p[-1])!r} (plain) and "
+              f"{float(bank_k[-1])!r}; {dropped} of {n} dropped")
+        return {}
     # Timed calls add into standing flux and bank buffers: zeroing them
     # is not the kernel's work. CUDA events, as W0's other times: the
     # profiler drops some of the lattice walks' activities.
     bufs = zeros()
-    t_off, t_on = timed_pair(lambda: run(walk, False, bufs),
-                             lambda: run(walk, True, bufs))
+    turns = in_turns({"off": lambda: run(walk, False, bufs),
+                      "on": lambda: run(walk, True, bufs)}, cuda_ms)
+    t_off, t_on = turns["off"], turns["on"]
     plain_ms = wall_ms(lambda: run(walk_plain))
     step = (twotier_step(m.walk_table_lo, m.walk_table_hi) if two_tier
             else packed_step(m.walk_table))
@@ -1769,6 +1914,10 @@ def phase_w0_scoring(mesh, pts, label: str, two_tier: bool,
     bound = bound_entry(nbytes, crossings, flops,
                         F32_FLOPS if k == 4 else F64_FLOPS)
     ms = float(np.median(t_on))
+    if not two_tier and k == 4:
+        hits = warp_collisions(step, x, args[2], args[3], sbin, scoring,
+                               m.nelems, rt.stride, kw["tol"])
+        print(f"# {name}: warp collisions {json.dumps(hits)}")
     print(f"# {name}: scoring on {', '.join(f'{v:.4f}' for v in t_on)} ms, "
           f"off {', '.join(f'{v:.4f}' for v in t_off)} ms (CUDA events, in "
           f"turns); plain {plain_ms:.3f} ms; {crossings} crossings, "
@@ -1785,25 +1934,16 @@ def phase_w0_scoring(mesh, pts, label: str, two_tier: bool,
             "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
-def phase_w2_scoring(mesh, pts, bound, shared: bool) -> dict:
-    """W2's scoring instantiation against ``pallas_walk_local_plain(
-    scoring=)`` on every tallied round of the first move (each round's
-    input migrated, ``sbin``/``sfac`` rows with it, from the kernel's
-    previous output), in the regime ``shared`` asks for: ids, masks,
-    pending, iters and x bitwise and equal to the scoring-off kernel's;
-    flux and track lanes at rtol 1e-4, events exact. Rounds 1 and 2
-    timed scoring off and on, in turns."""
+def w2_score_state(mesh, pts, bound, spec) -> tuple:
+    """The first move's W2 round-1 input with scoring, localised by
+    ``PartitionedPumiTally`` (``walk_vmem_max_elems=bound``, the two-tier
+    tables): (engine, its ScoringRuntime, the block tables, the kernel's
+    keywords, the slot state with ``sbin``/``sfac`` rows from
+    ``score_lanes``)."""
     import torch
 
     from pumiumtally_tpu_torch import PartitionedPumiTally, TallyConfig
-    from pumiumtally_tpu_torch.experiments.block_rounds import round_bytes
-    from pumiumtally_tpu_torch.ops.pallas_walk import (
-        pallas_walk_local,
-        pallas_walk_local_plain,
-        w2_uses_shared,
-    )
 
-    spec = score_spec()
     t = PartitionedPumiTally(
         mesh, N, TallyConfig(capacity_factor=CAPACITY_FACTOR,
                              walk_vmem_max_elems=bound, scoring=spec,
@@ -1811,10 +1951,6 @@ def phase_w2_scoring(mesh, pts, bound, shared: bool) -> dict:
                              **BF16))
     t.CopyInitialPosition(flat(pts[0]))
     eng, rt = t.engine, t._scoring
-    L, dev = eng.part.L, t.device
-    label = f"W2 scoring ({'shared' if shared else 'global'})"
-    if w2_uses_shared(L, torch.float32) != shared:
-        raise AssertionError(f"{label}: blocks of {L} elements")
     tables = (eng.part.table, eng.part.table_hi)
     kw = dict(tally=True, tol=eng.tol, max_iters=eng.max_iters,
               blocks=eng.nparts)
@@ -1825,9 +1961,59 @@ def phase_w2_scoring(mesh, pts, bound, shared: bool) -> dict:
     st["done"] = ~st["alive"]
     st["exited"] = torch.zeros_like(st["done"])
     st["dest"] = eng._by_pid(torch.as_tensor(pts[1], dtype=torch.float32,
-                                             device=dev), 0.0)
+                                             device=t.device), 0.0)
     st["sbin"] = eng._by_pid(sbin_n, 0)
     st["sfac"] = eng._by_pid(sfac_n, 0.0)
+    return eng, rt, tables, kw, st
+
+
+def phase_w2_scoring(mesh, pts, bound, shared: bool, spec=None,
+                     edge: bool = False) -> dict:
+    """W2's scoring instantiation against ``pallas_walk_local_plain(
+    scoring=)`` on every tallied round of the first move (each round's
+    input migrated, ``sbin``/``sfac`` rows with it, from the kernel's
+    previous output), in the regime ``shared`` asks for: ids, masks,
+    pending, iters and x bitwise and equal to the scoring-off kernel's;
+    flux and track lanes at rtol 1e-4, events exact. Rounds 1 and 2
+    timed scoring off and on, in turns.
+
+    ``edge`` (phase 6c): ``spec`` in place of the stride-96 one;
+    EDGE_LEAD active slots of the last block restart at the centroid of
+    its last element in the last bin, so the plain run must touch that
+    row's last lane (the bank's last lane where the block is full); the
+    kernel also runs on a bank one lane off the allocation's alignment;
+    the first EDGE_ROUNDS rounds; no times."""
+    import torch
+
+    from pumiumtally_tpu_torch.experiments.block_rounds import round_bytes
+    from pumiumtally_tpu_torch.ops.pallas_walk import (
+        pallas_walk_local,
+        pallas_walk_local_plain,
+        w2_uses_shared,
+    )
+
+    spec = spec or score_spec()
+    eng, rt, tables, kw, st = w2_score_state(mesh, pts, bound, spec)
+    L, dev = eng.part.L, st["x"].device
+    label = f"W2 scoring ({'shared' if shared else 'global'})"
+    if w2_uses_shared(L, torch.float32) != shared:
+        raise AssertionError(f"{label}: blocks of {L} elements")
+    nscores, stride = spec.n_scores, rt.stride
+    if edge:
+        b, cap_b = eng.nparts - 1, eng.cap_per_block
+        real = (eng.part.orig_of_glid[b * L:(b + 1) * L] >= 0).nonzero()
+        glid = b * L + int(real.max())
+        orig = int(eng.part.orig_of_glid[glid])
+        slots = b * cap_b + (~st["done"][b * cap_b:(b + 1) * cap_b]
+                             ).nonzero()[:EDGE_LEAD, 0]
+        for key in ("x", "lelem", "sbin"):
+            st[key] = st[key].clone()
+        st["x"][slots] = mesh.coords[mesh.tet2vert[orig].long()].mean(
+            dim=0).to(dev)
+        st["lelem"][slots] = glid - b * L
+        st["sbin"][slots] = (spec.n_bins - 1) * nscores
+        last_lane = (glid + 1) * stride - 1
+        touched = False
 
     def run(fn, st, score=True, bufs=None):
         flux, bank = bufs or (torch.zeros_like(eng.flux_padded),
@@ -1844,16 +2030,28 @@ def phase_w2_scoring(mesh, pts, bound, shared: bool) -> dict:
         (rk, bank_k), (ro, _), (rp, bank_p) = (
             run(pallas_walk_local, st), run(pallas_walk_local, st, False),
             run(pallas_walk_local_plain, st))
+        runs = [("", rk, bank_k)]
+        if edge:
+            off = (torch.zeros_like(eng.flux_padded),
+                   zero_bank(eng.score_padded.numel(), eng.score_padded, 1))
+            runs.append((" (bank off alignment)",
+                         *run(pallas_walk_local, st, bufs=off)))
         sync()
-        for i, f in ((0, "x"), (1, "lelem"), (2, "done"), (3, "exited"),
-                     (4, "pending"), (6, "iters")):
-            check_equal(f"{label} round {r} {f}", rk[i], rp[i])
-            check_equal(f"{label} round {r} {f} (scoring off)", rk[i],
-                        ro[i])
-        err = max(err, check_flux(f"{label} round {r}", rk[5], rp[5]),
-                  check_bank(f"{label} round {r}", bank_k, bank_p,
-                             spec.kinds))
-        if r <= 2:
+        for arm, out, bank in runs:
+            for i, f in ((0, "x"), (1, "lelem"), (2, "done"), (3, "exited"),
+                         (4, "pending"), (6, "iters")):
+                check_equal(f"{label}{arm} round {r} {f}", out[i], rp[i])
+                check_equal(f"{label}{arm} round {r} {f} (scoring off)",
+                            out[i], ro[i])
+            err = max(err, check_flux(f"{label}{arm} round {r}", out[5],
+                                      rp[5]),
+                      check_bank(f"{label}{arm} round {r}", bank, bank_p,
+                                 spec.kinds))
+        if edge:
+            touched = touched or bool(bank_p[last_lane] != 0)
+            if r == EDGE_ROUNDS:
+                break
+        elif r <= 2:
             x0 = st["x"]
             crossings = count_crossings(
                 twotier_step(*tables), x0, st["lelem"], x0 + (st["dest"] - x0),
@@ -1872,10 +2070,11 @@ def phase_w2_scoring(mesh, pts, bound, shared: bool) -> dict:
             # Into standing buffers, as W0's times.
             bufs = (torch.zeros_like(eng.flux_padded),
                     torch.zeros_like(eng.score_padded))
-            t_off, t_on = timed_pair(
-                lambda: run(pallas_walk_local, st, False, bufs),
-                lambda: run(pallas_walk_local, st, True, bufs),
-                timer=lambda fn: us(fn) / 1e3)
+            turns = in_turns(
+                {"off": lambda: run(pallas_walk_local, st, False, bufs),
+                 "on": lambda: run(pallas_walk_local, st, True, bufs)},
+                lambda fn: us(fn) / 1e3)
+            t_off, t_on = turns["off"], turns["on"]
             plain_ms = wall_ms(lambda: run(pallas_walk_local_plain, st))
             timed.append(dict(ms=float(np.median(t_on)),
                               off_ms=float(np.median(t_off)),
@@ -1890,6 +2089,16 @@ def phase_w2_scoring(mesh, pts, bound, shared: bool) -> dict:
             break
         st = eng._migrate(dict(st, x=rk[0], lelem=rk[1], done=rk[2],
                                exited=rk[3], pending=rk[4]))
+    if edge:
+        if not touched:
+            raise AssertionError(f"{label}: lane {last_lane}, the last of "
+                                 f"element {glid}'s row, untouched")
+        print(f"# {label} edge cases: {nscores} scores, stride {stride}, "
+              f"{r} rounds, both bank alignments bitwise to the plain "
+              f"version and to scoring off; lanes max abs diff {err:.3e}, "
+              f"count lanes exact; the last block's last element's last "
+              f"lane {last_lane} of {eng.score_padded.numel()} touched")
+        return {}
     print(f"# {label}: {r} rounds, each bitwise to the plain version and to "
           f"scoring off; lanes max abs diff {err:.3e}, events exact")
     return {"name": "W2 twotier_block_walk (scoring)", "route": "cuda",
@@ -2071,8 +2280,9 @@ def phase_scoring_facades(mesh, pts, lat_path: str, lat_box, card: str):
     counts = {}
     for key, (facade, m, config, trajs, n, moves) in runs.items():
         t0 = time.perf_counter()
-        counts[key], t = score_batches(facade, m, config, trajs, n, key,
-                                       moves, profile=key == "score_mono")
+        counts[key], t = score_batches(
+            facade, m, config, trajs, n, key, moves,
+            profile=key in ("score_mono", "score_mono_bf16", "score_part"))
         del t
         print(f"# scoring {key}: {time.perf_counter() - t0:.1f} s on {card}")
     return counts
@@ -2121,6 +2331,7 @@ def main() -> int:
                      False, n=W0_F64_N)
     sw2 = phase_w2_scoring(mesh, pts, VMEM_BOUND, True)
     phase_w2_scoring(mesh, pts, None, False)
+    phase_score_edges(mesh, pts)
     # Which regimes each run can take: a staging launch stages every
     # non-empty share, so only W2's global run reads global rows.
     for label, regimes, ran in (("W1", regimes_w1, (1, 0, 1)),
@@ -2245,6 +2456,126 @@ def main_w0_times() -> int:
     return 0
 
 
+def padded_bins(spec, rt, sbin, rows: int) -> tuple:
+    """The padded layout's bank and bin offsets (``--scoring-times``' third
+    arm, not the port's layout): every bin's S <= 3 lanes in a 16-byte
+    quad, stride 4B and bin offset 4b, ``rows`` rows of the bank; a DROP
+    sentinel stays past the bank."""
+    import torch
+
+    size = rows * spec.n_bins * 4
+    sbin4 = torch.where(sbin < rt.bank_size, sbin // spec.n_scores * 4,
+                        torch.full_like(sbin, size))
+    return torch.zeros((size,), dtype=rt.dtype, device=rt.device), sbin4
+
+
+def w0_score_times(mesh, pts, two_tier: bool) -> dict:
+    """W0 on the first move at N particles with the stride-96 spec, into
+    standing buffers, by CUDA events: scoring off, on, and on with the
+    padded layout."""
+    import torch
+
+    from pumiumtally_tpu_torch.ops.walk import walk
+    from pumiumtally_tpu_torch.scoring import ScoringRuntime
+
+    args, kw = w0_inputs(mesh, pts, two_tier)
+    m, x = args[:2]
+    spec = score_spec()
+    rt = ScoringRuntime(spec, m.nelems, x.dtype, x.device)
+    sbin, sfac, _ = score_lanes(rt, N, 5)
+    bank4, sbin4 = padded_bins(spec, rt, sbin, m.nelems)
+    flux = torch.zeros((m.nelems,), dtype=x.dtype, device=x.device)
+    bank = rt.zero_bank()
+    times = in_turns({
+        "off": lambda: walk(*args, flux, **kw),
+        "on": lambda: walk(*args, flux, **kw,
+                           scoring=(spec.kinds, bank, sbin, sfac)),
+        "padded": lambda: walk(*args, flux, **kw,
+                               scoring=(spec.kinds, bank4, sbin4, sfac)),
+    }, cuda_ms)
+    return {f"{k}_ms": v for k, v in times.items()}
+
+
+def w2_score_times(mesh, pts, bound) -> list:
+    """W2's rounds 1 and 2 of the first move (one round in the global
+    regime, ``bound`` None) with the stride-96 spec, into standing
+    buffers, by torch.profiler: scoring off, on, and on with the padded
+    layout; one dict a round."""
+    import torch
+
+    from pumiumtally_tpu_torch.ops.pallas_walk import pallas_walk_local
+
+    spec = score_spec()
+    eng, rt, tables, kw, st = w2_score_state(mesh, pts, bound, spec)
+    rows = eng.nparts * eng.part.L
+    us = functools.partial(device_us, reps=5,
+                           name="twotier_block_walk_kernel")
+    out = []
+    for r in (1, 2):
+        flux = torch.zeros_like(eng.flux_padded)
+        bank = torch.zeros_like(eng.score_padded)
+        bank4, sbin4 = padded_bins(spec, rt, st["sbin"], rows)
+
+        def call(sc, st=st):
+            return pallas_walk_local(
+                *tables, st["x"], st["lelem"], st["dest"], st["fly"],
+                st["w"], st["done"], st["exited"], flux, **kw, scoring=sc)
+
+        times = in_turns({
+            "off": lambda: call(None),
+            "on": lambda: call((spec.kinds, bank, st["sbin"], st["sfac"])),
+            "padded": lambda: call((spec.kinds, bank4, sbin4, st["sfac"])),
+        }, lambda fn: us(fn) / 1e3)
+        out.append({"round": r, "active": int((~st["done"]).sum()),
+                    **{f"{k}_ms": v for k, v in times.items()}})
+        res = call((spec.kinds, torch.zeros_like(bank), st["sbin"],
+                    st["sfac"]))
+        if not bool((res[4] >= 0).any()):
+            break
+        st = eng._migrate(dict(st, x=res[0], lelem=res[1], done=res[2],
+                               exited=res[3], pending=res[4]))
+    return out
+
+
+def main_scoring_times() -> int:
+    """``--scoring-times``: the scoring commit's times alone, no checks.
+    W0 on both tiers on the box and the lattice, W2's rounds 1-2 (shared
+    regime) and its global regime, each scoring off, on (the port's
+    layout) and on with the padded layout, SCORE_PASSES passes in turns;
+    one JSON line a cell. It calls only what every checkout of the port
+    with scoring has (``w0_inputs``, ``walk(scoring=)``,
+    ``PartitionedPumiTally`` with a spec, ``pallas_walk_local(scoring=)``,
+    the engine's ``_by_pid`` and ``_migrate``), so a copy of this file
+    times another checkout."""
+    import torch
+
+    from pumiumtally_tpu_torch import build_box
+    from pumiumtally_tpu_torch.experiments.block_rounds import (
+        make_trajectory,
+    )
+    from pumiumtally_tpu_torch.io.load import load_mesh
+
+    phase_device()
+    phase_build()
+    print(f"# package {sys.modules['pumiumtally_tpu_torch'].__file__}")
+    box = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                    dtype=torch.float32)
+    pts = make_trajectory(np.random.default_rng(0), N, CONTINUE_MOVES + 2)
+    for bound, regime in ((VMEM_BOUND, "shared"), (None, "global")):
+        for row in w2_score_times(box, pts, bound):
+            print(json.dumps({"kernel": "W2", "regime": regime, **row}))
+    with tempfile.TemporaryDirectory() as d:
+        path, lat_pts = write_lattice(d)
+        lattice = load_mesh(path, dtype=torch.float32)
+        for label, mesh, p in (("box", box, pts),
+                               ("lattice", lattice, lat_pts)):
+            for two_tier in (False, True):
+                print(json.dumps({"kernel": "W0", "mesh": label,
+                                  "two_tier": two_tier,
+                                  **w0_score_times(mesh, p, two_tier)}))
+    return 0
+
+
 def main_w3_g1_times() -> int:
     from pumiumtally_tpu_torch.experiments import pallas_gather as pg
 
@@ -2343,6 +2674,7 @@ def main_staging_times() -> int:
 
 if __name__ == "__main__":
     modes = {"--w0-times": main_w0_times, "--w3-g1-times": main_w3_g1_times,
-             "--staging-times": main_staging_times}
+             "--staging-times": main_staging_times,
+             "--scoring-times": main_scoring_times}
     sys.exit(next((fn for flag, fn in modes.items()
                    if flag in sys.argv[1:]), main)())

@@ -56,16 +56,19 @@
 // block b's lanes are the [L*stride] slice at b*L*stride of the padded
 // bank, and each crossing adds score_pair's values (the track score's
 // c * fac[k], the count score's fac[k] when the step crossed a face:
-// interior step, block-face pause or boundary exit) into lane
-// lelem*stride + bin_off + k with one atomicAdd into global memory, in
-// both regimes: a [L, stride] partial does not fit beside the staged
-// table (2,000 x 96 x 4 B = 768 KB). K2 sums a per-tile matmul partial
-// instead, so only the order of the additions differs. A lane with
-// bin_off + k >= stride (the DROP sentinel's) matches no lane of the
-// slice and is dropped; a zero value is not added. The slot's bin offset
-// and factors are read once per slot; the scoring-off instantiation is
-// the kernel without any of this (the same shared-memory layout), and
-// scoring changes no position, element, pause or flag.
+// interior step, block-face pause or boundary exit) into lanes
+// lelem*stride + bin_off + k through the scoring commit (score_lanes,
+// walk_step.cuh: in f32 the fewest aligned v4 / v2 / scalar global
+// reductions that cover them, padding only inside the element's row; in
+// f64 a scalar atomic a lane), in both regimes: a [L, stride] partial
+// does not fit beside the staged table (2,000 x 96 x 4 B = 768 KB). K2
+// sums a per-tile matmul partial instead, so only the order of the
+// additions differs. A crossing with bin_off >= stride (the DROP
+// sentinel's) matches no lane of the slice and is dropped whole; a zero
+// value is not added. The slot's bin offset and factors are read once
+// per slot; the scoring-off instantiation is the kernel without any of
+// this (the same shared-memory layout), and scoring changes no position,
+// element, pause or flag.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -160,9 +163,11 @@ __device__ __forceinline__ int walk_slot(const TwoTierArgs<T>& a, size_t i,
       const T c = (s_new - s) * eff_w;
       if (c != T(0)) atomicAdd(acc + e, c);
       // Outside the c != 0 guard: a zero-length step is a crossing.
+      // The DROP rule, one test a crossing: lanes past the element's row.
       if constexpr (kScore)
-        score_lanes(bank_b + (size_t)e * a.stride, sbin, a.stride,
-                    a.nscores, a.kinds, c, !reached, sfac);
+        if (sbin < a.stride)
+          score_lanes(bank_b + (size_t)e * a.stride, a.stride, sbin,
+                      a.nscores, a.kinds, c, !reached, sfac);
     }
     s = s_new;
     ++steps;

@@ -53,19 +53,23 @@
 // Scoring (kScore; the JAX walk's `scoring=` hook, ops/walk.py:449 through
 // `score_pair` :177 and `fused_tally_body` :196): at every crossing each of
 // the spec's S <= 3 scores adds into lane e*stride + bin_off + k of the
-// flattened bank, with one atomicAdd into global memory, the value
-// c * fac[k] for a "track" score (c = (s_new - s) * eff_w, the flux
-// lane's own value) and fac[k] for a "count" score when the step crossed
-// a face (interior step or boundary exit). A lane at or past bank_size
-// (the DROP sentinel's) is dropped; a zero value is not added. The
+// flattened bank the value c * fac[k] for a "track" score (c = (s_new -
+// s) * eff_w, the flux lane's own value) and fac[k] for a "count" score
+// when the step crossed a face (interior step or boundary exit). A
+// crossing whose first lane lies at or past bank_size (the DROP
+// sentinel's) is dropped whole; a zero value is not added. The
 // particle's bin offset and factors are loaded into registers once, when
 // a lane takes the particle. The scoring-off instantiation is the code
 // without any of this, and scoring changes no position, element, ray
 // coordinate or flag. Bound: each bank lane the walk touches, read and
 // written once, and bin_off/fac once per particle join the bytes above.
-// The kernel adds S lanes per crossing at scattered addresses of an
-// E*stride bank (18 MB in f32 on the box at stride 96), so each atomic
-// is its own L2 sector.
+// The lanes lie at scattered addresses of an E*stride bank (18 MB in f32
+// on the box at stride 96, 378 MB on the lattice, past L2), so the cost
+// is the count of reductions and of the sectors they touch. The commit
+// (score_lanes, walk_step.cuh) covers a crossing's lanes with the fewest
+// naturally aligned vector reductions in f32 (v4 / v2 / scalar, each in
+// one 16-byte quad: 1.5 a crossing at S = 3, not 3 scalar atomics); f64
+// keeps a scalar atomic a lane.
 //
 // The two-tier variant (kTwoTier; the JAX walk's lo_select branch,
 // ops/walk.py _advance_geometry :425-431) reads, per crossing, the tet's
@@ -284,9 +288,11 @@ __global__ void __launch_bounds__(WALK_THREADS)
           const T c = (s_new - s) * eff_w;
           if (c != T(0)) atomicAdd(a.flux + e, c);
           // Outside the c != 0 guard: a zero-length step is a crossing.
+          // The DROP rule, one test a crossing: lanes at or past the bank.
           if constexpr (kScore)
-            score_lanes(a.bank, (long long)e * a.stride + sbin, a.bank_size,
-                        a.nscores, a.kinds, c, !reached, sfac);
+            if ((long long)e * a.stride + sbin < a.bank_size)
+              score_lanes(a.bank + (size_t)e * a.stride, a.stride, sbin,
+                          a.nscores, a.kinds, c, !reached, sfac);
         }
         if (!reached && !hit_boundary) e = next;
         s = s_new;

@@ -1,7 +1,7 @@
 // One crossing of the fixed-ray tet walk, shared by the walk kernels
 // (walk.cu, block_walk.cu, resident_walk.cu), the packed row's 16-byte
-// loaders, and one crossing's scoring lanes (walk.cu,
-// twotier_block_walk.cu). Templated on float / double.
+// loaders, and the scoring commit, one crossing's scoring lanes (walk.cu,
+// twotier_block_walk.cu). Templated on (or overloaded for) float / double.
 //
 // The ray is parametrised by s in [0,1] along x0 -> dest with
 // x0 = dest - d0. For face f with outward unit normal n_f and offset
@@ -125,21 +125,93 @@ __device__ __forceinline__ T walk_eff_weight(T dx, T dy, T dz,
   return fly ? w * seg : T(0);
 }
 
-// One crossing's scoring lanes (the JAX `score_pair`): for each of the
-// `nscores` <= 3 scores, c * fac[k] for a "track" score (c is the flux
-// lane's own (s_new - s) * eff_w) or fac[k] for a "count" score (bit k of
-// `kinds`) when the step crossed a face, added into lanes[off + k] with
-// one atomic unless the value is zero or off + k >= limit (the DROP
-// sentinel's lanes; the caller picks the limit its contract drops at).
+// Score k's value at one crossing (the JAX `score_pair`): c * fac[k] for a
+// "track" score (c is the flux lane's own (s_new - s) * eff_w) or fac[k]
+// for a "count" score (bit k of `kinds`) when the step crossed a face; 0
+// for k >= nscores.
 template <typename T>
-__device__ __forceinline__ void score_lanes(T* lanes, long long off,
-                                            long long limit, int nscores,
-                                            int kinds, T c, bool crossed,
-                                            const T (&fac)[3]) {
+__device__ __forceinline__ T score_value(int k, int nscores, int kinds, T c,
+                                         bool crossed, const T (&fac)[3]) {
+  if (k >= nscores) return T(0);
+  return (kinds >> k) & 1 ? (crossed ? fac[k] : T(0)) : c * fac[k];
+}
+
+// The scoring commit: one crossing's `nscores` <= 3 values added into
+// lanes row[off + k] of the element's row [row, row + stride). The caller
+// has applied the DROP rule (one test a crossing: a valid bin offset puts
+// every lane in the row, the sentinel none). A lane whose value is zero
+// takes no reduction of its own, and a crossing whose values are all zero
+// issues nothing.
+//
+// float64 has no vector float reduction on sm_90: one scalar atomicAdd a
+// lane.
+__device__ __forceinline__ void score_lanes(double* row, int stride, int off,
+                                            int nscores, int kinds, double c,
+                                            bool crossed,
+                                            const double (&fac)[3]) {
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    if (k >= nscores) break;
-    const T v = (kinds >> k) & 1 ? (crossed ? fac[k] : T(0)) : c * fac[k];
-    if (v != T(0) && off + k < limit) atomicAdd(lanes + off + k, v);
+    const double v = score_value(k, nscores, kinds, c, crossed, fac);
+    if (v != 0.0) atomicAdd(row + off + k, v);
   }
+}
+
+// Lanes q[0], q[1] of an 8-byte-aligned pair, `m` the ones that take a
+// value: one v2 reduction for both, else a scalar one.
+__device__ __forceinline__ void score_pair_add(float* q, int m, float v0,
+                                               float v1) {
+  if (m == 3)
+    atomicAdd(reinterpret_cast<float2*>(q), make_float2(v0, v1));
+  else if (m == 1)
+    atomicAdd(q, v0);
+  else if (m == 2)
+    atomicAdd(q + 1, v1);
+}
+
+// float32: the fewest naturally aligned vector reductions (sm_90's
+// `red.global.add.v4.f32` / `.v2.f32`, through atomicAdd on float4* /
+// float2*) and scalar ones that cover the lanes, each within one 16-byte
+// quad, so one 32-byte sector. Alignment comes from the lane's address
+// (not from the bin offset: an odd stride changes the parity from row to
+// row, and W2 adds its block's slice). A vector's extra lanes add +0.0f
+// and stay inside the element's row, so inside the bank and W2's slice
+// whatever the stride; a vector reduction is atomic per lane, so a
+// padding lane may be one another thread updates. For S = 3 by the first
+// lane's place in its quad: 0 or 1, one v4; 2, a v2 and a scalar; 3, a
+// scalar and a v2 (1.5 reductions a crossing, not 3). Adding zeros
+// changes no sum (the JAX scatter adds its zero entries too).
+__device__ __forceinline__ void score_lanes(float* row, int stride, int off,
+                                            int nscores, int kinds, float c,
+                                            bool crossed,
+                                            const float (&fac)[3]) {
+  float v[3];
+  int need = 0;  // bit k: score k adds a non-zero value
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    v[k] = score_value(k, nscores, kinds, c, crossed, fac);
+    need |= (v[k] != 0.0f) << k;
+  }
+  if (need == 0) return;
+  float* p = row + off;
+  const int r =
+      static_cast<int>((reinterpret_cast<unsigned long long>(p) >> 2) & 3);
+  float* q = p - r;  // the first lane's 16-byte quad; its next is q + 4
+  // l[j]: the value at q[j] (score j - r, or padding).
+  float l[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j)
+    l[j] = j == r ? v[0] : j == r + 1 ? v[1] : j == r + 2 ? v[2] : 0.0f;
+  const int m = need << r;  // the places q[j] that take a value
+  // The places of q[0..3] inside the row: a v4 may cover all four.
+  const long long lo = row - q, hi = lo + stride;
+  const bool quad_in_row = lo <= 0 && hi >= 4;
+  if ((m & 3) && (m & 12) && quad_in_row) {
+    atomicAdd(reinterpret_cast<float4*>(q),
+              make_float4(l[0], l[1], l[2], l[3]));
+  } else {
+    score_pair_add(q, m & 3, l[0], l[1]);
+    score_pair_add(q + 2, (m >> 2) & 3, l[2], l[3]);
+  }
+  // The next quad holds at most places 4 and 5 (r <= 3, k <= 2).
+  score_pair_add(q + 4, (m >> 4) & 3, l[4], l[5]);
 }

@@ -262,41 +262,53 @@ def _walk_workload(seed, two_tier, n=600):
         x=x, elem=elem, dest=dest, fly=fly, w=rng.uniform(0.5, 2.0, n))
 
 
-def _score_inputs(rng, n, stride_bins, bank_size):
-    """Bin offsets (every bin, a few DROP sentinels) and factor rows
-    (flux: 1, heating: an energy, events: 1)."""
-    bin_off = (rng.integers(0, stride_bins, n) * 3).astype(np.int32)
+def _score_inputs(rng, n, bins, bank_size, nscores=3):
+    """Bin offsets (every bin, a few DROP sentinels) and factor rows for
+    ``SCORE_KINDS[nscores]`` (the first track score: 1, a second: an
+    energy; the count score: 1)."""
+    bin_off = (rng.integers(0, bins, n) * nscores).astype(np.int32)
     bin_off[::13] = bank_size
-    fac = np.stack([np.ones(n), rng.uniform(0.5, 3.0, n), np.ones(n)], 1)
-    return bin_off, fac
+    energy = rng.uniform(0.5, 3.0, n)
+    cols = {1: [np.ones(n)], 2: [np.ones(n), np.ones(n)],
+            3: [np.ones(n), energy, np.ones(n)]}[nscores]
+    return bin_off, np.stack(cols, 1)
 
 
 KINDS = ("track", "track", "count")
+# The walks' scoring commit over S = 1, 2, 3 scores (the kernels cover a
+# crossing's S lanes with aligned vector reductions in float32).
+SCORE_KINDS = {1: ("track",), 2: ("track", "count"), 3: KINDS}
+# Bin counts: an even stride (B = 4) and, for odd S, an odd one (B = 3).
+SCORE_BINS = [4, 3]
 
 
+@pytest.mark.parametrize("bins", SCORE_BINS)
+@pytest.mark.parametrize("nscores", [1, 2, 3])
 @pytest.mark.parametrize("two_tier", [False, True])
-def test_walk_scoring_matches_jax(two_tier):
+def test_walk_scoring_matches_jax(two_tier, nscores, bins):
     """W0's scoring commit (``walk(scoring=)``; on CPU tensors
-    ``walk_plain``) against the JAX ``walk(scoring=)``; scoring leaves
-    the walk bitwise what it is without."""
+    ``walk_plain``) against the JAX ``walk(scoring=)`` for S = 1, 2, 3
+    scores at strides B*S; scoring leaves the walk bitwise what it is
+    without."""
     jmesh, mesh, d = _walk_workload(21, two_tier)
-    n, B = d["x"].shape[0], 4
-    stride = B * 3
-    bin_off, fac = _score_inputs(np.random.default_rng(2), n, B, E * stride)
+    n, kinds = d["x"].shape[0], SCORE_KINDS[nscores]
+    stride = bins * nscores
+    bin_off, fac = _score_inputs(np.random.default_rng(2), n, bins,
+                                 E * stride, nscores)
     table = "bfloat16" if two_tier else "float32"
     r = jax_walk(
         jmesh, *(jnp.asarray(d[k]) for k in ("x", "elem", "dest", "fly",
                                              "w")),
         jnp.zeros((E,)), tally=True, tol=TOL, max_iters=4096,
         table_dtype=table,
-        scoring=ScoreOps(KINDS, jnp.zeros(E * stride), jnp.asarray(bin_off),
+        scoring=ScoreOps(kinds, jnp.zeros(E * stride), jnp.asarray(bin_off),
                          jnp.asarray(fac)))
     t = {k: torch.tensor(v) for k, v in d.items()}
     args = (mesh, t["x"], t["elem"], t["dest"], t["fly"], t["w"])
     bank = torch.zeros(E * stride, dtype=F64)
     p = walk(*args, torch.zeros(E, dtype=F64), tally=True, tol=TOL,
              max_iters=4096, table_dtype=table,
-             scoring=(KINDS, bank, torch.tensor(bin_off),
+             scoring=(kinds, bank, torch.tensor(bin_off),
                       torch.tensor(fac)))
     for k in ("elem", "done", "exited"):
         np.testing.assert_array_equal(getattr(p, k).numpy(),
@@ -307,8 +319,9 @@ def test_walk_scoring_matches_jax(two_tier):
                                    atol=1e-12, err_msg=k)
     np.testing.assert_allclose(p.flux.numpy(), np.asarray(r.flux),
                                rtol=1e-10, atol=1e-13)
-    _assert_lanes(bank.numpy(), r.score_bank, KINDS)
-    assert bank[2::3].sum() > 0 and np.asarray(r.exited).sum() > 0
+    _assert_lanes(bank.numpy(), r.score_bank, kinds)
+    assert bank[nscores - 1::nscores].sum() > 0
+    assert np.asarray(r.exited).sum() > 0
     off = walk(*args, torch.zeros(E, dtype=F64), tally=True, tol=TOL,
                max_iters=4096, table_dtype=table)
     for k in ("x", "elem", "done", "exited", "s", "flux"):
@@ -332,13 +345,16 @@ def test_walk_scoring_refusals():
              scoring=(KINDS, torch.zeros(E * 3 + 1, dtype=F64)) + ok[2:])
 
 
+@pytest.mark.parametrize("bins", SCORE_BINS)
+@pytest.mark.parametrize("nscores", [1, 2, 3])
 @pytest.mark.parametrize("blocks", [1, 2])
-def test_pallas_walk_scoring_matches_jax(blocks):
+def test_pallas_walk_scoring_matches_jax(blocks, nscores, bins):
     """W2's scoring lanes (``pallas_walk_local(scoring=)``; on CPU
     tensors the plain version) against K2's in-kernel lowering run in
     interpret mode (tests/test_pallas_walk.py:173), on a slice of a
-    4-part two-tier partition: pauses at block faces, boundary exits,
-    dead slots, DROP sentinels."""
+    4-part two-tier partition, for S = 1, 2, 3 scores at strides B*S:
+    pauses at block faces, boundary exits, dead slots, DROP
+    sentinels."""
     nparts, cap = 4, 700 if blocks == 1 else 1024
     part = convert.partition_arrays(
         jax_build_partition(_JMESH, nparts, table_dtype="bfloat16"))
@@ -362,17 +378,17 @@ def test_pallas_walk_scoring_matches_jax(blocks):
                            x + rng.normal(scale=0.25, size=(n, 3)), x),
              fly=fly, w=rng.uniform(0.5, 2.0, n), done=rng.random(n) >= 0.9,
              exited=np.zeros(n, bool), flux=np.zeros(blocks * L))
-    B = 4
-    stride = B * 3
+    kinds, stride = SCORE_KINDS[nscores], bins * nscores
     # The sentinel of the whole padded bank (nparts*L*stride).
-    bin_off, fac = _score_inputs(rng, n, B, nparts * L * stride)
+    bin_off, fac = _score_inputs(rng, n, bins, nparts * L * stride,
+                                 nscores)
     keys = ("lo", "hi", "x", "lelem", "dest", "fly", "w", "done", "exited",
             "flux")
     jargs = [jnp.asarray(d[k]) for k in keys]
     jargs[0] = lax.bitcast_convert_type(jargs[0], jnp.bfloat16)
     ref = jax_pallas(*jargs, tally=True, tol=TOL, max_iters=4096,
                      blocks=blocks, interpret=True,
-                     scoring=ScoreOps(KINDS,
+                     scoring=ScoreOps(kinds,
                                       jnp.zeros(blocks * L * stride),
                                       jnp.asarray(bin_off),
                                       jnp.asarray(fac)))
@@ -381,7 +397,7 @@ def test_pallas_walk_scoring_matches_jax(blocks):
     bank = torch.zeros(blocks * L * stride, dtype=F64)
     port = pallas_walk_local(*targs, tally=True, tol=TOL, max_iters=4096,
                              blocks=blocks,
-                             scoring=(KINDS, bank, torch.tensor(bin_off),
+                             scoring=(kinds, bank, torch.tensor(bin_off),
                                       torch.tensor(fac)))
     ref = [np.asarray(o) for o in ref]
     for i, k in ((1, "lelem"), (2, "done"), (3, "exited"), (4, "pending"),
@@ -390,8 +406,8 @@ def test_pallas_walk_scoring_matches_jax(blocks):
     np.testing.assert_allclose(port[0].numpy(), ref[0], rtol=0, atol=1e-12)
     np.testing.assert_allclose(port[5].numpy(), ref[5], rtol=1e-10,
                                atol=1e-13)
-    _assert_lanes(bank.numpy(), ref[7], KINDS)
-    assert (ref[4] >= 0).sum() > 0 and bank[2::3].sum() > 0
+    _assert_lanes(bank.numpy(), ref[7], kinds)
+    assert (ref[4] >= 0).sum() > 0 and bank[nscores - 1::nscores].sum() > 0
     # Scoring changes nothing else.
     targs[-1] = torch.zeros(blocks * L, dtype=F64)
     off = pallas_walk_local(*targs, tally=True, tol=TOL, max_iters=4096,
