@@ -36,6 +36,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    walk every active slot and write out every idle one, W1 must have
    staged and found empty shares, and never read rows from global
    memory.
+4b. W4 (csrc/gather_block_walk.cu, the gather block walk) against
+   ``walk_local_blocks_plain`` on every tallied round of the first
+   move, each round's input migrated by the engine's ``_migrate``, the
+   occupied-block list carried as the engine carries it: the box as one
+   block (the partitioned facades' default configuration), the gather
+   sub-split (47 blocks of <= 1,024), the same with the int32 sidecar,
+   the bf16 tables with the vmem knobs (rerouted: 24 blocks), float32
+   scoring with the stride-96 spec on one block and on the sub-split,
+   the bf16 reroute with scoring, and float64 on one block (100,000
+   particles). Ids, masks, pending and iters equal, positions bitwise,
+   flux at rtol 1e-4, lanes as 6b; the blocks walked must be those
+   holding a not-done slot, one launch a round. Rounds 1 and 2 timed
+   (four passes into standing buffers; one block also untallied), and
+   the whole move's rounds, beside their bytes bound (each slot of a
+   walked block and each crossed row read and written once) and the
+   plain version.
+   Then W4 on a block list past 65,535 blocks (the box's 750-block
+   sub-split, its round-1 input stacked 94 times, every 16th block
+   left off the list), in one launch, against the plain version.
 5. W0's two-tier variant (csrc/walk.cu, bf16 select + f32 refinement
    tables) against the two-tier ``walk_plain``, as phase 3; then W0 in
    float64 on the box (100,000 particles) against ``walk_plain``.
@@ -111,7 +130,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    walk's kernel time in each round, its launches per move and their
    sum. A two-tier run's flux stays within the
    JAX package's tie-class band of the float32 run's (L1 < 1e-2 of the
-   total track length, tests/test_walk_twotier.py).
+   total track length, tests/test_walk_twotier.py). Then
+   ``PartitionedPumiTally`` with a default config (one block, W4) and
+   with the bf16 tables and the vmem knobs (W4 two-tier) through the
+   same main path, a ``PhaseProfile`` of a default continue move,
+   ``cap_frontier=4096`` against the default on one block and on the
+   gather sub-split (positions and ids equal), and a forced overflow
+   (100,000 particles into one corner, capacity_factor 1.3) that the
+   recovery ladder completes with conservation.
 10b. Staging (500,000 particles, box): with ``check_found_all=False,
    fenced_timing=False`` an echoing two-phase move and a continue move
    run under ``torch.cuda.set_sync_debug_mode("error")`` behind ~50 ms
@@ -142,7 +168,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    reported (on this geometry the select tier moves more track length
    than the box's tie band, in the JAX package too).
    Then W0's scoring instantiation on both tiers on the lattice, as in
-   phase 6b.
+   phase 6b, and ``PartitionedPumiTally`` with a default config (one W4
+   block of 984,960 tets) from the path through the main path with
+   100,000 particles (cut: its point location is brute force, O(N*E)).
 12. The scoring slice's main path: ``PumiTally`` on both tiers on the
    box and on the lattice (from its path), ``PartitionedPumiTally`` on
    W2, ``StreamingTally`` at 10M (float32) and
@@ -155,15 +183,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    finite where flux > 0, the score and statistics arrays written by
    WriteTallyResults; one profiled continue move with scoring of the
    box ``PumiTally`` on both tiers and of ``PartitionedPumiTally`` (its
-   block walk's time in every round and their sum).
+   block walk's time in every round and their sum); and
+   ``PartitionedPumiTally`` with scoring on W4: the default config and
+   the bf16 tables with the vmem knobs (box, 500,000 particles, one
+   profiled continue move of the default).
 13. One JSON line with each kernel's launches, times, bound and error
-   (W0 and W2 with scoring as entries of their own), then the card's
+   (W0, W2 and W4's instantiations as entries of their own), then the card's
    name and power limit, then the result line.
 
 Kernel comparisons: element ids, done/exited/pending masks and ``iters``
 must be equal; positions and ray coordinates are expected bitwise equal
 (both sides build with no fused multiply-add): W1 holds them at 1e-6
-absolute in float32, W0 (both tiers, both dtypes), W2 and W3 bitwise; flux
+absolute in float32, W0 (both tiers, both dtypes), W2, W3 and W4 bitwise; flux
 sums in another order (float atomics) and is held at rtol 1e-4. G1 moves
 values without arithmetic and is held bitwise, NaN fills by position.
 
@@ -254,6 +285,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 F64_FLOPS = 34e12
 W0_F64_N = 100_000  # particles of the float64 W0 check on the box
+# The partitioned facade's default configuration on the lattice (its
+# brute-force point location is O(N*E)) and the forced-overflow run.
+LATTICE_PART_N = 100_000
+PART_OVERFLOW_N = 100_000
 # The streaming cell (BASELINE.json configs[4]: 10M particles a batch,
 # staged host -> device double-buffered), the JAX facade's default chunk.
 STREAM_N = 10_000_000
@@ -717,6 +752,393 @@ def phase_block_walk(kind: str, mesh, pts, bound, shared: bool = True):
             "max_abs_err": err, **timed[0], "library_ms": None}, regimes
 
 
+# W4's cells (phase 4b): (label, engine knobs, rounds walked, scoring,
+# float64). The box as one block (the partitioned facades' default
+# configuration), the gather sub-split into blocks of <= VMEM_BOUND
+# elements (47), the same with the int32 sidecar, the bf16 reroute
+# (24 blocks), float32 scoring on one block and on the sub-split, the
+# bf16 reroute with scoring, and float64 on one block.
+W4_SUBSPLIT = dict(vmem_walk_max_elems=VMEM_BOUND, block_kernel="gather")
+W4_BF16 = dict(vmem_walk_max_elems=VMEM_BOUND, block_kernel="vmem",
+               table_dtype="bfloat16")
+W4_CELLS = (
+    ("box", {}, False, False),
+    ("sub-split", W4_SUBSPLIT, False, False),
+    ("sidecar", dict(W4_SUBSPLIT, sidecar=True), False, False),
+    ("bf16 reroute", W4_BF16, False, False),
+    ("box, scoring", {}, True, False),
+    ("sub-split, scoring", W4_SUBSPLIT, True, False),
+    ("bf16 reroute, scoring", W4_BF16, True, False),
+    ("box, float64", {}, False, True),
+)
+W4_PASSES = 4
+# W4 on more listed blocks than grid.y's 65,535: the box's sub-split into
+# blocks of <= W4_MANY_BOUND elements (750 of them), W4_MANY_N particles,
+# its round-1 input stacked W4_MANY_REPS times (70,500 blocks).
+W4_MANY_BOUND, W4_MANY_N, W4_MANY_REPS = 64, 30_000, 94
+W4_ENTRIES = {  # kernel entry -> the cell whose round 1 its line reports
+    "gather_block_walk": "box",
+    "gather_block_walk_twotier": "bf16 reroute",
+    "gather_block_walk_scored": "box, scoring",
+    "gather_block_walk_twotier_scored": "bf16 reroute, scoring",
+}
+
+
+def w4_engine(mesh, pts, n: int, sidecar: bool = False, spec=None,
+              **knobs) -> tuple:
+    """A ``PartitionedEngine`` with these knobs (``sidecar``: a partition
+    with the forced int32 adjacency sidecar, as many blocks as the knobs
+    give) localised to ``pts[0]``, and the first move's round-1 slot
+    state (every particle flying with weight 1 toward ``pts[1]``, with
+    ``sbin``/``sfac`` rows from ``score_lanes`` under ``spec``)."""
+    import torch
+
+    from pumiumtally_tpu_torch import TallyConfig
+    from pumiumtally_tpu_torch.parallel.partition import (
+        PartitionedEngine,
+        build_partition,
+        engine_partition,
+    )
+    from pumiumtally_tpu_torch.scoring import ScoringRuntime
+
+    # On the card, as the facades place their meshes.
+    mesh = mesh.to(dtype=mesh.dtype, device=torch.device(
+        "cuda" if torch.cuda.is_available() else "cpu"))
+    dt, dev = mesh.dtype, mesh.device
+    # One block: the default configuration's capacity factor, as it
+    # ships; a sub-split's blocks hold uneven shares of the particles
+    # and keep CAPACITY_FACTOR, as W1's and W2's phases do.
+    cf = (CAPACITY_FACTOR if knobs.get("vmem_walk_max_elems")
+          else TallyConfig().capacity_factor)
+    kw = dict(capacity_factor=cf, tol=1e-8 if dt ==
+              torch.float64 else 1e-6, max_iters=64 + mesh.nelems,
+              check_found_all=False, scoring=spec, **knobs)
+    if sidecar:
+        nparts = engine_partition(mesh, knobs["vmem_walk_max_elems"],
+                                  "gather", "float32").ndev
+        kw["part"] = build_partition(mesh, nparts, force_split_adj=True)
+    eng = PartitionedEngine(mesh, n, **kw)
+    if sidecar and eng.part.adj_int is None:
+        raise AssertionError("W4 sidecar: the partition has no sidecar")
+    eng.localize(torch.as_tensor(pts[0][:n], dtype=dt, device=dev))
+    st = dict(eng.state)
+    st["fly"] = st["alive"].to(torch.int8)
+    st["w"] = st["fly"].to(dt)
+    st["done"] = ~st["alive"]
+    st["exited"] = torch.zeros_like(st["done"])
+    st["dest"] = eng._by_pid(torch.as_tensor(pts[1][:n], dtype=dt,
+                                             device=dev), 0.0)
+    rt = None
+    if spec is not None:
+        rt = ScoringRuntime(spec, mesh.nelems, dt, dev,
+                            bank_size=eng.score_padded.numel())
+        sbin_n, sfac_n, _ = score_lanes(rt, n, 6)
+        st["sbin"] = eng._by_pid(sbin_n, 0)
+        st["sfac"] = eng._by_pid(sfac_n, 0.0)
+    return eng, rt, st
+
+
+def w4_work(eng, st, ids) -> tuple:
+    """(crossings, distinct rows crossed) of one W4 round on this input:
+    a lock-step replay of the walks of the listed blocks' active slots
+    (the plain exit steps), each ending at its destination, the
+    boundary or a block face."""
+    import torch
+
+    from pumiumtally_tpu_torch.ops.walk import refine_face_hi, select_faces_lo
+    from pumiumtally_tpu_torch.parallel.partition import exit_cols_x0
+
+    part, cb = eng.part, eng.cap_per_block
+    slot_block = torch.arange(eng.cap, device=st["x"].device) // cb
+    walked = torch.ones(eng.nparts, dtype=torch.bool, device=slot_block.device)
+    if ids is not None:
+        walked[:] = False
+        walked[ids.long()] = True
+    active = ~st["done"] & walked[slot_block]
+    x0 = st["x"]
+    d0 = st["dest"] - x0
+    dest_c = x0 + d0
+    s = torch.zeros_like(d0[:, 0])
+    e = slot_block * part.L + st["lelem"].long()
+    tol = torch.tensor(eng.tol, dtype=x0.dtype, device=x0.device)
+    crossings, seen = 0, []
+    idx = active.nonzero().squeeze(1)
+    while idx.numel():
+        rows = e[idx]
+        seen.append(rows)
+        crossings += int(idx.numel())
+        if eng.two_tier:
+            s_sel, f = select_faces_lo(part.table, s[idx], rows, dest_c[idx],
+                                       d0[idx], tol)
+            s_exit, nxt = refine_face_hi(part.table_hi, s[idx], rows, f,
+                                         s_sel, dest_c[idx], d0[idx], tol)
+        else:
+            s_exit, nxt = exit_cols_x0(
+                part.table[rows], s[idx], x0[idx], d0[idx], tol,
+                None if part.adj_int is None else part.adj_int[rows])
+        stop = (s_exit >= 1) | (nxt < 0)
+        e[idx] = torch.where(stop, e[idx],
+                             slot_block[idx] * part.L + nxt.long())
+        s[idx] = torch.clamp(s_exit, max=1.0)
+        idx = idx[~stop]
+    rows = torch.unique(torch.cat(seen)).numel() if seen else 0
+    return crossings, rows
+
+
+def w4_bytes(eng, st, ids, rows: int, spec=None, bank=None) -> int:
+    """Bytes a W4 round must move on this input: each slot of a walked
+    block read and written once (``round_bytes``' model: 57 B an active
+    slot in f32, 40 B an idle one, 52 B if it left the mesh), each
+    crossed row (80 B packed in f32, with the sidecar 96 B; two-tier a
+    32 B select row and its four 20 B refinement rows) and its flux
+    entry read and written once; with scoring each bank lane touched
+    read and written once and each active slot's bin offset and factors
+    read once."""
+    import torch
+
+    from pumiumtally_tpu_torch.experiments.block_rounds import round_bytes
+
+    k = st["x"].element_size()
+    cb = eng.cap_per_block
+    if ids is None:
+        done, exited = st["done"], st["exited"]
+        blocks = eng.nparts
+    else:
+        slots = (ids.long()[:, None] * cb
+                 + torch.arange(cb, device=ids.device)).reshape(-1)
+        done, exited = st["done"][slots], st["exited"][slots]
+        blocks = int(ids.numel())
+    row_bytes = (32 + 4 * 5 * k if eng.two_tier
+                 else 20 * k + (16 if eng.part.adj_int is not None else 0))
+    nbytes = round_bytes(done, exited, blocks, 0, 0, k) \
+        + rows * (row_bytes + 2 * k)
+    if spec is not None:
+        nbytes += bank_bytes(bank, k) + int((~done).sum()) * (
+            4 + spec.n_scores * k)
+    return nbytes
+
+
+def w4_ms(fn) -> list:
+    """W4_PASSES device times of ``fn`` in ms (torch.profiler, the
+    kernel's own activity: ``gather_block_walk_kernel``)."""
+    return [device_us(fn, reps=5, name="gather_block_walk_kernel") / 1e3
+            for _ in range(W4_PASSES)]
+
+
+def w4_move_ms(fns: list, launches: int) -> float:
+    """The device ms of one move's W4 rounds: every round's call in turn
+    (``fns``, into its standing buffers) under one torch.profiler window,
+    the kernel's ``launches`` activities summed. A window that misses
+    some is profiled again, twice at most; then CUDA events time the
+    calls queued behind a sleep kernel (their copies too)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def move():
+        for f in fns:
+            f()
+
+    move()
+    sync()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            move()
+            sync()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and "gather_block_walk_kernel" in e.name]
+        if len(spans) == launches:
+            return sum(spans) / 1e3
+        print(f"# profiler retry: {len(spans)} of {launches} W4 launches "
+              "in a move's window; profiling again")
+    ms = queued_ms(move, 1)
+    print(f"# profiler retry: W4's move timed with events behind a sleep "
+          f"kernel instead: {ms:.4f} ms")
+    return ms
+
+
+def phase_w4(mesh, pts, mesh64, label: str, knobs: dict, scoring: bool,
+             f64: bool) -> dict:
+    """W4 (csrc/gather_block_walk.cu) against ``walk_local_blocks_plain``
+    on the card, on every tallied round of the first move (each round's
+    input migrated by the engine's ``_migrate`` from the kernel's
+    output; the occupied-block list carried as the engine carries it):
+    ids, masks, pending and iters equal, positions bitwise, flux at rtol
+    1e-4 of its largest element, scoring lanes as phase 6b holds them;
+    the blocks the kernel walks must be those whose slots hold a
+    not-done particle, one launch a round. Rounds 1 and 2 are timed,
+    W4_PASSES passes into standing buffers (one-block cells also
+    untallied), beside each round's bound and the plain version's wall
+    time; the whole move's rounds, W4_PASSES passes, beside the bound
+    summed over them. Returns the cell's round-1 entry."""
+    import torch
+
+    from pumiumtally_tpu_torch import kernels
+    from pumiumtally_tpu_torch.parallel.partition import (
+        _occupancy_counts,
+        walk_local,
+        walk_local_blocks_plain,
+    )
+
+    m = mesh64 if f64 else mesh
+    n = W0_F64_N if f64 else N
+    spec = score_spec() if scoring else None
+    eng, rt, st = w4_engine(m, pts, n, spec=spec, **knobs)
+    if eng.use_vmem_walk or eng.use_pallas_walk:
+        raise AssertionError(f"W4 {label}: the engine does not run W4")
+    entry = ("gather_block_walk" + ("_twotier" if eng.two_tier else "")
+             + ("_scored" if scoring else ""))
+    k = st["x"].element_size()
+    kw = dict(tally=True, tol=eng.tol, max_iters=eng.max_iters,
+              blocks=eng.nparts, adj_int=eng.part.adj_int,
+              table_hi=eng.part.table_hi)
+    keys = ("x", "lelem", "dest", "fly", "w", "done", "exited")
+
+    def buffers():
+        return (torch.zeros_like(eng.flux_padded),
+                None if spec is None else torch.zeros_like(eng.score_padded))
+
+    def run(fn, st, ids, tally=True, bufs=None):
+        flux, bank = bufs or buffers()
+        sc = None
+        if spec is not None and tally:
+            sc = (spec.kinds, bank, st["sbin"], st["sfac"])
+        return fn(eng.part.table, *(st[k_] for k_ in keys),
+                  flux if tally else None, **dict(kw, tally=tally),
+                  scoring=sc, block_ids=ids), bank
+
+    n_act = _occupancy_counts(st["done"], eng.nparts)
+    err, rounds, move_bound, timed, fns = 0.0, [], 0.0, [], []
+    flops = (FLOPS_PER_CROSSING_TWO_TIER if eng.two_tier
+             else FLOPS_PER_CROSSING) + (3 if scoring else 0)
+    for r in range(1, eng.max_rounds + 1):
+        occupied = int((~st["done"]).view(eng.nparts, -1).any(dim=1).sum())
+        ids = None
+        if eng.nparts > 1:
+            ids = (n_act > 0).nonzero().squeeze(1).to(torch.int32)
+            if int(ids.numel()) != occupied:
+                raise AssertionError(
+                    f"W4 {label} round {r}: {int(ids.numel())} blocks "
+                    f"dispatched, {occupied} hold a not-done slot")
+        before = kernels.launch_counts[entry]
+        rk, bank_k = run(walk_local, st, ids)
+        sync()
+        t0 = time.perf_counter()
+        rp, bank_p = run(walk_local_blocks_plain, st, ids)
+        sync()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        launched = kernels.launch_counts[entry] - before
+        if launched != int(occupied > 0):
+            raise AssertionError(f"W4 {label} round {r}: {launched} launches "
+                                 f"of {entry} for {occupied} blocks")
+        for i, f in ((0, "x"), (1, "lelem"), (2, "done"), (3, "exited"),
+                     (4, "pending"), (6, "iters")):
+            check_equal(f"W4 {label} round {r} {f}", rk[i], rp[i])
+        err = max(err, check_flux(f"W4 {label} round {r}", rk[5], rp[5]))
+        if spec is not None:
+            err = max(err, check_bank(f"W4 {label} round {r}", bank_k,
+                                      bank_p, spec.kinds))
+        n_paused = int((rk[4] >= 0).sum())
+        crossings, rows = w4_work(eng, st, ids)
+        nbytes = w4_bytes(eng, st, ids, rows, spec, bank_p)
+        bound = bound_entry(nbytes, crossings, flops,
+                            F32_FLOPS if k == 4 else F64_FLOPS)
+        move_bound += bound["bound_ms"]
+        # This round's call, adding into standing flux and bank buffers,
+        # for the move's time.
+        fns.append(functools.partial(run, walk_local, st, ids,
+                                     bufs=buffers()))
+        if r <= 2:
+            t_on = w4_ms(fns[-1])
+            t_off = (w4_ms(lambda: run(walk_local, st, ids, False))
+                     if eng.nparts == 1 and spec is None else [])
+            timed.append(dict(ms=float(np.median(t_on)), plain_ms=plain_ms,
+                              **bound))
+            print(f"# W4 {label} round {r}: {eng.nparts} blocks of <= "
+                  f"{eng.part.L}, {eng.cap_per_block} slots each, "
+                  f"{int((~st['done']).sum())} active in {occupied} "
+                  f"blocks; kernel {', '.join(f'{v:.4f}' for v in t_on)} ms"
+                  + (f", untallied {', '.join(f'{v:.4f}' for v in t_off)} "
+                     "ms" if t_off else "")
+                  + f" (profiler, {W4_PASSES} passes); plain "
+                  f"{plain_ms:.3f} ms; {crossings} crossings over {rows} "
+                  f"rows, {n_paused} paused; {nbytes} B; bound {bound}")
+        rounds.append(occupied)
+        if n_paused == 0:
+            break
+        # The engine's occupancy rule: walked blocks recount, then the
+        # full migrate recounts every block.
+        st = eng._migrate(dict(st, x=rk[0], lelem=rk[1], done=rk[2],
+                               exited=rk[3], pending=rk[4]))
+        n_act = _occupancy_counts(st["done"], eng.nparts)
+    if (len(rounds) > 1) != (eng.nparts > 1):
+        raise AssertionError(f"W4 {label}: {len(rounds)} rounds over "
+                             f"{eng.nparts} blocks")
+    launches = sum(int(o > 0) for o in rounds)
+    move = [w4_move_ms(fns, launches) for _ in range(W4_PASSES)]
+    print(f"# W4 {label}: {len(rounds)} rounds ({entry}), each equal to the "
+          f"plain version; occupied blocks a round {rounds} "
+          f"({sum(rounds)} dispatched of {len(rounds) * eng.nparts}); the "
+          f"first move's rounds {', '.join(f'{v:.4f}' for v in move)} ms "
+          f"(profiler, {W4_PASSES} passes), bound {move_bound:.4f} ms; max "
+          f"abs err {err:.3e}")
+    return {"name": f"W4 {entry}", "route": "cuda", "entry": entry,
+            "source": "pumiumtally_tpu_torch/csrc/gather_block_walk.cu",
+            "replaces": "pumiumtally_tpu/parallel/partition.py:466",
+            "max_abs_err": err, **timed[0], "library_ms": None}
+
+
+def phase_w4_many_blocks(mesh, pts, reps: int = W4_MANY_REPS,
+                         n: int = W4_MANY_N) -> None:
+    """W4 on an occupied-block list longer than a grid's y dimension
+    allows (65,535): the box's gather sub-split into blocks of <=
+    W4_MANY_BOUND elements (750), its round-1 input stacked ``reps``
+    times (70,500 blocks, every one occupied), every 16th left off the
+    list (66,094 listed), against ``walk_local_blocks_plain`` as
+    phase_w4 holds it, in one launch."""
+    import torch
+
+    from pumiumtally_tpu_torch import kernels
+    from pumiumtally_tpu_torch.parallel.partition import (
+        walk_local,
+        walk_local_blocks_plain,
+    )
+
+    eng, _, st = w4_engine(mesh, pts, n, vmem_walk_max_elems=W4_MANY_BOUND,
+                           block_kernel="gather")
+    blocks = eng.nparts * reps
+    keys = ("x", "lelem", "dest", "fly", "w", "done", "exited")
+    slots = [st[k].repeat((reps,) + (1,) * (st[k].dim() - 1)) for k in keys]
+    table = eng.part.table.repeat(reps, 1)
+    # The occupied blocks, less every 16th: a listed block must be the
+    # one walked, and an unlisted one kept.
+    busy = (~slots[5]).view(blocks, -1).any(dim=1)
+    busy[15::16] = False
+    ids = busy.nonzero().squeeze(1).to(torch.int32)
+    if ids.numel() <= 65_535:
+        raise AssertionError(f"W4 many blocks: {ids.numel()} listed blocks, "
+                             "not past 65,535")
+    kw = dict(tally=True, tol=eng.tol, max_iters=eng.max_iters,
+              blocks=blocks, block_ids=ids)
+    before = kernels.launch_counts["gather_block_walk"]
+    rk = walk_local(table, *slots, torch.zeros((blocks * eng.part.L,),
+                    dtype=table.dtype, device=table.device), **kw)
+    rp = walk_local_blocks_plain(table, *slots, torch.zeros_like(rk[5]),
+                                 **kw)
+    sync()
+    launched = kernels.launch_counts["gather_block_walk"] - before
+    if launched != int(table.is_cuda):
+        raise AssertionError(f"W4 many blocks: {launched} launches")
+    for i, f in ((0, "x"), (1, "lelem"), (2, "done"), (3, "exited"),
+                 (4, "pending"), (6, "iters")):
+        check_equal(f"W4 many blocks {f}", rk[i], rp[i])
+    err = check_flux("W4 many blocks", rk[5], rp[5])
+    print(f"# W4 many blocks: {int(ids.numel())} listed of {blocks} blocks "
+          f"of <= {eng.part.L} ({eng.nparts} blocks stacked {reps} times, "
+          f"{eng.cap_per_block} slots each), one launch, equal to the plain "
+          f"version; max abs err {err:.3e}")
+
+
 def w3_setup(dims: tuple):
     """The tool's W3 inputs (``r3_vmem.setup``: K3_N particles localized
     in a float32 unit box, destinations one normal step away) on a box
@@ -1115,18 +1537,22 @@ def phase_oracle() -> None:
           f"{ORACLE_TOL}")
 
 
-def phase_main_path(facade, mesh, pts, config, card: str) -> tuple:
-    """CopyInitialPosition, one two-phase move, then continue moves of N
-    particles; conservation, output file, launch counts, rate. ``mesh``
-    is a TetMesh or a mesh file's path. Returns the launch counts and
-    the flux after the continue moves."""
+def phase_main_path(facade, mesh, pts, config, card: str,
+                    n=None) -> tuple:
+    """CopyInitialPosition, one two-phase move, then continue moves of n
+    particles (the first n of ``pts``' rows); conservation, output file,
+    launch counts, rate. ``mesh`` is a TetMesh or a mesh file's path.
+    Returns the launch counts, the flux after the continue moves and the
+    facade (after one more, profiled, continue move)."""
     from pumiumtally_tpu_torch import kernels
 
+    n = N if n is None else n
+    pts = [p[:n] for p in pts]
     kernels.reset_launch_counts()
-    t = facade(mesh, N, config)
+    t = facade(mesh, n, config)
     t.CopyInitialPosition(flat(pts[0]))
     t.MoveToNextLocation(flat(pts[0]), flat(pts[1]),
-                         np.ones(N, np.int8), np.ones(N))
+                         np.ones(n, np.int8), np.ones(n))
     move_ms = []
     for m in range(2, CONTINUE_MOVES + 2):
         move_ms.append(wall_ms(
@@ -1140,17 +1566,105 @@ def phase_main_path(facade, mesh, pts, config, card: str) -> tuple:
     flux = t.flux.double().clone()
     with tempfile.TemporaryDirectory() as d:
         t.WriteTallyResults(f"{d}/fluxresult.vtk")
-    rate = N * CONTINUE_MOVES / dt
+    rate = n * CONTINUE_MOVES / dt
     tier = config.resolved_table_dtype()
     print(f"# main path {facade.__name__} ({tier} tables): {rate:.1f} "
           f"moves/s on {card} "
           f"over "
-          f"{CONTINUE_MOVES} continue moves of {N} particles on "
+          f"{CONTINUE_MOVES} continue moves of {n} particles on "
           f"{t.mesh.nelems} tets (per move ms: "
           f"{', '.join(f'{v:.3f}' for v in move_ms)}); conservation rel "
           f"err {rel:.3e}; launches {counts}")
     profile_move(t, pts[CONTINUE_MOVES + 2])
-    return counts, flux
+    return counts, flux, t
+
+
+def phase_partitioned_default(mesh, pts, card: str) -> dict:
+    """Phase 10's ``PartitionedPumiTally`` with a default config (one
+    block of the whole box, W4) through ``phase_main_path``, then a
+    profiled continue move (``PhaseProfile``: walk, migration, occupancy
+    and bookkeeping sections); the same with the bf16 tables and the
+    vmem knobs (rerouted to W4's two-tier variant); ``cap_frontier=4096``
+    against the default on one block and on the gather sub-split,
+    positions and ids equal (fallback rounds reported); and a forced
+    overflow (corner-bound destinations, capacity_factor 1.3, the gather
+    sub-split, PART_OVERFLOW_N particles) that the ladder recovers, with
+    conservation. Returns each main-path run's launch counts."""
+    import torch
+
+    from pumiumtally_tpu_torch import PartitionedPumiTally, TallyConfig
+    from pumiumtally_tpu_torch.parallel.partition import PhaseProfile
+
+    counts = {}
+    base = dict(capacity_factor=CAPACITY_FACTOR)  # the sub-splits'
+    counts["part_default"], _, t = phase_main_path(
+        PartitionedPumiTally, mesh, pts, TallyConfig(), card)
+    if t.engine.nparts != 1 or t.engine.use_vmem_walk:
+        raise AssertionError("the default partitioned facade is not one W4 "
+                             "block")
+    eng, dev = t.engine, t.device
+    prof = PhaseProfile()
+    dests = torch.as_tensor(pts[2], dtype=torch.float32, device=dev)
+    ones = torch.ones((N,), dtype=torch.float32, device=dev)
+    wall = wall_ms(lambda: eng.move(None, dests, ones.to(torch.int8), ones,
+                                    profile=prof))
+    print(f"# PhaseProfile of one continue move, default partitioned "
+          f"facade: wall {wall:.3f} ms, {json.dumps(prof.as_dict())}")
+    counts["part_gather_bf16"], _, tb = phase_main_path(
+        PartitionedPumiTally, mesh, pts, TallyConfig(
+            walk_vmem_max_elems=VMEM_BOUND, **BF16, **base), card)
+    if tb.engine.block_kernel != "gather" or not tb.engine.two_tier:
+        raise AssertionError("bf16 + vmem did not reroute to W4")
+    del t, tb
+    for label, knobs in (("one block", {}),
+                         ("sub-split", dict(walk_vmem_max_elems=VMEM_BOUND,
+                                            walk_block_kernel="gather",
+                                            **base))):
+        runs = []
+        for cf in (None, 4096):
+            tf = PartitionedPumiTally(mesh, N, TallyConfig(
+                cap_frontier=cf, check_found_all=False, **knobs))
+            tf.CopyInitialPosition(flat(pts[0]))
+            tf.MoveToNextLocation(flat(pts[0]), flat(pts[1]),
+                                  np.ones(N, np.int8), np.ones(N))
+            for m in range(2, CONTINUE_MOVES + 2):
+                tf.MoveToNextLocation(None, flat(pts[m]))
+            runs.append((tf.positions, tf.elem_ids, tf.engine))
+            del tf
+        if not (np.array_equal(runs[0][0], runs[1][0])
+                and np.array_equal(runs[0][1], runs[1][1])):
+            raise AssertionError(f"cap_frontier=4096 ({label}): positions "
+                                 "or ids differ from the default's")
+        e = runs[1][2]
+        print(f"# cap_frontier=4096 ({label}, {e.nparts} blocks): positions "
+              f"and ids equal the default run's; last phase "
+              f"{e.last_walk_rounds} rounds, front max "
+              f"{e.last_frontier_max}, {e.last_fallback_rounds} fallback "
+              f"rounds")
+    rng = np.random.default_rng(8)
+    n = PART_OVERFLOW_N
+    src = rng.uniform(0.05, 0.95, (n, 3))
+    corner = rng.uniform(0.02, 0.12, (n, 3))
+    to = PartitionedPumiTally(mesh, n, TallyConfig(
+        walk_vmem_max_elems=VMEM_BOUND, walk_block_kernel="gather",
+        capacity_factor=1.3, check_found_all=False))
+    cap0 = to.engine.cap_per_block
+    to.CopyInitialPosition(flat(src))
+    wall = wall_ms(lambda: to.MoveToNextLocation(None, flat(corner)))
+    e = to.engine
+    rel = check_conservation("forced overflow", to.flux,
+                             float(np.linalg.norm(corner - src,
+                                                  axis=1).sum()))
+    if e.overflow_recoveries < 1 or e.poisoned:
+        raise AssertionError(f"forced overflow: {e.overflow_recoveries} "
+                             f"recoveries, poisoned {e.poisoned}")
+    print(f"# forced overflow ({n} particles into one corner, "
+          f"{e.nparts} blocks, capacity_factor 1.3): recovered, "
+          f"{e.overflow_recoveries} recoveries, {e.capacity_escalations} "
+          f"escalations, {cap0} -> {e.cap_per_block} slots a block; the "
+          f"move {wall:.1f} ms; conservation rel err {rel:.3e}")
+    return counts
+
 
 
 def profile_move(t, dests: np.ndarray, move_kw=None) -> None:
@@ -1196,7 +1710,11 @@ def profile_move(t, dests: np.ndarray, move_kw=None) -> None:
         # count of this move's launches stands beside its list.
         launched = sum(kernels.launch_counts[k] - before[k]
                        for k in ("block_walk", "twotier_block_walk",
-                                 "twotier_block_walk_scored"))
+                                 "twotier_block_walk_scored",
+                                 "gather_block_walk",
+                                 "gather_block_walk_twotier",
+                                 "gather_block_walk_scored",
+                                 "gather_block_walk_twotier_scored"))
         print(f"#   block walk per round (ms): "
               f"{', '.join(f'{ms:.4f}' for _, ms in walks)}; "
               f"{len(walks)} launches profiled of {launched} made, "
@@ -2266,6 +2784,15 @@ def phase_scoring_facades(mesh, pts, lat_path: str, lat_box, card: str):
                             CONTINUE_MOVES),
         "score_part": (PartitionedPumiTally, mesh, cfg(**w2), box_trajs, N,
                        CONTINUE_MOVES),
+        # The gather block walk W4's scoring: the default config (float32
+        # tables, one block) and the bf16 tables with the vmem knobs.
+        "score_part_gather": (PartitionedPumiTally, mesh, cfg(),
+                              box_trajs, N, CONTINUE_MOVES),
+        "score_part_gather_bf16": (
+            PartitionedPumiTally, mesh,
+            cfg(capacity_factor=CAPACITY_FACTOR,
+                walk_vmem_max_elems=VMEM_BOUND, **BF16),
+            box_trajs, N, CONTINUE_MOVES),
         "score_lat": (PumiTally, lat_path, cfg(), lat_trajs, N,
                       CONTINUE_MOVES),
         "score_lat_bf16": (PumiTally, lat_path, cfg(**BF16), lat_trajs, N,
@@ -2282,7 +2809,8 @@ def phase_scoring_facades(mesh, pts, lat_path: str, lat_box, card: str):
         t0 = time.perf_counter()
         counts[key], t = score_batches(
             facade, m, config, trajs, n, key, moves,
-            profile=key in ("score_mono", "score_mono_bf16", "score_part"))
+            profile=key in ("score_mono", "score_mono_bf16", "score_part",
+                            "score_part_gather"))
         del t
         print(f"# scoring {key}: {time.perf_counter() - t0:.1f} s on {card}")
     return counts
@@ -2319,6 +2847,13 @@ def main() -> int:
                        dtype=torch.float64), pts, " (float64)", n=W0_F64_N)
     w2, regimes_w2 = phase_block_walk("W2", mesh, pts, VMEM_BOUND)
     _, regimes_w2g = phase_block_walk("W2", mesh, pts, None, shared=False)
+    # W4, the gather block walk: every cell against its plain version.
+    mesh64 = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                       dtype=torch.float64)
+    w4 = {label: phase_w4(mesh, pts, mesh64, label, knobs, scoring, f64)
+          for label, knobs, scoring, f64 in W4_CELLS}
+    del mesh64
+    phase_w4_many_blocks(mesh, pts)
     # The scoring slice's kernels: registers of every instantiation, then
     # W0 (both tiers, and float64) and W2 (both regimes) with the
     # stride-96 spec against their plain versions and their scoring-off
@@ -2355,8 +2890,9 @@ def main() -> int:
     }
     counts, fluxes = {}, {}
     for key, (facade, config) in runs.items():
-        counts[key], fluxes[key] = phase_main_path(facade, mesh, pts, config,
-                                                   smi)
+        counts[key], fluxes[key], _ = phase_main_path(facade, mesh, pts,
+                                                      config, smi)
+    counts.update(phase_partitioned_default(mesh, pts, smi))
     phase_staging(mesh, pts)
     phase_scoring_sync(mesh, pts)
     counts.update(phase_streaming(mesh, smi))
@@ -2376,8 +2912,18 @@ def main() -> int:
         del lat_mesh
         for key, config in (("lat", TallyConfig(check_found_all=True)),
                             ("lat_bf16", TallyConfig(**BF16))):
-            counts[key], fluxes[key] = phase_main_path(PumiTally, path,
-                                                       lat_pts, config, smi)
+            counts[key], fluxes[key], _ = phase_main_path(
+                PumiTally, path, lat_pts, config, smi)
+        # The partitioned facade's default configuration on the lattice:
+        # one W4 block of 984,960 tets, LATTICE_PART_N particles.
+        t0 = time.perf_counter()
+        counts["lat_part"], _, tp = phase_main_path(
+            PartitionedPumiTally, path, lat_pts, TallyConfig(), smi,
+            n=LATTICE_PART_N)
+        print(f"# lattice, default partitioned facade: {tp.engine.nparts} "
+              f"block of {tp.engine.part.L} tets; "
+              f"{time.perf_counter() - t0:.1f} s with its point location")
+        del tp
         # The scoring slice's main path on the four facades.
         counts.update(phase_scoring_facades(mesh, pts, path, lattice_box(),
                                             smi))
@@ -2392,7 +2938,12 @@ def main() -> int:
              "score_lat": "walk_scored",
              "score_lat_bf16": "walk_twotier_scored",
              "score_stream": "walk_scored",
-             "score_stream_part": "twotier_block_walk_scored"}
+             "score_stream_part": "twotier_block_walk_scored",
+             "part_default": "gather_block_walk",
+             "part_gather_bf16": "gather_block_walk_twotier",
+             "lat_part": "gather_block_walk",
+             "score_part_gather": "gather_block_walk_scored",
+             "score_part_gather_bf16": "gather_block_walk_twotier_scored"}
     for key, entry in needs.items():
         if counts[key][entry] == 0:
             raise AssertionError(f"{key}: kernel {entry} never launched on "
@@ -2408,17 +2959,24 @@ def main() -> int:
     # two-tier variant to its plain version on this mesh; the L1 is
     # reported.
     check_tie_band("lat", fluxes["lat_bf16"], fluxes["lat"], band=None)
+    w4_lines = []
+    for entry, cell in W4_ENTRIES.items():
+        e = dict(w4[cell])
+        e["max_abs_err"] = max(c["max_abs_err"] for c in w4.values()
+                               if c["entry"] == entry)
+        w4_lines.append(e)
     for e, entry in ((w0, "walk"), (w1, "block_walk"), (w0t, "walk_twotier"),
                      (w2, "twotier_block_walk"), (sw0, "walk_scored"),
                      (sw0t, "walk_twotier_scored"),
-                     (sw2, "twotier_block_walk_scored")):
+                     (sw2, "twotier_block_walk_scored"),
+                     *((e, e["entry"]) for e in w4_lines)):
         e["launches"] = sum(c[entry] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in (w0, w1, w0t, w2, sw0, sw0t, sw2,
-                                            w3, *g1)]}))
+                                            *w4_lines, w3, *g1)]}))
     print(f"# total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

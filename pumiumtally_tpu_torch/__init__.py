@@ -18,7 +18,11 @@ from pumiumtally_tpu_torch.api.streaming import (
     StreamingPartitionedTally,
     StreamingTally,
 )
-from pumiumtally_tpu_torch.api.tally import PumiTally, TallyTimes
+from pumiumtally_tpu_torch.api.tally import (
+    EnginePoisonedError,
+    PumiTally,
+    TallyTimes,
+)
 from pumiumtally_tpu_torch.config import TallyConfig
 from pumiumtally_tpu_torch.mesh.box import build_box
 from pumiumtally_tpu_torch.mesh.pincell import build_lattice, build_pincell
@@ -40,6 +44,7 @@ __all__ = [
     "SCORES",
     "BatchStatistics",
     "EnergyFilter",
+    "EnginePoisonedError",
     "PartitionedPumiTally",
     "PumiTally",
     "ScoringSpec",

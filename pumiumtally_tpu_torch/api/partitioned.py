@@ -1,21 +1,27 @@
 """Partitioned-mesh facade on one device (port of
 ``pumiumtally_tpu/api/partitioned.py``): the three-call protocol over
-element blocks + particle migration (parallel/partition.py), with the
-block-local walk W1 (ops/vmem_walk.py) on the packed tables or, with
-``walk_table_dtype="bfloat16"`` and ``walk_kernel="pallas"``, the
-two-tier block walk W2 (ops/pallas_walk.py). Staging, the flying-zeroing
-side effect, timing and the legacy VTK output are inherited from
-``PumiTally``; a ``.pvtu`` filename writes the rank-aware piece layout
-(one piece: the device owns every block). The facade's mesh keeps its
-own tables: the engine builds the block tables of the configured tier.
+element blocks + particle migration (parallel/partition.py). With a
+default ``TallyConfig`` one block holds the whole mesh and the gather
+block walk W4 (``walk_local``) walks it; ``walk_vmem_max_elems``
+sub-splits the mesh, walked by W1 (ops/vmem_walk.py) where every block
+fits the bound, by W4 over the occupied blocks with
+``walk_block_kernel="gather"``, or, with ``walk_table_dtype="bfloat16"``
+and ``walk_kernel="pallas"``, by the two-tier block walk W2
+(ops/pallas_walk.py). bf16 tables with the vmem kernel and scoring on
+the float32 tables run W4, as in the JAX package. Staging, the
+flying-zeroing side effect, timing and the legacy VTK output are
+inherited from ``PumiTally``; a ``.pvtu`` filename writes the rank-aware
+piece layout (one piece: the device owns every block). The facade's
+mesh keeps its own tables: the engine builds the block tables of the
+configured tier.
 
-W1 requires ``TallyConfig.walk_vmem_max_elems`` (the gather walk that
-runs without it is not ported yet). Scoring and batch statistics are the
-base facade's; the engine owns the padded bank (its size fixes the DROP
-sentinel) and ``score_bank`` assembles it in original element order.
-Scoring needs W2: on the float32 tables the engine raises, naming the
-gather walk the JAX package scores through. Left out: multi-device
-meshes and the sentinel hooks.
+Scoring and batch statistics are the base facade's; the engine owns the
+padded bank (its size fixes the DROP sentinel) and ``score_bank``
+assembles it in original element order. An exhausted overflow-recovery
+ladder latches the engine poisoned and every later call refuses. Left
+out: multi-device meshes, and the sentinel record and resilience safety
+save that the JAX facade hangs on the engine's ``on_overflow_recovered``
+and ``on_poisoned`` hooks (left None here).
 """
 
 from __future__ import annotations
@@ -54,12 +60,16 @@ class PartitionedPumiTally(PumiTally):
             block_kernel=self.config.resolved_walk_kernel(),
             table_dtype=self.config.resolved_table_dtype(),
             scoring=self.config.scoring,
+            cap_frontier=self.config.cap_frontier,
         )
         # After the engine: the DROP sentinel is its padded bank's size.
         self._arm_scoring(bank_size=self.engine.score_padded.numel()
                           if self.config.scoring is not None else None)
         self._sync()
         self.tally_times.initialization_time += time.perf_counter() - t0
+
+    def _engine_poisoned(self) -> bool:
+        return self.engine.poisoned
 
     # -- dispatch hooks ---------------------------------------------------
     def _dispatch_localize(self, dest: torch.Tensor):
@@ -79,6 +89,7 @@ class PartitionedPumiTally(PumiTally):
         binary piece per device plus the index file (the reference's
         rank-aware ``vtk::write_parallel``, PumiTallyImpl.cpp:415). Any
         other extension goes to the legacy writer."""
+        self._check_poisoned()  # the .pvtu branch bypasses super()
         out = filename or self.config.output_filename
         if not out.endswith(".pvtu"):
             return super().WriteTallyResults(filename)

@@ -27,8 +27,10 @@ the batch into ``chunk_size`` chunks:
 - The flying-zeroing side effect zeroes the whole caller buffer.
 
 ``StreamingPartitionedTally`` runs each chunk through a
-``PartitionedEngine`` (W1, or W2 with the two-tier tables); all chunk
-engines share one partition, and their owned flux is summed on read.
+``PartitionedEngine`` (the gather block walk W4 by default, W1 or W2 as
+the knobs choose); all chunk engines share one partition, and their
+owned flux is summed on read. Each engine runs its own overflow-recovery
+ladder, and the facade refuses every call once any engine is poisoned.
 
 Scoring and batch statistics are the base facade's, chunk-wise: each
 chunk has its own bank (``StreamingTally``) or its engine's
@@ -41,9 +43,12 @@ upload. Pad slots never fly, so they never score.
 
 Left out against the JAX package (ROADMAP.md): the sentinel and
 resilience hooks, the service-fusion surface (``_fused_move_stage``),
-sharded chunks and ``device_groups`` (one device here), and the
-partitioned chunks' deferred overflow-recovery ladder (a chunk overflow
-raises over intact state, as the port's engine does).
+sharded chunks and ``device_groups`` (one device here). The JAX
+partitioned chunks defer their overflow check to a batch sync point
+(``_recover_deferred_overflow``); the port's engine checks each round on
+the host and recovers inside the chunk's own call, so the JAX
+"deferred two-phase" poison corner (a phase-A overflow read only after
+phase B walked) cannot arise.
 """
 
 from __future__ import annotations
@@ -239,6 +244,7 @@ class StreamingTally(PumiTally):
     # -- the three-call protocol -----------------------------------------
     def CopyInitialPosition(self, init_particle_positions,
                             size: Optional[int] = None):
+        self._check_poisoned()
         t0 = time.perf_counter()
         self._stats_roll_batch()  # each sourcing opens a new batch
         self._lost_total += self._current_lost()
@@ -265,6 +271,7 @@ class StreamingTally(PumiTally):
                            flying=None, weights=None,
                            size: Optional[int] = None, energy=None,
                            time=None):
+        self._check_poisoned()
         if not self.is_initialized:
             raise RuntimeError(
                 "CopyInitialPosition must be called before MoveToNextLocation"
@@ -434,9 +441,11 @@ class StreamingPartitionedTally(StreamingTally):
     mesh in blocks AND the batch too large for one slot array. Each chunk
     owns a ``PartitionedEngine`` sized to its real particles; all share
     one partition (built once), and their owned flux is summed on read.
-    Knobs as ``PartitionedPumiTally``'s: W1 needs
-    ``walk_vmem_max_elems``; ``walk_table_dtype="bfloat16",
-    walk_kernel="pallas"`` runs W2."""
+    Knobs as ``PartitionedPumiTally``'s: by default one block and W4;
+    ``walk_vmem_max_elems`` sub-splits for W1 (or W4 with
+    ``walk_block_kernel="gather"``); ``walk_table_dtype="bfloat16",
+    walk_kernel="pallas"`` runs W2. ``cap_frontier`` reaches every
+    chunk engine."""
 
     _replicated_mesh_walk = False  # the engines build their own tables
 
@@ -455,9 +464,13 @@ class StreamingPartitionedTally(StreamingTally):
                 max_rounds=cfg.max_migration_rounds,
                 # The lost-source warning is printed once per call, for
                 # every chunk (_after_chunk_dispatch).
-                check_found_all=False, part=part, scoring=cfg.scoring, **kw,
+                check_found_all=False, part=part, scoring=cfg.scoring,
+                cap_frontier=cfg.cap_frontier, **kw,
             ))
         self._dispatched_localize = False
+
+    def _engine_poisoned(self) -> bool:
+        return any(e.poisoned for e in self.engines)
 
     def _arm_chunk_scoring(self) -> None:
         # The DROP sentinel is the shared partition's padded bank size.

@@ -50,9 +50,11 @@ nothing of either is constructed.
 
 The facades run on ``device="cuda"`` by default and raise when no GPU is
 present, unless the caller asks for ``device="cpu"`` (where every
-kernel's plain PyTorch version runs). Left out so far (ROADMAP.md):
-sentinels, resilience, the service-fusion surface and
-``intersection_points``.
+kernel's plain PyTorch version runs). The poisoned latch (the JAX
+facade's): once a partitioned engine's overflow-recovery ladder is
+exhausted, every protocol call refuses with ``EnginePoisonedError``.
+Left out so far (ROADMAP.md): sentinels, resilience, the
+service-fusion surface and ``intersection_points``.
 """
 
 from __future__ import annotations
@@ -85,6 +87,19 @@ from pumiumtally_tpu_torch.stats import (
     BatchStatistics,
     evaluate_trigger,
 )
+
+POISONED_MESSAGE = (
+    "engine state corrupt — a capacity overflow exhausted the recovery "
+    "ladder; resume from checkpoint (resilience.resume_latest) or "
+    "rebuild the tally with a larger TallyConfig.capacity_factor"
+)
+
+
+class EnginePoisonedError(RuntimeError):
+    """The engine state is known-corrupt (a partitioned capacity
+    overflow exhausted the recovery ladder); every further protocol
+    call refuses."""
+
 
 # MoveToNextLocation's ``time`` keyword (the TimeFilter attribute)
 # shadows the module inside that method.
@@ -354,6 +369,17 @@ class PumiTally:
         self._score_bank = None
         self._score_stats = None
         return self.mesh
+
+    def _engine_poisoned(self) -> bool:
+        """Whether this tally's engine state is known-corrupt: only a
+        partitioned engine's exhausted recovery ladder latches it, so
+        the partitioned facades override this with their engines'
+        latches."""
+        return False
+
+    def _check_poisoned(self) -> None:
+        if self._engine_poisoned():
+            raise EnginePoisonedError(POISONED_MESSAGE)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -668,6 +694,7 @@ class PumiTally:
                             size: Optional[int] = None):
         """Localize particles to the host app's sampled source points
         (reference PumiTally.h:66-67; non-tallying initial search)."""
+        self._check_poisoned()
         t0 = time.perf_counter()
         self._stats_roll_batch()  # each sourcing opens a new batch
         # Fold the closing batch's still-lost particles into the
@@ -726,6 +753,8 @@ class PumiTally:
         (nothing to zero); ``weights=None`` means unit weights.
         ``energy=`` / ``time=``: per-particle [n] attributes for the
         scoring spec's filters and energy-scaled scores."""
+        # First: a corrupt engine refuses whatever else is wrong.
+        self._check_poisoned()
         if not self.is_initialized:
             raise RuntimeError(
                 "CopyInitialPosition must be called before MoveToNextLocation "
@@ -789,6 +818,7 @@ class PumiTally:
     def WriteTallyResults(self, filename: Optional[str] = None) -> None:
         """Normalize flux by element volume and write a legacy VTK file
         (reference PumiTallyImpl.cpp:151-157, 382-416)."""
+        self._check_poisoned()
         t0 = time.perf_counter()
         write_vtk(
             filename or self.config.output_filename,

@@ -16,11 +16,7 @@ from typing import Any, Optional
 
 import torch
 
-# ROADMAP.md items named by the refusals below.
-ROADMAP_GATHER_BLOCKS = (
-    "ROADMAP.md queue 1, 'The rest of the partitioned engine': the "
-    "gather block walk walk_local"
-)
+# The ROADMAP.md item named by the refusal below.
 ROADMAP_MULTI_DEVICE = "ROADMAP.md queue 1, 'Multi-device'"
 
 
@@ -44,11 +40,20 @@ class TallyConfig:
         rounds per phase.
       walk_vmem_max_elems: partitioned engine only, the block length
         bound of the block walks (shared memory plays VMEM's role; the
-        bf16 tier doubles it). Required by the "vmem" block walk; with
-        "pallas" it only sizes the blocks (unset: one block).
+        bf16 tier doubles it). Unset: one block holds the whole mesh and
+        the gather block walk W4 walks it; the "vmem" block walk (W1)
+        runs where every block fits the bound, "pallas" (W2) and
+        "gather" (W4) take it only to size the blocks.
       walk_kernel / walk_block_kernel: the JAX package's block-kernel
-        selectors (``resolved_walk_kernel``): "vmem" (W1) or "pallas"
-        (W2, two-tier only); the "gather" block walk is not ported.
+        selectors (``resolved_walk_kernel``): "vmem" (W1), "gather" (the
+        gather block walk W4, also where bf16 tables or scoring meet
+        "vmem") or "pallas" (W2, two-tier only).
+      cap_frontier: partitioned engine only, the frontier-slab migrate:
+        a migration round whose crossing front fits this many slots
+        moves only the paused particles (stayers keep their slots);
+        a larger front falls back to the full-capacity migrate. None
+        (default): the full migrate every round; 0: the fallback every
+        round.
       walk_table_dtype: "float32" (the packed table), "bfloat16" (the
         two-tier tables, both facades) or "auto"/None (the
         PUMIUMTALLY_WALK_TABLE_DTYPE environment variable, else
@@ -64,10 +69,9 @@ class TallyConfig:
       scoring: a ``scoring.ScoringSpec``: energy/time-binned scoring
         lanes, a flattened [E*B*S] bank on the device, fed by the
         ``energy=``/``time=`` arguments of ``MoveToNextLocation`` and
-        committed inside the walk kernels (W0 and W2). The partitioned
-        facades need the two-tier tables with ``walk_kernel="pallas"``:
-        the JAX package scores the float32 block walk through its gather
-        walk, which is not ported. None: no scoring code runs.
+        committed inside the walk kernels (W0, W2 and W4; a partitioned
+        engine on the float32 tables scores through the gather block
+        walk W4, as the JAX engine does). None: no scoring code runs.
       output_filename: default VTK output path.
       auto_continue: ``MoveToNextLocation`` detects on the host when the
         staged origins echo the previous move's destinations bit for
@@ -107,6 +111,7 @@ class TallyConfig:
     walk_kernel: str = "gather"
     walk_block_kernel: str = "vmem"
     walk_table_dtype: Optional[str] = None
+    cap_frontier: Optional[int] = None
     batch_stats: bool = False
     batch_stats_trigger: Optional[Any] = None
     scoring: Optional[Any] = None
@@ -203,10 +208,10 @@ class TallyConfig:
                 "walk_block_kernel must be 'vmem' or 'gather', "
                 f"got {self.walk_block_kernel!r}"
             )
-        if self.walk_block_kernel == "gather":
-            raise NotImplementedError(
-                f"walk_block_kernel='gather' is not ported yet: "
-                f"{ROADMAP_GATHER_BLOCKS}"
+        if self.cap_frontier is not None and int(self.cap_frontier) < 0:
+            raise ValueError(
+                f"cap_frontier must be >= 0 (0 = forced full-capacity "
+                f"fallback) or None, got {self.cap_frontier!r}"
             )
         if self.batch_stats_trigger is not None:
             from pumiumtally_tpu_torch.stats.triggers import TriggerSpec

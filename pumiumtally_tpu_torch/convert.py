@@ -9,10 +9,12 @@ no JAX import here) and build the port's object from such a dict:
   volumes, and its walk tables: walk_table, or the two-tier
   walk_table_lo (as its uint16 bit pattern) and walk_table_hi;
 - a ``MeshPartition``: the block tables (``table_hi`` too when two-tier;
-  a bf16 ``table`` as its uint16 bits) and the id maps;
+  a bf16 ``table`` as its uint16 bits; ``adj_int`` where the partition
+  has the int32 adjacency sidecar) and the id maps;
 - a facade: its particle state and flux (``PumiTally``: x, elem, flux;
   ``PartitionedPumiTally``: every engine slot row, ``sbin``/``sfac``
-  included, plus the padded flux), its scoring bank (``score_bank``, or
+  included, plus the padded flux; the partition, its sidecar included,
+  is the engine's own and is rebuilt, never carried), its scoring bank (``score_bank``, or
   the engine's ``score_padded``) and its statistics lanes
   (``stats_*`` over the flux, ``sstats_*`` over the bank: the JAX
   checkpoint's names);
@@ -123,12 +125,14 @@ def tetmesh_from_arrays(arrays: Dict[str, Any],
 
 def partition_arrays(part) -> Dict[str, Any]:
     """A MeshPartition of either package as host values (``table_hi``
-    only when two-tier; ``table`` is then the bf16 tier's bits)."""
+    only when two-tier, ``table`` then the bf16 tier's bits; ``adj_int``
+    only with the sidecar)."""
     out = {k: host(getattr(part, k)) for k in PARTITION_KEYS}
     for k in ("ndev", "nelems", "L"):
         out[k] = int(out[k])
-    if getattr(part, "table_hi", None) is not None:
-        out["table_hi"] = host(part.table_hi)
+    for k in ("table_hi", "adj_int"):
+        if getattr(part, k, None) is not None:
+            out[k] = host(getattr(part, k))
     return out
 
 
@@ -158,6 +162,7 @@ def partition_from_arrays(arrays: Dict[str, Any],
         L=int(arrays["L"]), owner=np.asarray(arrays["owner"], np.int32),
         glid_of_orig=ids("glid_of_orig"), orig_of_glid=ids("orig_of_glid"),
         table=table_t, table_hi=table_hi,
+        adj_int=ids("adj_int") if "adj_int" in arrays else None,
     )
 
 

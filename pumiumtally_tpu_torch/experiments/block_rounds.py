@@ -91,10 +91,10 @@ def record_move(t, origins, dests) -> list:
     rounds = []
     walk_round = eng._round
 
-    def spy(st, tally):
+    def spy(st, tally, *rest):
         if tally:
             rounds.append(dict(st))
-        return walk_round(st, tally)
+        return walk_round(st, tally, *rest)
 
     eng._round = spy
     try:

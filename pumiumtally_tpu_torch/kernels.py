@@ -16,13 +16,15 @@ it launches its kernel, and nowhere else, so a caller can show that a
 path really went through the kernels (``reset_launch_counts`` first).
 An entry is one C entry point of a library: ``walk`` (W0),
 ``walk_twotier`` (W0's two-tier variant, in the same library),
-``block_walk`` (W1), ``twotier_block_walk`` (W2), ``resident_walk`` (W3)
-and the two entries of the row gather G1, ``row_gather_take`` (K4's
-counterpart) and ``row_gather_take_along_axis`` (K5's). The scoring
-instantiations of W0 and W2 are entries of their own, counted apart:
-``walk_scored``, ``walk_twotier_scored`` and
-``twotier_block_walk_scored`` (each takes its scoring arguments ahead
-of the plain entry's).
+``block_walk`` (W1), ``twotier_block_walk`` (W2), ``resident_walk`` (W3),
+the two entries of the row gather G1, ``row_gather_take`` (K4's
+counterpart) and ``row_gather_take_along_axis`` (K5's), and the gather
+block walk W4, ``gather_block_walk`` (packed rows, adjacency in the rows
+or in the int32 sidecar) and ``gather_block_walk_twotier``. The scoring
+instantiations of W0, W2 and W4 are entries of their own, counted apart:
+``walk_scored``, ``walk_twotier_scored``, ``twotier_block_walk_scored``,
+``gather_block_walk_scored`` and ``gather_block_walk_twotier_scored``
+(each takes its scoring arguments ahead of the plain entry's).
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ SOURCES = {
     "twotier_block_walk": "twotier_block_walk.cu",
     "resident_walk": "resident_walk.cu",
     "row_gather": "row_gather.cu",
+    "gather_block_walk": "gather_block_walk.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -63,6 +66,9 @@ _BOTH = ("f32", "f64")
 # nscores, kinds, and for W0 bank_size (W2 drops by its slice's stride).
 _W2_SCORE = [_P] * 3 + [_I] * 3
 _SCORE = _W2_SCORE + [_I]
+# W4's arguments after its two tables: 15 pointers (slots in and out,
+# iters, the occupied-block list), n_occ, L, cb, tol, max_iters, tally.
+_W4 = [_P] * 17 + [_I, _I, _I, _D, _I, _I, _P]
 # C entry points: entry -> (library, argtypes, dtypes); the entry's
 # dtypes share its argtypes (``pumi_<entry>_f32`` / ``pumi_<entry>_f64``).
 _ENTRY_ARGS = {
@@ -91,6 +97,13 @@ _ENTRY_ARGS = {
                         ("f32",)),
     "row_gather_take_along_axis": (
         "row_gather", [_P] * 3 + [_I, _I, _I, _D, _P], ("f32",),
+    ),
+    "gather_block_walk": ("gather_block_walk", _W4, _BOTH),
+    "gather_block_walk_twotier": ("gather_block_walk", _W4, _BOTH),
+    "gather_block_walk_scored": ("gather_block_walk", _W2_SCORE + _W4,
+                                 _BOTH),
+    "gather_block_walk_twotier_scored": (
+        "gather_block_walk", _W2_SCORE + _W4, _BOTH,
     ),
 }
 

@@ -1,5 +1,5 @@
 """Partitioned mesh on ONE device: element blocks + particle migration
-(port of the single-device, block-kernel subset of
+(port of the single-device subset of
 ``pumiumtally_tpu/parallel/partition.py``).
 
 - **Ownership**: recursive coordinate bisection (RCB) of element
@@ -9,17 +9,31 @@
   padded to a common length L; the packed walk table is rebuilt with
   LOCAL adjacency: a local id, -1 for the domain boundary, or
   -(glid+2) for a neighbour in another block (glid = block*L + local).
-  With ``table_dtype="bfloat16"`` the blocks carry the two-tier tables
-  instead: ``table`` is the bf16 select tier and ``table_hi`` the
-  per-face refinement tier, whose adj lane holds the local encoding.
+  Past the float dtype's exact-id range (or with ``force_split_adj``)
+  the adjacency moves to an int32 sidecar ``adj_int [nparts*L, 4]`` and
+  the table's adjacency lanes stay 0. With ``table_dtype="bfloat16"``
+  the blocks carry the two-tier tables instead: ``table`` is the bf16
+  select tier and ``table_hi`` the per-face refinement tier, whose adj
+  lane holds the local encoding (never a sidecar).
 - **Walk**: each round runs a block walk that pauses a particle at a
-  block face with ``pending = glid``: W1 (ops/vmem_walk.py) on the
-  packed tables, W2 (ops/pallas_walk.py, ``walk_kernel="pallas"``) on
-  the two-tier tables.
+  block face with ``pending = glid``: W1 (ops/vmem_walk.py) where every
+  block fits ``walk_vmem_max_elems`` on the packed tables, W2
+  (ops/pallas_walk.py, ``walk_kernel="pallas"``) on the two-tier tables,
+  and otherwise the gather block walk ``walk_local`` (kernel W4,
+  csrc/gather_block_walk.cu): one block of the whole mesh when no bound
+  is set (the default configuration), or the gather sub-split, which
+  walks only the blocks that hold a not-done slot (the occupied-block
+  list, kept per block from round to round).
 - **Migration**: paused particles move to their target block's slot
-  range by a stable rank per target (``migrate``); a round whose targets
-  overflow a block's capacity keeps the old state (overflow-safe
-  commit) and the engine raises.
+  range by a stable rank per target (``migrate``), or, with
+  ``cap_frontier``, only the paused rows move through a slab of that
+  many slots (``_frontier_migrate_impl``: stayers keep their slots); a
+  front larger than the slab falls back to the full migrate. A round
+  whose targets overflow a block's slots keeps the old state
+  (overflow-safe commit) and the recovery ladder takes over
+  (``PartitionedEngine._recover_overflow``): a full-migrate retry, a
+  capacity escalation sized by demand, the terminal escalation, then
+  the engine is poisoned.
 
 Localization is point location against the block tables (the
 full-precision refinement tier when two-tier), as in the JAX engine.
@@ -28,26 +42,34 @@ bank ``score_padded [nparts*L*B*S]`` beside ``flux_padded``, and two
 state rows per slot, the bin offset ``sbin`` and the factor row
 ``sfac``, staged each move through ``move(sbin_n=, sfac_n=)`` and
 migrated with their particles. Tallying rounds thread the bank through
-W2's scoring lanes; localization and phase A never score. The JAX engine
-scores the float32 tables through its gather walk ``walk_local``, so a
-scoring engine on W1 raises.
+W2's or W4's scoring lanes (the float32 tables score through W4, as
+the JAX engine scores them through ``walk_local``); localization and
+phase A never score.
 
-Left out against the JAX engine (ROADMAP.md): the gather block
-walk (``walk_local``, also the JAX route for bf16 tables with the vmem
-kernel and for scoring on the float32 tables), multi-device meshes and
-collectives, the frontier-slab migrate, the overflow-recovery ladder,
-the sentinel hooks and the profiled per-round programs.
+The round loop runs on the host: it reads each round's paused and
+not-done counts (and, for the gather sub-split, the occupied-block
+list) before it decides what to launch, so the engine checks a round's
+overflow on the host and runs the ladder itself.
+
+Left out against the JAX engine (ROADMAP.md): multi-device meshes and
+collectives (``migrate_collective``, ``placement="pod_rcb"``), the
+straggler rungs ``retry_stragglers`` / ``declare_lost_stragglers`` and
+the compaction cascade (each particle walks to completion or to a
+pause; TallyConfig's cascade knobs are accepted and inert).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional
+import time
+import warnings
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from pumiumtally_tpu_torch.config import ROADMAP_GATHER_BLOCKS
+from pumiumtally_tpu_torch import kernels
 from pumiumtally_tpu_torch.mesh.tetmesh import (
     WALK_PLANE_WIDTH,
     WALK_TABLE_ADJ,
@@ -60,7 +82,7 @@ from pumiumtally_tpu_torch.mesh.tetmesh import (
     TetMesh,
     exact_id_limit,
 )
-from pumiumtally_tpu_torch.ops.bucketize import counting_ranks
+from pumiumtally_tpu_torch.ops.bucketize import counting_ranks, partition_perm
 from pumiumtally_tpu_torch.ops.geometry import locate_chunk_by_planes
 from pumiumtally_tpu_torch.ops.pallas_walk import pallas_walk_local
 from pumiumtally_tpu_torch.ops.vmem_walk import (
@@ -68,11 +90,31 @@ from pumiumtally_tpu_torch.ops.vmem_walk import (
     effective_vmem_bound,
     vmem_walk_local,
 )
+from pumiumtally_tpu_torch.ops.walk import (
+    check_scoring,
+    count_mask,
+    eff_weight,
+    refine_face_hi,
+    score_pair,
+    select_faces_lo,
+)
 
 OVERFLOW_MESSAGE = (
     "partitioned-mode chip capacity exceeded during particle "
     "migration; raise TallyConfig.capacity_factor"
 )
+
+LADDER_EXHAUSTED_MESSAGE = (
+    "partitioned-mode chip capacity exceeded during particle migration "
+    "and the recovery ladder (full-capacity retry, one host-side "
+    "capacity escalation) could not place the particles; the engine is "
+    "poisoned — resume from checkpoint with a larger "
+    "TallyConfig.capacity_factor"
+)
+
+_N0 = WALK_TABLE_NORMALS.start
+_O0 = WALK_TABLE_OFFSETS.start
+_A0 = WALK_TABLE_ADJ.start
 
 
 # ---------------------------------------------------------------------------
@@ -114,12 +156,16 @@ class MeshPartition:
     owner: np.ndarray  # [E] original elem -> part
     glid_of_orig: torch.Tensor  # [E] int32, original elem -> padded glid
     orig_of_glid: torch.Tensor  # [ndev*L] int32, glid -> orig elem (-1 pad)
-    # [ndev*L, 20] packed rows, adjacency local-encoded; or, two-tier,
-    # the [ndev*L, 16] bf16 select rows (adjacency then rides table_hi).
+    # [ndev*L, 20] packed rows, adjacency local-encoded (or 0 when the
+    # sidecar holds it); or, two-tier, the [ndev*L, 16] bf16 select
+    # rows (adjacency then rides table_hi).
     table: torch.Tensor
     # Two-tier refinement tier: [ndev*L*4, 5] (plane, local-encoded adj)
     # rows, row glid*4 + f; None for the packed layout.
     table_hi: Optional[torch.Tensor] = None
+    # [ndev*L, 4] int32 local-encoded adjacency when the padded ids do
+    # not fit the float dtype (or forced); None otherwise.
+    adj_int: Optional[torch.Tensor] = None
 
     def flux_to_original(self, flux_padded: torch.Tensor) -> torch.Tensor:
         """Reorder an owned [ndev*L] flux into original element order."""
@@ -139,10 +185,10 @@ def derive_blocks_per_chip(
 
 
 def resolve_block_kernel(block_kernel: str, table_dtype: str) -> str:
-    """The block kernel a partition runs: "vmem" (W1, packed tables) or
-    "pallas" (W2, two-tier only). Where the JAX package reroutes bf16
-    tables with the vmem kernel to its gather block walk, the port
-    refuses: that walk is not ported."""
+    """The block kernel a partition runs: "vmem" (W1, packed tables),
+    "gather" (W4) or "pallas" (W2, two-tier only). bf16 tables with the
+    vmem kernel reroute to the gather block walk, logged, as in the JAX
+    package (W1 has no two-tier form)."""
     if block_kernel == "pallas":
         if table_dtype != "bfloat16":
             raise ValueError(
@@ -151,13 +197,16 @@ def resolve_block_kernel(block_kernel: str, table_dtype: str) -> str:
                 "partition with table_dtype='bfloat16'"
             )
         return block_kernel
-    if block_kernel == "gather" or table_dtype == "bfloat16":
-        raise NotImplementedError(
-            f"block_kernel={block_kernel!r} with table_dtype="
-            f"{table_dtype!r} runs the gather block walk in the JAX "
-            f"package, which is not ported yet ({ROADMAP_GATHER_BLOCKS}); "
-            "bfloat16 tables run with walk_kernel='pallas'"
+    if table_dtype == "bfloat16" and block_kernel == "vmem":
+        from pumiumtally_tpu_torch.utils.logging import get_logger
+
+        get_logger().info(
+            "bfloat16 tables with block_kernel='vmem': the vmem "
+            "kernel has no two-tier lowering — rerouting blocked "
+            "walks to the gather kernel (set walk_kernel='pallas' "
+            "for the two-tier one-kernel walk, ops/pallas_walk.py)"
         )
+        return "gather"
     return block_kernel
 
 
@@ -180,20 +229,16 @@ def build_partition(mesh: TetMesh, ndev: int,
                     table_dtype: str = "float32") -> MeshPartition:
     """Partition ``mesh`` into ``ndev`` contiguous padded element blocks
     on the mesh's device. ``table_dtype="bfloat16"`` builds the two-tier
-    block tables. ``force_split_adj`` (the JAX package's int32-adjacency
-    sidecar) is not ported."""
+    block tables. ``force_split_adj`` stores the adjacency in the int32
+    sidecar even where the float dtype holds the ids exactly (the
+    automatic choice past that range)."""
     dtype = mesh.dtype if dtype is None else dtype
     two_tier = table_dtype == "bfloat16"
-    if force_split_adj:
-        if two_tier:
-            raise ValueError(
-                "force_split_adj is incompatible with table_dtype="
-                "'bfloat16': two-tier partitions carry adjacency in the "
-                "refinement rows' float lane, never in an int32 sidecar"
-            )
-        raise NotImplementedError(
-            f"the int32-adjacency sidecar is not ported yet "
-            f"({ROADMAP_GATHER_BLOCKS})"
+    if two_tier and force_split_adj:
+        raise ValueError(
+            "force_split_adj is incompatible with table_dtype="
+            "'bfloat16': two-tier partitions carry adjacency in the "
+            "refinement rows' float lane, never in an int32 sidecar"
         )
     device = mesh.device
     coords = mesh.coords.double().cpu().numpy()
@@ -205,7 +250,10 @@ def build_partition(mesh: TetMesh, ndev: int,
     owner = rcb_partition(coords[tet2vert].mean(axis=1), ndev)
     counts = np.bincount(owner, minlength=ndev)
     L = int(counts.max())
-    if two_tier and ndev * L + 2 >= exact_id_limit(dtype):
+    # Remote faces encode -(glid+2) with glid < ndev*L: that magnitude
+    # must survive the float table; past it the sidecar holds the ids.
+    ids_fit = ndev * L + 2 < exact_id_limit(dtype)
+    if two_tier and not ids_fit:
         raise ValueError(
             f"two-tier partition tables store local-encoded neighbor "
             f"ids in {str(dtype).removeprefix('torch.')} refinement rows; "
@@ -213,12 +261,7 @@ def build_partition(mesh: TetMesh, ndev: int,
             "(use walk_table_dtype='float32', whose int32 adjacency "
             "sidecar has no ceiling)"
         )
-    if ndev * L + 2 >= exact_id_limit(dtype):
-        raise NotImplementedError(
-            f"{ndev}x{L} padded elements exceed the exact float-id range "
-            f"of {dtype}; the int32-adjacency sidecar is not ported yet "
-            f"({ROADMAP_GATHER_BLOCKS})"
-        )
+    split_adj = force_split_adj or not ids_fit
     # Renumber: elements of part d occupy glids [d*L, d*L+counts[d]).
     order = np.argsort(owner, kind="stable")
     rank_in_part = np.empty(ne, dtype=np.int64)
@@ -241,16 +284,17 @@ def build_partition(mesh: TetMesh, ndev: int,
     ).astype(np.float64)
     # Padding rows have no crossing faces (zero normals), adjacency -1,
     # and are never entered.
-    table_hi = None
+    adj_full = np.full((ndev * L, 4), -1.0)
+    adj_full[glid_of_orig] = local_adj
+    table_hi = adj_int = None
     if two_tier:
         lo = np.zeros((ndev * L, WALK_TABLE_LO_WIDTH), dtype=np.float64)
         lo[glid_of_orig, WALK_TABLE_LO_NORMALS] = normals.reshape(ne, 12)
         lo[glid_of_orig, WALK_TABLE_LO_OFFSETS] = offsets
         hi = np.zeros((ndev * L, 4, WALK_PLANE_WIDTH), dtype=np.float64)
-        hi[:, :, 4] = -1.0
+        hi[:, :, 4] = adj_full
         hi[glid_of_orig, :, 0:3] = normals
         hi[glid_of_orig, :, 3] = offsets
-        hi[glid_of_orig, :, 4] = local_adj
         table = torch.as_tensor(lo).to(device=device, dtype=torch.bfloat16)
         table_hi = torch.as_tensor(
             hi.reshape(ndev * L * 4, WALK_PLANE_WIDTH), dtype=dtype,
@@ -258,18 +302,335 @@ def build_partition(mesh: TetMesh, ndev: int,
         )
     else:
         packed = np.zeros((ndev * L, WALK_TABLE_WIDTH), dtype=np.float64)
-        packed[:, WALK_TABLE_ADJ] = -1.0
         packed[glid_of_orig, WALK_TABLE_NORMALS] = normals.reshape(ne, 12)
         packed[glid_of_orig, WALK_TABLE_OFFSETS] = offsets
-        packed[glid_of_orig, WALK_TABLE_ADJ] = local_adj
+        if split_adj:
+            adj_int = torch.as_tensor(adj_full.astype(np.int32),
+                                      device=device)
+        else:
+            packed[:, WALK_TABLE_ADJ] = adj_full
         table = torch.as_tensor(packed, dtype=dtype, device=device)
     return MeshPartition(
         ndev=ndev, nelems=ne, L=L, owner=owner,
         glid_of_orig=torch.as_tensor(glid_of_orig.astype(np.int32),
                                      device=device),
         orig_of_glid=torch.as_tensor(orig_of_glid, device=device),
-        table=table, table_hi=table_hi,
+        table=table, table_hi=table_hi, adj_int=adj_int,
     )
+
+
+# ---------------------------------------------------------------------------
+# The gather block walk W4
+# ---------------------------------------------------------------------------
+
+def exit_cols_x0(row, s, x0, d0, tol, adj=None):
+    """One packed crossing for every row of a lock-step batch, the JAX
+    ``walk_local`` form: ``b = off - n.x0`` against the round's start
+    ``x0`` (W0's and W1's ``advance_cols`` use ``off - n.dest + a``,
+    which rounds differently). ``row`` is [N,20]; ``adj`` the [N,4]
+    int32 sidecar rows, or None to read the row's adjacency lanes.
+    Returns (s_exit, next_elem), s_exit not yet clamped to 1; the
+    operation order of csrc/gather_block_walk.cu."""
+    one = torch.ones((), dtype=s.dtype, device=s.device)
+    inf = torch.full((), float("inf"), dtype=s.dtype, device=s.device)
+    s_exit = nxt = None
+    for f in range(4):
+        nx, ny, nz = (row[:, _N0 + 3 * f + c] for c in range(3))
+        a = nx * d0[:, 0] + ny * d0[:, 1] + nz * d0[:, 2]
+        n_x0 = nx * x0[:, 0] + ny * x0[:, 1] + nz * x0[:, 2]
+        b = row[:, _O0 + f] - n_x0
+        crossing = a * (one - s) > tol
+        s_f = torch.where(crossing, b / torch.where(crossing, a, one), inf)
+        s_f = torch.maximum(s_f, s)
+        nb = adj[:, f] if adj is not None else row[:, _A0 + f].to(torch.int32)
+        if f == 0:
+            s_exit, nxt = s_f, nb
+        else:
+            better = s_f < s_exit  # strict: the first minimal face wins
+            s_exit = torch.where(better, s_f, s_exit)
+            nxt = torch.where(better, nb, nxt)
+    return s_exit, nxt
+
+
+def walk_local_plain(table, x, lelem, dest, flying, weight, done, exited,
+                     flux, *, tally: bool, tol: float, max_iters: int,
+                     adj_int=None, table_hi=None, scoring=None):
+    """W4's plain PyTorch version: the JAX ``walk_local`` on ONE block
+    (its no-cascade form), a masked lock-step loop.
+
+    ``table`` is the block's [L,20] packed rows, or its [L,16] bf16
+    select rows when ``table_hi`` (its [L*4,5] refinement rows) is
+    given; ``adj_int`` the block's [L,4] int32 sidecar rows (packed
+    only). A crossing into another block (adjacency <= -2) pauses the
+    particle with ``pending = -nxt-2`` and ``lelem`` unchanged; -1 ends
+    it as exited. ``flux`` ([L], None when not tallying) and the scoring
+    bank are updated IN PLACE. ``iters`` is the most steps any particle
+    took (the JAX value may exceed it by up to ``cond_every``). Returns
+    ``(x, lelem, done, exited, pending, flux, iters)``, plus the bank
+    when ``scoring = (kinds, bank [L*stride], bin_off, fac)``."""
+    return _walk_loop(table, x, lelem, dest, flying, weight, done, exited,
+                      flux, tally=tally, tol=tol, max_iters=max_iters,
+                      adj_int=adj_int, table_hi=table_hi, scoring=scoring)
+
+
+def _walk_loop(table, x, lelem, dest, flying, weight, done, exited, flux, *,
+               tally, tol, max_iters, adj_int, table_hi, scoring, base=None,
+               lane_end=None):
+    """``walk_local_plain``'s loop. ``base`` (int64 [n], None: 0) offsets
+    each slot's rows into stacked blocks, so that one lock-step loop
+    walks the slots of several blocks (each slot's steps are its own,
+    and so is the order of the additions into each element's flux);
+    ``lane_end`` ([n], None: the bank's size) is each slot's DROP limit,
+    the end of its block's bank slice."""
+    n = x.shape[0]
+    if tally and flux is None:
+        raise ValueError("a tallying walk needs a flux tensor")
+    if scoring is not None:
+        stride = check_scoring("walk_local_plain", scoring,
+                               flux if tally else None, n)
+        kinds, bank, bin_off, fac = scoring
+        limit = (torch.full((n,), bank.numel(), device=x.device)
+                 if lane_end is None else lane_end)
+        limit = limit.repeat_interleave(len(kinds))
+    x0 = x
+    d0 = dest - x0
+    eff_w = eff_weight(d0, flying, weight) if tally else None
+    tol_t = torch.tensor(tol, dtype=x.dtype, device=x.device)
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    # Two-tier: the ray's destination rebuilt from the invariants, as the
+    # JAX walk hands it to the tier helpers.
+    dest_c = x0 + d0 if table_hi is not None else None
+    s = torch.zeros((n,), dtype=x.dtype, device=x.device)
+    lelem = lelem.to(torch.int32).clone()
+    done = done.clone()
+    exited = exited.clone()
+    pending = torch.full((n,), -1, dtype=torch.int32, device=x.device)
+    iters = 0
+    while iters < max_iters:
+        active = ~done & (pending < 0)
+        if not bool(active.any()):
+            break
+        rows = lelem.long() if base is None else base + lelem.long()
+        if table_hi is not None:
+            s_sel, f_exit = select_faces_lo(table, s, rows, dest_c, d0, tol_t)
+            s_exit, nxt = refine_face_hi(table_hi, s, rows, f_exit, s_sel,
+                                         dest_c, d0, tol_t)
+        else:
+            s_exit, nxt = exit_cols_x0(
+                table[rows], s, x0, d0, tol_t,
+                None if adj_int is None else adj_int[rows])
+        reached = s_exit >= one
+        s_new = torch.where(reached, one, s_exit)
+        hit_boundary = ~reached & (nxt == -1)
+        goes_remote = ~reached & (nxt <= -2)
+        if tally:
+            contrib = torch.where(active, (s_new - s) * eff_w,
+                                  torch.zeros_like(s))
+            flux.index_add_(0, rows, contrib)
+            if scoring is not None:
+                # A pause at a block face commits its crossing: counted
+                # once across the migration.
+                crossed = (active & ~reached).to(contrib.dtype)
+                sidx, sval = score_pair(kinds, stride, rows, bin_off, fac,
+                                        contrib, crossed)
+                keep = sidx < limit
+                bank.index_add_(0, sidx[keep], sval[keep])
+        moving = active & ~reached & ~hit_boundary & ~goes_remote
+        lelem = torch.where(moving, nxt, lelem)
+        s = torch.where(active, s_new, s)
+        pending = torch.where(active & goes_remote, -nxt - 2, pending)
+        done = done | (active & (reached | hit_boundary))
+        exited = exited | (active & hit_boundary)
+        iters += 1
+    # A particle that reached its destination commits dest bit-exactly;
+    # everyone else commits x0 + s*d0 from the round's start x0.
+    x_fin = torch.where((done & ~exited)[:, None], dest,
+                        x0 + s[:, None] * d0)
+    out = (x_fin, lelem, done, exited, pending, flux,
+           torch.tensor(iters, dtype=torch.int32, device=x.device))
+    return out + (bank,) if scoring is not None else out
+
+
+def _block_layout(table, table_hi, adj_int, n: int, blocks: int):
+    """Validate the stacked-block layout; returns (L, slots a block)."""
+    rows = table.shape[0]
+    if n % blocks or rows % blocks:
+        raise ValueError(
+            f"blocked walk needs slots and table rows divisible into "
+            f"{blocks} blocks, got S={n}, rows={rows}"
+        )
+    if table_hi is not None:
+        if adj_int is not None:
+            raise ValueError("a two-tier walk carries its adjacency in the "
+                             "refinement rows: no int32 sidecar")
+        if tuple(table_hi.shape) != (rows * 4, WALK_PLANE_WIDTH):
+            raise ValueError(
+                f"table_hi has shape {tuple(table_hi.shape)}, needs "
+                f"{(rows * 4, WALK_PLANE_WIDTH)}"
+            )
+    return rows // blocks, n // blocks
+
+
+def _walk_local_cuda(table, x, lelem, dest, flying, weight, done, exited,
+                     flux, *, tally, tol, max_iters, adj_int, table_hi,
+                     scoring, blocks, block_ids):
+    dev, dt = x.device, x.dtype
+    n = x.shape[0]
+    L, cb = _block_layout(table, table_hi, adj_int, n, blocks)
+    two_tier = table_hi is not None
+    if two_tier:
+        entry = "gather_block_walk_twotier"
+        tables = [("table_lo", table, torch.bfloat16,
+                   (blocks * L, WALK_TABLE_LO_WIDTH)),
+                  ("table_hi", table_hi, dt, (blocks * L * 4,
+                                              WALK_PLANE_WIDTH))]
+    else:
+        entry = "gather_block_walk"
+        tables = [("table", table, dt, (blocks * L, WALK_TABLE_WIDTH)),
+                  ("adj_int", adj_int, torch.int32, (blocks * L, 4))]
+    kernels.check_aligned("walk_local", [tables[0][:2], tables[1][:2]])
+    kernels.check_cuda_args("walk_local", dev, tables + [
+        ("x", x, dt, (n, 3)),
+        ("lelem", lelem, torch.int32, (n,)),
+        ("dest", dest, dt, (n, 3)),
+        ("flying", flying, torch.int8, (n,)),
+        ("weight", weight, dt, (n,)),
+        ("done", done, torch.bool, (n,)),
+        ("exited", exited, torch.bool, (n,)),
+        ("flux", flux if tally else None, dt, (blocks * L,)),
+        ("block_ids", block_ids, torch.int32, (None,)),
+    ])
+    score_args = ()
+    if scoring is not None:
+        stride = check_scoring("walk_local", scoring,
+                               flux if tally else None, n)
+        kinds, bank, bin_off, fac = scoring
+        kernels.check_cuda_args("walk_local", dev, [
+            ("bank", bank, dt, (blocks * L * stride,)),
+            ("bin_off", bin_off, torch.int32, (n,)),
+            ("fac", fac, dt, (n, len(kinds))),
+        ])
+        if L * stride >= 2**31:
+            raise ValueError("walk_local: a block's bank of 2**31 lanes or "
+                             "more does not fit the kernel's int32 lanes")
+        entry += "_scored"
+        score_args = (kernels.ptr(bank), kernels.ptr(bin_off),
+                      kernels.ptr(fac), stride, len(kinds),
+                      count_mask(kinds))
+    n_occ = blocks if block_ids is None else int(block_ids.numel())
+    # Slots of blocks the launch does not walk keep their carries and
+    # get pending -1 (the JAX walk of an all-done batch).
+    partial_walk = n_occ < blocks
+    if partial_walk:
+        out = (x.clone(), lelem.clone(), done.clone(), exited.clone(),
+               torch.full((n,), -1, dtype=torch.int32, device=dev))
+    else:
+        out = (torch.empty((n, 3), dtype=dt, device=dev),
+               torch.empty((n,), dtype=torch.int32, device=dev),
+               torch.empty((n,), dtype=torch.bool, device=dev),
+               torch.empty((n,), dtype=torch.bool, device=dev),
+               torch.empty((n,), dtype=torch.int32, device=dev))
+    out += (torch.zeros((), dtype=torch.int32, device=dev),)
+    x_out, lelem_out, done_out, exited_out, pending, iters = out
+    if n_occ and cb:
+        p = kernels.ptr
+        kernels.launch(
+            entry, dt, dev, *score_args, *(p(t) for _, t, _, _ in tables),
+            p(x), p(lelem), p(dest), p(flying), p(weight), p(done),
+            p(exited), p(flux if tally else None), p(x_out), p(lelem_out),
+            p(done_out), p(exited_out), p(pending), p(iters), p(block_ids),
+            n_occ, L, cb, float(tol), int(max_iters), int(bool(tally)),
+        )
+    res = (x_out, lelem_out, done_out, exited_out, pending, flux, iters)
+    return res + (scoring[1],) if scoring is not None else res
+
+
+def walk_local(table, x, lelem, dest, flying, weight, done, exited, flux,
+               *, tally: bool, tol: float, max_iters: int, adj_int=None,
+               table_hi=None, scoring=None, blocks: int = 1,
+               block_ids: Optional[torch.Tensor] = None):
+    """The gather block walk over ``blocks`` stacked blocks: returns
+    ``(x, lelem, done, exited, pending, flux, iters)``, plus the bank
+    when scoring (the JAX ``walk_local``'s tuple).
+
+    ``table`` (and ``adj_int`` / ``table_hi``) stack ``blocks`` blocks
+    of L rows (``table_hi``: 4L rows); the S slots are grouped by block
+    (``S // blocks`` each) with block-local ``lelem``; ``flux`` is
+    [blocks*L] and ``scoring``'s bank [blocks*L*stride], both updated IN
+    PLACE (``walk_local_plain`` states the walk). ``block_ids`` (int32,
+    on the slots' device) lists the blocks to walk, the occupied-block
+    list of the gather sub-split; None walks all. A block not listed
+    keeps its slots' x, lelem, done and exited and gets pending -1, and
+    its flux is untouched. ``iters`` is the largest over the walked
+    blocks. There is no compaction cascade: each particle walks to completion or to a
+    pause.
+
+    CUDA tensors launch kernel W4 (csrc/gather_block_walk.cu; counted
+    as ``gather_block_walk``, ``gather_block_walk_twotier`` and their
+    ``_scored`` instantiations), once for all listed blocks; CPU tensors
+    run ``walk_local_plain`` block by block."""
+    blocks = int(blocks)
+    if tally and flux is None:
+        raise ValueError("a tallying walk needs a flux tensor")
+    if x.is_cuda:
+        return _walk_local_cuda(
+            table, x, lelem, dest, flying, weight, done, exited, flux,
+            tally=tally, tol=tol, max_iters=max_iters, adj_int=adj_int,
+            table_hi=table_hi, scoring=scoring, blocks=blocks,
+            block_ids=block_ids)
+    if x.device.type != "cpu":
+        raise ValueError(
+            f"walk_local runs on CUDA or CPU tensors, not {x.device}")
+    if blocks == 1 and block_ids is None:
+        return walk_local_plain(table, x, lelem, dest, flying, weight, done,
+                                exited, flux, tally=tally, tol=tol,
+                                max_iters=max_iters, adj_int=adj_int,
+                                table_hi=table_hi, scoring=scoring)
+    return walk_local_blocks_plain(
+        table, x, lelem, dest, flying, weight, done, exited, flux,
+        tally=tally, tol=tol, max_iters=max_iters, adj_int=adj_int,
+        table_hi=table_hi, scoring=scoring, blocks=blocks,
+        block_ids=block_ids)
+
+
+def walk_local_blocks_plain(table, x, lelem, dest, flying, weight, done,
+                            exited, flux, *, tally: bool, tol: float,
+                            max_iters: int, adj_int=None, table_hi=None,
+                            scoring=None, blocks: int = 1,
+                            block_ids: Optional[torch.Tensor] = None):
+    """``walk_local``'s stacked-block contract in plain PyTorch: the
+    slots of the listed blocks walk as ``walk_local_plain`` walks each
+    block's slice (in one lock-step loop, rows offset to their block,
+    scoring lanes dropped at their block's bank slice end); the other
+    slots are kept with pending -1. The wrapper's CPU path, and W4's
+    plain version on the card."""
+    n = x.shape[0]
+    L, cb = _block_layout(table, table_hi, adj_int, n, blocks)
+    slot_block = torch.arange(n, device=x.device) // max(cb, 1)
+    if block_ids is None:
+        sel = torch.arange(n, device=x.device)
+    else:
+        walked = torch.zeros((blocks,), dtype=torch.bool, device=x.device)
+        walked[block_ids.long()] = True
+        sel = walked[slot_block].nonzero().squeeze(1)
+    sc = lane_end = None
+    if scoring is not None:
+        kinds, bank, bin_off, fac = scoring
+        stride = bank.numel() // (blocks * L)
+        sc = (kinds, bank, bin_off[sel], fac[sel])
+        lane_end = (slot_block[sel] + 1) * L * stride
+    r = _walk_loop(table, x[sel], lelem[sel], dest[sel], flying[sel],
+                   weight[sel], done[sel], exited[sel], flux, tally=tally,
+                   tol=tol, max_iters=max_iters, adj_int=adj_int,
+                   table_hi=table_hi, scoring=sc, base=slot_block[sel] * L,
+                   lane_end=lane_end)
+    res = [x.clone(), lelem.to(torch.int32).clone(), done.clone(),
+           exited.clone(),
+           torch.full((n,), -1, dtype=torch.int32, device=x.device)]
+    for k in range(5):
+        res[k][sel] = r[k]
+    out = (*res, flux, r[6])
+    return out + (scoring[1],) if scoring is not None else out
 
 
 # ---------------------------------------------------------------------------
@@ -301,7 +662,7 @@ def migrate(part_L: int, nparts: int, cap_per_block: int,
     ``rank`` its stable rank among the slots of the same target, the
     JAX package's exact permutation. Returns ``(new_state, overflow)``;
     on overflow (some block received more particles than its slots) the
-    OLD state is returned unchanged, so the caller can stop over intact
+    OLD state is returned unchanged, so the caller recovers from intact
     state."""
     cap = state["pid"].shape[0]
     dev = state["pid"].device
@@ -332,6 +693,183 @@ def migrate(part_L: int, nparts: int, cap_per_block: int,
     return new_state, False
 
 
+def _occupancy_counts(done: torch.Tensor, nparts: int) -> torch.Tensor:
+    """[nparts] int32 count of not-done slots per block: the
+    occupied-block list's ground truth, one full scan."""
+    return (~done).view(nparts, -1).sum(dim=1, dtype=torch.int32)
+
+
+def _frontier_migrate_impl(part_L: int, nparts: int, cap_per_block: int,
+                           cap_frontier: int,
+                           state: Dict[str, torch.Tensor]):
+    """Frontier-slab migration (the JAX function's placement, row for
+    row): the pending rows are compacted, in slot order, into a slab of
+    ``cap_frontier`` rows, and only they move. Stayer-fixed placement:
+    non-pending slots keep their slots, departing slots reset to the
+    dead-slot defaults, and arrivals take their target block's free
+    slots in ascending slot order, arrivals ordered by source slot.
+    The overflow condition is ``migrate``'s: a block overflows iff its
+    stayers and arrivals exceed its slots. The caller guarantees that
+    the front fits the slab (``_migrate_round``).
+
+    Returns ``(state, overflow, departures, arrivals)``, the [nparts]
+    int32 counts feeding ``_update_occupancy``; on overflow the OLD
+    state comes back unchanged."""
+    cap = state["pid"].shape[0]
+    dev = state["pid"].device
+    pending = state["pending"].long()
+    alive = state["alive"]
+    moving = pending >= 0
+    iota = torch.arange(cap, device=dev)
+    slot_part = iota // cap_per_block
+    # Stable slab compaction: pending rows front-packed in slot order.
+    perm, counts, _ = partition_perm((~moving).long(), 2)
+    src = perm[:cap_frontier]
+    valid = torch.arange(src.shape[0], device=dev) < counts[0]
+    # Free slots: never occupied, plus those the departures vacate.
+    fint = ((~alive) | moving).long()
+    excl = torch.cumsum(fint, 0) - fint
+    part_base = excl.view(nparts, cap_per_block)[:, 0]
+    free_rank = excl - part_base[slot_part]
+    n_free = fint.view(nparts, cap_per_block).sum(dim=1)
+    free_list = torch.full((cap,), cap, dtype=torch.long, device=dev)
+    is_free = fint == 1
+    free_list[(slot_part * cap_per_block + free_rank)[is_free]] = \
+        iota[is_free]
+    # Arrival destinations: stable within-target rank over the slab.
+    pend_slab = pending[src]
+    tgt = torch.clamp(pend_slab // part_L, 0, nparts - 1)
+    key = torch.where(valid, tgt, torch.full_like(tgt, nparts))
+    rank = counting_ranks(key, nparts + 1).long()
+    overflow = bool((valid & (rank >= n_free[tgt])).any())
+    dep = torch.bincount(torch.where(valid, src // cap_per_block,
+                                     torch.full_like(src, nparts)),
+                         minlength=nparts + 1)[:nparts].to(torch.int32)
+    arr = torch.bincount(key, minlength=nparts + 1)[:nparts].to(torch.int32)
+    if overflow:
+        return state, True, dep, arr
+    dest = free_list[tgt * cap_per_block
+                     + torch.clamp(rank, max=cap_per_block - 1)][valid]
+    src_v = src[valid]
+    defaults = _default_state(int(src_v.shape[0]), state)
+    new_state = {}
+    for k, v in state.items():
+        rows = v[src_v]
+        if k == "lelem":
+            # Arrivals resume inside their new block's local mesh.
+            rows = (pend_slab[valid] % part_L).to(v.dtype)
+        elif k == "pending":
+            rows = torch.full_like(rows, -1)
+        # Clear before place: an arrival may take a vacated slot.
+        nv = v.clone()
+        nv[src_v] = defaults[k]
+        nv[dest] = rows
+        new_state[k] = nv
+    return new_state, False, dep, arr
+
+
+def _migrate_round(part_L: int, nparts: int, cap_per_block: int,
+                   cap_frontier: Optional[int],
+                   state: Dict[str, torch.Tensor], n_pending: int):
+    """One in-loop migration round: the frontier slab when the front
+    fits ``cap_frontier``, else the full ``migrate``. None keeps the
+    full migrate every round, 0 forces it (the testing hook). Returns
+    ``(state, overflow, departures, arrivals, fellback)``, zero counts on
+    full-migrate rounds."""
+    z = torch.zeros((nparts,), dtype=torch.int32,
+                    device=state["pid"].device)
+    fellback = cap_frontier is None or n_pending > cap_frontier
+    if fellback:
+        st, ovf = migrate(part_L, nparts, cap_per_block, state)
+        return st, ovf, z, z, True
+    st, ovf, dep, arr = _frontier_migrate_impl(part_L, nparts, cap_per_block,
+                                               cap_frontier, state)
+    return st, ovf, dep, arr, False
+
+
+def _update_occupancy(nparts: int, cap_frontier: Optional[int],
+                      state: Dict[str, torch.Tensor], n_act: torch.Tensor,
+                      dep: torch.Tensor, arr: torch.Tensor,
+                      fellback: bool) -> torch.Tensor:
+    """Next round's per-block not-done counts: departure/arrival deltas
+    after a frontier round, a full recount after a full migrate (which
+    re-compacts every block)."""
+    if not cap_frontier or fellback:
+        return _occupancy_counts(state["done"], nparts)
+    return n_act - dep + arr
+
+
+def _grow_state(state: Dict[str, torch.Tensor], old_cb: int, new_cb: int,
+                nparts: int) -> Dict[str, torch.Tensor]:
+    """Re-home every slot of an ``nparts``-block state into a larger
+    per-block capacity: block d's slot r moves from ``d*old_cb + r`` to
+    ``d*new_cb + r``, the new tail slots take the dead-slot defaults. A
+    relabeling only: every particle keeps its state bitwise."""
+    dev = state["pid"].device
+    iota = torch.arange(nparts * old_cb, device=dev)
+    new_slot = (iota // old_cb) * new_cb + iota % old_cb
+    out = _default_state(nparts * new_cb, state)
+    for k, v in state.items():
+        out[k][new_slot] = v
+    return out
+
+
+@dataclasses.dataclass
+class PhaseProfile:
+    """Component budget of profiled walk/migrate phases
+    (``PartitionedEngine.move(..., profile=...)``).
+
+    Sections are fenced wall seconds (the device is synchronised before
+    each section's closing stamp): ``walk_s`` the per-round block walks,
+    ``migrate_s`` the frontier/full migration, ``occupancy_s`` the
+    occupied-block bookkeeping, ``bookkeeping_s`` the phase's set-up and
+    commit. ``frontier_sizes`` records each migration round's crossing
+    front; ``fallback_rounds`` counts rounds whose front overflowed
+    ``cap_frontier`` into the full migrate (0 when it is unset). A
+    profiled phase runs the rounds of a plain one; only the fences
+    differ."""
+
+    walk_s: float = 0.0
+    migrate_s: float = 0.0
+    occupancy_s: float = 0.0
+    bookkeeping_s: float = 0.0
+    rounds: int = 0
+    dispatches: int = 0
+    fallback_rounds: int = 0
+    cap_frontier: Optional[int] = None
+    frontier_sizes: list = dataclasses.field(default_factory=list)
+
+    @property
+    def frontier_max(self) -> int:
+        return max(self.frontier_sizes, default=0)
+
+    @property
+    def frontier_mean(self) -> float:
+        if not self.frontier_sizes:
+            return 0.0
+        return float(sum(self.frontier_sizes) / len(self.frontier_sizes))
+
+    def as_dict(self) -> dict:
+        """Per-phase totals in ms plus per-round means and the frontier
+        stats (the JAX package's keys)."""
+        r = max(self.rounds, 1)
+        return {
+            "walk_ms": self.walk_s * 1e3,
+            "migrate_ms": self.migrate_s * 1e3,
+            "occupancy_ms": self.occupancy_s * 1e3,
+            "bookkeeping_ms": self.bookkeeping_s * 1e3,
+            "walk_ms_per_round": self.walk_s * 1e3 / r,
+            "migrate_ms_per_round": self.migrate_s * 1e3 / r,
+            "occupancy_ms_per_round": self.occupancy_s * 1e3 / r,
+            "rounds": self.rounds,
+            "dispatches": self.dispatches,
+            "fallback_rounds": self.fallback_rounds,
+            "cap_frontier": self.cap_frontier,
+            "frontier_max": self.frontier_max,
+            "frontier_mean": self.frontier_mean,
+        }
+
+
 def _locate_chunk(table: torch.Tensor, valid: torch.Tensor,
                   pts: torch.Tensor, tol: float) -> torch.Tensor:
     """Local element row containing each point, or -1 (the half-space
@@ -360,36 +898,56 @@ def _locate_chunk_hi(table_hi: torch.Tensor, valid: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def engine_block_bound(mesh: TetMesh, vmem_walk_max_elems: Optional[int],
-                       block_kernel: str, table_dtype: str):
-    """(block kernel, block element bound) of an engine: "vmem" runs W1
-    on the packed tables and needs ``vmem_walk_max_elems`` (clamped to
-    what W1's shared memory holds); "pallas" runs W2 on the two-tier
-    tables, where the bound only sizes the blocks (unset: one block
-    holds the whole mesh; W2 has a global-memory regime, so nothing is
-    clamped)."""
+                       block_kernel: str, table_dtype: str,
+                       scoring: bool = False):
+    """(block kernel, block element bound) of an engine: "vmem" (W1) on
+    the packed tables, its bound clamped to what W1's shared memory
+    holds; "gather" (W4), also for bf16 tables with "vmem" and for a
+    scoring engine with "vmem", and "pallas" (W2, two-tier), whose bound
+    only sizes the blocks and is not clamped. No bound: one block."""
+    if block_kernel not in ("vmem", "gather", "pallas"):
+        raise ValueError(
+            f"block_kernel must be 'vmem', 'gather' or 'pallas', "
+            f"got {block_kernel!r}"
+        )
     block_kernel = resolve_block_kernel(block_kernel, table_dtype)
+    if scoring and block_kernel == "vmem":
+        # W1 has no scoring lanes: the JAX engine scores through the
+        # gather walk.
+        block_kernel = "gather"
     if block_kernel != "vmem":
         return block_kernel, vmem_walk_max_elems
-    if vmem_walk_max_elems is None:
-        raise NotImplementedError(
-            "the partitioned engine without walk_vmem_max_elems "
-            f"runs the gather walk, which is not ported yet "
-            f"({ROADMAP_GATHER_BLOCKS})"
-        )
     return block_kernel, effective_vmem_bound(vmem_walk_max_elems,
                                               mesh.dtype, mesh.device)
 
 
 def engine_partition(mesh: TetMesh, vmem_walk_max_elems: Optional[int],
-                     block_kernel: str, table_dtype: str) -> MeshPartition:
+                     block_kernel: str, table_dtype: str,
+                     scoring: bool = False) -> MeshPartition:
     """The partition an engine with these knobs builds for itself; the
     partitioned streaming facade builds it once for all its chunk
     engines (``PartitionedEngine(part=...)``)."""
     _, bound = engine_block_bound(mesh, vmem_walk_max_elems, block_kernel,
-                                  table_dtype)
+                                  table_dtype, scoring)
     return build_partition(mesh, derive_blocks_per_chip(
         mesh.nelems, 1, block_elems_bound(bound, table_dtype)
     ), table_dtype=table_dtype)
+
+
+@contextlib.contextmanager
+def _section(prof: Optional[PhaseProfile], field: str, device):
+    """Accumulate fenced wall seconds into ``prof.<field>``; nothing
+    without a profile."""
+    if prof is None:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        setattr(prof, field, getattr(prof, field) + time.perf_counter() - t0)
 
 
 class PartitionedEngine:
@@ -413,50 +971,94 @@ class PartitionedEngine:
         table_dtype: str = "float32",
         part: Optional[MeshPartition] = None,
         scoring=None,
+        cap_frontier: Optional[int] = None,
     ):
         """``block_kernel`` and ``vmem_walk_max_elems`` as in
         ``engine_block_bound``. ``part``: a prebuilt partition (shared
         by several engines) whose tables fix the tier, as in the JAX
         engine; by default the engine builds its own
         (``engine_partition``). ``scoring``: a ``ScoringSpec`` (module
-        docstring)."""
+        docstring). ``cap_frontier``: the frontier slab's rows (clamped
+        to the capacity; None: the full migrate every round, 0: the
+        fallback every round)."""
         if part is not None:
             table_dtype = ("bfloat16" if part.table_hi is not None
                            else "float32")
-        else:
-            part = engine_partition(mesh, vmem_walk_max_elems, block_kernel,
-                                    table_dtype)
-        block_kernel, _ = engine_block_bound(mesh, vmem_walk_max_elems,
-                                             block_kernel, table_dtype)
-        if scoring is not None and block_kernel == "vmem":
-            raise NotImplementedError(
-                "scoring on the float32 block tables runs the gather block "
-                f"walk in the JAX package, which is not ported yet "
-                f"({ROADMAP_GATHER_BLOCKS}); score with "
-                "walk_table_dtype='bfloat16', walk_kernel='pallas'"
+        block_kernel, bound = engine_block_bound(
+            mesh, vmem_walk_max_elems, block_kernel, table_dtype,
+            scoring is not None)
+        if part is None:
+            part = build_partition(mesh, derive_blocks_per_chip(
+                mesh.nelems, 1, block_elems_bound(bound, table_dtype)
+            ), table_dtype=table_dtype)
+        self.part = part
+        self.two_tier = part.table_hi is not None
+        self.nparts = part.ndev
+        self.block_kernel = block_kernel
+        self.use_vmem_walk = (
+            block_kernel == "vmem"  # bf16/scoring never resolve to vmem
+            and bound is not None
+            and part.L <= int(bound)
+            and part.adj_int is None
+            and not self.two_tier
+        )
+        if block_kernel == "pallas" and part.adj_int is not None:
+            raise ValueError(
+                "block_kernel='pallas' needs row-resident adjacency "
+                "(the refinement tier's adj lane), but this partition "
+                "carries the int-adjacency sidecar — rebuild without "
+                "force_split_adj or use walk_kernel='gather'"
             )
         self.use_pallas_walk = block_kernel == "pallas"
+        if self.nparts > 1 and not (
+            self.use_vmem_walk or self.use_pallas_walk
+        ) and block_kernel != "gather":
+            raise ValueError(
+                "sub-split partitions (blocks_per_chip > 1) with "
+                "block_kernel='vmem' need the VMEM walk, but this "
+                "configuration cannot use it (walk_vmem_max_elems "
+                "unset/exceeded, or the mesh needs the int-adjacency "
+                "sidecar). Set a satisfiable walk_vmem_max_elems, use "
+                "walk_block_kernel='gather', or pass a partition with "
+                "one part per device"
+            )
         self.scoring = scoring
         self.score_stride = (0 if scoring is None
                              else scoring.n_bins * scoring.n_scores)
         self.check_found_all = check_found_all
         self.n = int(num_particles)
         self.device = mesh.device
-        self.part = part
-        self.two_tier = self.part.table_hi is not None
-        self.nparts = self.part.ndev
         cap_b = int(-(-self.n // self.nparts) * capacity_factor + 1)
-        if self.nparts > 1:
-            # The JAX engine rounds the per-block capacity of both block
-            # kernels up to whole particle tiles; kept so the slot
-            # layouts agree.
+        if self.nparts > 1 and block_kernel in ("vmem", "pallas"):
+            # The JAX engine rounds the per-block capacity of W1's and
+            # W2's counterparts up to whole particle tiles (not the
+            # gather sub-split's); kept so the slot layouts agree.
             cap_b = -(-cap_b // W_TILE_DEFAULT) * W_TILE_DEFAULT
         self.cap_per_block = cap_b
         self.cap = self.nparts * cap_b
+        # A slab of cap rows is the full-capacity frontier migrate.
+        self.cap_frontier = (None if cap_frontier is None
+                             else max(0, min(int(cap_frontier), self.cap)))
         self.tol = tol
         self.max_iters = max_iters
         self.max_rounds = max_rounds
+        # The overflow-recovery ladder's record and hooks: ``poisoned``
+        # latches when the ladder is exhausted (the facades then refuse
+        # every call); ``on_overflow_recovered(escalated)`` and
+        # ``on_poisoned()`` are optional callbacks (the JAX facades'
+        # sentinel record and safety save; the port's facades set none).
+        self.capacity_factor = float(capacity_factor)
+        self.poisoned = False
+        self.overflow_recoveries = 0
+        self.capacity_escalations = 0
+        self.on_overflow_recovered = None
+        self.on_poisoned = None
+        # Diagnostics of the most recent phase (``_set_diagnostics``).
         self.last_walk_rounds = 0
+        self.last_block_dispatches = 0
+        self.last_frontier_max = 0
+        self.last_fallback_rounds = 0
+        self._last_frontier_sum = 0
         self.n_lost = 0
         dtype, dev = mesh.dtype, mesh.device
         self.flux_padded = torch.zeros((self.nparts * self.part.L,),
@@ -497,6 +1099,15 @@ class PartitionedEngine:
     def blocks_per_chip(self) -> int:
         return self.nparts
 
+    @property
+    def last_frontier_mean(self) -> float:
+        """Mean crossing front over the most recent phase's migration
+        rounds (0.0 with none)."""
+        migrations = self.last_walk_rounds - 1
+        if migrations <= 0:
+            return 0.0
+        return self._last_frontier_sum / migrations
+
     # -- staged input routing -------------------------------------------
     def _by_pid(self, arr_n: torch.Tensor, fill) -> torch.Tensor:
         """Route a caller-order [n,...] array to current slots via pid."""
@@ -507,6 +1118,9 @@ class PartitionedEngine:
         return torch.where(mask[:, None] if v.dim() == 2 else mask, v, fill)
 
     def _migrate(self, st):
+        """A full migrate outside the round loop (localization, revival,
+        tools): raises the JAX message on overflow, with the engine's
+        state left at the intact snapshot."""
         st, overflow = migrate(self.part.L, self.nparts, self.cap_per_block,
                                st)
         if overflow:
@@ -529,6 +1143,21 @@ class PartitionedEngine:
         ])
         return torch.where(le >= 0, le, torch.full_like(le, rows))
 
+    def _finalize_localize(self) -> None:
+        """Every particle's localization phase is finished."""
+        self.state["done"] = torch.ones_like(self.state["done"])
+        self.state["pending"] = torch.full_like(self.state["pending"], -1)
+
+    def _place_located(self, st) -> None:
+        """Migrate located (or revived) particles to their blocks: the
+        full migrate (the front is the whole population). An overflow
+        escalates the capacity once, by demand, over the intact snapshot
+        and retries; a second overflow poisons the engine."""
+        self.state, overflow = migrate(self.part.L, self.nparts,
+                                       self.cap_per_block, st)
+        if overflow:
+            self._recover_localize_overflow()
+
     def localize(self, dest_n: torch.Tensor) -> bool:
         """CopyInitialPosition: point location, then every particle is
         placed in the block owning its element. A source point in no
@@ -545,17 +1174,27 @@ class PartitionedEngine:
         st["lost"] = st["alive"] & (st["pending"] < 0)
         st["done"] = ~st["alive"]
         st["exited"] = torch.zeros_like(st["exited"])
-        st = self._migrate(st)
-        st["done"] = torch.ones_like(st["done"])
-        st["pending"] = torch.full_like(st["pending"], -1)
-        self.state = st
         self.n_lost = int((~found).sum())
+        self._place_located(st)
+        self._finalize_localize()
         if self.check_found_all and self.n_lost:
             print(
                 f"[WARNING] {self.n_lost} source points lie in no mesh "
                 "element; their particles are excluded from transport"
             )
         return self.n_lost == 0
+
+    def _recover_localize_overflow(self) -> None:
+        """Localization/revival placement overflowed (those paths use
+        the full migrate already): escalate the capacity to the demand
+        the intact snapshot shows, retry the placement, poison on a
+        second failure."""
+        self._escalate_capacity(self._needed_capacity_growth())
+        self.state, overflow = migrate(self.part.L, self.nparts,
+                                       self.cap_per_block, self.state)
+        if overflow:
+            self._poison()
+        self._note_recovery(escalated=True)
 
     def _revive_lost(self, origins_n: torch.Tensor) -> None:
         """Re-locate lost particles whose resampled origin lies inside
@@ -570,13 +1209,16 @@ class PartitionedEngine:
                               st["x"])
         st["pending"] = torch.where(revive, pend, -1).to(torch.int32)
         st["lost"] = st["lost"] & ~revive
-        st = self._migrate(st)
-        st["pending"] = torch.full_like(st["pending"], -1)
-        self.state = st
-        self.n_lost = int(st["lost"].sum())
+        self._place_located(st)
+        self.state["pending"] = torch.full_like(self.state["pending"], -1)
+        self.n_lost = int(self.state["lost"].sum())
 
     # -- phases ----------------------------------------------------------
-    def _round(self, st, tally: bool):
+    def _round(self, st, tally: bool, n_act: torch.Tensor):
+        """One walk round: W2, W1 or W4 (one block, or the occupied
+        blocks of the gather sub-split). Returns the new state, the
+        per-block not-done counts, the paused and not-done totals and
+        the block dispatches."""
         args = (st["x"], st["lelem"], st["dest"], st["fly"], st["w"],
                 st["done"], st["exited"],
                 self.flux_padded if tally else None)
@@ -586,45 +1228,216 @@ class PartitionedEngine:
             # Tallying rounds only: phase A and localization never score.
             kw["scoring"] = (self.scoring.kinds, self.score_padded,
                              st["sbin"], st["sfac"])
-        if self.use_pallas_walk:
-            x, lelem, done, exited, pending, _, _ = pallas_walk_local(
-                self.part.table, self.part.table_hi, *args, **kw)
+        if self.use_pallas_walk or self.use_vmem_walk:
+            if self.use_pallas_walk:
+                res = pallas_walk_local(self.part.table, self.part.table_hi,
+                                        *args, **kw)
+            else:
+                res = vmem_walk_local(self.part.table, *args, **kw)
+            # These kernels sweep every block.
+            disp = self.nparts
+            n_act = _occupancy_counts(res[2], self.nparts)
         else:
-            x, lelem, done, exited, pending, _, _ = vmem_walk_local(
-                self.part.table, *args, **kw)
-        return dict(st, x=x, lelem=lelem, done=done, exited=exited,
-                    pending=pending)
+            ids = None
+            if self.nparts > 1:
+                # The occupied-block list: blocks holding a not-done slot.
+                ids = (n_act > 0).nonzero().squeeze(1).to(torch.int32)
+            res = walk_local(self.part.table, *args,
+                             adj_int=self.part.adj_int,
+                             table_hi=self.part.table_hi, block_ids=ids,
+                             **kw)
+            if ids is None:
+                disp = 1
+                n_act = _occupancy_counts(res[2], 1)
+            else:
+                # Walked blocks recount themselves; the others hold 0.
+                disp = int(ids.numel())
+                n_act = n_act.clone()
+                n_act[ids.long()] = _occupancy_counts(
+                    res[2], self.nparts)[ids.long()]
+        x, lelem, done, exited, pending = res[:5]
+        n_p, n_nd = torch.stack([(pending >= 0).sum(),
+                                 (~done).sum()]).tolist()
+        return (dict(st, x=x, lelem=lelem, done=done, exited=exited,
+                     pending=pending), n_act, n_p, n_nd, disp)
 
-    def _run_phase(self, tally: bool) -> bool:
+    def _phase_loop(self, tally: bool, resume: bool = False,
+                    force_full_migrate: bool = False,
+                    prof: Optional[PhaseProfile] = None):
         """One walk/migrate phase: a walk round, then migrate->walk
         rounds while particles are paused, at most ``max_rounds`` walk
-        rounds in all. Returns whether every particle finished."""
-        st = dict(self.state)
-        st["done"] = ~st["alive"] | (st["fly"] == 0)
-        # Per-walk flag: a particle that left the domain last move but
-        # flies again must not carry a stale True.
-        st["exited"] = torch.zeros_like(st["exited"])
-        # Non-flying particles hold position: dest <- x.
-        st["dest"] = torch.where((st["fly"] == 1)[:, None], st["dest"],
-                                 st["x"])
-        st = self._round(st, tally)
-        rounds = 1
-        while rounds < self.max_rounds and bool((st["pending"] >= 0).any()):
-            st = self._round(self._migrate(st), tally)
+        rounds in all. ``resume`` continues the committed mid-phase
+        state (done particles never walk again, paused rows re-derive
+        their crossing); ``force_full_migrate`` bypasses the frontier
+        slab. Commits the state (on overflow: the intact pre-migrate
+        snapshot) and returns ``(found_all, overflow, rounds,
+        dispatches, fronts, fallbacks)``."""
+        dev = self.device
+        cap_frontier = None if force_full_migrate else self.cap_frontier
+        if prof is not None:
+            prof.cap_frontier = self.cap_frontier
+        with _section(prof, "bookkeeping_s", dev):
+            st = dict(self.state)
+            if not resume:
+                st["done"] = ~st["alive"] | (st["fly"] == 0)
+                # Per-walk flag: a particle that left the domain last
+                # move but flies again must not carry a stale True.
+                st["exited"] = torch.zeros_like(st["exited"])
+                # Non-flying particles hold position: dest <- x.
+                st["dest"] = torch.where((st["fly"] == 1)[:, None],
+                                         st["dest"], st["x"])
+        with _section(prof, "occupancy_s", dev):
+            n_act = _occupancy_counts(st["done"], self.nparts)
+        with _section(prof, "walk_s", dev):
+            st, n_act, n_p, n_nd, disp = self._round(st, tally, n_act)
+        rounds, disp_total, fronts, fallbacks = 1, disp, [], 0
+        overflow = False
+        if prof is not None:
+            prof.rounds += 1
+            prof.dispatches += disp
+        while n_p > 0 and rounds < self.max_rounds:
+            fronts.append(n_p)
+            if prof is not None:
+                prof.frontier_sizes.append(n_p)
+            with _section(prof, "migrate_s", dev):
+                st2, overflow, dep, arr, fb = _migrate_round(
+                    self.part.L, self.nparts, self.cap_per_block,
+                    cap_frontier, st, n_p)
+            if cap_frontier is not None and fb:
+                fallbacks += 1
+                if prof is not None:
+                    prof.fallback_rounds += 1
             rounds += 1
-        self.state = st
+            if overflow:
+                # st2 is the intact snapshot: nothing walks from it.
+                break
+            with _section(prof, "occupancy_s", dev):
+                n_act = _update_occupancy(self.nparts, cap_frontier, st2,
+                                          n_act, dep, arr, fb)
+            with _section(prof, "walk_s", dev):
+                st, n_act, n_p, n_nd, disp = self._round(st2, tally, n_act)
+            disp_total += disp
+            if prof is not None:
+                prof.rounds += 1
+                prof.dispatches += disp
+        with _section(prof, "bookkeeping_s", dev):
+            self.state = st
+        found = n_nd == 0 and n_p == 0 and not overflow
+        return found, overflow, rounds, disp_total, fronts, fallbacks
+
+    def _run_phase(self, tally: bool,
+                   profile: Optional[PhaseProfile] = None) -> bool:
+        """One phase (``_phase_loop``) with its diagnostics recorded;
+        an overflow hands the committed snapshot to the recovery ladder.
+        Returns whether every particle finished."""
+        found, overflow, rounds, disp, fronts, fallbacks = self._phase_loop(
+            tally, prof=profile)
         self.last_walk_rounds = rounds
-        return not bool((~st["done"]).any())
+        self.last_block_dispatches = disp
+        self.last_frontier_max = max(fronts, default=0)
+        self._last_frontier_sum = sum(fronts)
+        self.last_fallback_rounds = fallbacks
+        if overflow:
+            return self._recover_overflow(tally)
+        return found
+
+    # -- overflow recovery ------------------------------------------------
+    def _resume_phase(self, tally: bool, force_full_migrate: bool = False):
+        """Continue the interrupted phase over the COMMITTED mid-phase
+        state: particles already done never walk again. Returns
+        ``(found_all, overflowed)``."""
+        found, overflow, rounds, disp, _, _ = self._phase_loop(
+            tally, resume=True, force_full_migrate=force_full_migrate)
+        self.last_walk_rounds = rounds
+        self.last_block_dispatches = disp
+        return found, overflow
+
+    def _note_recovery(self, escalated: bool) -> None:
+        self.overflow_recoveries += 1
+        if self.on_overflow_recovered is not None:
+            self.on_overflow_recovered(escalated)
+
+    def _poison(self) -> None:
+        """Latch ``poisoned``, fire the ``on_poisoned`` hook, raise."""
+        self.poisoned = True
+        if self.on_poisoned is not None:
+            try:
+                self.on_poisoned()
+            except Exception as e:  # noqa: BLE001 — best effort
+                warnings.warn(f"overflow safety save failed: {e}")
+        raise RuntimeError(LADDER_EXHAUSTED_MESSAGE)
+
+    def _recover_overflow(self, tally: bool) -> bool:
+        """The overflow-recovery ladder, from the committed intact
+        mid-phase snapshot:
+
+        1. resume the phase through the full migrate (it re-compacts
+           every block, and bypasses the frontier slab);
+        2. escalate once to the demand the snapshot shows
+           (``_needed_capacity_growth``, ``_grow_state``) and resume;
+        3. escalate to the bound at which no block can overflow (every
+           block can host the whole population) and resume once more;
+        4. then poison and raise."""
+        ok, overflow = self._resume_phase(tally, force_full_migrate=True)
+        if not overflow:
+            self._note_recovery(escalated=False)
+            return ok
+        self._escalate_capacity(self._needed_capacity_growth())
+        ok, overflow = self._resume_phase(tally, force_full_migrate=True)
+        if not overflow:
+            self._note_recovery(escalated=True)
+            return ok
+        terminal = 1.05 * (self.n + 2) / max(self.cap_per_block, 1)
+        if terminal > 1.0:
+            self._escalate_capacity(terminal)
+            ok, overflow = self._resume_phase(tally,
+                                              force_full_migrate=True)
+            if not overflow:
+                self._note_recovery(escalated=True)
+                return ok
+        self._poison()
+        return False  # unreachable: _poison raises
+
+    def _needed_capacity_growth(self) -> float:
+        """The escalation factor the committed snapshot asks for: the
+        worst block's stayers plus pending arrivals, with 10% room, at
+        least 2x."""
+        pending = self.state["pending"].cpu().numpy()
+        alive = self.state["alive"].cpu().numpy()
+        slot_part = np.arange(self.cap) // self.cap_per_block
+        target = np.where(pending >= 0, pending // self.part.L, slot_part)
+        counts = np.bincount(target[alive], minlength=self.nparts)
+        needed = int(counts.max()) + 1
+        return max(2.0, 1.1 * needed / max(self.cap_per_block, 1))
+
+    def _escalate_capacity(self, factor: float = 2.0) -> None:
+        """Grow every block's slot capacity (``_grow_state``: a
+        relabeling, particle state bitwise kept); the flux, the bank and
+        the partition are untouched."""
+        old_cb = self.cap_per_block
+        new_cb = int(old_cb * float(factor)) + 1
+        if self.nparts > 1 and self.block_kernel in ("vmem", "pallas"):
+            new_cb = -(-new_cb // W_TILE_DEFAULT) * W_TILE_DEFAULT
+        self.capacity_factor *= float(factor)
+        self.capacity_escalations += 1
+        self.state = _grow_state(self.state, old_cb, new_cb, self.nparts)
+        self.cap_per_block = new_cb
+        self.cap = self.nparts * new_cb
+        if self.cap_frontier is not None:
+            self.cap_frontier = min(self.cap_frontier, self.cap)
 
     def move(self, origins_n: Optional[torch.Tensor], dests_n: torch.Tensor,
              fly_n: torch.Tensor, w_n: torch.Tensor,
              sbin_n: Optional[torch.Tensor] = None,
-             sfac_n: Optional[torch.Tensor] = None) -> bool:
+             sfac_n: Optional[torch.Tensor] = None,
+             profile: Optional[PhaseProfile] = None) -> bool:
         """Full (origins given) or continue-mode (None) tallied move.
         Returns whether every particle finished both phases.
         ``sbin_n``/``sfac_n`` (scoring engines): the move's caller-order
         bin offsets and factor rows (``ScoringRuntime.resolve``), routed
-        to slots by pid and migrated with their particles."""
+        to slots by pid and migrated with their particles. ``profile``:
+        a ``PhaseProfile`` that accumulates every phase's fenced
+        sections (the rounds are a plain move's)."""
         if self.scoring is not None and (sbin_n is None or sfac_n is None):
             raise ValueError(
                 "scoring-armed engine needs sbin_n/sfac_n each move "
@@ -649,14 +1462,14 @@ class PartitionedEngine:
             st["dest"] = self._by_pid(origins_n, 0.0)
             st["w"] = torch.zeros_like(st["w"])
             self.state = st
-            ok_a = self._run_phase(tally=False)
+            ok_a = self._run_phase(tally=False, profile=profile)
             st = self.state
             # Re-route the real weights by pid: phase-A migrations may
             # have moved every slot.
             st["w"] = self._by_pid(w_n, 0.0)
         st["dest"] = self._by_pid(dests_n, 0.0)
         self.state = st
-        ok_b = self._run_phase(tally=True)
+        ok_b = self._run_phase(tally=True, profile=profile)
         return ok_a and ok_b
 
     # -- outputs ---------------------------------------------------------

@@ -124,7 +124,15 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
               StreamingPartitionedTally(mesh, 50, chunk_size=20,
                                         config=TallyConfig(
                                             walk_vmem_max_elems=40),
-                                        device="cpu")):
+                                        device="cpu"),
+              # The gather block walk W4: one block, the sub-split, the
+              # bf16 reroute.
+              PartitionedPumiTally(mesh, 50, device="cpu"),
+              PartitionedPumiTally(mesh, 50, TallyConfig(
+                  walk_vmem_max_elems=40, walk_block_kernel="gather"),
+                  device="cpu"),
+              PartitionedPumiTally(mesh, 50, TallyConfig(
+                  walk_vmem_max_elems=40, **bf16), device="cpu")):
         t.CopyInitialPosition(pts.reshape(-1).copy())
         t.MoveToNextLocation(None, (1.0 - pts).reshape(-1).copy())
         np.testing.assert_allclose(
@@ -142,12 +150,13 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
     idx = torch.tensor([5, -6], dtype=torch.int32)
     for fill in (0.0, float("nan")):
         assert torch.equal(gather(tab, idx, fill), tab[[5, 0]])
-    # The scoring instantiations' wrappers (W0 both tiers, W2) too.
+    # The scoring instantiations' wrappers (W0 both tiers, W2, W4) too.
     spec = ScoringSpec([EnergyFilter([0.0, 1.0, 2.0])],
                        ["flux", "events"])
     for kw in ({}, bf16, dict(walk_kernel="pallas", walk_vmem_max_elems=40,
-                             **bf16)):
-        facade = PartitionedPumiTally if "walk_kernel" in kw else PumiTally
+                             **bf16), dict(walk_vmem_max_elems=40)):
+        facade = (PartitionedPumiTally if "walk_vmem_max_elems" in kw
+                  else PumiTally)
         t = facade(mesh, 50, TallyConfig(scoring=spec, **kw), device="cpu")
         t.CopyInitialPosition(pts.reshape(-1).copy())
         t.MoveToNextLocation(None, (1.0 - pts).reshape(-1).copy(),
@@ -161,7 +170,11 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
                                      "twotier_block_walk_scored": 0,
                                      "resident_walk": 0,
                                      "row_gather_take": 0,
-                                     "row_gather_take_along_axis": 0}
+                                     "row_gather_take_along_axis": 0,
+                                     "gather_block_walk": 0,
+                                     "gather_block_walk_twotier": 0,
+                                     "gather_block_walk_scored": 0,
+                                     "gather_block_walk_twotier_scored": 0}
 
 
 def test_cuda_argument_checks():

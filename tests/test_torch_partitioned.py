@@ -2,8 +2,8 @@
 ``PartitionedPumiTally`` (block walk W1 + migration) against the JAX
 package's with ``make_device_mesh(1)`` and the vmem block walk, on a
 small box with a small block bound so there are several blocks and
-migrations; plus the migration and bucket primitives and the config
-refusals.
+migrations; plus the migration and bucket primitives, the overflow
+ladder on W1 and the config subset and refusals.
 
 Tolerances, float64: element ids and every integer slot row exact;
 positions to 1e-12 absolute; flux to rtol 1e-10."""
@@ -32,7 +32,8 @@ from pumiumtally_tpu_torch import (
 )
 from pumiumtally_tpu_torch.ops.bucketize import counting_ranks, partition_perm
 from pumiumtally_tpu_torch.parallel.partition import (
-    OVERFLOW_MESSAGE,
+    PartitionedEngine,
+    build_partition,
     migrate,
 )
 
@@ -178,39 +179,50 @@ def test_bucket_partition_matches_jax(num_buckets):
 
 def test_capacity_overflow_raises_over_intact_state():
     """Every particle heading into one corner overflows its block's
-    slots: the port raises the JAX package's message (its recovery
-    ladder is not ported) with the pre-migration state kept."""
+    slots: the recovery ladder (full-migrate retry, capacity escalation)
+    completes the move over the intact pre-migration state, every
+    particle alive at the corner and the track length conserved."""
     jmesh = jax_build_box(1, 1, 1, 4, 4, 4)
     mesh = convert.tetmesh_from_arrays(convert.mesh_arrays(jmesh))
     n = 2500
     t = PartitionedPumiTally(mesh, n, TallyConfig(
         capacity_factor=1.01, walk_vmem_max_elems=BOUND), device="cpu")
-    assert t.engine.cap_per_block < n
+    assert t.engine.cap_per_block < n and t.engine.use_vmem_walk
     src = np.random.default_rng(13).uniform(0.05, 0.95, (n, 3))
     t.CopyInitialPosition(_flat(src))
-    with pytest.raises(RuntimeError, match=OVERFLOW_MESSAGE[:30]):
-        t.MoveToNextLocation(None, _flat(np.tile([0.02] * 3, (n, 1))))
-    assert int(t.engine.state["alive"].sum()) == n
+    corner = np.tile([0.02] * 3, (n, 1))
+    t.MoveToNextLocation(None, _flat(corner))
+    eng = t.engine
+    assert eng.overflow_recoveries >= 1 and eng.capacity_escalations >= 1
+    assert not eng.poisoned and eng.cap_per_block > n // 2
+    assert int(eng.state["alive"].sum()) == n
+    np.testing.assert_array_equal(t.positions, corner)
+    # The corner lies on the cell diagonal: tets that share it tie.
+    assert len(set(t.elem_ids.tolist())) <= 6 and (t.elem_ids >= 0).all()
+    np.testing.assert_allclose(t.flux.sum().item(),
+                               np.linalg.norm(corner - src, axis=1).sum(),
+                               rtol=1e-10)
 
 
 def test_config_subset_and_refusals():
     with pytest.raises(TypeError):
-        TallyConfig(cap_frontier=4)  # a knob the port does not have
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TallyConfig(walk_block_kernel="gather")
+        TallyConfig(migrate_collective=True)  # a knob the port lacks
+    gather = TallyConfig(walk_block_kernel="gather", cap_frontier=64)
+    assert gather.resolved_walk_kernel() == "gather"
+    assert gather.cap_frontier == 64
     # A scoring value that is no ScoringSpec: the JAX package's refusal.
     with pytest.raises(ValueError, match="scoring must be a "
                        "scoring.ScoringSpec"):
         TallyConfig(scoring=object())
-    # Scoring on the float32 block tables runs the gather walk in the
-    # JAX package, which the port does not have yet.
+    # Scoring on the float32 block tables reroutes to the gather block
+    # walk, as the JAX engine does.
     spec = ScoringSpec([EnergyFilter([0.0, 1.0])])
-    with pytest.raises(NotImplementedError, match="gather block walk"):
-        PartitionedPumiTally(
-            convert.tetmesh_from_arrays(convert.mesh_arrays(
-                jax_build_box(1, 1, 1, 2, 2, 2))), 8,
-            TallyConfig(scoring=spec, walk_vmem_max_elems=BOUND),
-            device="cpu")
+    small = convert.tetmesh_from_arrays(convert.mesh_arrays(
+        jax_build_box(1, 1, 1, 2, 2, 2)))
+    t = PartitionedPumiTally(small, 8, TallyConfig(
+        scoring=spec, walk_vmem_max_elems=BOUND), device="cpu")
+    assert t.engine.block_kernel == "gather"
+    assert not t.engine.use_vmem_walk
     # A bf16 WORKING dtype stays refused; the bf16 table tier is
     # walk_table_dtype, which both facades accept.
     with pytest.raises(NotImplementedError, match="walk_table_dtype"):
@@ -226,17 +238,23 @@ def test_config_subset_and_refusals():
     assert TallyConfig().resolved_walk_kernel() == "vmem"
     with pytest.raises(ValueError):
         TallyConfig(localization="bogus")
-    mesh = convert.tetmesh_from_arrays(
-        convert.mesh_arrays(jax_build_box(1, 1, 1, 2, 2, 2)))
-    with pytest.raises(NotImplementedError, match="gather walk"):
-        PartitionedPumiTally(mesh, 8, TallyConfig(), device="cpu")
-    # bf16 tables with the vmem block walk run the gather block walk in
-    # the JAX package: not ported, so refused with its ROADMAP item.
-    with pytest.raises(NotImplementedError,
-                       match="The rest of the partitioned engine"):
-        PartitionedPumiTally(mesh, 8, TallyConfig(
-            walk_table_dtype="bfloat16", walk_vmem_max_elems=4),
-            device="cpu")
+    # No bound: one block, walked by the gather block walk.
+    t = PartitionedPumiTally(small, 8, TallyConfig(), device="cpu")
+    assert t.engine.nparts == 1 and not t.engine.use_vmem_walk
+    # bf16 tables with the vmem block walk reroute to the gather walk.
+    t = PartitionedPumiTally(small, 8, TallyConfig(
+        walk_table_dtype="bfloat16", walk_vmem_max_elems=4), device="cpu")
+    assert t.engine.block_kernel == "gather" and t.engine.nparts > 1
+    # The sidecar: never with the two-tier tables (so never under the
+    # pallas block walk), and a vmem sub-split that needs it refuses.
+    with pytest.raises(ValueError, match="incompatible"):
+        build_partition(small, 4, force_split_adj=True,
+                        table_dtype="bfloat16")
+    with pytest.raises(ValueError, match="sub-split"):
+        PartitionedEngine(small, 8, tol=1e-8, max_iters=64,
+                          vmem_walk_max_elems=BOUND,
+                          part=build_partition(small, 4,
+                                               force_split_adj=True))
     cfg = TallyConfig()
     assert cfg.resolved_tolerance(torch.float64) == 1e-8
     assert cfg.resolved_tolerance(torch.float32) == 1e-6

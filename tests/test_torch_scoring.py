@@ -552,11 +552,31 @@ def test_overflow_policy_drop_vs_clamp(name):
 
 
 def test_partitioned_scoring_needs_w2():
-    """The JAX engine scores the float32 block tables through its gather
-    walk, which the port does not have: refused, naming it."""
-    with pytest.raises(NotImplementedError, match="gather block walk"):
-        PartitionedPumiTally(_MESH, N, TallyConfig(
-            scoring=_spec2(), walk_vmem_max_elems=40), device="cpu")
+    """Scoring on the float32 block tables (the W1 knobs): both engines
+    reroute to the gather block walk (W4 in the port) and agree, a
+    two-phase move with dropped energies and a continue move."""
+    kw = dict(walk_vmem_max_elems=40, capacity_factor=4.0)
+    ref = JaxPartitioned(_JMESH, N, JaxTallyConfig(
+        scoring=_spec2("jax"), device_mesh=make_device_mesh(1), **kw))
+    port = PartitionedPumiTally(_MESH, N, TallyConfig(scoring=_spec2(),
+                                                      **kw), device="cpu")
+    assert port.engine.block_kernel == ref.engine.block_kernel == "gather"
+    assert port.engine.nparts == ref.engine.nparts > 1
+    rng = np.random.default_rng(67)
+    src, dests, en = _corridor_workload(rng, 2)
+    en_out = np.where(np.arange(N) % 7 == 0, 5.0, en)
+    for t in (ref, port):
+        t.CopyInitialPosition(src.reshape(-1).copy())
+        t.MoveToNextLocation(src.reshape(-1).copy(),
+                             dests[0].reshape(-1).copy(),
+                             np.ones(N, np.int8), np.ones(N), energy=en_out)
+        t.MoveToNextLocation(None, dests[1].reshape(-1).copy(), energy=en)
+    np.testing.assert_array_equal(port.elem_ids, np.asarray(ref.elem_ids))
+    np.testing.assert_allclose(port.positions, np.asarray(ref.positions),
+                               rtol=0, atol=1e-12)
+    np.testing.assert_allclose(_np(port.flux), np.asarray(ref.flux),
+                               rtol=1e-10, atol=1e-13)
+    _assert_lanes(_np(port.score_bank), ref.score_bank, _spec2().kinds)
 
 
 def test_write_tally_results_matches_jax_files(tmp_path):

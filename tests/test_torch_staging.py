@@ -368,8 +368,11 @@ def test_cascade_knobs_cross_over_and_refuse_as_jax_does():
         t.MoveToNextLocation(_flat(src), _flat(d1))
         out.append(_state(t))
     _assert_bitwise(*out)
+    # A knob the port lacks is refused; cap_frontier crosses.
     with pytest.raises(NotImplementedError, match="no counterpart"):
-        convert.tally_config(JaxTallyConfig(cap_frontier=4))
+        convert.tally_config(JaxTallyConfig(migrate_collective=True))
+    assert convert.tally_config(
+        JaxTallyConfig(cap_frontier=4)).cap_frontier == 4
     for k, v in (("walk_cond_every", 0), ("walk_perm_mode", "bogus"),
                  ("walk_window_factor", 1), ("walk_min_window", 0),
                  ("walk_partition_method", "bogus"),
