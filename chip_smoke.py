@@ -6,6 +6,7 @@
     python3 chip_smoke.py --w3-g1-times   # W3's and G1's, no checks
     python3 chip_smoke.py --staging-times # PumiTally's staging, no checks
     python3 chip_smoke.py --scoring-times # the scoring commit's, no checks
+    python3 chip_smoke.py --w4-times      # W4's times, any checkout
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -45,16 +46,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    the bf16 tables with the vmem knobs (rerouted: 24 blocks), float32
    scoring with the stride-96 spec on one block and on the sub-split,
    the bf16 reroute with scoring, and float64 on one block (100,000
-   particles). Ids, masks, pending and iters equal, positions bitwise,
-   flux at rtol 1e-4, lanes as 6b; the blocks walked must be those
-   holding a not-done slot, one launch a round. Rounds 1 and 2 timed
-   (four passes into standing buffers; one block also untallied), and
-   the whole move's rounds, beside their bytes bound (each slot of a
-   walked block and each crossed row read and written once) and the
-   plain version.
-   Then W4 on a block list past 65,535 blocks (the box's 750-block
-   sub-split, its round-1 input stacked 94 times, every 16th block
-   left off the list), in one launch, against the plain version.
+   particles), the box as one block on the two-tier tables, and (with
+   the lattice's phases) the lattice as one block (100,000 particles).
+   Ids, masks, pending and iters equal, positions bitwise, flux at rtol
+   1e-4, lanes as 6b; the blocks walked must be those holding a
+   not-done slot, one launch a round. Each round also runs the engine's
+   in-place call on the round's work list (round 1: no list; later
+   rounds: the list built from ``done``), equal to the plain version,
+   the kernel's count of walked slots equal to the list's length. Those
+   calls timed, W4's kernels with their list builds, rounds 1 and 2
+   (four passes into standing buffers; one block also untallied) and
+   the whole move's rounds, beside their bytes bound (``w4_bytes``) and
+   the plain version. Then W4's list build against its plain version,
+   timed beside its bound and ``torch.argsort``, and W4 on a block list
+   past 65,535 blocks (the box's 750-block sub-split, its round-1 input
+   stacked 94 times, every 16th block left off the list), in one
+   launch, against the plain version.
 5. W0's two-tier variant (csrc/walk.cu, bf16 select + f32 refinement
    tables) against the two-tier ``walk_plain``, as phase 3; then W0 in
    float64 on the box (100,000 particles) against ``walk_plain``.
@@ -214,6 +221,20 @@ both fill modes (microseconds over four passes, the bound,
 ``index_select``, the empty kernel, the output fill and the copy). It calls only ``r3_vmem.setup``, ``r3_vmem.walk_vmem``, ``walk``
 and ``pallas_gather.gather``, so a copy times another checkout as
 ``--w0-times`` does.
+
+``--w4-times`` runs phases 1-2, then one JSON line a cell with W4's
+device ms over four passes as the engine runs each round (W4's kernels,
+the list builds included, the walk alone, and every activity of the
+call) beside the bound: the box as one block tallied, untallied, on the
+two-tier tables and with scoring, the 47-block sub-split's rounds 1 and
+2 and whole first move, and the lattice as one block (100,000
+particles); in a checkout with ``walk_local_list``, a line for each arm
+of the first round's list (no list, element order by a torch sort),
+then W4 over an empty list of the slot count's capacity (what the
+CUDA blocks past a list's length cost), on the one-block cells and the
+sub-split's round 1. It calls only ``PartitionedEngine``,
+``walk_local`` and ``TallyConfig`` where the checkout has nothing newer,
+so a copy times another checkout, as ``--w0-times`` does.
 
 ``--staging-times`` runs phases 1-2, then ``PumiTally`` at 500,000
 particles on the box in bench.py's protocols (``two_phase``: origins
@@ -752,17 +773,20 @@ def phase_block_walk(kind: str, mesh, pts, bound, shared: bool = True):
             "max_abs_err": err, **timed[0], "library_ms": None}, regimes
 
 
-# W4's cells (phase 4b): (label, engine knobs, rounds walked, scoring,
-# float64). The box as one block (the partitioned facades' default
-# configuration), the gather sub-split into blocks of <= VMEM_BOUND
-# elements (47), the same with the int32 sidecar, the bf16 reroute
-# (24 blocks), float32 scoring on one block and on the sub-split, the
-# bf16 reroute with scoring, and float64 on one block.
+# W4's cells (phase 4b): (label, engine knobs, scoring, float64). The
+# box as one block (the partitioned facades' default configuration), the
+# same on the two-tier tables (``walk_table_dtype="bfloat16"`` as it
+# ships), the gather sub-split into blocks of <= VMEM_BOUND elements
+# (47), the same with the int32 sidecar, the bf16 reroute (24 blocks),
+# float32 scoring on one block and on the sub-split, the bf16 reroute
+# with scoring, and float64 on one block. The lattice as one block
+# (LATTICE_PART_N particles) runs with the lattice's phases.
 W4_SUBSPLIT = dict(vmem_walk_max_elems=VMEM_BOUND, block_kernel="gather")
 W4_BF16 = dict(vmem_walk_max_elems=VMEM_BOUND, block_kernel="vmem",
                table_dtype="bfloat16")
 W4_CELLS = (
     ("box", {}, False, False),
+    ("box, two-tier", dict(table_dtype="bfloat16"), False, False),
     ("sub-split", W4_SUBSPLIT, False, False),
     ("sidecar", dict(W4_SUBSPLIT, sidecar=True), False, False),
     ("bf16 reroute", W4_BF16, False, False),
@@ -886,79 +910,137 @@ def w4_work(eng, st, ids) -> tuple:
 
 
 def w4_bytes(eng, st, ids, rows: int, spec=None, bank=None) -> int:
-    """Bytes a W4 round must move on this input: each slot of a walked
-    block read and written once (``round_bytes``' model: 57 B an active
-    slot in f32, 40 B an idle one, 52 B if it left the mesh), each
-    crossed row (80 B packed in f32, with the sidecar 96 B; two-tier a
-    32 B select row and its four 20 B refinement rows) and its flux
-    entry read and written once; with scoring each bank lane touched
-    read and written once and each active slot's bin offset and factors
-    read once."""
+    """Bytes a W4 round must move on this input: each slot of the front
+    (the not-done slots of the walked blocks) reads x, lelem, dest, fly,
+    w and its masks and writes x, lelem, its masks and pending once (57
+    B in f32); every other slot's ``done`` flag is read once (1 B), to
+    find the front; each crossed row (80 B packed in f32, with the
+    sidecar 96 B; two-tier a 32 B select row and its four 20 B
+    refinement rows) and its flux entry are read and written once; with
+    scoring each bank lane touched is read and written once and each
+    front slot's bin offset and factors read once. The work list (4 B an
+    entry, written and read) is the design's, not the round's, and the
+    wrapper's ``pending`` fill is outside W4's kernels: neither is
+    charged."""
     import torch
 
-    from pumiumtally_tpu_torch.experiments.block_rounds import round_bytes
-
     k = st["x"].element_size()
-    cb = eng.cap_per_block
-    if ids is None:
-        done, exited = st["done"], st["exited"]
-        blocks = eng.nparts
-    else:
-        slots = (ids.long()[:, None] * cb
-                 + torch.arange(cb, device=ids.device)).reshape(-1)
-        done, exited = st["done"][slots], st["exited"][slots]
-        blocks = int(ids.numel())
+    front = ~st["done"]
+    if ids is not None:
+        walked = torch.zeros((eng.nparts,), dtype=torch.bool,
+                             device=ids.device)
+        walked[ids.long()] = True
+        front = (front.view(eng.nparts, -1) & walked[:, None]).view(-1)
+    n_front = int(front.sum())
     row_bytes = (32 + 4 * 5 * k if eng.two_tier
                  else 20 * k + (16 if eng.part.adj_int is not None else 0))
-    nbytes = round_bytes(done, exited, blocks, 0, 0, k) \
-        + rows * (row_bytes + 2 * k)
+    nbytes = (n_front * (10 * k + 17) + (front.numel() - n_front)
+              + rows * (row_bytes + 2 * k))
     if spec is not None:
-        nbytes += bank_bytes(bank, k) + int((~done).sum()) * (
-            4 + spec.n_scores * k)
+        nbytes += bank_bytes(bank, k) + n_front * (4 + spec.n_scores * k)
     return nbytes
 
 
+# W4's device activity: the walk and the kernels that build a later
+# round's work list (``work_list``).
+W4_KERNELS = ("gather_block_walk_kernel", "work_count_kernel",
+              "work_scan_kernel", "work_write_kernel")
+
+
+def w4_profile(fn, launches: int = 1, reps: int = 5) -> tuple:
+    """Device ms a call of ``fn`` (``launches`` W4 walks a call):
+    (W4's kernels, W4_KERNELS, summed; every device activity of the
+    call; the walk kernel alone) over ``reps`` calls under
+    torch.profiler. A window whose count of walks is not ``reps *
+    launches`` is profiled again, twice at most; then CUDA events time
+    the calls queued behind a sleep kernel (every activity of the call,
+    for all three)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        walks = sum("gather_block_walk_kernel" in e.name for e in ev)
+        if walks == reps * launches:
+            w4 = sum(e.time_range.elapsed_us() for e in ev
+                     if any(k in e.name for k in W4_KERNELS))
+            every = sum(e.time_range.elapsed_us() for e in ev)
+            walk = sum(e.time_range.elapsed_us() for e in ev
+                       if "gather_block_walk_kernel" in e.name)
+            return w4 / reps / 1e3, every / reps / 1e3, walk / reps / 1e3
+        print(f"# profiler retry: {walks} of {reps * launches} W4 walks in "
+              "a window; profiling again")
+    ms = queued_ms(fn, reps)
+    print(f"# profiler retry: W4 timed with events behind a sleep kernel "
+          f"instead: {ms:.4f} ms")
+    return ms, ms, ms
+
+
 def w4_ms(fn) -> list:
-    """W4_PASSES device times of ``fn`` in ms (torch.profiler, the
-    kernel's own activity: ``gather_block_walk_kernel``)."""
-    return [device_us(fn, reps=5, name="gather_block_walk_kernel") / 1e3
-            for _ in range(W4_PASSES)]
+    """W4_PASSES device times of ``fn`` in ms: W4's kernels
+    (``w4_profile``), the list build included."""
+    return [w4_profile(fn)[0] for _ in range(W4_PASSES)]
 
 
 def w4_move_ms(fns: list, launches: int) -> float:
     """The device ms of one move's W4 rounds: every round's call in turn
-    (``fns``, into its standing buffers) under one torch.profiler window,
-    the kernel's ``launches`` activities summed. A window that misses
-    some is profiled again, twice at most; then CUDA events time the
-    calls queued behind a sleep kernel (their copies too)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    (``fns``, into its standing buffers), W4's kernels summed over the
+    move (``w4_profile``, one move a window)."""
     def move():
         for f in fns:
             f()
 
-    move()
-    sync()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            move()
-            sync()
-        spans = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and "gather_block_walk_kernel" in e.name]
-        if len(spans) == launches:
-            return sum(spans) / 1e3
-        print(f"# profiler retry: {len(spans)} of {launches} W4 launches "
-              "in a move's window; profiling again")
-    ms = queued_ms(move, 1)
-    print(f"# profiler retry: W4's move timed with events behind a sleep "
-          f"kernel instead: {ms:.4f} ms")
-    return ms
+    return w4_profile(move, launches, reps=1)[0]
+
+
+W4_KEYS = ("x", "lelem", "dest", "fly", "w", "done", "exited")
+
+
+def w4_call(eng, st, first: bool, flux, sc, tally: bool = True,
+            counts=None):
+    """A call that runs W4 on the round input ``st`` as the engine's
+    round does, adding into ``flux`` (and the bank in ``sc``): in a
+    checkout with ``walk_local_list``, in place on copies of the walked
+    rows that each call first restores from ``st``, without a list in
+    the phase's ``first`` round, else over ``work_list`` of ``done`` (a
+    full migrate's list), with ``counts``; in an older checkout,
+    ``walk_local`` over the occupied blocks."""
+    import torch
+
+    from pumiumtally_tpu_torch.parallel import partition
+
+    kw = dict(tally=tally, tol=eng.tol, max_iters=eng.max_iters,
+              blocks=eng.nparts, adj_int=eng.part.adj_int,
+              table_hi=eng.part.table_hi, scoring=sc)
+    if not hasattr(partition, "walk_local_list"):
+        ids = None
+        if eng.nparts > 1:
+            ids = (~st["done"]).view(eng.nparts, -1).any(dim=1)
+            ids = ids.nonzero().squeeze(1).to(torch.int32)
+        return functools.partial(partition.walk_local, eng.part.table,
+                                 *(st[k] for k in W4_KEYS), flux,
+                                 block_ids=ids, **kw)
+    rows = {k: st[k].clone() for k in partition.WALKED_ROWS}
+
+    def call():
+        for k, v in rows.items():
+            v.copy_(st[k])
+        work = None if first else partition.work_list(rows["done"])
+        return partition.walk_local_list(
+            eng.part.table, *(rows.get(k, st[k]) for k in W4_KEYS), flux,
+            work, counts=counts, **kw)
+
+    return call
 
 
 def phase_w4(mesh, pts, mesh64, label: str, knobs: dict, scoring: bool,
-             f64: bool) -> dict:
+             f64: bool, n: int = 0) -> dict:
     """W4 (csrc/gather_block_walk.cu) against ``walk_local_blocks_plain``
     on the card, on every tallied round of the first move (each round's
     input migrated by the engine's ``_migrate`` from the kernel's
@@ -966,11 +1048,17 @@ def phase_w4(mesh, pts, mesh64, label: str, knobs: dict, scoring: bool,
     ids, masks, pending and iters equal, positions bitwise, flux at rtol
     1e-4 of its largest element, scoring lanes as phase 6b holds them;
     the blocks the kernel walks must be those whose slots hold a
-    not-done particle, one launch a round. Rounds 1 and 2 are timed,
-    W4_PASSES passes into standing buffers (one-block cells also
-    untallied), beside each round's bound and the plain version's wall
-    time; the whole move's rounds, W4_PASSES passes, beside the bound
-    summed over them. Returns the cell's round-1 entry."""
+    not-done particle, one launch a round. Each round also runs the
+    engine's call (``w4_call``): round 1 without a list, later rounds
+    over the list W4 builds from ``done`` (equal to ``work_list_plain``),
+    in place on copies: equal to the plain version, and the kernel's
+    count of the slots it walked equal to the list's length. Those
+    calls are timed: rounds 1 and 2, W4_PASSES passes into standing
+    buffers (one-block cells also untallied), beside each round's bound
+    and the plain version's wall time; the whole move's rounds,
+    W4_PASSES passes, beside the bound summed over them. ``n``: the
+    particles (0: N, or W0_F64_N in float64). Returns the cell's round-1
+    entry."""
     import torch
 
     from pumiumtally_tpu_torch import kernels
@@ -978,10 +1066,12 @@ def phase_w4(mesh, pts, mesh64, label: str, knobs: dict, scoring: bool,
         _occupancy_counts,
         walk_local,
         walk_local_blocks_plain,
+        work_list,
+        work_list_plain,
     )
 
     m = mesh64 if f64 else mesh
-    n = W0_F64_N if f64 else N
+    n = n or (W0_F64_N if f64 else N)
     spec = score_spec() if scoring else None
     eng, rt, st = w4_engine(m, pts, n, spec=spec, **knobs)
     if eng.use_vmem_walk or eng.use_pallas_walk:
@@ -992,7 +1082,7 @@ def phase_w4(mesh, pts, mesh64, label: str, knobs: dict, scoring: bool,
     kw = dict(tally=True, tol=eng.tol, max_iters=eng.max_iters,
               blocks=eng.nparts, adj_int=eng.part.adj_int,
               table_hi=eng.part.table_hi)
-    keys = ("x", "lelem", "dest", "fly", "w", "done", "exited")
+    keys = W4_KEYS
 
     def buffers():
         return (torch.zeros_like(eng.flux_padded),
@@ -1038,19 +1128,50 @@ def phase_w4(mesh, pts, mesh64, label: str, knobs: dict, scoring: bool,
         if spec is not None:
             err = max(err, check_bank(f"W4 {label} round {r}", bank_k,
                                       bank_p, spec.kinds))
+        # The engine's call: round 1 without a list, later rounds over
+        # the list W4 builds from done.
+        if r > 1:
+            got, want = work_list(st["done"]), work_list_plain(st["done"])
+            listed = int(want[1])
+            if int(got[1]) != listed or not torch.equal(
+                    got[0][:listed], want[0][:listed]):
+                raise AssertionError(f"W4 {label} round {r}: the list "
+                                     "build differs from work_list_plain")
+        listed = int((~st["done"]).sum())
+        flux_l, bank_l = buffers()
+        walked_n = torch.zeros((1,), dtype=torch.int32,
+                               device=st["x"].device)
+        sc_l = None if spec is None else (spec.kinds, bank_l, st["sbin"],
+                                          st["sfac"])
+        rl = w4_call(eng, st, r == 1, flux_l, sc_l, counts=walked_n)()
+        if int(walked_n) != listed:
+            raise AssertionError(f"W4 {label} round {r}: the kernel walked "
+                                 f"{int(walked_n)} slots, the round's list "
+                                 f"holds {listed}")
+        for i, f in ((0, "x"), (1, "lelem"), (2, "done"), (3, "exited"),
+                     (4, "pending"), (6, "iters")):
+            check_equal(f"W4 {label} round {r} engine call {f}", rl[i],
+                        rp[i])
+        err = max(err, check_flux(f"W4 {label} round {r} engine call",
+                                  flux_l, rp[5]))
+        if spec is not None:
+            err = max(err, check_bank(f"W4 {label} round {r} engine call",
+                                      bank_l, bank_p, spec.kinds))
         n_paused = int((rk[4] >= 0).sum())
         crossings, rows = w4_work(eng, st, ids)
         nbytes = w4_bytes(eng, st, ids, rows, spec, bank_p)
         bound = bound_entry(nbytes, crossings, flops,
                             F32_FLOPS if k == 4 else F64_FLOPS)
         move_bound += bound["bound_ms"]
-        # This round's call, adding into standing flux and bank buffers,
-        # for the move's time.
-        fns.append(functools.partial(run, walk_local, st, ids,
-                                     bufs=buffers()))
+        # This round's engine call, adding into standing flux and bank
+        # buffers, for the move's time.
+        flux_t, bank_t = buffers()
+        fns.append(w4_call(eng, st, r == 1, flux_t, None if spec is None
+                           else (spec.kinds, bank_t, st["sbin"],
+                                 st["sfac"])))
         if r <= 2:
             t_on = w4_ms(fns[-1])
-            t_off = (w4_ms(lambda: run(walk_local, st, ids, False))
+            t_off = (w4_ms(w4_call(eng, st, r == 1, None, None, False))
                      if eng.nparts == 1 and spec is None else [])
             timed.append(dict(ms=float(np.median(t_on)), plain_ms=plain_ms,
                               **bound))
@@ -1060,9 +1181,10 @@ def phase_w4(mesh, pts, mesh64, label: str, knobs: dict, scoring: bool,
                   f"blocks; kernel {', '.join(f'{v:.4f}' for v in t_on)} ms"
                   + (f", untallied {', '.join(f'{v:.4f}' for v in t_off)} "
                      "ms" if t_off else "")
-                  + f" (profiler, {W4_PASSES} passes); plain "
-                  f"{plain_ms:.3f} ms; {crossings} crossings over {rows} "
-                  f"rows, {n_paused} paused; {nbytes} B; bound {bound}")
+                  + f" (profiler, {W4_PASSES} passes, the list build "
+                  f"included); plain {plain_ms:.3f} ms; {listed} listed "
+                  f"slots walked; {crossings} crossings over {rows} rows, "
+                  f"{n_paused} paused; {nbytes} B; bound {bound}")
         rounds.append(occupied)
         if n_paused == 0:
             break
@@ -1074,8 +1196,7 @@ def phase_w4(mesh, pts, mesh64, label: str, knobs: dict, scoring: bool,
     if (len(rounds) > 1) != (eng.nparts > 1):
         raise AssertionError(f"W4 {label}: {len(rounds)} rounds over "
                              f"{eng.nparts} blocks")
-    launches = sum(int(o > 0) for o in rounds)
-    move = [w4_move_ms(fns, launches) for _ in range(W4_PASSES)]
+    move = [w4_move_ms(fns, len(fns)) for _ in range(W4_PASSES)]
     print(f"# W4 {label}: {len(rounds)} rounds ({entry}), each equal to the "
           f"plain version; occupied blocks a round {rounds} "
           f"({sum(rounds)} dispatched of {len(rounds) * eng.nparts}); the "
@@ -1086,6 +1207,57 @@ def phase_w4(mesh, pts, mesh64, label: str, knobs: dict, scoring: bool,
             "source": "pumiumtally_tpu_torch/csrc/gather_block_walk.cu",
             "replaces": "pumiumtally_tpu/parallel/partition.py:466",
             "max_abs_err": err, **timed[0], "library_ms": None}
+
+
+def phase_w4_list(mesh, pts) -> dict:
+    """W4's list build ``work_list`` (a round after a full migrate)
+    against ``work_list_plain`` on the card, on the 47-block sub-split's
+    round-2 input (round 1 walked, then the engine's ``_migrate``): the
+    same list and length. Its device time (every activity of its call,
+    W4_PASSES passes), the plain version's wall time, the bound (each
+    ``done`` flag read, the list written: n + 4 B a listed slot) and
+    ``torch.argsort`` of ``done`` (stable: the same list). Returns its
+    ``kernels`` entry."""
+    import torch
+
+    from pumiumtally_tpu_torch.parallel.partition import (
+        walk_local,
+        work_list,
+        work_list_plain,
+    )
+
+    sub, _, st = w4_engine(mesh, pts, N, **W4_SUBSPLIT)
+    ids = torch.arange(sub.nparts, dtype=torch.int32, device=st["x"].device)
+    res = walk_local(sub.part.table, *(st[k] for k in W4_KEYS),
+                     torch.zeros_like(sub.flux_padded), tally=True,
+                     tol=sub.tol, max_iters=sub.max_iters, blocks=sub.nparts,
+                     block_ids=ids)
+    st = sub._migrate(dict(st, x=res[0], lelem=res[1], done=res[2],
+                           exited=res[3], pending=res[4]))
+    done = st["done"]
+    got, want = work_list(done), work_list_plain(done)
+    listed = int(want[1])
+    if int(got[1]) != listed or not torch.equal(got[0][:listed],
+                                                want[0][:listed]):
+        raise AssertionError("W4 work list: differs from work_list_plain")
+    ms = [device_us(lambda: work_list(done), reps=5) / 1e3
+          for _ in range(W4_PASSES)]
+    plain_ms = wall_ms(lambda: work_list_plain(done))
+    lib_ms = device_us(lambda: torch.argsort(done, stable=True),
+                       reps=5) / 1e3
+    nbytes = done.numel() + 4 * listed
+    bound = bound_entry(nbytes, 0)
+    print(f"# W4 work list (gather_work_list): {listed} listed of "
+          f"{done.numel()} slots, equal to the plain version; "
+          f"{', '.join(f'{v:.4f}' for v in ms)} ms (profiler, {W4_PASSES} "
+          f"passes); plain {plain_ms:.3f} ms; library {lib_ms} ms; "
+          f"{nbytes} B; bound {bound}")
+    return {"name": "W4 work list", "route": "cuda",
+            "entry": "gather_work_list",
+            "source": "pumiumtally_tpu_torch/csrc/gather_block_walk.cu",
+            "replaces": "pumiumtally_tpu/parallel/partition.py:466",
+            "max_abs_err": 0.0, "ms": float(np.median(ms)),
+            "plain_ms": plain_ms, **bound, "library_ms": lib_ms}
 
 
 def phase_w4_many_blocks(mesh, pts, reps: int = W4_MANY_REPS,
@@ -2853,6 +3025,7 @@ def main() -> int:
     w4 = {label: phase_w4(mesh, pts, mesh64, label, knobs, scoring, f64)
           for label, knobs, scoring, f64 in W4_CELLS}
     del mesh64
+    w4_list = phase_w4_list(mesh, pts)
     phase_w4_many_blocks(mesh, pts)
     # The scoring slice's kernels: registers of every instantiation, then
     # W0 (both tiers, and float64) and W2 (both regimes) with the
@@ -2904,6 +3077,10 @@ def main() -> int:
         lat_mesh = load_mesh(path, dtype=torch.float32)
         lw0 = phase_w0(lat_mesh, lat_pts, " (lattice)")
         lw0t = phase_w0(lat_mesh, lat_pts, " (lattice)", two_tier=True)
+        # W4 on the lattice as one block (the default partitioned
+        # configuration), LATTICE_PART_N particles.
+        w4["lattice"] = phase_w4(lat_mesh, lat_pts, None, "lattice", {},
+                                 False, False, n=LATTICE_PART_N)
         for two_tier in (False, True):
             phase_w0_scoring(lat_mesh, lat_pts, " (lattice)", two_tier)
         print(f"# W0 first move: lattice {lw0['ms']:.3f} ms vs box "
@@ -2944,7 +3121,9 @@ def main() -> int:
              "lat_part": "gather_block_walk",
              "score_part_gather": "gather_block_walk_scored",
              "score_part_gather_bf16": "gather_block_walk_twotier_scored"}
-    for key, entry in needs.items():
+    # W4's list build: the bf16 reroute's full-migrate rounds.
+    for key, entry in (*needs.items(),
+                       ("part_gather_bf16", "gather_work_list")):
         if counts[key][entry] == 0:
             raise AssertionError(f"{key}: kernel {entry} never launched on "
                                  f"its main path: {counts[key]}")
@@ -2969,14 +3148,15 @@ def main() -> int:
                      (w2, "twotier_block_walk"), (sw0, "walk_scored"),
                      (sw0t, "walk_twotier_scored"),
                      (sw2, "twotier_block_walk_scored"),
-                     *((e, e["entry"]) for e in w4_lines)):
+                     *((e, e["entry"]) for e in w4_lines + [w4_list])):
         e["launches"] = sum(c[entry] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in (w0, w1, w0t, w2, sw0, sw0t, sw2,
-                                            *w4_lines, w3, *g1)]}))
+                                            *w4_lines, w4_list, w3,
+                                            *g1)]}))
     print(f"# total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3011,6 +3191,190 @@ def main_w0_times() -> int:
                 times = w0_times(*w0_inputs(mesh, p, two_tier))
                 print(json.dumps({"mesh": label, "two_tier": two_tier,
                                   "tets": mesh.nelems, "n": N, **times}))
+    return 0
+
+
+def w4_sorted_list(eng, st) -> tuple:
+    """The element-order arm's work list from torch ops: ``st``'s
+    not-done slots ordered by element (block * L + lelem), stably, by a
+    sort of int32 keys over every slot, and their count."""
+    import torch
+
+    slot = torch.arange(eng.cap, device=st["x"].device)
+    key = ((slot // eng.cap_per_block) * eng.part.L
+           + st["lelem"]).to(torch.int32)
+    key = torch.where(st["done"], torch.full_like(key, 2**31 - 1), key)
+    order = torch.sort(key, stable=True).indices.to(torch.int32)
+    return order, (~st["done"]).sum(dtype=torch.int32).view(1)
+
+
+def w4_times_cell(label: str, mesh, pts, n: int, knobs: dict,
+                  scoring: bool, tally: bool, arms: bool) -> None:
+    """``--w4-times``: one JSON line of W4's round-1 times on one block
+    as the engine's round runs it (``w4_call``; W4_PASSES passes; W4's
+    kernels, the walk alone, and every device activity of the call)
+    beside the bound; with ``arms``, where the checkout has
+    ``walk_local_list``, a line for each arm of the first round's
+    list (``w4_first_arms``)."""
+    import torch
+
+    from pumiumtally_tpu_torch.parallel import partition
+
+    spec = score_spec() if scoring else None
+    eng, _, st = w4_engine(mesh, pts, n, spec=spec, **knobs)
+    flux = torch.zeros_like(eng.flux_padded) if tally else None
+    bank = None if spec is None else torch.zeros_like(eng.score_padded)
+    sc = None if bank is None else (spec.kinds, bank, st["sbin"], st["sfac"])
+    call = w4_call(eng, st, True, flux, sc, tally)
+    want = call()
+    crossings, rows = w4_work(eng, st, None)
+    nbytes = w4_bytes(eng, st, None, rows, spec, bank)
+    flops = ((FLOPS_PER_CROSSING_TWO_TIER if eng.two_tier
+              else FLOPS_PER_CROSSING) + (3 if scoring else 0))
+    bound = bound_entry(nbytes, crossings, flops)
+    on, every, walk = [], [], []
+    for _ in range(W4_PASSES):
+        t = w4_profile(call)
+        on.append(t[0])
+        every.append(t[1])
+        walk.append(t[2])
+    head = {"cell": label, "tets": mesh.nelems, "n": n, "blocks": eng.nparts,
+            "slots": eng.cap, "listed": int((~st["done"]).sum()),
+            "crossings": crossings, **bound}
+    print(json.dumps({**head, "arm": "engine round", "ms": on,
+                      "walk_ms": walk, "call_ms": every}))
+    if arms and hasattr(partition, "walk_local_list"):
+        w4_first_arms(head, eng, st, flux, sc, tally, want)
+
+
+def w4_first_arms(head: dict, eng, st, flux, sc, tally: bool,
+                  want) -> None:
+    """``--w4-times``: the arms of a phase's first-round list on the
+    round input ``st``, one JSON line each (``head`` and the arm): no
+    list (as the engine runs it), or the element order from
+    ``w4_sorted_list``; W4 over it in place on copies that each call
+    restores first, equal to ``want``, the engine call's result; the
+    walk and the list's build timed apart, W4_PASSES passes, the arms in
+    turns. Then the walk over an empty list of the slot count's
+    capacity: what the CUDA blocks past a list's length cost, which
+    every later round pays."""
+    import torch
+
+    from pumiumtally_tpu_torch.parallel import partition
+
+    rows = {k: st[k].clone() for k in partition.WALKED_ROWS}
+    kw = dict(tally=tally, tol=eng.tol, max_iters=eng.max_iters,
+              blocks=eng.nparts, adj_int=eng.part.adj_int,
+              table_hi=eng.part.table_hi, scoring=sc)
+
+    def walk(wl):
+        for k, v in rows.items():
+            v.copy_(st[k])
+        return partition.walk_local_list(
+            eng.part.table, *(rows.get(k, st[k]) for k in W4_KEYS), flux,
+            wl, **kw)
+
+    arms = {"no list": lambda eng, st: None,
+            "element order, sort": w4_sorted_list}
+    times = {arm: {"walk_ms": [], "build_ms": []} for arm in arms}
+    for arm, build in arms.items():
+        got = walk(build(eng, st))
+        for i, f in enumerate(("x", "lelem", "done", "exited", "pending")):
+            check_equal(f"W4 times {head['cell']} {arm} {f}", got[i],
+                        want[i])
+    for _ in range(W4_PASSES):
+        for arm, build in arms.items():
+            wl = build(eng, st)
+            times[arm]["walk_ms"].append(w4_profile(lambda: walk(wl))[2])
+            times[arm]["build_ms"].append(0.0 if wl is None else device_us(
+                lambda: build(eng, st), reps=5) / 1e3)
+    for arm, t in times.items():
+        print(json.dumps({**head, "arm": arm,
+                          "ms": [a + b for a, b in zip(t["walk_ms"],
+                                                       t["build_ms"])],
+                          **t}))
+    dev = st["x"].device
+    empty = (torch.zeros((eng.cap,), dtype=torch.int32, device=dev),
+             torch.zeros((1,), dtype=torch.int32, device=dev))
+    print(json.dumps({**head, "arm": "empty list", "capacity": eng.cap,
+                      "walk_ms": [w4_profile(lambda: walk(empty))[2]
+                                  for _ in range(W4_PASSES)]}))
+
+
+def w4_subsplit_times(mesh, pts) -> None:
+    """``--w4-times``: the gather sub-split's first move (47 blocks),
+    each round run as the engine runs it (``w4_call``), its input
+    migrated by the engine's ``_migrate`` from the round's output: one
+    JSON line each for rounds 1 and 2 and the whole move, W4's kernels
+    and the walk alone over W4_PASSES passes, beside the bound."""
+    import torch
+
+    from pumiumtally_tpu_torch.parallel import partition
+
+    eng, _, st = w4_engine(mesh, pts, N, **W4_SUBSPLIT)
+    n_act = partition._occupancy_counts(st["done"], eng.nparts)
+    fns, move_bound = [], 0.0
+    for r in range(1, eng.max_rounds + 1):
+        ids = (n_act > 0).nonzero().squeeze(1).to(torch.int32)
+        call = w4_call(eng, st, r == 1, torch.zeros_like(eng.flux_padded),
+                       None)
+        res = call()
+        fns.append(call)
+        if r == 1 and hasattr(partition, "walk_local_list"):
+            w4_first_arms({"cell": "sub-split round 1"}, eng, st,
+                          torch.zeros_like(eng.flux_padded), None, True, res)
+        crossings, rows = w4_work(eng, st, ids)
+        bound = bound_entry(w4_bytes(eng, st, ids, rows), crossings)
+        move_bound += bound["bound_ms"]
+        if r <= 2:
+            t = [w4_profile(call) for _ in range(W4_PASSES)]
+            print(json.dumps({"cell": f"sub-split round {r}",
+                              "blocks": eng.nparts,
+                              "listed_blocks": int(ids.numel()),
+                              "listed": int((~st["done"]).sum()),
+                              "crossings": crossings, **bound,
+                              "ms": [v[0] for v in t],
+                              "walk_ms": [v[2] for v in t]}))
+        if not bool((res[4] >= 0).any()):
+            break
+        st = eng._migrate(dict(st, x=res[0], lelem=res[1], done=res[2],
+                               exited=res[3], pending=res[4]))
+        n_act = partition._occupancy_counts(st["done"], eng.nparts)
+    t = [w4_profile(lambda: [f() for f in fns], len(fns), reps=1)
+         for _ in range(W4_PASSES)]
+    print(json.dumps({"cell": "sub-split move", "rounds": len(fns),
+                      "bound_ms": move_bound, "ms": [v[0] for v in t],
+                      "walk_ms": [v[2] for v in t]}))
+
+
+def main_w4_times() -> int:
+    import torch
+
+    from pumiumtally_tpu_torch import build_box
+    from pumiumtally_tpu_torch.experiments.block_rounds import (
+        make_trajectory,
+    )
+    from pumiumtally_tpu_torch.io.load import load_mesh
+
+    phase_device()
+    phase_build()
+    print(f"# package {sys.modules['pumiumtally_tpu_torch'].__file__}")
+    box = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                    dtype=torch.float32)
+    pts = make_trajectory(np.random.default_rng(0), N, CONTINUE_MOVES + 2)
+    for label, knobs, scoring, tally, arms in (
+            ("box", {}, False, True, True),
+            ("box, untallied", {}, False, False, False),
+            ("box, two-tier", dict(table_dtype="bfloat16"), False, True,
+             True),
+            ("box, scoring", {}, True, True, True)):
+        w4_times_cell(label, box, pts, N, knobs, scoring, tally, arms)
+    w4_subsplit_times(box, pts)
+    with tempfile.TemporaryDirectory() as d:
+        path, lat_pts = write_lattice(d)
+        lattice = load_mesh(path, dtype=torch.float32)
+        w4_times_cell("lattice", lattice, lat_pts, LATTICE_PART_N, {},
+                      False, True, True)
     return 0
 
 
@@ -3232,6 +3596,7 @@ def main_staging_times() -> int:
 
 if __name__ == "__main__":
     modes = {"--w0-times": main_w0_times, "--w3-g1-times": main_w3_g1_times,
+             "--w4-times": main_w4_times,
              "--staging-times": main_staging_times,
              "--scoring-times": main_scoring_times}
     sys.exit(next((fn for flag, fn in modes.items()

@@ -24,7 +24,8 @@ or in the int32 sidecar) and ``gather_block_walk_twotier``. The scoring
 instantiations of W0, W2 and W4 are entries of their own, counted apart:
 ``walk_scored``, ``walk_twotier_scored``, ``twotier_block_walk_scored``,
 ``gather_block_walk_scored`` and ``gather_block_walk_twotier_scored``
-(each takes its scoring arguments ahead of the plain entry's).
+(each takes its scoring arguments ahead of the plain entry's). W4's
+work list of a later round is built by ``gather_work_list``.
 """
 
 from __future__ import annotations
@@ -66,9 +67,10 @@ _BOTH = ("f32", "f64")
 # nscores, kinds, and for W0 bank_size (W2 drops by its slice's stride).
 _W2_SCORE = [_P] * 3 + [_I] * 3
 _SCORE = _W2_SCORE + [_I]
-# W4's arguments after its two tables: 15 pointers (slots in and out,
-# iters, the occupied-block list), n_occ, L, cb, tol, max_iters, tally.
-_W4 = [_P] * 17 + [_I, _I, _I, _D, _I, _I, _P]
+# W4's arguments after its two tables: 13 pointers (the slot state,
+# written in place, flux, pending, iters, counts, the work list and its
+# length), the list's capacity, L, cb, tol, max_iters, tally.
+_W4 = [_P] * 15 + [_I, _I, _I, _D, _I, _I, _P]
 # C entry points: entry -> (library, argtypes, dtypes); the entry's
 # dtypes share its argtypes (``pumi_<entry>_f32`` / ``pumi_<entry>_f64``).
 _ENTRY_ARGS = {
@@ -105,6 +107,10 @@ _ENTRY_ARGS = {
     "gather_block_walk_twotier_scored": (
         "gather_block_walk", _W2_SCORE + _W4, _BOTH,
     ),
+    # W4's work list from ``done``, in slot order (no float data: one
+    # entry).
+    "gather_work_list": ("gather_block_walk", [_P] * 5 + [_I, _I, _P],
+                         ("f32",)),
 }
 
 launch_counts: Dict[str, int] = {entry: 0 for entry in _ENTRY_ARGS}

@@ -240,9 +240,9 @@ class TetMesh:
         if ne >= exact_id_limit(dtype):
             raise NotImplementedError(
                 f"{ne} elements exceed the exact float-id limit of "
-                f"{dtype} walk tables; the int32-adjacency layout is not "
-                "ported yet (ROADMAP.md queue 1, 'partitioned gather walk "
-                "(walk_local)')"
+                f"{dtype} walk tables; the unpacked mesh layout is not "
+                "ported yet (ROADMAP.md queue 1 item 2, 'the unpacked mesh "
+                "layout')"
             )
         return cls.from_numpy(
             coords, tet2vert, face_adj, volumes,

@@ -19,11 +19,14 @@
   block face with ``pending = glid``: W1 (ops/vmem_walk.py) where every
   block fits ``walk_vmem_max_elems`` on the packed tables, W2
   (ops/pallas_walk.py, ``walk_kernel="pallas"``) on the two-tier tables,
-  and otherwise the gather block walk ``walk_local`` (kernel W4,
+  and otherwise the gather block walk (kernel W4,
   csrc/gather_block_walk.cu): one block of the whole mesh when no bound
-  is set (the default configuration), or the gather sub-split, which
-  walks only the blocks that hold a not-done slot (the occupied-block
-  list, kept per block from round to round).
+  is set (the default configuration), or the gather sub-split. The
+  engine walks in place only the not-done slots (``walk_local_list``):
+  a later round over a work list that the migrate hands it, so a round
+  costs its front, not its blocks' capacity; ``walk_local`` keeps the
+  JAX function's contract. The occupied-block list (kept per block from
+  round to round) counts the blocks dispatched.
 - **Migration**: paused particles move to their target block's slot
   range by a stable rank per target (``migrate``), or, with
   ``cap_frontier``, only the paused rows move through a slab of that
@@ -471,9 +474,62 @@ def _block_layout(table, table_hi, adj_int, n: int, blocks: int):
     return rows // blocks, n // blocks
 
 
-def _walk_local_cuda(table, x, lelem, dest, flying, weight, done, exited,
-                     flux, *, tally, tol, max_iters, adj_int, table_hi,
-                     scoring, blocks, block_ids):
+# The slot rows W4 writes in place (``walk_local_list``).
+WALKED_ROWS = ("x", "lelem", "done", "exited")
+# Slots a CUDA block of W4's list build covers (csrc/gather_block_walk.cu
+# LIST_CHUNK): the chunk counts' scratch holds one int32 a chunk.
+WORK_CHUNK = 4096
+
+
+def work_list_plain(done: torch.Tensor,
+                    walked: Optional[torch.Tensor] = None):
+    """``work_list`` in plain PyTorch."""
+    todo = ~done
+    if walked is not None:
+        todo = (todo.view(walked.numel(), -1) & walked[:, None]).view(-1)
+    order = torch.sort((~todo).to(torch.uint8), stable=True).indices
+    return order.to(torch.int32), todo.sum(dtype=torch.int32).view(1)
+
+
+def work_list(done: torch.Tensor, walked: Optional[torch.Tensor] = None):
+    """A later round's work list built from ``done`` (after a full
+    migrate): ``(work, n_work)``, the int32 [S] slot ids with the
+    not-done slots (of the blocks that ``walked``, bool [blocks],
+    marks; None: every block) first, in slot order, and their count as
+    an int32 [1] tensor on the same device. No host sync: the length
+    stays on the device.
+
+    CUDA tensors launch W4's list build (``gather_work_list``, two
+    passes over the flags); CPU tensors run ``work_list_plain``."""
+    if not done.is_cuda:
+        return work_list_plain(done, walked)
+    n = done.shape[0]
+    cb = n // walked.numel() if walked is not None else max(n, 1)
+    kernels.check_aligned("work_list", [("done", done)], 4)
+    kernels.check_cuda_args("work_list", done.device, [
+        ("done", done, torch.bool, (n,)),
+        ("walked", walked, torch.bool, (None,)),
+    ])
+    if walked is not None and n % walked.numel():
+        raise ValueError(f"work_list: {n} slots do not split into "
+                         f"{walked.numel()} blocks")
+    # The list, its length, then the chunk counts, in one buffer.
+    buf = torch.empty((n + 1 + -(-n // WORK_CHUNK),), dtype=torch.int32,
+                      device=done.device)
+    work, n_work = buf[:n], buf[n:n + 1]
+    if n:
+        p = kernels.ptr
+        kernels.launch("gather_work_list", torch.float32, done.device,
+                       p(done), p(walked), p(buf[n + 1:]), p(work),
+                       p(n_work), n, cb)
+    else:
+        n_work.zero_()
+    return work, n_work
+
+
+def _walk_list_cuda(table, x, lelem, dest, flying, weight, done, exited,
+                    flux, work, *, tally, tol, max_iters, adj_int,
+                    table_hi, scoring, blocks, counts):
     dev, dt = x.device, x.dtype
     n = x.shape[0]
     L, cb = _block_layout(table, table_hi, adj_int, n, blocks)
@@ -488,6 +544,7 @@ def _walk_local_cuda(table, x, lelem, dest, flying, weight, done, exited,
         entry = "gather_block_walk"
         tables = [("table", table, dt, (blocks * L, WALK_TABLE_WIDTH)),
                   ("adj_int", adj_int, torch.int32, (blocks * L, 4))]
+    ids, n_work = work if work is not None else (None, None)
     kernels.check_aligned("walk_local", [tables[0][:2], tables[1][:2]])
     kernels.check_cuda_args("walk_local", dev, tables + [
         ("x", x, dt, (n, 3)),
@@ -498,7 +555,9 @@ def _walk_local_cuda(table, x, lelem, dest, flying, weight, done, exited,
         ("done", done, torch.bool, (n,)),
         ("exited", exited, torch.bool, (n,)),
         ("flux", flux if tally else None, dt, (blocks * L,)),
-        ("block_ids", block_ids, torch.int32, (None,)),
+        ("work", ids, torch.int32, (None,)),
+        ("n_work", n_work, torch.int32, (1,)),
+        ("counts", counts, torch.int32, (1,)),
     ])
     score_args = ()
     if scoring is not None:
@@ -517,32 +576,117 @@ def _walk_local_cuda(table, x, lelem, dest, flying, weight, done, exited,
         score_args = (kernels.ptr(bank), kernels.ptr(bin_off),
                       kernels.ptr(fac), stride, len(kinds),
                       count_mask(kinds))
-    n_occ = blocks if block_ids is None else int(block_ids.numel())
-    # Slots of blocks the launch does not walk keep their carries and
-    # get pending -1 (the JAX walk of an all-done batch).
-    partial_walk = n_occ < blocks
-    if partial_walk:
-        out = (x.clone(), lelem.clone(), done.clone(), exited.clone(),
-               torch.full((n,), -1, dtype=torch.int32, device=dev))
-    else:
-        out = (torch.empty((n, 3), dtype=dt, device=dev),
-               torch.empty((n,), dtype=torch.int32, device=dev),
-               torch.empty((n,), dtype=torch.bool, device=dev),
-               torch.empty((n,), dtype=torch.bool, device=dev),
-               torch.empty((n,), dtype=torch.int32, device=dev))
-    out += (torch.zeros((), dtype=torch.int32, device=dev),)
-    x_out, lelem_out, done_out, exited_out, pending, iters = out
-    if n_occ and cb:
+    # Slots the walk does not take keep their carries and get pending -1.
+    pending = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    cap = n if ids is None else ids.numel()
+    if cap and cb:
         p = kernels.ptr
         kernels.launch(
             entry, dt, dev, *score_args, *(p(t) for _, t, _, _ in tables),
             p(x), p(lelem), p(dest), p(flying), p(weight), p(done),
-            p(exited), p(flux if tally else None), p(x_out), p(lelem_out),
-            p(done_out), p(exited_out), p(pending), p(iters), p(block_ids),
-            n_occ, L, cb, float(tol), int(max_iters), int(bool(tally)),
+            p(exited), p(flux if tally else None), p(pending), p(iters),
+            p(counts), p(ids), p(n_work), cap, L, cb, float(tol),
+            int(max_iters), int(bool(tally)),
         )
-    res = (x_out, lelem_out, done_out, exited_out, pending, flux, iters)
+    res = (x, lelem, done, exited, pending, flux, iters)
     return res + (scoring[1],) if scoring is not None else res
+
+
+def walk_local_list(table, x, lelem, dest, flying, weight, done, exited,
+                    flux, work=None, *, tally: bool, tol: float,
+                    max_iters: int, adj_int=None, table_hi=None,
+                    scoring=None, blocks: int = 1,
+                    counts: Optional[torch.Tensor] = None):
+    """The gather block walk, IN PLACE, over a work list: ``x``,
+    ``lelem``, ``done`` and ``exited`` of the slots it walks are written
+    into those tensors, and a slot it does not walk is not written.
+    ``work`` is ``(ids, n_work)``: int32 slot ids, each at most once, of
+    which the first ``n_work`` (an int32 [1] tensor, read on the device)
+    walk as ``walk_local`` walks them, done or not (a slot off the list
+    is not read either); None walks every slot that is not done (a
+    round's first walk, whose front is every such slot). Returns
+    ``walk_local``'s tuple: the four tensors, a new ``pending`` (-1
+    where not walked), ``flux``, ``iters`` (the most steps of a walked
+    slot), plus the bank when scoring. ``counts`` (int32 [1], optional)
+    gets the number of slots walked added to it.
+
+    The engine's round walk: a phase's first round walks without a
+    list; a later round takes the frontier migrate's arrivals' list, or
+    ``work_list`` after a full migrate. CUDA tensors launch kernel W4
+    (csrc/gather_block_walk.cu); CPU tensors run
+    ``walk_local_list_plain``."""
+    blocks = int(blocks)
+    if tally and flux is None:
+        raise ValueError("a tallying walk needs a flux tensor")
+    fn = walk_local_list_plain
+    if x.is_cuda:
+        fn = _walk_list_cuda
+    elif x.device.type != "cpu":
+        raise ValueError(
+            f"walk_local runs on CUDA or CPU tensors, not {x.device}")
+    return fn(table, x, lelem, dest, flying, weight, done, exited, flux,
+              work, tally=tally, tol=tol, max_iters=max_iters,
+              adj_int=adj_int, table_hi=table_hi, scoring=scoring,
+              blocks=blocks, counts=counts)
+
+
+def walk_local_list_plain(table, x, lelem, dest, flying, weight, done,
+                          exited, flux, work=None, *, tally: bool,
+                          tol: float, max_iters: int, adj_int=None,
+                          table_hi=None, scoring=None, blocks: int = 1,
+                          counts: Optional[torch.Tensor] = None):
+    """``walk_local_list`` in plain PyTorch: the walked slots walk as
+    ``walk_local_blocks_plain`` walks a block's slots (one lock-step
+    loop, rows offset to their blocks, scoring lanes dropped at their
+    block's bank slice end) and are written back in place."""
+    n = x.shape[0]
+    L, cb = _block_layout(table, table_hi, adj_int, n, blocks)
+    if work is None:
+        sel = (~done).nonzero().squeeze(1)
+    else:
+        sel = work[0][: int(work[1])].long()
+    slot_block = sel // max(cb, 1)
+    sc = lane_end = None
+    if scoring is not None:
+        kinds, bank, bin_off, fac = scoring
+        stride = bank.numel() // (blocks * L)
+        sc = (kinds, bank, bin_off[sel], fac[sel])
+        lane_end = (slot_block + 1) * L * stride
+    r = _walk_loop(table, x[sel], lelem[sel], dest[sel], flying[sel],
+                   weight[sel], done[sel], exited[sel], flux, tally=tally,
+                   tol=tol, max_iters=max_iters, adj_int=adj_int,
+                   table_hi=table_hi, scoring=sc, base=slot_block * L,
+                   lane_end=lane_end)
+    pending = torch.full((n,), -1, dtype=torch.int32, device=x.device)
+    for t, v in zip((x, lelem, done, exited, pending), r):
+        t[sel] = v
+    if counts is not None:
+        counts += sel.numel()
+    out = (x, lelem, done, exited, pending, flux, r[6])
+    return out + (scoring[1],) if scoring is not None else out
+
+
+def _walk_local_cuda(table, x, lelem, dest, flying, weight, done, exited,
+                     flux, *, adj_int, table_hi, blocks, block_ids, **kw):
+    """``walk_local`` on the card: W4 in place on the outputs, over every
+    not-done slot, or with ``block_ids`` over the work list of the
+    listed blocks' not-done slots; a walked block's done slots are
+    written back as the plain walk writes them (``dest`` unless
+    exited), every other slot keeps its carries."""
+    _, cb = _block_layout(table, table_hi, adj_int, x.shape[0], blocks)
+    keep = done & ~exited
+    work = None
+    if block_ids is not None:
+        walked = torch.zeros((blocks,), dtype=torch.bool, device=x.device)
+        walked[block_ids.long()] = True
+        keep = (keep.view(blocks, cb) & walked[:, None]).view(-1)
+        work = work_list(done, walked)
+    return _walk_list_cuda(
+        table, torch.where(keep[:, None], dest, x),
+        lelem.to(torch.int32).clone(), dest, flying, weight, done.clone(),
+        exited.clone(), flux, work, adj_int=adj_int, table_hi=table_hi,
+        blocks=blocks, counts=None, **kw)
 
 
 def walk_local(table, x, lelem, dest, flying, weight, done, exited, flux,
@@ -562,13 +706,14 @@ def walk_local(table, x, lelem, dest, flying, weight, done, exited, flux,
     list of the gather sub-split; None walks all. A block not listed
     keeps its slots' x, lelem, done and exited and gets pending -1, and
     its flux is untouched. ``iters`` is the largest over the walked
-    blocks. There is no compaction cascade: each particle walks to completion or to a
-    pause.
+    blocks. There is no compaction cascade: each particle walks to
+    completion or to a pause.
 
     CUDA tensors launch kernel W4 (csrc/gather_block_walk.cu; counted
     as ``gather_block_walk``, ``gather_block_walk_twotier`` and their
-    ``_scored`` instantiations), once for all listed blocks; CPU tensors
-    run ``walk_local_plain`` block by block."""
+    ``_scored`` instantiations) once, over the work list of the listed
+    blocks' not-done slots (``work_list``), into new tensors; CPU
+    tensors run ``walk_local_plain`` block by block."""
     blocks = int(blocks)
     if tally and flux is None:
         raise ValueError("a tallying walk needs a flux tensor")
@@ -712,9 +857,13 @@ def _frontier_migrate_impl(part_L: int, nparts: int, cap_per_block: int,
     stayers and arrivals exceed its slots. The caller guarantees that
     the front fits the slab (``_migrate_round``).
 
-    Returns ``(state, overflow, departures, arrivals)``, the [nparts]
-    int32 counts feeding ``_update_occupancy``; on overflow the OLD
-    state comes back unchanged."""
+    Returns ``(state, overflow, departures, arrivals, work)``: the
+    [nparts] int32 counts feeding ``_update_occupancy``, and the next
+    round's work list ``(work, n_work)`` (``walk_local_list``): the
+    arrivals' slots, in slab order, then the stayers that are not done
+    (slots a walk stopped at ``max_iters``), in slot order; its length
+    stays on the device. On overflow the OLD state comes back unchanged,
+    with no list."""
     cap = state["pid"].shape[0]
     dev = state["pid"].device
     pending = state["pending"].long()
@@ -722,8 +871,10 @@ def _frontier_migrate_impl(part_L: int, nparts: int, cap_per_block: int,
     moving = pending >= 0
     iota = torch.arange(cap, device=dev)
     slot_part = iota // cap_per_block
-    # Stable slab compaction: pending rows front-packed in slot order.
-    perm, counts, _ = partition_perm((~moving).long(), 2)
+    # Stable slab compaction: pending rows front-packed in slot order,
+    # then the not-done stayers (the work list's tail), then the rest.
+    order = torch.where(moving, 0, torch.where(state["done"], 2, 1))
+    perm, counts, _ = partition_perm(order, 3)
     src = perm[:cap_frontier]
     valid = torch.arange(src.shape[0], device=dev) < counts[0]
     # Free slots: never occupied, plus those the departures vacate.
@@ -747,9 +898,12 @@ def _frontier_migrate_impl(part_L: int, nparts: int, cap_per_block: int,
                          minlength=nparts + 1)[:nparts].to(torch.int32)
     arr = torch.bincount(key, minlength=nparts + 1)[:nparts].to(torch.int32)
     if overflow:
-        return state, True, dep, arr
+        return state, True, dep, arr, None
     dest = free_list[tgt * cap_per_block
                      + torch.clamp(rank, max=cap_per_block - 1)][valid]
+    work = perm.to(torch.int32)
+    work[: dest.shape[0]] = dest
+    n_work = (counts[:1] + counts[1:2]).to(torch.int32)
     src_v = src[valid]
     defaults = _default_state(int(src_v.shape[0]), state)
     new_state = {}
@@ -765,7 +919,7 @@ def _frontier_migrate_impl(part_L: int, nparts: int, cap_per_block: int,
         nv[src_v] = defaults[k]
         nv[dest] = rows
         new_state[k] = nv
-    return new_state, False, dep, arr
+    return new_state, False, dep, arr, (work, n_work)
 
 
 def _migrate_round(part_L: int, nparts: int, cap_per_block: int,
@@ -774,17 +928,19 @@ def _migrate_round(part_L: int, nparts: int, cap_per_block: int,
     """One in-loop migration round: the frontier slab when the front
     fits ``cap_frontier``, else the full ``migrate``. None keeps the
     full migrate every round, 0 forces it (the testing hook). Returns
-    ``(state, overflow, departures, arrivals, fellback)``, zero counts on
-    full-migrate rounds."""
+    ``(state, overflow, departures, arrivals, fellback, work)``, zero
+    counts on full-migrate rounds; ``work`` is the next round's work
+    list (``walk_local_list``): the frontier migrate's, or after a full
+    migrate ``work_list`` of the new state; None on overflow."""
     z = torch.zeros((nparts,), dtype=torch.int32,
                     device=state["pid"].device)
     fellback = cap_frontier is None or n_pending > cap_frontier
     if fellback:
         st, ovf = migrate(part_L, nparts, cap_per_block, state)
-        return st, ovf, z, z, True
-    st, ovf, dep, arr = _frontier_migrate_impl(part_L, nparts, cap_per_block,
-                                               cap_frontier, state)
-    return st, ovf, dep, arr, False
+        return st, ovf, z, z, True, None if ovf else work_list(st["done"])
+    st, ovf, dep, arr, work = _frontier_migrate_impl(
+        part_L, nparts, cap_per_block, cap_frontier, state)
+    return st, ovf, dep, arr, False, work
 
 
 def _update_occupancy(nparts: int, cap_frontier: Optional[int],
@@ -1096,6 +1252,11 @@ class PartitionedEngine:
                                              dtype=dtype, device=dev)
 
     @property
+    def _w1_w2(self) -> bool:
+        """Whether the rounds run W1 or W2 (else W4)."""
+        return self.use_vmem_walk or self.use_pallas_walk
+
+    @property
     def blocks_per_chip(self) -> int:
         return self.nparts
 
@@ -1214,11 +1375,22 @@ class PartitionedEngine:
         self.n_lost = int(self.state["lost"].sum())
 
     # -- phases ----------------------------------------------------------
-    def _round(self, st, tally: bool, n_act: torch.Tensor):
+    def _writable(self, st):
+        """``st`` with its own copies of the rows W4 writes in place
+        (``WALKED_ROWS``) where they are the committed state's: a phase's
+        first round works on copies, and later rounds on the migrate's
+        new rows. W1 and W2 write new tensors."""
+        if self._w1_w2:
+            return st
+        return dict(st, **{k: st[k].clone() for k in WALKED_ROWS
+                           if st[k] is self.state[k]})
+
+    def _round(self, st, tally: bool, n_act: torch.Tensor, work=None):
         """One walk round: W2, W1 or W4 (one block, or the occupied
-        blocks of the gather sub-split). Returns the new state, the
-        per-block not-done counts, the paused and not-done totals and
-        the block dispatches."""
+        blocks of the gather sub-split; in place, over ``work``, the
+        migrate's work list, None: every not-done slot). Returns the new
+        state, the per-block not-done counts, the paused and not-done
+        totals and the block dispatches."""
         args = (st["x"], st["lelem"], st["dest"], st["fly"], st["w"],
                 st["done"], st["exited"],
                 self.flux_padded if tally else None)
@@ -1228,7 +1400,7 @@ class PartitionedEngine:
             # Tallying rounds only: phase A and localization never score.
             kw["scoring"] = (self.scoring.kinds, self.score_padded,
                              st["sbin"], st["sfac"])
-        if self.use_pallas_walk or self.use_vmem_walk:
+        if self._w1_w2:
             if self.use_pallas_walk:
                 res = pallas_walk_local(self.part.table, self.part.table_hi,
                                         *args, **kw)
@@ -1242,10 +1414,10 @@ class PartitionedEngine:
             if self.nparts > 1:
                 # The occupied-block list: blocks holding a not-done slot.
                 ids = (n_act > 0).nonzero().squeeze(1).to(torch.int32)
-            res = walk_local(self.part.table, *args,
-                             adj_int=self.part.adj_int,
-                             table_hi=self.part.table_hi, block_ids=ids,
-                             **kw)
+            # The not-done slots lie in exactly those blocks.
+            res = walk_local_list(self.part.table, *args, work,
+                                  adj_int=self.part.adj_int,
+                                  table_hi=self.part.table_hi, **kw)
             if ids is None:
                 disp = 1
                 n_act = _occupancy_counts(res[2], 1)
@@ -1289,7 +1461,8 @@ class PartitionedEngine:
         with _section(prof, "occupancy_s", dev):
             n_act = _occupancy_counts(st["done"], self.nparts)
         with _section(prof, "walk_s", dev):
-            st, n_act, n_p, n_nd, disp = self._round(st, tally, n_act)
+            st, n_act, n_p, n_nd, disp = self._round(self._writable(st),
+                                                     tally, n_act)
         rounds, disp_total, fronts, fallbacks = 1, disp, [], 0
         overflow = False
         if prof is not None:
@@ -1300,7 +1473,7 @@ class PartitionedEngine:
             if prof is not None:
                 prof.frontier_sizes.append(n_p)
             with _section(prof, "migrate_s", dev):
-                st2, overflow, dep, arr, fb = _migrate_round(
+                st2, overflow, dep, arr, fb, work = _migrate_round(
                     self.part.L, self.nparts, self.cap_per_block,
                     cap_frontier, st, n_p)
             if cap_frontier is not None and fb:
@@ -1315,7 +1488,8 @@ class PartitionedEngine:
                 n_act = _update_occupancy(self.nparts, cap_frontier, st2,
                                           n_act, dep, arr, fb)
             with _section(prof, "walk_s", dev):
-                st, n_act, n_p, n_nd, disp = self._round(st2, tally, n_act)
+                st, n_act, n_p, n_nd, disp = self._round(st2, tally, n_act,
+                                                         work)
             disp_total += disp
             if prof is not None:
                 prof.rounds += 1

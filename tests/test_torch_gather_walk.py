@@ -47,11 +47,17 @@ from pumiumtally_tpu_torch import (
     TallyConfig,
     convert,
 )
+from pumiumtally_tpu_torch.parallel import partition
 from pumiumtally_tpu_torch.parallel.partition import (
     PartitionedEngine,
+    _frontier_migrate_impl,
+    _migrate_round,
     build_partition,
     walk_local,
+    walk_local_blocks_plain,
+    walk_local_list,
     walk_local_plain,
+    work_list,
 )
 
 TOL = 1e-8
@@ -219,6 +225,249 @@ def test_walk_local_wrapper_walks_listed_blocks_only():
                 assert torch.equal(res[k][ps], args[a][ps])
             assert (res[4][ps] == -1).all() and (flux[es] == 0).all()
     assert int(res[6]) == it
+
+
+def _stacked_inputs(seed: int = 5, cb: int = 60):
+    """Slots of the NPARTS-block partition of the 4^3 box, ``cb`` a
+    block, in real elements of their blocks, a tenth of them done (and
+    a few of those exited), heading anywhere: they finish, exit or pause.
+    Returns (part, cb, [x, lelem, dest, fly, w, done, exited])."""
+    part = build_partition(_MESH, NPARTS)
+    L = part.L
+    rng = np.random.default_rng(seed)
+    n = NPARTS * cb
+    lelem = torch.zeros(n, dtype=torch.int32)
+    valid = part.orig_of_glid.view(NPARTS, L).numpy()
+    for b in range(NPARTS):
+        ok = np.flatnonzero(valid[b] >= 0)
+        lelem[b * cb:(b + 1) * cb] = torch.tensor(rng.choice(ok, cb))
+    glid = (torch.arange(n) // cb) * L + lelem.long()
+    orig = part.orig_of_glid[glid].long()
+    x = _MESH.coords[_MESH.tet2vert[orig]].mean(dim=1)
+    dest = x + torch.tensor(rng.normal(scale=0.3, size=(n, 3)))
+    done = torch.tensor(rng.random(n) < 0.1)
+    exited = done & torch.tensor(rng.random(n) < 0.3)
+    # Done and not exited: at its destination, as the engine keeps it.
+    dest = torch.where((done & ~exited)[:, None], x, dest)
+    args = [x, lelem, dest, torch.ones(n, dtype=torch.int8),
+            torch.tensor(rng.uniform(0.5, 2.0, n)), done, exited]
+    return part, cb, args
+
+
+@pytest.mark.parametrize("walked", [None, (0, 2), (), (1, 2, 3)])
+def test_work_list_from_done_matches_numpy(walked):
+    """The list a later round builds from ``done``: the not-done slots
+    of the walked blocks, in slot order, its length a device tensor; an
+    empty front has length 0."""
+    _, cb, args = _stacked_inputs()
+    done = args[5].clone()
+    if walked == ():
+        done[:] = True  # an empty front
+        walked = None
+    mask = None
+    if walked is not None:
+        mask = torch.zeros(NPARTS, dtype=torch.bool)
+        mask[list(walked)] = True
+    work, n_work = work_list(done, mask)
+    todo = ~done.numpy()
+    if mask is not None:
+        todo &= np.repeat(mask.numpy(), cb)
+    want = np.flatnonzero(todo)
+    assert work.dtype == n_work.dtype == torch.int32
+    assert tuple(n_work.shape) == (1,) and int(n_work) == want.size
+    np.testing.assert_array_equal(work[:want.size].numpy(), want)
+    assert sorted(work.numpy()) == list(range(done.numel()))
+
+
+def _migrate_inputs(seed: int, nparts: int = 5, cap_b: int = 16,
+                    part_L: int = 50):
+    rng = np.random.default_rng(seed)
+    cap = nparts * cap_b
+    alive = rng.uniform(size=cap) < 0.6
+    pend = np.full(cap, -1, np.int32)
+    movers = alive & (rng.uniform(size=cap) < 0.2)
+    pend[movers] = rng.integers(0, nparts * part_L, movers.sum())
+    # Not done: the movers, and some stayers a walk stopped at max_iters.
+    done = ~(movers | (alive & (rng.uniform(size=cap) < 0.15)))
+    return {
+        "x": torch.tensor(rng.random((cap, 3))),
+        "lelem": torch.tensor(rng.integers(0, part_L, cap), dtype=torch.int32),
+        "pending": torch.tensor(pend),
+        "pid": torch.tensor(np.where(alive, np.arange(cap), -1),
+                            dtype=torch.int32),
+        "alive": torch.tensor(alive),
+        "done": torch.tensor(done),
+        "exited": torch.zeros(cap, dtype=torch.bool),
+    }
+
+
+@pytest.mark.parametrize("seed", [11, 12, 13])
+def test_frontier_migrate_work_list_matches_numpy(seed):
+    """A frontier round's list is the migrate's by-product: the
+    arrivals' new slots, in slab order (by source slot), then the
+    not-done stayers (max_iters leftovers) in slot order; together, the
+    new state's not-done slots. A full-migrate fallback round builds it
+    from ``done``."""
+    nparts, cap_b, part_L = 5, 16, 50
+    st = _migrate_inputs(seed, nparts, cap_b, part_L)
+    old = {k: v.numpy().copy() for k, v in st.items()}
+    new, overflow, _, _, work = _frontier_migrate_impl(
+        part_L, nparts, cap_b, nparts * cap_b, st)
+    assert not overflow
+    moving = np.flatnonzero(old["pending"] >= 0)
+    arrivals = [int(np.flatnonzero(new["pid"].numpy() == old["pid"][s])[0])
+                for s in moving]
+    leftovers = np.flatnonzero(~old["done"] & (old["pending"] < 0))
+    assert leftovers.size > 0 and moving.size > 0
+    want = np.concatenate([arrivals, leftovers])
+    ids, n_work = work
+    assert int(n_work) == want.size
+    np.testing.assert_array_equal(ids[:want.size].numpy(), want)
+    assert sorted(want) == list(np.flatnonzero(~new["done"].numpy()))
+    # The fallback: the full migrate's state, its list from done.
+    st2, ovf, _, _, fellback, work2 = _migrate_round(
+        part_L, nparts, cap_b, None, _migrate_inputs(seed, nparts, cap_b,
+                                                     part_L), 1)
+    assert fellback and not ovf
+    todo = np.flatnonzero(~st2["done"].numpy())
+    assert int(work2[1]) == todo.size
+    np.testing.assert_array_equal(work2[0][:todo.size].numpy(), todo)
+
+
+@pytest.mark.parametrize("listing", ["shuffled", "none"])
+def test_walk_local_list_plain_matches_sweep_and_jax(listing):
+    """The list walk in place: the listed slots (done ones too, in any
+    order) equal the full-sweep ``walk_local_blocks_plain`` and the JAX
+    ``walk_local`` on their block; every other slot keeps its carries
+    and gets pending -1. Without a list every not-done slot walks."""
+    part, cb, args = _stacked_inputs(seed=9)
+    n, L = args[0].shape[0], part.L
+    rng = np.random.default_rng(2)
+    if listing == "none":
+        sel, work = np.flatnonzero(~args[5].numpy()), None
+    else:
+        sel = rng.permutation(n)[: n // 2]
+        work = (torch.tensor(np.concatenate([sel, [0] * 7]),
+                             dtype=torch.int32),
+                torch.tensor([sel.size], dtype=torch.int32))
+    kw = dict(tally=True, tol=TOL, max_iters=4096, blocks=NPARTS)
+    flux_l = torch.zeros(NPARTS * L, dtype=F64)
+    rows = [a.clone() for a in args]
+    counts = torch.zeros(1, dtype=torch.int32)
+    got = walk_local_list(part.table, *rows, flux_l, work, counts=counts,
+                          **kw)
+    assert int(counts) == sel.size
+    for k in range(4):
+        assert got[k] is rows[(0, 1, 5, 6)[k]]
+    want = walk_local_blocks_plain(part.table, *args,
+                                   torch.zeros(NPARTS * L, dtype=F64), **kw)
+    off = np.setdiff1d(np.arange(n), sel)
+    for k, a in zip(range(4), (0, 1, 5, 6)):
+        np.testing.assert_array_equal(got[k][sel].numpy(),
+                                      want[k][sel].numpy())
+        np.testing.assert_array_equal(got[k][off].numpy(),
+                                      args[a][off].numpy())
+    np.testing.assert_array_equal(got[4][sel].numpy(), want[4][sel].numpy())
+    assert (got[4][off] == -1).all()
+    keys = ("x", "lelem", "dest", "fly", "w", "done", "exited")
+    for b in range(NPARTS):
+        mine = sel[sel // cb == b]
+        r = jax_walk_local(
+            jnp.asarray(part.table[b * L:(b + 1) * L].numpy()),
+            *(jnp.asarray(a[mine].numpy()) for a in args),
+            jnp.zeros(L), tally=True, tol=TOL, max_iters=4096)
+        for k in (1, 2, 3, 4):
+            np.testing.assert_array_equal(got[k][mine].numpy(),
+                                          np.asarray(r[k]), err_msg=keys[k])
+        np.testing.assert_allclose(got[0][mine].numpy(), np.asarray(r[0]),
+                                   rtol=0, atol=1e-12)
+        np.testing.assert_allclose(flux_l[b * L:(b + 1) * L].numpy(),
+                                   np.asarray(r[5]), rtol=1e-10, atol=1e-13)
+    assert (got[4][sel] >= 0).any() and got[3][sel].any()
+
+
+
+def test_walk_local_list_plain_empty_list():
+    """A list whose length is 0 walks nothing: every slot keeps its
+    carries, pending is -1, iters 0, the count 0, flux untouched."""
+    part, _, args = _stacked_inputs(seed=9)
+    n = args[0].shape[0]
+    rows = [a.clone() for a in args]
+    flux = torch.zeros(NPARTS * part.L, dtype=F64)
+    counts = torch.zeros(1, dtype=torch.int32)
+    work = (torch.zeros(n, dtype=torch.int32), torch.zeros(1, dtype=torch.int32))
+    got = walk_local_list(part.table, *rows, flux, work, counts=counts,
+                          tally=True, tol=TOL, max_iters=4096,
+                          blocks=NPARTS)
+    for k, a in zip(range(4), (0, 1, 5, 6)):
+        assert torch.equal(got[k], args[a])
+    assert (got[4] == -1).all() and int(got[6]) == 0 and int(counts) == 0
+    assert (flux == 0).all()
+
+
+def _engine(n: int, **knobs):
+    """A float64 engine on the 4^3 box with ``n`` particles localized at
+    seeded points."""
+    eng = PartitionedEngine(_MESH.to(dtype=F64), n, tol=TOL, max_iters=64,
+                            **knobs)
+    rng = np.random.default_rng(4)
+    eng.localize(torch.tensor(rng.uniform(0.05, 0.95, (n, 3))))
+    return eng, rng
+
+
+@pytest.mark.parametrize("cap_frontier", [None, 40])
+def test_engine_rounds_take_their_lists(cap_frontier, monkeypatch):
+    """A phase's first round walks without a list; each later round
+    walks the list its migrate hands over (the frontier slab's arrivals
+    and leftovers, or ``work_list`` after a full migrate): exactly the
+    round's not-done slots, its length a tensor."""
+    n = 300
+    eng, rng = _engine(n, vmem_walk_max_elems=100, block_kernel="gather",
+                       cap_frontier=cap_frontier)
+    assert eng.nparts > 1
+    calls = []
+    walk = partition.walk_local_list
+
+    def spy(table, x, lelem, dest, fly, w, done, exited, flux, work=None,
+            **kw):
+        calls.append((work, done.clone()))
+        return walk(table, x, lelem, dest, fly, w, done, exited, flux, work,
+                    **kw)
+
+    monkeypatch.setattr(partition, "walk_local_list", spy)
+    dests = torch.tensor(rng.uniform(-0.2, 1.2, (n, 3)))
+    eng.move(None, dests, torch.ones(n, dtype=torch.int8),
+             torch.ones(n, dtype=F64))
+    assert calls[0][0] is None and eng.last_walk_rounds > 1
+    assert len(calls) == eng.last_walk_rounds
+    for work, done in calls[1:]:
+        ids, n_work = work
+        assert isinstance(n_work, torch.Tensor) and n_work.shape == (1,)
+        todo = np.flatnonzero(~done.numpy())
+        assert int(n_work) == todo.size
+        np.testing.assert_array_equal(np.sort(ids[:todo.size].numpy()), todo)
+
+
+@pytest.mark.parametrize("knobs,copies", [
+    ({}, True),  # W4 walks in place
+    (dict(vmem_walk_max_elems=100), False),  # W1 writes new tensors
+])
+def test_writable_copies_the_committed_rows(knobs, copies):
+    """A W4 engine's first round works on copies of the committed rows
+    it writes in place, and keeps rows that are already its own; a W1
+    engine's rounds need none."""
+    eng, _ = _engine(300, **knobs)
+    fresh = eng.state["x"].clone()
+    st = dict(eng.state, x=fresh)
+    got = eng._writable(st)
+    if not copies:
+        assert got is st
+        return
+    assert got["x"] is fresh
+    for k in partition.WALKED_ROWS[1:]:
+        assert got[k] is not eng.state[k]
+        assert torch.equal(got[k], eng.state[k])
+    assert got["dest"] is eng.state["dest"]
 
 
 # -- the facades against the JAX package --------------------------------------

@@ -174,7 +174,8 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
                                      "gather_block_walk": 0,
                                      "gather_block_walk_twotier": 0,
                                      "gather_block_walk_scored": 0,
-                                     "gather_block_walk_twotier_scored": 0}
+                                     "gather_block_walk_twotier_scored": 0,
+                                     "gather_work_list": 0}
 
 
 def test_cuda_argument_checks():

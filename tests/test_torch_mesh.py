@@ -95,6 +95,21 @@ def test_float32_mesh_keeps_ids_exact():
     )
 
 
+def test_packed_table_past_exact_ids_refused(monkeypatch):
+    """A float32 mesh with as many tets as the float lanes hold exactly
+    (2^24, lowered here to 4 so a 6-tet box crosses it) needs the
+    unpacked layout, which the port lacks: the refusal names its ROADMAP
+    item."""
+    from pumiumtally_tpu_torch.mesh import tetmesh
+
+    arrays = convert.mesh_arrays(build_box(1, 1, 1, 1, 1, 1, dtype=F64))
+    monkeypatch.setattr(tetmesh, "exact_id_limit", lambda dtype: 4)
+    with pytest.raises(NotImplementedError,
+                       match=r"queue 1 item 2, 'the unpacked mesh layout'"):
+        TetMesh.from_arrays(arrays["coords"], arrays["tet2vert"],
+                            dtype=torch.float32)
+
+
 def test_convert_round_trip_and_from_jax():
     port = build_box(1, 1, 1, 3, 2, 2, dtype=F64)
     back = convert.tetmesh_from_arrays(convert.mesh_arrays(port))
