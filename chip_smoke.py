@@ -7,6 +7,7 @@
     python3 chip_smoke.py --staging-times # PumiTally's staging, no checks
     python3 chip_smoke.py --scoring-times # the scoring commit's, no checks
     python3 chip_smoke.py --w4-times      # W4's times, any checkout
+    python3 chip_smoke.py --unpacked-sentinel  # this layout's phases alone
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -65,6 +66,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. W0's two-tier variant (csrc/walk.cu, bf16 select + f32 refinement
    tables) against the two-tier ``walk_plain``, as phase 3; then W0 in
    float64 on the box (100,000 particles) against ``walk_plain``.
+5b. W0's unpacked entries (``walk_unpacked``, ``walk_unpacked_scored``:
+   the planes and the int32 ids in separate arrays) on the box in the
+   forced unpacked layout, float32 (500,000 particles) and float64
+   (100,000), against ``walk_plain`` (ids, masks, iters, x and s
+   bitwise, flux rtol 1e-4, lanes as 6b, every particle walked) and
+   against the packed W0 on the same inputs (x, s bitwise, ids equal),
+   flux conserved at rtol 1e-6; both entries timed in turns with the
+   packed W0 (CUDA events, four passes) beside the bound. The same for
+   its other caller, a two-tier mesh walked at ``table_dtype="float32"``
+   (the sentinel's rung 2: the planes read in place from
+   ``walk_table_hi`` at stride 5), against ``walk_plain`` on
+   ``with_plane_views()`` and the packed W0 on ``with_packed_table()``,
+   float32 and float64. The same on the lattice with phase 11.
 6. W2 (csrc/twotier_block_walk.cu) against ``pallas_walk_local_plain``
    as phase 4, in both regimes: 24 blocks of <= 2,000 elements (the bf16
    tier doubles the 1024 bound; rows may be staged in shared memory),
@@ -155,6 +169,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    with scoring (energy and time staged, bins resolved on the device)
    under ``set_sync_debug_mode("error")`` behind ~50 ms of queued device
    work must return while it still runs.
+10b''. The unpacked layout through ``PumiTally``'s main path (the box,
+   scoring on: localization and phase A on ``walk_unpacked``, phase B
+   on ``walk_unpacked_scored``), conservation. The straggler ladder
+   (``TallyConfig(max_iters=2, sentinel=SentinelPolicy())``, point
+   location first) on ``PumiTally`` (float32: ids and positions bitwise
+   vs an unconstrained run; two-tier with rung 1 starved so that rung 2,
+   ``walk_unpacked`` over the refinement tier, recovers everyone:
+   positions bitwise, ids counted; and against the same ladder with its
+   rungs on ``walk_plain``: positions and ids equal, flux rtol 1e-4),
+   the default ``PartitionedPumiTally``
+   (W4's resumed phase: positions bitwise, a differing id must name a
+   tet that holds its position) and ``StreamingTally`` (chunks of
+   100,000: bitwise ids), each with every straggler recovered and flux
+   totals at rtol 1e-6; a ladder starved to one step writes one
+   quarantine record per lost particle; an audited unfenced continue
+   move makes exactly one synchronizing call (the audit's fetch;
+   sentinel-off none), its ms in turns with sentinel-off.
+   ``intersection_points()`` at 500,000: a particle that stayed in its
+   tet returns its start, the others a point on a face plane of their
+   final element (1e-5).
 10c. The streaming cell: 10,000,000 particles in 1,000,000-particle
    chunks on the box, ``StreamingTally`` on both tiers and
    ``StreamingPartitionedTally`` (W1) beside ``PumiTally`` on both
@@ -194,6 +228,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``PartitionedPumiTally`` with scoring on W4: the default config and
    the bf16 tables with the vmem knobs (box, 500,000 particles, one
    profiled continue move of the default).
+12b. A mesh past the float lanes' exact ids: ``box_arrays(1, 1, 1,
+   142, 142, 142)``, 17,179,728 tets in float32, built with no flag
+   (unpacked), through ``PumiTally`` at 500,000 particles: localization
+   by walk, a two-phase and two continue moves, conservation at rtol
+   1e-6 after each, the last move's walk against ``walk_plain`` on the
+   card; the host build's seconds and peak memory, the device table
+   bytes, each move's ms.
 13. One JSON line with each kernel's launches, times, bound and error
    (W0, W2 and W4's instantiations as entries of their own), then the card's
    name and power limit, then the result line.
@@ -255,6 +296,9 @@ offset 4b: every bin's lanes in one 16-byte quad; not the port's
 layout), SCORE_PASSES passes in turns, into standing buffers. It calls
 only what every checkout of the port with scoring has, so a copy times
 another checkout, as ``--w0-times`` does.
+
+``--unpacked-sentinel`` runs phases 1-2, the scoring instantiations'
+registers, 5b on the box, 10b'' and 12b, with their checks.
 
 It imports nothing of JAX; it needs one CUDA device and exits non-zero
 without one.
@@ -504,11 +548,11 @@ def phase_build() -> None:
     # off / on): registers and spills, from ptxas's report.
     kernel, spills = None, "spills not reported"
     for line in kernels.build_log("walk").splitlines():
-        m = re.search(r"properties for _Z\d+walk_kernelI(\w)Lb(\d)ELb(\d)E",
+        m = re.search(r"properties for _Z\d+walk_kernelI(\w)Li(\d)ELb(\d)E",
                       line)
         if m:
             dtype = {"f": "float", "d": "double"}[m[1]]
-            tier = ("packed", "two-tier")[int(m[2])]
+            tier = WALK_LAYOUTS[int(m[2])]
             kernel = (f"walk_kernel<{dtype}> ({tier}"
                       f"{', scoring' if m[3] == '1' else ''})")
         elif kernel and "spill" in line:
@@ -2296,6 +2340,9 @@ EDGE_ROUNDS = 2  # W2's rounds per edge case: the leads score in round 1
 # The scoring-off instantiations' registers (ptxas, sm_90a, this
 # script's flags) as walk.cu and twotier_block_walk.cu built them before
 # they had any scoring code: scoring must not move them.
+# W0's kLayout template values (csrc/walk.cu WALK_PACKED, WALK_TWO_TIER,
+# WALK_UNPACKED).
+WALK_LAYOUTS = ("packed", "two-tier", "unpacked")
 REGS_BEFORE_SCORING = {
     ("walk", "float", "packed"): 54,
     ("walk", "float", "two-tier"): 44,
@@ -2379,14 +2426,14 @@ def instance_key(lib: str, text: str):
     """(dtype, variant, scoring) of the walk kernel instantiation a
     mangled name in ``text`` names (``instance_registers``' keys), or
     None."""
-    pat = (r"_Z\d+walk_kernelI(\w)Lb(\d)ELb(\d)E" if lib == "walk" else
+    pat = (r"_Z\d+walk_kernelI(\w)Li(\d)ELb(\d)E" if lib == "walk" else
            r"_Z\d+twotier_block_walk_kernelI(\w)Lb(\d)E")
     m = re.search(pat, text)
     if not m:
         return None
     dtype = {"f": "float", "d": "double"}[m[1]]
     if lib == "walk":
-        return dtype, ("packed", "two-tier")[int(m[2])], bool(int(m[3]))
+        return dtype, WALK_LAYOUTS[int(m[2])], bool(int(m[3]))
     return dtype, "", bool(int(m[2]))
 
 
@@ -2421,7 +2468,8 @@ def phase_scoring_registers() -> None:
             print(f"# registers {lib}<{dtype}> {variant or ''} scoring "
                   f"{'on' if score else 'off'}: {r}; global float "
                   f"reductions in SASS: {vec} vector, {sca} scalar")
-            want = REGS_BEFORE_SCORING[(lib, dtype, variant)]
+            # The unpacked instantiations came after scoring: no record.
+            want = REGS_BEFORE_SCORING.get((lib, dtype, variant), r)
             if not score and r != want:
                 raise AssertionError(
                     f"{lib}<{dtype}> {variant}: the scoring-off "
@@ -2431,7 +2479,7 @@ def phase_scoring_registers() -> None:
                 raise AssertionError(
                     f"{lib}<{dtype}> {variant} scoring "
                     f"{'on' if score else 'off'}: {vec} vector reductions")
-        if len(regs) != (8 if lib == "walk" else 4):
+        if len(regs) != (12 if lib == "walk" else 4):
             raise AssertionError(f"{lib}: ptxas reported {sorted(regs)}")
 
 
@@ -2988,6 +3036,587 @@ def phase_scoring_facades(mesh, pts, lat_path: str, lat_box, card: str):
     return counts
 
 
+# The unpacked mesh layout (W0's unpacked instantiation), the straggler
+# ladder and intersection_points.
+# The mesh past the float lanes' exact ids: box_arrays(1, 1, 1, 142, 142,
+# 142), 17,179,728 tets in float32.
+LARGE_DIV = 142
+LARGE_TETS = 6 * LARGE_DIV ** 3
+LARGE_CONTINUE_MOVES = 2
+# The sentinel's cells: max_iters=2 truncates most particles of a move.
+LADDER_ITERS = 2
+LADDER_STREAM_CHUNK = 100_000
+LADDER_QUARANTINE_N = 10_000  # the starved ladder's quarantine run
+LADDER_PASSES = 4  # audited and sentinel-off moves timed in turns
+
+
+def unpacked_of(mesh):
+    """``mesh`` in the unpacked layout, its planes the packed table's own
+    values (what ``TetMesh.from_arrays(force_unpacked=True)`` stores)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        mesh, walk_table=None,
+        stored_face_normals=mesh.face_normals.contiguous(),
+        stored_face_offsets=mesh.face_offsets.contiguous())
+
+
+def unpacked_row_bytes(k: int) -> int:
+    """Bytes of one tet's planes and ids in the unpacked layout: 12
+    normal components and 4 offsets in the working dtype, 4 int32 ids
+    (80 B in float32, as the packed row)."""
+    return 16 * k + 16
+
+
+def phase_w0_unpacked(mesh, pts, label: str = "", n: int = N,
+                      views: bool = False) -> list:
+    """W0's unpacked entries on ``mesh`` in the forced unpacked layout
+    (planes at strides 3 and 1) against ``walk_plain`` (ids, masks,
+    iters, x and s bitwise, flux at rtol 1e-4, the kernel's walked count
+    == n), flux conserved at rtol 1e-6 against the analytic track
+    length, and against the packed W0 on the same inputs: x and s
+    bitwise, ids equal. The same for the scoring entry with the
+    stride-96 spec (lanes as phase 6b). Then both entries timed in turns
+    with the packed W0 (four passes, CUDA events, into standing
+    buffers), beside the bytes bound. ``views``: the other caller, a
+    two-tier mesh walked by ``walk(..., table_dtype="float32")`` (the
+    sentinel's rung 2): the planes read in place from ``walk_table_hi``
+    at strides 5 and 5, held to ``walk_plain`` on
+    ``with_plane_views()`` and to the packed W0 on
+    ``with_packed_table()`` in the same way, the launches counted under
+    ``walk_unpacked`` / ``walk_unpacked_scored``. Returns the two kernel
+    entries."""
+    import torch
+
+    from pumiumtally_tpu_torch import kernels
+    from pumiumtally_tpu_torch.ops.walk import plane_strides, walk, walk_plain
+    from pumiumtally_tpu_torch.scoring import ScoringRuntime
+
+    args, kw = w0_inputs(mesh, pts, views, n)
+    m, x = args[:2]
+    um = m.with_plane_views() if views else unpacked_of(m)
+    strides = plane_strides(um, x.device, x.dtype)
+    if strides != ((5, 5) if views else (3, 1)):
+        raise AssertionError(f"W0 unpacked{label}: plane strides {strides}")
+    uargs = (um, *args[1:])
+    # The kernel's call: the two-tier mesh asked for the float32 tier,
+    # or the unpacked mesh itself.
+    kargs, tier = (args, "float32") if views else (uargs, None)
+    if views:
+        args = (m.with_packed_table(), *args[1:])  # the packed W0's input
+    spec = score_spec()
+    rt = ScoringRuntime(spec, m.nelems, x.dtype, x.device)
+    sbin, sfac, scoring = score_lanes(rt, n, 5)
+
+    def zeros():
+        return (torch.zeros((m.nelems,), dtype=x.dtype, device=x.device),
+                torch.zeros((rt.bank_size,), dtype=x.dtype,
+                            device=x.device))
+
+    def run(fn, a, score=False, bufs=None, **extra):
+        flux, bank = bufs or zeros()
+        sc = (spec.kinds, bank, sbin, sfac) if score else None
+        return fn(*a, flux, **kw, scoring=sc, **extra), bank
+
+    name = f"W0 unpacked{label}"
+    counts = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    before = dict(kernels.launch_counts)
+    ru, _ = run(walk, kargs, counts=counts, table_dtype=tier)
+    su, bank_u = run(walk, kargs, True, table_dtype=tier)
+    launched = {e: kernels.launch_counts[e] - before[e]
+                for e in ("walk_unpacked", "walk_unpacked_scored")}
+    if launched != {"walk_unpacked": 1, "walk_unpacked_scored": 1}:
+        raise AssertionError(f"{name}: launches {launched}")
+    (rp, _), (rk, _) = run(walk_plain, uargs), run(walk, args)
+    (sp, bank_p), (sk, _) = run(walk_plain, uargs, True), run(walk, args,
+                                                              True)
+    sync()
+    for f in ("elem", "done", "exited", "iters", "x", "s"):
+        check_equal(f"{name} {f}", getattr(ru, f), getattr(rp, f))
+        check_equal(f"{name} scoring {f}", getattr(su, f), getattr(sp, f))
+        check_equal(f"{name} {f} (packed W0)", getattr(ru, f),
+                    getattr(rk, f))
+        check_equal(f"{name} scoring {f} (packed W0)", getattr(su, f),
+                    getattr(sk, f))
+    err = check_flux(name, ru.flux, rp.flux)
+    err_s = max(check_flux(f"{name} scoring", su.flux, sp.flux),
+                check_bank(f"{name} scoring", bank_u, bank_p, spec.kinds))
+    walked = int(counts[0])
+    if walked != n:
+        raise AssertionError(f"{name}: the kernel walked {walked} "
+                             f"particles, not {n}")
+    expect = float((args[5].double()
+                    * (ru.x.double() - x.double()).norm(dim=1)).sum())
+    rel = check_conservation(name, ru.flux, expect)
+    bufs = zeros()
+    turns = in_turns({
+        "packed": lambda: run(walk, args, bufs=bufs),
+        "unpacked": lambda: run(walk, kargs, bufs=bufs, table_dtype=tier),
+        "unpacked_scored": lambda: run(walk, kargs, True, bufs=bufs,
+                                       table_dtype=tier),
+    }, cuda_ms, passes=4)
+    plain_ms = wall_ms(lambda: run(walk_plain, uargs))
+    plain_s_ms = wall_ms(lambda: run(walk_plain, uargs, True))
+    crossings = count_crossings(packed_step(args[0].walk_table), x, args[2],
+                                args[3], torch.ones_like(scoring), 0,
+                                kw["tol"])
+    k = x.element_size()
+    nbytes = n * (11 * k + 11) + m.nelems * (unpacked_row_bytes(k) + 2 * k)
+    flops = F32_FLOPS if k == 4 else F64_FLOPS
+    bound = bound_entry(nbytes, crossings, FLOPS_PER_CROSSING, flops)
+    bound_s = bound_entry(nbytes + bank_bytes(bank_p, k)
+                          + n * (4 + spec.n_scores * k), crossings,
+                          FLOPS_PER_CROSSING + spec.n_scores, flops)
+    med = {a: float(np.median(v)) for a, v in turns.items()}
+    print(f"# {name}: {n} particles on {m.nelems} tets, planes at "
+          f"strides {strides}; in turns (CUDA "
+          f"events, ms): " + "; ".join(
+              f"{a} {', '.join(f'{v:.4f}' for v in t)}"
+              for a, t in turns.items())
+          + f"; plain {plain_ms:.3f} ms (scoring {plain_s_ms:.3f}); "
+          f"{crossings} crossings; unpacked / packed "
+          f"{med['unpacked'] / med['packed']:.3f}; walked {walked} of {n}; "
+          f"x, s bitwise vs plain and vs packed W0, ids equal; flux max abs "
+          f"diff {err:.3e}, conservation rel err {rel:.3e}; lanes max abs "
+          f"diff {err_s:.3e}; bound {bound}, scoring {bound_s}")
+    base = {"route": "cuda", "source": "pumiumtally_tpu_torch/csrc/walk.cu",
+            "library_ms": None}
+    return [
+        {**base, "name": "W0 walk (unpacked)", "entry": "walk_unpacked",
+         "replaces": "pumiumtally_tpu/ops/walk.py:279",
+         "max_abs_err": err, "ms": med["unpacked"],
+         "packed_ms": med["packed"], "plain_ms": plain_ms, **bound},
+        {**base, "name": "W0 walk (unpacked, scoring)",
+         "entry": "walk_unpacked_scored",
+         "replaces": "pumiumtally_tpu/ops/walk.py:279",
+         "max_abs_err": err_s, "ms": med["unpacked_scored"],
+         "plain_ms": plain_s_ms, **bound_s},
+    ]
+
+
+def phase_unpacked_main_path(mesh, pts, card: str) -> dict:
+    """``PumiTally`` on the box in the forced unpacked layout through the
+    main path, with the stride-96 spec (energies in range): localization
+    and phase A on ``walk_unpacked``, phase B on ``walk_unpacked_scored``;
+    conservation at rtol 1e-6; launch counts reset before and read
+    after."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig, kernels
+
+    e, tm = score_attrs(11, N, out=0.0)
+    kernels.reset_launch_counts()
+    t = PumiTally(unpacked_of(mesh), N, TallyConfig(scoring=score_spec()))
+    t.CopyInitialPosition(flat(pts[0]))
+    t.MoveToNextLocation(flat(pts[0]), flat(pts[1]), np.ones(N, np.int8),
+                         np.ones(N), energy=e, time=tm)
+    ms = wall_ms(lambda: t.MoveToNextLocation(None, flat(pts[2]), energy=e,
+                                              time=tm))
+    counts = dict(kernels.launch_counts)
+    expect = sum(float(np.linalg.norm(pts[m] - pts[m - 1], axis=1).sum())
+                 for m in (1, 2))
+    rel = check_conservation("unpacked PumiTally", t.flux, expect)
+    print(f"# main path PumiTally (unpacked layout, scoring) on {card}: "
+          f"continue move {ms:.3f} ms; conservation rel err {rel:.3e}; "
+          f"launches {counts}")
+    return counts
+
+
+def phase_large_mesh(card: str) -> dict:
+    """The mesh past the float lanes' exact ids: ``box_arrays(1, 1, 1,
+    142, 142, 142)`` in float32 builds in the unpacked layout with no
+    flag. ``PumiTally`` at 500,000 particles: localization by walk, a
+    two-phase move and two continue moves on bench.py's trajectory,
+    conservation at rtol 1e-6 after each move, one continue move checked
+    against ``walk_plain`` on the card (ids, x, s bitwise, flux rtol
+    1e-4). Prints the set-up seconds, the device table bytes, the
+    moves' ms and the host's peak memory."""
+    import resource
+
+    import torch
+
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig, kernels
+    from pumiumtally_tpu_torch.experiments.block_rounds import (
+        make_trajectory,
+    )
+    from pumiumtally_tpu_torch.mesh.box import box_arrays
+    from pumiumtally_tpu_torch.mesh.tetmesh import TetMesh
+    from pumiumtally_tpu_torch.ops.walk import walk, walk_plain
+
+    t0 = time.perf_counter()
+    coords, tets = box_arrays(1, 1, 1, LARGE_DIV, LARGE_DIV, LARGE_DIV)
+    mesh = TetMesh.from_arrays(coords, tets, dtype=torch.float32)
+    del coords, tets
+    build_s = time.perf_counter() - t0
+    if not mesh.unpacked or mesh.nelems != LARGE_TETS:
+        raise AssertionError(f"large mesh: {mesh.nelems} tets, unpacked "
+                             f"{mesh.unpacked}")
+    pts = make_trajectory(np.random.default_rng(0), N,
+                          LARGE_CONTINUE_MOVES + 2)
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    t = PumiTally(mesh, N, TallyConfig(check_found_all=True))
+    del mesh  # the host copy
+    t.CopyInitialPosition(flat(pts[0]))
+    setup_s = time.perf_counter() - t1
+    mesh = t.mesh
+    table_bytes = sum(a.numel() * a.element_size() for a in (
+        mesh.face_normals, mesh.face_offsets, mesh.face_adj))
+    mesh_bytes = table_bytes + sum(a.numel() * a.element_size() for a in (
+        mesh.coords, mesh.tet2vert, mesh.volumes))
+    move_ms = [wall_ms(lambda: t.MoveToNextLocation(
+        flat(pts[0]), flat(pts[1]), np.ones(N, np.int8), np.ones(N)))]
+    expect = float(np.linalg.norm(pts[1] - pts[0], axis=1).sum())
+    rels = [check_conservation("large mesh", t.flux, expect)]
+    for m in range(2, LARGE_CONTINUE_MOVES + 2):
+        if m == LARGE_CONTINUE_MOVES + 1:
+            # This move's walk, held to the plain version on the card.
+            dt, dev = t.dtype, t.device
+            args = (t.mesh, t.x, t.elem,
+                    torch.as_tensor(pts[m], dtype=dt, device=dev),
+                    torch.ones((N,), dtype=torch.int8, device=dev),
+                    torch.ones((N,), dtype=dt, device=dev))
+            kw = dict(tally=True, tol=t._tol, max_iters=t._max_iters)
+            rk = walk(*args, torch.zeros_like(t.flux), **kw)
+            rp = walk_plain(*args, torch.zeros_like(t.flux), **kw)
+            for f in ("elem", "done", "exited", "iters", "x", "s"):
+                check_equal(f"large mesh {f}", getattr(rk, f),
+                            getattr(rp, f))
+            err = check_flux("large mesh", rk.flux, rp.flux)
+        move_ms.append(wall_ms(
+            lambda m=m: t.MoveToNextLocation(None, flat(pts[m]))))
+        expect += float(np.linalg.norm(pts[m] - pts[m - 1], axis=1).sum())
+        rels.append(check_conservation("large mesh", t.flux, expect))
+    counts = dict(kernels.launch_counts)
+    peak_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    print(f"# large mesh on {card}: {mesh.nelems} tets (float32, "
+          f"unpacked: no flag), host build {build_s:.1f} s, PumiTally set-up "
+          f"(upload and localization) {setup_s:.2f} s; device tables (planes and "
+          f"ids) {table_bytes / 1e9:.3f} GB, whole mesh "
+          f"{mesh_bytes / 1e9:.3f} GB; moves ms "
+          f"{', '.join(f'{v:.3f}' for v in move_ms)} (two-phase, then "
+          f"continue); conservation rel err "
+          f"{', '.join(f'{r:.3e}' for r in rels)}; last move's walk vs "
+          f"plain: ids, x, s bitwise, flux max abs diff {err:.3e}; host "
+          f"peak RSS {peak_gb:.1f} GB; launches {counts}")
+    return counts
+
+
+def ladder_drive(t, pts, moves: int = 2) -> None:
+    """CopyInitialPosition, a two-phase move, continue moves."""
+    n = t.num_particles
+    t.CopyInitialPosition(flat(pts[0][:n]))
+    t.MoveToNextLocation(flat(pts[0][:n]), flat(pts[1][:n]),
+                         np.ones(n, np.int8), np.ones(n))
+    for m in range(2, moves + 1):
+        t.MoveToNextLocation(None, flat(pts[m][:n]))
+
+
+def check_recovered(what: str, t, ref, mesh, ids: str = "equal") -> dict:
+    """A ladder run against the unconstrained run: every straggler
+    recovered (unfinished_total > 0, stragglers_lost == 0, no anomalous
+    move), positions bitwise, the flux total at rtol 1e-6, and by
+    ``ids``: "equal", ids equal and flux at rtol 1e-4 per element
+    (atomics); "contained" (a ladder that re-parametrises the ray, the
+    partitioned engine's resumed phase): each id that differs from the
+    unconstrained run's names a tet that holds its position (within
+    1e-5): a position on a face shared by two tets (bench.py's clip
+    puts many on the tets' diagonal faces) may name the other one, and
+    the next move's track is attributed from there; "reported" (the
+    two-tier rung 2, which walks the full-precision planes from where a
+    bf16 step left the particle, possibly a neighbour of the tet that
+    holds it, the select tier's tie class): the ids are counted, not
+    held. Where the ids are not held equal the per-element flux is
+    reported (L1 of the difference over the total). Returns the health
+    report as a dict."""
+    import torch
+
+    rep = t.health_report()
+    if not (rep.unfinished_total > 0 and rep.stragglers_lost == 0
+            and rep.anomaly_moves == 0
+            and rep.stragglers_recovered == rep.unfinished_total):
+        raise AssertionError(f"{what}: health report {rep}")
+    pos, pos_ref = t.positions, ref.positions
+    if not np.array_equal(pos, pos_ref):
+        raise AssertionError(f"{what}: positions differ from the "
+                             "unconstrained run")
+    e, e_ref = t.elem_ids, ref.elem_ids
+    if ids == "equal" and not np.array_equal(e, e_ref):
+        raise AssertionError(f"{what}: {int((e != e_ref).sum())} ids differ")
+    held = contains(mesh, pos, e, 1e-5) | (e == e_ref)
+    if ids == "contained" and not held.all():
+        raise AssertionError(f"{what}: {int((~held).sum())} particles "
+                             "outside their element")
+    if ids == "equal":
+        check_flux(what, t.flux, ref.flux)
+    total, total_ref = float(t.flux.double().sum()), float(
+        ref.flux.double().sum())
+    if abs(total - total_ref) > CONSERVATION_RTOL * total_ref:
+        raise AssertionError(f"{what}: flux total {total} vs {total_ref}")
+    out = rep.as_dict()
+    out["ids_differing"] = int((e != e_ref).sum())
+    out["ids_outside"] = int((~held).sum())
+    out["flux_l1_rel"] = float((t.flux.double() - ref.flux.double()).abs()
+                               .sum()) / total_ref
+    return out
+
+
+def count_syncs(fn) -> list:
+    """The synchronizing CUDA calls ``fn`` makes, caught under
+    ``torch.cuda.set_sync_debug_mode("warn")``: for each, the last
+    lines of the Python stack that made it."""
+    import traceback
+    import warnings
+
+    import torch
+
+    calls = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        # torch's wording for a flagged call (set_sync_debug_mode's own
+        # warning about the mode is not one).
+        if "called a synchronizing CUDA operation" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if os.path.basename(f.filename) != "warnings.py"]
+            calls.append(" < ".join(
+                f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                for f in frames[::-1][:5]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return calls
+
+
+def phase_sentinel(mesh, pts, card: str) -> dict:
+    """The straggler ladder on the card, box, float32, max_iters=2,
+    ``SentinelPolicy()``, point location first, each against an
+    unconstrained run of the same facade (``check_recovered``):
+    ``PumiTally`` on the float32 tables (rung 1: W0 continuing the ray
+    parametrisation; ids equal) and on the two-tier tables with rung 1
+    starved to one step, so rung 2 (W0's unpacked entry over the
+    refinement tier's planes) recovers everyone (ids counted); the
+    default ``PartitionedPumiTally`` (``retry_stragglers``: W4 resumes
+    the phase; each differing id a tet holding its position); the
+    two-tier run also against the same ladder with its rungs on
+    ``walk_plain`` (positions and ids equal, flux rtol 1e-4);
+    ``StreamingTally`` at 500,000 in chunks of 100,000 (ids equal). Then a ladder starved to one step
+    (10,000 particles) loses particles and writes as many quarantine
+    records; an audited continue move (unfenced, unchecked) makes one
+    synchronizing call, the audit's fetch, where sentinel-off makes
+    none; its ms in turns with sentinel-off. Returns the launch counts
+    of the ladder runs."""
+    import torch
+
+    from pumiumtally_tpu_torch import (
+        PartitionedPumiTally,
+        PumiTally,
+        SentinelPolicy,
+        StreamingTally,
+        TallyConfig,
+        kernels,
+    )
+    from pumiumtally_tpu_torch.ops.walk import mesh_for_tier, walk_plain
+    from pumiumtally_tpu_torch.sentinel import (
+        SentinelRunner,
+        quarantine_path,
+        read_quarantine,
+        straggler,
+    )
+
+    # Point location first (localization="locate"): located particles
+    # retire on their first step, so the ladder works on the moves.
+    base = dict(check_found_all=False, localization="locate")
+    armed = dict(base, max_iters=LADDER_ITERS, sentinel=SentinelPolicy(
+        on_anomaly="record"))
+    cells = {
+        "mono": lambda **kw: PumiTally(mesh, N, TallyConfig(**kw)),
+        "part": lambda **kw: PartitionedPumiTally(mesh, N,
+                                                  TallyConfig(**kw)),
+        "stream": lambda **kw: StreamingTally(
+            mesh, N, chunk_size=LADDER_STREAM_CHUNK,
+            config=TallyConfig(**kw)),
+    }
+    counts, reports = {}, {}
+    for key, make in cells.items():
+        ref = make(**base)
+        ladder_drive(ref, pts)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        t = make(**armed)
+        ladder_drive(t, pts)
+        sync()
+        secs = time.perf_counter() - t0
+        counts[f"ladder_{key}"] = dict(kernels.launch_counts)
+        # W0's ladder continues the exact ray: ids equal. The engine's
+        # rung resumes the phase from the pause points (its own
+        # re-parametrisation): each id a tet holding its position.
+        reports[key] = check_recovered(
+            f"ladder {key}", t, ref, mesh,
+            ids="contained" if key == "part" else "equal")
+        print(f"# sentinel ladder {type(t).__name__} (float32, max_iters="
+              f"{LADDER_ITERS}) on {card}: {secs:.2f} s; health "
+              f"{json.dumps(reports[key])}; positions bitwise vs "
+              f"unconstrained; launches {counts[f'ladder_{key}']}")
+        del t, ref
+    # Two-tier, rung 1 starved: rung 2 walks the refinement tier's planes.
+    real, rungs = straggler._retry_step, []
+
+    def starved_first_rung(*args, table_dtype=None, max_iters, **kw):
+        rungs.append(table_dtype)
+        if table_dtype is None:
+            max_iters = 1
+        return real(*args, table_dtype=table_dtype, max_iters=max_iters,
+                    **kw)
+
+    ref = PumiTally(mesh, N, TallyConfig(**base, **BF16))
+    ladder_drive(ref, pts)
+    kernels.reset_launch_counts()
+    straggler._retry_step = starved_first_rung
+    try:
+        t = PumiTally(mesh, N, TallyConfig(**armed, **BF16))
+        ladder_drive(t, pts)
+        sync()
+    finally:
+        straggler._retry_step = real
+    counts["ladder_mono_bf16"] = dict(kernels.launch_counts)
+    if "float32" not in rungs or counts["ladder_mono_bf16"][
+            "walk_unpacked"] == 0:
+        raise AssertionError(f"ladder two-tier: rungs {rungs}, launches "
+                             f"{counts['ladder_mono_bf16']}")
+    reports["mono_bf16"] = check_recovered("ladder two-tier", t, ref, mesh,
+                                           ids="reported")
+    # The same run with the ladder's rungs on the plain version (the
+    # moves' walks on the kernels, as above): rung 2's walk over the
+    # planes at stride 5 held to walk_plain in its own context.
+    def plain_walk(m, *a, table_dtype=None, counts=None, **kw):
+        return walk_plain(mesh_for_tier(m, table_dtype), *a, **kw)
+
+    real_walk = straggler.walk
+    straggler._retry_step, straggler.walk = starved_first_rung, plain_walk
+    try:
+        tp = PumiTally(mesh, N, TallyConfig(**armed, **BF16))
+        ladder_drive(tp, pts)
+        sync()
+    finally:
+        straggler._retry_step, straggler.walk = real, real_walk
+    check_equal("ladder two-tier vs its plain rungs: positions", t.x,
+                tp.x)
+    check_equal("ladder two-tier vs its plain rungs: ids", t.elem, tp.elem)
+    err = check_flux("ladder two-tier vs its plain rungs", t.flux, tp.flux)
+    print(f"# sentinel ladder PumiTally (two-tier, rung 1 starved to one "
+          f"step) on {card}: rungs {rungs}; health "
+          f"{json.dumps(reports['mono_bf16'])}; positions bitwise vs the "
+          f"unconstrained two-tier run; vs the same ladder with its rungs "
+          f"on walk_plain: positions and ids equal, flux max abs diff "
+          f"{err:.3e}; launches {counts['ladder_mono_bf16']}")
+    del t, tp, ref
+    # A ladder starved to one step: the residue is lost and quarantined.
+    nq = LADDER_QUARANTINE_N
+    straggler._retry_step = lambda *a, max_iters, **kw: real(
+        *a, max_iters=1, **kw)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            t = PumiTally(mesh, nq, TallyConfig(**dict(armed, sentinel=(
+                SentinelPolicy(quarantine_dir=d, on_anomaly="record")))))
+            t.CopyInitialPosition(flat(pts[0][:nq]))
+            t.MoveToNextLocation(None, flat(pts[1][:nq]))
+            records = read_quarantine(quarantine_path(d))
+    finally:
+        straggler._retry_step = real
+    lost = t.lost_particles
+    if not lost or len(records) != lost or \
+            t.health_report().stragglers_lost != lost:
+        raise AssertionError(f"quarantine: {len(records)} records, "
+                             f"{lost} lost")
+    print(f"# sentinel quarantine (ladder starved to one step, {nq} "
+          f"particles): {lost} lost, {len(records)} records")
+    # The audit's cost: one fetch a move, and its ms beside sentinel-off.
+    quiet = dict(base, fenced_timing=False)
+    arms = {"off": PumiTally(mesh, N, TallyConfig(**quiet)),
+            "on": PumiTally(mesh, N, TallyConfig(
+                **quiet, sentinel=SentinelPolicy()))}
+    for t in arms.values():
+        t.CopyInitialPosition(flat(pts[0]))
+        t.MoveToNextLocation(None, flat(pts[1]))
+    sync()
+    src = iter(range(2, 10 ** 6))
+
+    def move(t):
+        t.MoveToNextLocation(None, flat(pts[2 + next(src) % 2]))
+
+    calls = {k: count_syncs(lambda t=t: move(t)) for k, t in arms.items()}
+    syncs = {k: len(v) for k, v in calls.items()}
+    if syncs != {"off": 0, "on": 1}:
+        raise AssertionError(f"audit syncs: {calls}")
+    turns = in_turns({k: (lambda t=t: move(t)) for k, t in arms.items()},
+                     wall_ms, passes=LADDER_PASSES)
+    rep = arms["on"].health_report()
+    if rep.anomaly_moves or rep.max_conservation_residual > 1e-5:
+        raise AssertionError(f"audited moves: {rep}")
+    # The audit alone on a move's tensors, by a runner of its own (the
+    # facade's carries its flux sum): device ms (CUDA events) and wall ms
+    # with its fetch.
+    t = arms["on"]
+    runner = SentinelRunner(SentinelPolicy(), t.dtype, t.device)
+    view = (t.x, t.x.flip(0), t._cached_ones("fly"), t._cached_ones("w"),
+            torch.ones((N,), dtype=torch.bool, device=t.device), t.flux)
+    audit_ms = cuda_ms(lambda: runner.audit(*view))
+    audit_wall = [wall_ms(lambda: runner.audit(*view)) for _ in range(4)]
+    print(f"# sentinel audit on {card}: synchronizing calls a continue move "
+          f"{syncs} (set_sync_debug_mode('warn')); continue move ms (wall, "
+          f"fenced by the timer, in turns): " + "; ".join(
+              f"{k} {', '.join(f'{v:.3f}' for v in t)}"
+              for k, t in turns.items())
+          + f"; the audit alone {audit_ms:.4f} ms (CUDA events), "
+          f"{', '.join(f'{v:.3f}' for v in audit_wall)} ms wall with its "
+          f"fetch; worst residual {rep.max_conservation_residual:.3e}")
+    return counts
+
+
+def phase_xpoints(mesh, pts, card: str) -> None:
+    """``PumiTally(record_xpoints=True)`` at 500,000 particles on the box:
+    a two-phase move, then ``intersection_points()`` (timed): a particle
+    whose move stayed in one tet returns its start, one that crossed a
+    face returns a point on a face plane of its final element (within
+    1e-5)."""
+    import torch
+
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+
+    t = PumiTally(mesh, N, TallyConfig(record_xpoints=True))
+    t.CopyInitialPosition(flat(pts[0]))
+    if not np.array_equal(t.intersection_points(), t.positions):
+        raise AssertionError("xpoints before a move: not the positions")
+    e0, x0 = t.elem_ids.copy(), t.positions.copy()
+    t.MoveToNextLocation(flat(pts[0]), flat(pts[1]), np.ones(N, np.int8),
+                         np.ones(N))
+    t0 = time.perf_counter()
+    xp = t.intersection_points()
+    ms = (time.perf_counter() - t0) * 1e3
+    e1 = t.elem_ids
+    stayed = e1 == e0
+    if not np.array_equal(xp[stayed], x0[stayed]):
+        raise AssertionError("xpoints: a particle that stayed in its tet "
+                             "did not return its start")
+    crossed = ~stayed
+    e = torch.as_tensor(e1[crossed], dtype=torch.long, device=t.device)
+    p = torch.as_tensor(xp[crossed], dtype=t.dtype, device=t.device)
+    dist = ((t.mesh.face_normals[e] * p[:, None, :]).sum(dim=2)
+            - t.mesh.face_offsets[e]).abs().min(dim=1).values
+    worst = float(dist.max())
+    if worst > 1e-5:
+        raise AssertionError(f"xpoints: {worst} off a face plane")
+    print(f"# intersection_points on {card}: {N} particles, {ms:.1f} ms "
+          f"(replay, plain PyTorch); {int(crossed.sum())} crossed a face, "
+          f"worst distance to a face plane of the final element "
+          f"{worst:.3e}; {int(stayed.sum())} stayed in their tet and "
+          f"returned their start")
+
+
 def main() -> int:
     import torch
 
@@ -3015,8 +3644,18 @@ def main() -> int:
     phase_w0_skip(mesh, pts)
     w1, regimes_w1 = phase_block_walk("W1", mesh, pts, VMEM_BOUND)
     w0t = phase_w0(mesh, pts, two_tier=True)
-    phase_w0(build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
-                       dtype=torch.float64), pts, " (float64)", n=W0_F64_N)
+    box64 = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                      dtype=torch.float64)
+    phase_w0(box64, pts, " (float64)", n=W0_F64_N)
+    # W0's unpacked entries in the forced layout, float32 and float64.
+    wu = phase_w0_unpacked(mesh, pts)
+    wu += phase_w0_unpacked(box64, pts, " (float64)", n=W0_F64_N)
+    # Its other caller: the two-tier mesh's float32 tier, the planes read
+    # in place at stride 5 (the sentinel's rung 2).
+    wu += phase_w0_unpacked(mesh, pts, " (plane views)", views=True)
+    wu += phase_w0_unpacked(box64, pts, " (plane views, float64)",
+                            n=W0_F64_N, views=True)
+    del box64
     w2, regimes_w2 = phase_block_walk("W2", mesh, pts, VMEM_BOUND)
     _, regimes_w2g = phase_block_walk("W2", mesh, pts, None, shared=False)
     # W4, the gather block walk: every cell against its plain version.
@@ -3068,6 +3707,11 @@ def main() -> int:
     counts.update(phase_partitioned_default(mesh, pts, smi))
     phase_staging(mesh, pts)
     phase_scoring_sync(mesh, pts)
+    # The unpacked layout through the main path, the straggler ladder on
+    # the four facades' paths, intersection_points.
+    counts["unpacked_main"] = phase_unpacked_main_path(mesh, pts, smi)
+    counts.update(phase_sentinel(mesh, pts, smi))
+    phase_xpoints(mesh, pts, smi)
     counts.update(phase_streaming(mesh, smi))
     # The lattice, loaded from its .osh path as users load a mesh: W0
     # on both tiers against the plain versions, then PumiTally's main
@@ -3083,6 +3727,16 @@ def main() -> int:
                                  False, False, n=LATTICE_PART_N)
         for two_tier in (False, True):
             phase_w0_scoring(lat_mesh, lat_pts, " (lattice)", two_tier)
+        wu += phase_w0_unpacked(lat_mesh, lat_pts, " (lattice)")
+        lat64 = load_mesh(path, dtype=torch.float64)
+        wu += phase_w0_unpacked(lat64, lat_pts, " (lattice, float64)",
+                                n=W0_F64_N)
+        wu += phase_w0_unpacked(lat_mesh, lat_pts,
+                                " (lattice, plane views)", views=True)
+        wu += phase_w0_unpacked(lat64, lat_pts,
+                                " (lattice, plane views, float64)",
+                                n=W0_F64_N, views=True)
+        del lat64
         print(f"# W0 first move: lattice {lw0['ms']:.3f} ms vs box "
               f"{w0['ms']:.3f} ms; two-tier lattice {lw0t['ms']:.3f} ms vs "
               f"box {w0t['ms']:.3f} ms")
@@ -3104,6 +3758,7 @@ def main() -> int:
         # The scoring slice's main path on the four facades.
         counts.update(phase_scoring_facades(mesh, pts, path, lattice_box(),
                                             smi))
+    counts["large"] = phase_large_mesh(smi)
     needs = {"mono": "walk", "part": "block_walk", "mono_bf16": "walk_twotier",
              "part_bf16": "twotier_block_walk", "lat": "walk",
              "lat_bf16": "walk_twotier", "stream": "walk",
@@ -3120,10 +3775,16 @@ def main() -> int:
              "part_gather_bf16": "gather_block_walk_twotier",
              "lat_part": "gather_block_walk",
              "score_part_gather": "gather_block_walk_scored",
-             "score_part_gather_bf16": "gather_block_walk_twotier_scored"}
-    # W4's list build: the bf16 reroute's full-migrate rounds.
+             "score_part_gather_bf16": "gather_block_walk_twotier_scored",
+             "unpacked_main": "walk_unpacked_scored",
+             "ladder_mono": "walk", "ladder_mono_bf16": "walk_unpacked",
+             "ladder_part": "gather_block_walk", "ladder_stream": "walk",
+             "large": "walk_unpacked"}
+    # W4's list build: the bf16 reroute's full-migrate rounds; the
+    # unpacked main path's localization.
     for key, entry in (*needs.items(),
-                       ("part_gather_bf16", "gather_work_list")):
+                       ("part_gather_bf16", "gather_work_list"),
+                       ("unpacked_main", "walk_unpacked")):
         if counts[key][entry] == 0:
             raise AssertionError(f"{key}: kernel {entry} never launched on "
                                  f"its main path: {counts[key]}")
@@ -3138,6 +3799,12 @@ def main() -> int:
     # two-tier variant to its plain version on this mesh; the L1 is
     # reported.
     check_tie_band("lat", fluxes["lat_bf16"], fluxes["lat"], band=None)
+    wu_lines = []
+    for e in wu[:2]:  # the box's float32 cells: the main path's shapes
+        e = dict(e)
+        e["max_abs_err"] = max(c["max_abs_err"] for c in wu
+                               if c["entry"] == e["entry"])
+        wu_lines.append(e)
     w4_lines = []
     for entry, cell in W4_ENTRIES.items():
         e = dict(w4[cell])
@@ -3148,15 +3815,16 @@ def main() -> int:
                      (w2, "twotier_block_walk"), (sw0, "walk_scored"),
                      (sw0t, "walk_twotier_scored"),
                      (sw2, "twotier_block_walk_scored"),
-                     *((e, e["entry"]) for e in w4_lines + [w4_list])):
+                     *((e, e["entry"]) for e in w4_lines + [w4_list]
+                       + wu_lines)):
         e["launches"] = sum(c[entry] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in (w0, w1, w0t, w2, sw0, sw0t, sw2,
-                                            *w4_lines, w4_list, w3,
-                                            *g1)]}))
+                                            *wu_lines, *w4_lines, w4_list,
+                                            w3, *g1)]}))
     print(f"# total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3594,10 +4262,47 @@ def main_staging_times() -> int:
     return 0
 
 
+def main_unpacked_sentinel() -> int:
+    """Phases 1-2 and the unpacked layout's and the sentinel's phases
+    alone, with their checks: W0's unpacked entries on the box in float32
+    and float64, at both strides, the scoring instantiations' registers,
+    the unpacked main
+    path, the straggler ladder, intersection_points and the large-mesh
+    cell."""
+    import torch
+
+    from pumiumtally_tpu_torch import build_box
+    from pumiumtally_tpu_torch.experiments.block_rounds import (
+        make_trajectory,
+    )
+
+    _, smi = phase_device()
+    phase_build()
+    phase_scoring_registers()
+    mesh = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                     dtype=torch.float32)
+    pts = make_trajectory(np.random.default_rng(0), N, CONTINUE_MOVES + 2)
+    phase_w0_unpacked(mesh, pts)
+    box64 = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                      dtype=torch.float64)
+    phase_w0_unpacked(box64, pts, " (float64)", n=W0_F64_N)
+    phase_w0_unpacked(mesh, pts, " (plane views)", views=True)
+    phase_w0_unpacked(box64, pts, " (plane views, float64)", n=W0_F64_N,
+                      views=True)
+    del box64
+    phase_unpacked_main_path(mesh, pts, smi)
+    phase_large_mesh(smi)
+    phase_sentinel(mesh, pts, smi)
+    phase_xpoints(mesh, pts, smi)
+    print(smi)
+    return 0
+
+
 if __name__ == "__main__":
     modes = {"--w0-times": main_w0_times, "--w3-g1-times": main_w3_g1_times,
              "--w4-times": main_w4_times,
              "--staging-times": main_staging_times,
-             "--scoring-times": main_scoring_times}
+             "--scoring-times": main_scoring_times,
+             "--unpacked-sentinel": main_unpacked_sentinel}
     sys.exit(next((fn for flag, fn in modes.items()
                    if flag in sys.argv[1:]), main)())

@@ -5,8 +5,11 @@ reference's three-call protocol (``CopyInitialPosition`` /
 ``MoveToNextLocation`` / ``WriteTallyResults``), on one NVIDIA H100; ``StreamingTally`` and
 ``StreamingPartitionedTally`` take batches of any size in chunks.
 ``TallyConfig(scoring=ScoringSpec(...))`` adds energy/time-binned
-scoring lanes and ``TallyConfig(batch_stats=True)`` per-batch
-statistics (``TriggerSpec`` for convergence triggers). The
+scoring lanes, ``TallyConfig(batch_stats=True)`` per-batch
+statistics (``TriggerSpec`` for convergence triggers) and
+``TallyConfig(sentinel=SentinelPolicy())`` the runtime sentinels
+(``health_report()``); ``TallyConfig(record_xpoints=True)`` enables
+``PumiTally.intersection_points()``. The
 device work runs in hand-written CUDA kernels (``csrc/``, built by
 ``kernels.py`` at first use); every kernel's plain PyTorch version runs
 when the caller asks for ``device="cpu"``. The package imports torch
@@ -18,11 +21,7 @@ from pumiumtally_tpu_torch.api.streaming import (
     StreamingPartitionedTally,
     StreamingTally,
 )
-from pumiumtally_tpu_torch.api.tally import (
-    EnginePoisonedError,
-    PumiTally,
-    TallyTimes,
-)
+from pumiumtally_tpu_torch.api.tally import PumiTally, TallyTimes
 from pumiumtally_tpu_torch.config import TallyConfig
 from pumiumtally_tpu_torch.mesh.box import build_box
 from pumiumtally_tpu_torch.mesh.pincell import build_lattice, build_pincell
@@ -32,6 +31,12 @@ from pumiumtally_tpu_torch.scoring import (
     EnergyFilter,
     ScoringSpec,
     TimeFilter,
+)
+from pumiumtally_tpu_torch.sentinel import (
+    EnginePoisonedError,
+    HealthReport,
+    SentinelAnomalyError,
+    SentinelPolicy,
 )
 from pumiumtally_tpu_torch.stats import (
     BatchStatistics,
@@ -45,9 +50,12 @@ __all__ = [
     "BatchStatistics",
     "EnergyFilter",
     "EnginePoisonedError",
+    "HealthReport",
     "PartitionedPumiTally",
     "PumiTally",
     "ScoringSpec",
+    "SentinelAnomalyError",
+    "SentinelPolicy",
     "StreamingPartitionedTally",
     "StreamingTally",
     "TallyConfig",

@@ -18,10 +18,17 @@ configured tier.
 Scoring and batch statistics are the base facade's; the engine owns the
 padded bank (its size fixes the DROP sentinel) and ``score_bank``
 assembles it in original element order. An exhausted overflow-recovery
-ladder latches the engine poisoned and every later call refuses. Left
-out: multi-device meshes, and the sentinel record and resilience safety
-save that the JAX facade hangs on the engine's ``on_overflow_recovered``
-and ``on_poisoned`` hooks (left None here).
+ladder latches the engine poisoned and every later call refuses.
+
+With a sentinel armed (``TallyConfig.sentinel``) each move is audited
+from the engine's caller-order view, and its stragglers go through the
+engine's own rung: the interrupted phase resumed at multiplied step and
+round budgets (``retry_stragglers``, walked by the block walk of the
+configuration, W4 by default), then ``declare_lost_stragglers`` with
+quarantine records; the engine's overflow recoveries report into the
+health record (``on_overflow_recovered``). ``intersection_points`` is
+refused, as in the JAX package. Left out: multi-device meshes, and the
+resilience safety save on the engine's ``on_poisoned`` hook (left None).
 """
 
 from __future__ import annotations
@@ -36,6 +43,61 @@ from pumiumtally_tpu_torch.api.tally import PumiTally, TallyConfig
 from pumiumtally_tpu_torch.io.vtk import merge_cell_data, write_pvtu
 from pumiumtally_tpu_torch.mesh.tetmesh import TetMesh
 from pumiumtally_tpu_torch.parallel.partition import PartitionedEngine
+from pumiumtally_tpu_torch.sentinel.quarantine import (
+    append_quarantine,
+    build_records,
+)
+
+
+def sentinel_post_move_engine(tally, engine, x0, dests, fly, w, ok, move,
+                              pid_offset: int = 0):
+    """The partitioned arm of the sentinel: the audit over the engine's
+    caller-order view, then the engine's straggler rung (a resumed phase
+    at multiplied budgets), then the residue declared lost with its
+    quarantine records. Returns the found-all verdict."""
+    pol = tally.config.sentinel
+    view = engine.caller_order_view(("x", "done"))
+    n_unf, mask = tally._sentinel.audit(x0, view["x"], fly, w, view["done"],
+                                        engine.flux_original())
+    recovered = lost = 0
+    if n_unf and pol.straggler_retry:
+        recovered, lost = engine_straggler_rung(tally, engine, x0, dests,
+                                                fly, w, n_unf, move,
+                                                pid_offset)
+        ok = lost == 0
+        tally._sentinel.resync(tally.flux)
+    tally._sentinel.note_outcome(mask, n_unf, recovered, lost, move)
+    return ok
+
+
+def engine_straggler_rung(tally, engine, x0, dests, fly, w, n_unf: int,
+                          move: int, pid_offset: int = 0) -> tuple:
+    """One engine's straggler rung over its ``n_unf`` unfinished
+    particles: a resumed phase at multiplied budgets, then the residue
+    quarantined and declared lost. Returns ``(recovered, lost)``."""
+    lost = 0
+    if not engine.retry_stragglers(tally.config.sentinel.retry_iters_factor):
+        quarantine_engine(tally, engine, x0, dests, fly, w, move,
+                          pid_offset)
+        lost = engine.declare_lost_stragglers()
+    return max(0, n_unf - lost), lost
+
+
+def quarantine_engine(tally, engine, x0, dests, fly, w, move,
+                      pid_offset: int = 0) -> None:
+    """Quarantine records for the particles the engine is about to
+    declare lost (a caller-order fetch of the residue)."""
+    view = engine.caller_order_view(("done", "elem_orig"))
+    idx = np.flatnonzero(~view["done"].cpu().numpy()
+                         & (fly.cpu().numpy() == 1))
+    if idx.size == 0:
+        return
+    sel = torch.as_tensor(idx, device=x0.device)
+    append_quarantine(
+        tally.config.sentinel.quarantine_dir,
+        build_records(idx, x0[sel].cpu().numpy(), dests[sel].cpu().numpy(),
+                      view["elem_orig"].cpu().numpy()[idx],
+                      w[sel].cpu().numpy(), move, pid_offset=pid_offset))
 
 
 class PartitionedPumiTally(PumiTally):
@@ -65,6 +127,9 @@ class PartitionedPumiTally(PumiTally):
         # After the engine: the DROP sentinel is its padded bank's size.
         self._arm_scoring(bank_size=self.engine.score_padded.numel()
                           if self.config.scoring is not None else None)
+        if self._sentinel is not None:
+            self.engine.on_overflow_recovered = \
+                self._sentinel.note_overflow_recovery
         self._sync()
         self.tally_times.initialization_time += time.perf_counter() - t0
 
@@ -82,7 +147,16 @@ class PartitionedPumiTally(PumiTally):
                        sfac=None) -> bool:
         # Scoring operands are caller-order [n] rows: the engine routes
         # them by pid and migrates them with their particles.
-        return self.engine.move(origins, dests, fly, w, sbin, sfac)
+        if self._sentinel is None:
+            return self.engine.move(origins, dests, fly, w, sbin, sfac)
+        # The audit needs the phase-B start in caller order: the staged
+        # origins, or the committed positions BEFORE a continue move
+        # (migration permutes the slots).
+        x0 = (origins if origins is not None
+              else self.engine.caller_order_view(("x",))["x"])
+        ok = self.engine.move(origins, dests, fly, w, sbin, sfac)
+        return sentinel_post_move_engine(self, self.engine, x0, dests, fly,
+                                         w, ok, self.iter_count)
 
     def WriteTallyResults(self, filename: Optional[str] = None) -> None:
         """Normalize and write results; a ``.pvtu`` filename writes one

@@ -41,8 +41,17 @@ and staged with the chunk's other inputs (on the copy stream, with
 chunk's bins are resolved on the compute stream after it waits for that
 upload. Pad slots never fly, so they never score.
 
-Left out against the JAX package (ROADMAP.md): the sentinel and
-resilience hooks, the service-fusion surface (``_fused_move_stage``),
+With a sentinel armed (``TallyConfig.sentinel``) a move keeps each
+chunk's phase-B start, staged inputs, done mask and ray coordinates; at
+the end of the call ONE audit runs over the concatenated chunks (one
+scalar fetch), then the straggler ladder chunk by chunk: W0's ladder
+(sentinel/straggler.py) for ``StreamingTally``, the chunk engine's
+resumed phase and declared losses for ``StreamingPartitionedTally``.
+``StreamingTally``'s localization runs the zero-weight ladder per chunk.
+``intersection_points`` is refused, as in the JAX package.
+
+Left out against the JAX package (ROADMAP.md): the resilience hooks,
+the service-fusion surface (``_fused_move_stage``),
 sharded chunks and ``device_groups`` (one device here). The JAX
 partitioned chunks defer their overflow check to a batch sync point
 (``_recover_deferred_overflow``); the port's engine checks each round on
@@ -75,6 +84,7 @@ from pumiumtally_tpu_torch.api.tally import (
 )
 from pumiumtally_tpu_torch.mesh.tetmesh import TetMesh
 from pumiumtally_tpu_torch.ops.geometry import locate_by_planes
+from pumiumtally_tpu_torch.api.partitioned import engine_straggler_rung
 from pumiumtally_tpu_torch.parallel.partition import (
     PartitionedEngine,
     engine_partition,
@@ -319,6 +329,10 @@ class StreamingTally(PumiTally):
                 snapshot = np.empty((n, 3), _NP_DTYPE[self.dtype])
             self._last_dests_host = self._last_dests_dev = None
         staged_origins = origins_h is not None and not echo
+        # The sentinel's per-chunk record of the move (None: off).
+        stash = [] if self._sentinel is not None else None
+        if stash is not None:
+            self._move_done, self._move_s = {}, {}
 
         def specs_of(k):
             specs = [self._positions_spec(dests_h, k, "dest",
@@ -355,6 +369,9 @@ class StreamingTally(PumiTally):
                 # On the compute stream, after it waited for the upload.
                 sbin, sfac = self._scoring.resolve(
                     st.get("energy"), st.get("time"), self.chunk_size)
+            if stash is not None:
+                stash.append((k, self._chunk_phase_b_start(k, orig),
+                              st["dest"], fly, w, sbin, sfac))
             return self._chunk_move(k, orig, st["dest"], fly, w, sbin, sfac)
 
         oks = self._pipeline(specs_of, dispatch)
@@ -366,6 +383,8 @@ class StreamingTally(PumiTally):
         self.iter_count += 1
         self._stats_note_move()
         self._after_chunk_dispatch()
+        if stash is not None:
+            oks = self._sentinel_chunks_post_move(stash, oks)
         if self.config.check_found_all and not all(bool(o) for o in oks):
             print("ERROR: Not all particles are found. May need more loops "
                   "in search")
@@ -375,6 +394,40 @@ class StreamingTally(PumiTally):
     def _after_chunk_dispatch(self) -> None:
         """Hook: per-call checks after every chunk dispatched
         (partitioned mode)."""
+
+    # -- runtime sentinels (the chunked arms) ----------------------------
+    def _chunk_phase_b_start(self, k: int, orig):
+        """Chunk k's phase-B start for the audit: the staged origins, or
+        the chunk's committed positions before the move."""
+        return self._x[k] if orig is None else orig
+
+    def _sentinel_chunks_post_move(self, stash, oks):
+        """At the end of a move: ONE audit over every chunk (concatenated
+        caller-order views), then W0's straggler ladder chunk by chunk
+        over the residue the done masks show. Returns the verdicts."""
+        pol = self.config.sentinel
+        n_unf, mask = self._sentinel.audit(
+            torch.cat([c[1] for c in stash]), torch.cat(self._x),
+            torch.cat([c[3] for c in stash]), torch.cat([c[4] for c in stash]),
+            torch.cat([self._move_done[c[0]] for c in stash]), self.flux)
+        recovered = lost = 0
+        if n_unf and pol.straggler_retry:
+            new_oks = []
+            for (k, x0, dest, fly, w, sbin, sfac), ok in zip(stash, oks):
+                bank = None if self._scoring is None else self._score[k]
+                self._x[k], self._elem[k], rec, lst = self._recover_move(
+                    self._x[k], self._elem[k], self._flux[k], bank,
+                    self._move_done[k], x0, dest, fly, w, self._move_s[k],
+                    sbin, sfac, self.iter_count - 1,
+                    pid_offset=self._chunk_bounds(k)[0])
+                recovered += rec
+                lost += lst
+                new_oks.append(ok if rec + lst == 0 else lst == 0)
+            oks = new_oks
+            self._sentinel.resync(self.flux)
+        self._sentinel.note_outcome(mask, n_unf, recovered, lost,
+                                    self.iter_count - 1)
+        return oks
 
     # -- per-chunk dispatch (overridden by StreamingPartitionedTally) ----
     def _chunk_localize(self, k: int, dest: torch.Tensor):
@@ -390,6 +443,8 @@ class StreamingTally(PumiTally):
             self.mesh, x, elem, dest, tol=self._tol,
             max_iters=self._max_iters,
         )
+        self._x[k], self._elem[k], done = self._sentinel_post_localize(
+            self._x[k], self._elem[k], dest, done, self._flux[k])
         return done.all()
 
     def _chunk_move(self, k: int, orig, dest, fly, w, sbin=None, sfac=None):
@@ -400,14 +455,16 @@ class StreamingTally(PumiTally):
         kw = dict(tol=self._tol, max_iters=self._max_iters,
                   scoring=self._score_ops(bank, sbin, sfac))
         if orig is None:
-            x, elem, done, _ = move_step_continue(
+            x, elem, done, s_b = move_step_continue(
                 self.mesh, self._x[k], self._elem[k], dest, fly, w,
                 self._flux[k], **kw)
         else:
-            x, elem, done, _ = move_step(
+            x, elem, done, s_b = move_step(
                 self.mesh, self._x[k], self._elem[k], orig, dest, fly, w,
                 self._flux[k], **kw)
         self._x[k], self._elem[k] = x, elem
+        if self._sentinel is not None:
+            self._move_done[k], self._move_s[k] = done, s_b
         return done.all()
 
     # -- state views ------------------------------------------------------
@@ -467,6 +524,9 @@ class StreamingPartitionedTally(StreamingTally):
                 check_found_all=False, part=part, scoring=cfg.scoring,
                 cap_frontier=cfg.cap_frontier, **kw,
             ))
+            if self._sentinel is not None:
+                self.engines[-1].on_overflow_recovered = \
+                    self._sentinel.note_overflow_recovery
         self._dispatched_localize = False
 
     def _engine_poisoned(self) -> bool:
@@ -489,6 +549,49 @@ class StreamingPartitionedTally(StreamingTally):
             None if orig is None else orig[:n], dest[:n], fly[:n], w[:n],
             None if sbin is None else sbin[:n],
             None if sfac is None else sfac[:n])
+
+    def _chunk_phase_b_start(self, k: int, orig):
+        n = self.engines[k].n
+        if orig is not None:
+            return orig[:n]
+        return self.engines[k].caller_order_view(("x",))["x"]
+
+    def _sentinel_chunks_post_move(self, stash, oks):
+        """The partitioned-chunk arm: one audit over the engines'
+        concatenated caller-order views, then each chunk engine's
+        straggler rung (a resumed phase at multiplied budgets, then the
+        residue declared lost, with quarantine records; lost particles
+        stay in the engines' ``lost`` flags, which ``lost_particles``
+        counts)."""
+        pol = self.config.sentinel
+        views = [e.caller_order_view(("x", "done")) for e in self.engines]
+        n = [self.engines[c[0]].n for c in stash]
+        n_unf, mask = self._sentinel.audit(
+            torch.cat([c[1] for c in stash]),
+            torch.cat([v["x"] for v in views]),
+            torch.cat([c[3][:m] for c, m in zip(stash, n)]),
+            torch.cat([c[4][:m] for c, m in zip(stash, n)]),
+            torch.cat([v["done"] for v in views]), self.flux)
+        recovered = lost = 0
+        if n_unf and pol.straggler_retry:
+            new_oks = []
+            for (k, x0, dest, fly, w, _, _), m, ok in zip(stash, n, oks):
+                unf = int((~views[k]["done"] & (fly[:m] == 1)).sum())
+                if not unf:
+                    new_oks.append(ok)
+                    continue
+                rec, lost_k = engine_straggler_rung(
+                    self, self.engines[k], x0, dest[:m], fly[:m], w[:m],
+                    unf, self.iter_count - 1,
+                    pid_offset=self._chunk_bounds(k)[0])
+                lost += lost_k
+                recovered += rec
+                new_oks.append(lost_k == 0)
+            oks = new_oks
+            self._sentinel.resync(self.flux)
+        self._sentinel.note_outcome(mask, n_unf, recovered, lost,
+                                    self.iter_count - 1)
+        return oks
 
     def _after_chunk_dispatch(self) -> None:
         was_localize, self._dispatched_localize = (

@@ -48,13 +48,28 @@ the lanes. ``WriteTallyResults`` adds ``flux_mean``/``rel_err`` and
 ``<score>_bin<k>`` cell arrays beside flux and volume. With both off
 nothing of either is constructed.
 
+Runtime sentinels (``TallyConfig.sentinel``, a ``SentinelPolicy``;
+sentinel/): each move is audited on the device (one scalar fetch), its
+stragglers go through the escalation ladder (W0 at a multiplied budget
+continuing the exact ray parametrisation, then, on a two-tier mesh, the
+full-precision planes), the unrecoverable ones are counted in
+``lost_particles`` and quarantined, and ``health_report()`` returns the
+cumulative ``HealthReport`` (also in the VTK FIELD data). A
+localization's stragglers go through the same ladder at zero weight.
+With ``sentinel=None`` nothing of it is constructed and no path changes.
+
+``TallyConfig(record_xpoints=True)``: the move keeps its staged inputs
+and ``intersection_points()`` replays it (``ops.walk.walk_xpoints``),
+the reference's ``getIntersectionPoints()``; the partitioned and
+streaming facades refuse it, as the JAX facades do.
+
 The facades run on ``device="cuda"`` by default and raise when no GPU is
 present, unless the caller asks for ``device="cpu"`` (where every
 kernel's plain PyTorch version runs). The poisoned latch (the JAX
 facade's): once a partitioned engine's overflow-recovery ladder is
 exhausted, every protocol call refuses with ``EnginePoisonedError``.
-Left out so far (ROADMAP.md): sentinels, resilience, the
-service-fusion surface and ``intersection_points``.
+Left out so far (ROADMAP.md): resilience and the service-fusion
+surface.
 """
 
 from __future__ import annotations
@@ -71,34 +86,33 @@ from pumiumtally_tpu_torch.api.staging import HostStaging
 from pumiumtally_tpu_torch.config import TallyConfig
 from pumiumtally_tpu_torch.io.load import load_mesh
 from pumiumtally_tpu_torch.io.vtk import (
+    health_field_data,
     merge_cell_data,
     stats_cell_data,
     write_vtk,
 )
 from pumiumtally_tpu_torch.mesh.tetmesh import TetMesh
 from pumiumtally_tpu_torch.ops.geometry import locate_by_planes
-from pumiumtally_tpu_torch.ops.walk import walk
+from pumiumtally_tpu_torch.ops.walk import walk, walk_xpoints
 from pumiumtally_tpu_torch.scoring.binding import (
     ScoringRuntime,
     score_cell_data,
 )
+from pumiumtally_tpu_torch.sentinel.policy import (  # noqa: F401 (re-export)
+    POISONED_MESSAGE,
+    EnginePoisonedError,
+)
+from pumiumtally_tpu_torch.sentinel.quarantine import (
+    append_quarantine,
+    build_records,
+)
+from pumiumtally_tpu_torch.sentinel.runner import build_runner
+from pumiumtally_tpu_torch.sentinel.straggler import run_ladder
 from pumiumtally_tpu_torch.stats import (
     BatchAccumulator,
     BatchStatistics,
     evaluate_trigger,
 )
-
-POISONED_MESSAGE = (
-    "engine state corrupt — a capacity overflow exhausted the recovery "
-    "ladder; resume from checkpoint (resilience.resume_latest) or "
-    "rebuild the tally with a larger TallyConfig.capacity_factor"
-)
-
-
-class EnginePoisonedError(RuntimeError):
-    """The engine state is known-corrupt (a partitioned capacity
-    overflow exhausted the recovery ladder); every further protocol
-    call refuses."""
 
 
 # MoveToNextLocation's ``time`` keyword (the TimeFilter attribute)
@@ -335,7 +349,9 @@ class PumiTally:
             mesh = mesh.with_lowp_tables()
         elif lowp_mesh:
             # The float32 tier walks a two-tier mesh's full-precision
-            # planes, as the JAX walk does.
+            # planes, as the JAX walk does: packed once here, so every
+            # move runs the packed W0 (a call-time tier reads them in
+            # place, ops.walk.mesh_for_tier).
             mesh = mesh.with_packed_table()
         self.mesh = mesh
         self.num_particles = int(num_particles)
@@ -368,6 +384,11 @@ class PumiTally:
         self._scoring = None
         self._score_bank = None
         self._score_stats = None
+        # The sentinel's runner (None: off, nothing constructed) and the
+        # last move's staged inputs for intersection_points().
+        self._sentinel = build_runner(self.config.sentinel, self.dtype,
+                                      self.device)
+        self._xpoint_stash = None
         return self.mesh
 
     def _engine_poisoned(self) -> bool:
@@ -380,6 +401,97 @@ class PumiTally:
     def _check_poisoned(self) -> None:
         if self._engine_poisoned():
             raise EnginePoisonedError(POISONED_MESSAGE)
+
+    # -- runtime sentinels (TallyConfig.sentinel) ------------------------
+    def health_report(self):
+        """The cumulative ``sentinel.HealthReport`` of this campaign
+        (audited moves, anomaly mask union, worst conservation residual,
+        straggler and overflow ladder outcomes). Requires
+        ``TallyConfig(sentinel=SentinelPolicy(...))``."""
+        if self._sentinel is None:
+            raise RuntimeError(
+                "runtime sentinels are disabled; construct the tally "
+                "with TallyConfig(sentinel=sentinel.SentinelPolicy())"
+            )
+        return self._sentinel.health_report()
+
+    def _sentinel_post_move(self, x_start, dests, fly, w, done, s_b,
+                            sbin=None, sfac=None):
+        """Audit one committed move and run the straggler ladder over its
+        unfinished residue. ``x_start``: the phase-B start (the staged
+        origins, or the committed positions before a continue move);
+        ``s_b``: phase B's ray coordinates; with them the retry continues
+        the exact parametrisation. Returns the found-all verdict."""
+        n_unf, mask = self._sentinel.audit(x_start, self.x, fly, w, done,
+                                           self.flux)
+        recovered = lost = 0
+        ok = done.all()
+        if n_unf and self.config.sentinel.straggler_retry:
+            self.x, self.elem, recovered, lost = self._recover_move(
+                self.x, self.elem, self.flux, self._score_bank, done,
+                x_start, dests, fly, w, s_b, sbin, sfac, self.iter_count)
+            # The ladder tallied after the audit took the flux sum.
+            self._sentinel.resync(self.flux)
+            ok = lost == 0
+        self._sentinel.note_outcome(mask, n_unf, recovered, lost,
+                                    self.iter_count)
+        return ok
+
+    def _recover_move(self, x, elem, flux, bank, done, x_start, dests, fly,
+                      w, s_b, sbin, sfac, move: int, pid_offset: int = 0):
+        """The straggler ladder over one move's (or one chunk's)
+        unfinished flying particles, tallying into ``flux`` (and
+        ``bank``) in place; the lost ones are counted in
+        ``lost_particles`` and quarantined. Returns ``(x, elem,
+        recovered, lost)``."""
+        unfinished = (~done & (fly == 1)).cpu().numpy()
+        if not unfinished.any():
+            return x, elem, 0, 0
+        x, elem, rec_idx, lost_idx = run_ladder(
+            self.mesh, x, elem, dests, fly, w, flux, unfinished,
+            tol=self._tol, base_iters=self._max_iters,
+            retry_factor=self.config.sentinel.retry_iters_factor,
+            two_tier=self.mesh.two_tier, x_start=x_start, s_init=s_b,
+            scoring=self._score_ops(bank, sbin, sfac))
+        if lost_idx.size:
+            self._lost_total += int(lost_idx.size)
+            self._quarantine_lost(lost_idx, x_start, dests, w, elem, move,
+                                  pid_offset)
+        return x, elem, int(rec_idx.size), int(lost_idx.size)
+
+    def _quarantine_lost(self, idx: np.ndarray, x_start, dests, w, elem,
+                         move: int, pid_offset: int = 0) -> None:
+        """One quarantine record per unrecoverable particle (pid, origin,
+        dest, element, weight, move); the file only with a
+        ``quarantine_dir`` (the report counts them either way)."""
+        sel = torch.as_tensor(idx, device=self.device)
+        append_quarantine(
+            self.config.sentinel.quarantine_dir,
+            build_records(idx, x_start[sel].cpu().numpy(),
+                          dests[sel].cpu().numpy(), elem[sel].cpu().numpy(),
+                          w[sel].cpu().numpy(), move, pid_offset=pid_offset))
+
+    def _sentinel_post_localize(self, x, elem, dest, done, flux):
+        """The localization ladder: unfinished particles are re-walked
+        with the escalated budget at zero weight (``flux`` is untouched).
+        Returns ``(x, elem, done)``."""
+        if self._sentinel is None or not self.config.sentinel.straggler_retry:
+            return x, elem, done
+        unfinished = (~done).cpu().numpy()
+        if not unfinished.any():
+            return x, elem, done
+        n = unfinished.size
+        x, elem, rec_idx, lost_idx = run_ladder(
+            self.mesh, x, elem, dest,
+            torch.ones((n,), dtype=torch.int8, device=self.device),
+            torch.zeros((n,), dtype=self.dtype, device=self.device), flux,
+            unfinished, tol=self._tol, base_iters=self._max_iters,
+            retry_factor=self.config.sentinel.retry_iters_factor,
+            two_tier=self.mesh.two_tier)
+        self._sentinel.note_localization(rec_idx.size, lost_idx.size)
+        done = done.clone()
+        done[torch.as_tensor(rec_idx, device=self.device)] = True
+        return x, elem, done
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -703,6 +815,7 @@ class PumiTally:
         self._last_dests_host = None  # localization rewrites the state
         self._last_dests_dev = None
         self._echo_misses = 0  # a new batch re-arms the echo detector
+        self._xpoint_stash = None  # xpoints reset to the new positions
         # Staged through the destinations' buffer: one pinned [n,3].
         dest = self._stage_positions(
             host_positions(init_particle_positions, size,
@@ -740,6 +853,8 @@ class PumiTally:
             self.mesh, x, elem, dest, tol=self._tol,
             max_iters=self._max_iters,
         )
+        self.x, self.elem, done = self._sentinel_post_localize(
+            self.x, self.elem, dest, done, self.flux)
         return done.all(), exited.sum()
 
     def MoveToNextLocation(self, particle_origin, particle_destinations,
@@ -806,14 +921,22 @@ class PumiTally:
         fetched only when read."""
         kw = dict(tol=self._tol, max_iters=self._max_iters,
                   scoring=self._score_ops(self._score_bank, sbin, sfac))
+        x_prev = self.x  # the phase-B start of a continue move
+        if self.config.record_xpoints:
+            # What intersection_points() needs to replay this move.
+            self._xpoint_stash = (self.x, self.elem, origins, dests, fly)
         if origins is None:
-            self.x, self.elem, done, _ = move_step_continue(
+            self.x, self.elem, done, s_b = move_step_continue(
                 self.mesh, self.x, self.elem, dests, fly, w, self.flux, **kw)
         else:
-            self.x, self.elem, done, _ = move_step(
+            self.x, self.elem, done, s_b = move_step(
                 self.mesh, self.x, self.elem, origins, dests, fly, w,
                 self.flux, **kw)
-        return done.all()
+        if self._sentinel is None:
+            return done.all()
+        return self._sentinel_post_move(
+            x_prev if origins is None else origins, dests, fly, w, done,
+            s_b, sbin, sfac)
 
     def WriteTallyResults(self, filename: Optional[str] = None) -> None:
         """Normalize flux by element volume and write a legacy VTK file
@@ -849,9 +972,13 @@ class PumiTally:
         return stats, scores
 
     def _vtk_field_data(self) -> dict:
-        """Campaign-level payload: the cumulative lost-particle count."""
-        return {"lost_particles": np.asarray([float(self.lost_particles)],
-                                             np.float64)}
+        """Campaign-level payload: the cumulative lost-particle count
+        and, with a sentinel armed, the health report."""
+        out = {"lost_particles": np.asarray([float(self.lost_particles)],
+                                            np.float64)}
+        if self._sentinel is not None:
+            out.update(health_field_data(self.health_report()))
+        return out
 
     # -- leakage accounting ----------------------------------------------
     def _current_lost(self) -> int:
@@ -881,3 +1008,46 @@ class PumiTally:
         """Committed particle positions."""
         return self.x.cpu().numpy()[: self.num_particles]
 
+    def intersection_points(self) -> np.ndarray:
+        """Each particle's last face-intersection point: the reference's
+        ``getIntersectionPoints()`` (PumiTallyImpl.h:177-178). Requires
+        ``TallyConfig.record_xpoints=True``. Before any move, and for a
+        particle that crossed no face in the last move, it is the
+        particle's starting position. The walk keeps no crossing points,
+        so this replays the last move (``walk_xpoints``, plain PyTorch);
+        phase A is replayed first when it walked a non-zero distance, and
+        only phase B's crossings are recorded."""
+        if not self.config.record_xpoints:
+            raise RuntimeError(
+                "intersection_points() needs TallyConfig.record_xpoints="
+                "True (the facade does not retain move inputs otherwise)"
+            )
+        if not self.is_initialized:
+            raise RuntimeError(
+                "CopyInitialPosition must be called before "
+                "intersection_points()"
+            )
+        if type(self)._dispatch_move is not PumiTally._dispatch_move or (
+            type(self).MoveToNextLocation is not PumiTally.MoveToNextLocation
+        ):
+            # A facade that moves through its own engine never fills the
+            # stash: start positions would be wrong data.
+            raise NotImplementedError(
+                f"intersection_points() is implemented for the "
+                f"monolithic/sharded PumiTally facade only, not "
+                f"{type(self).__name__}"
+            )
+        if self._xpoint_stash is None:
+            return self.positions  # no move yet: the start points
+        x0, e0, origins, dests, fly = self._xpoint_stash
+        if origins is not None:
+            # Phase A's relocation gives phase B's start, unless it
+            # walked zero distance (the move's own skip).
+            dest_a = torch.where((fly == 1)[:, None], origins, x0)
+            if not bool((dest_a == x0).all()):
+                x0, e0, _, _ = _localize_step(
+                    self.mesh, x0, e0, dest_a, tol=self._tol,
+                    max_iters=self._max_iters)
+        xp = walk_xpoints(self.mesh, x0, e0, dests, fly, tol=self._tol,
+                          max_iters=self._max_iters)
+        return xp.cpu().numpy()[: self.num_particles]

@@ -1,6 +1,9 @@
 """Engine knobs: the subset of ``pumiumtally_tpu.config.TallyConfig``
 that the PyTorch port implements so far.
 
+The JAX fields the port does not have yet are ``checkpoint``,
+``device_mesh``, ``migrate_collective``, ``placement`` and
+``placement_hosts`` (ROADMAP.md queue 1: resilience and multi-device).
 A knob the port does not have is not a field, so passing it is a
 ``TypeError``. The few values the JAX package accepts but the port does
 not run yet raise ``NotImplementedError`` naming the ROADMAP.md item
@@ -72,6 +75,15 @@ class TallyConfig:
         committed inside the walk kernels (W0, W2 and W4; a partitioned
         engine on the float32 tables scores through the gather block
         walk W4, as the JAX engine does). None: no scoring code runs.
+      sentinel: a ``sentinel.SentinelPolicy``: per-move audit lanes on
+        the device (one scalar fetch a move), the straggler-escalation
+        ladder instead of silent truncation at ``max_iters``, quarantine
+        records, and ``health_report()``. None (default): no sentinel
+        code runs and no path changes.
+      record_xpoints: ``PumiTally`` keeps the last move's staged inputs
+        so that ``intersection_points()`` can replay it (the
+        reference's ``getIntersectionPoints()``); the other facades
+        refuse the call.
       output_filename: default VTK output path.
       auto_continue: ``MoveToNextLocation`` detects on the host when the
         staged origins echo the previous move's destinations bit for
@@ -115,6 +127,8 @@ class TallyConfig:
     batch_stats: bool = False
     batch_stats_trigger: Optional[Any] = None
     scoring: Optional[Any] = None
+    sentinel: Optional[Any] = None
+    record_xpoints: bool = False
     output_filename: str = "fluxresult.vtk"
     auto_continue: bool = True
     fenced_timing: bool = True
@@ -233,6 +247,14 @@ class TallyConfig:
                 raise ValueError(
                     "scoring must be a scoring.ScoringSpec, "
                     f"got {self.scoring!r}"
+                )
+        if self.sentinel is not None:
+            from pumiumtally_tpu_torch.sentinel.policy import SentinelPolicy
+
+            if not isinstance(self.sentinel, SentinelPolicy):
+                raise ValueError(
+                    "sentinel must be a sentinel.SentinelPolicy, "
+                    f"got {self.sentinel!r}"
                 )
         if self.walk_vmem_max_elems is not None and int(
             self.walk_vmem_max_elems

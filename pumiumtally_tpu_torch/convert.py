@@ -7,7 +7,9 @@ no JAX import here) and build the port's object from such a dict:
 
 - a ``TetMesh``: coords, tet2vert, face_normals, face_offsets, face_adj,
   volumes, and its walk tables: walk_table, or the two-tier
-  walk_table_lo (as its uint16 bit pattern) and walk_table_hi;
+  walk_table_lo (as its uint16 bit pattern) and walk_table_hi, or
+  neither (the unpacked layout: the planes and face_adj are the walk's
+  arrays);
 - a ``MeshPartition``: the block tables (``table_hi`` too when two-tier;
   a bf16 ``table`` as its uint16 bits; ``adj_int`` where the partition
   has the int32 adjacency sidecar) and the id maps;
@@ -19,7 +21,8 @@ no JAX import here) and build the port's object from such a dict:
   (``stats_*`` over the flux, ``sstats_*`` over the bank: the JAX
   checkpoint's names);
 - a ``TallyConfig``: the fields both packages have (``tally_config``),
-  a JAX ``ScoringSpec`` and ``TriggerSpec`` turned into the port's.
+  a JAX ``ScoringSpec``, ``TriggerSpec`` and ``SentinelPolicy`` turned
+  into the port's.
 
 Tests build an input once, hand it to both packages through here, and
 compare what comes out. A bf16 tensor crosses as its uint16 bit pattern:
@@ -49,6 +52,7 @@ from pumiumtally_tpu_torch.scoring import (
     ScoringSpec,
     TimeFilter,
 )
+from pumiumtally_tpu_torch.sentinel.policy import SentinelPolicy
 from pumiumtally_tpu_torch.stats import TriggerSpec
 
 MESH_KEYS = ("coords", "tet2vert", "face_normals", "face_offsets",
@@ -94,7 +98,8 @@ def tetmesh_from_arrays(arrays: Dict[str, Any],
     The walk table is reassembled in float64 from the planes and the
     integer adjacency, so neighbour ids stay exact in any dtype. Arrays
     holding the two-tier tables give a two-tier mesh: the bf16 tier
-    bit for bit, the refinement tier in ``dtype``."""
+    bit for bit, the refinement tier in ``dtype``; arrays with neither
+    table an unpacked mesh (the planes in ``dtype``)."""
     coords = np.asarray(arrays["coords"])
     if dtype is None:
         dtype = {np.dtype(np.float32): torch.float32,
@@ -111,6 +116,12 @@ def tetmesh_from_arrays(arrays: Dict[str, Any],
             ).to(dtype),
         )
     adj = np.asarray(arrays["face_adj"], dtype=np.int32)
+    if "walk_table" not in arrays:
+        return TetMesh.from_numpy(
+            coords, arrays["tet2vert"], adj, arrays["volumes"], None,
+            dtype=dtype, device=device,
+            face_normals=np.asarray(arrays["face_normals"]),
+            face_offsets=np.asarray(arrays["face_offsets"]))
     ne = adj.shape[0]
     table = np.empty((ne, WALK_TABLE_WIDTH), dtype=np.float64)
     table[:, WALK_TABLE_NORMALS] = np.asarray(
@@ -261,6 +272,8 @@ def tally_config(cfg) -> TallyConfig:
                        "bfloat16": torch.bfloat16}[np.dtype(kw["dtype"]).name]
     if kw.get("scoring") is not None:
         kw["scoring"] = scoring_spec(kw["scoring"])
+    if kw.get("sentinel") is not None:
+        kw["sentinel"] = sentinel_policy(kw["sentinel"])
     if kw.get("batch_stats_trigger") is not None:
         trig = kw["batch_stats_trigger"]
         kw["batch_stats_trigger"] = TriggerSpec(
@@ -280,3 +293,10 @@ def scoring_spec(spec) -> ScoringSpec:
         if f is not None:
             filters.append(cls(np.asarray(f.edges)))
     return ScoringSpec(filters, tuple(spec.scores), spec.overflow)
+
+
+def sentinel_policy(policy) -> SentinelPolicy:
+    """The port's ``SentinelPolicy`` from a policy of either package,
+    read duck-typed field by field."""
+    return SentinelPolicy(**{f.name: getattr(policy, f.name)
+                             for f in dataclasses.fields(SentinelPolicy)})

@@ -71,11 +71,26 @@
 // one 16-byte quad: 1.5 a crossing at S = 3, not 3 scalar atomics); f64
 // keeps a scalar atomic a lane.
 //
-// The two-tier variant (kTwoTier; the JAX walk's lo_select branch,
-// ops/walk.py _advance_geometry :425-431) reads, per crossing, the tet's
-// 32 B bf16 select row as two 16-byte loads and then the winning face's
-// 20 B (f32) refinement row, whose adj lane names the neighbour: 52 B
-// instead of 80 B, and face_adj is never read (csrc/twotier_step.cuh).
+// The two-tier variant (kLayout WALK_TWO_TIER; the JAX walk's lo_select
+// branch, ops/walk.py _advance_geometry :425-431) reads, per crossing, the
+// tet's 32 B bf16 select row as two 16-byte loads and then the winning
+// face's 20 B (f32) refinement row, whose adj lane names the neighbour:
+// 52 B instead of 80 B, and face_adj is never read (csrc/twotier_step.cuh).
+//
+// The unpacked variant (WALK_UNPACKED; the JAX walk's `_gather_walk_row`
+// fallback, ops/walk.py:279-290) reads a tet's four planes from two arrays
+// and its neighbours from the int32 face_adj: face f of tet e has its
+// normal at nrm[(4e + f) * nstride + c] and its offset at
+// off[(4e + f) * ostride], its neighbour at adj[4e + f] (one 16-byte int4
+// load, as W4's sidecar). Two callers share it: a mesh whose ids a float
+// lane cannot hold exactly (2^24 tets or more in float32; strides 3 and 1,
+// the stored planes) and the float32 tier of a two-tier mesh (strides 5
+// and 5, the refinement tier's planes in place: `nrm` its row base, `off`
+// the row base + 3). The same 80 B a crossing in f32 (48 B normals, 16 B
+// offsets, 16 B ids) as the packed row, from three places: more sectors.
+// The plane values are scalar loads (the strides are run-time); the
+// arithmetic is walk_step.cuh's, so positions and ids equal the packed
+// walk's on the same planes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,11 +104,23 @@
 #define WALK_REFILL 16  // idle lanes that make a warp refill
 #define WALK_RING 4     // shares whose outputs a warp stages at once
 
+// Walk layouts, the kernel's kLayout: the packed row, the two tiers, the
+// unpacked planes and ids.
+#define WALK_PACKED 0
+#define WALK_TWO_TIER 1
+#define WALK_UNPACKED 2
+
 template <typename T>
 struct WalkArgs {
   const T* table;
   const uint16_t* table_lo;
   const T* table_hi;
+  // WALK_UNPACKED: the planes and neighbour ids, and the planes' strides
+  // in elements between one face and the next.
+  const T* nrm;
+  const T* off;
+  const int* adj;
+  int nstride, ostride;
   const T* x;
   const int* elem_in;
   const T* dest;
@@ -121,14 +148,33 @@ struct WalkArgs {
 };
 
 // One crossing of the tet `e` with its rows read from global memory.
-template <typename T, bool kTwoTier>
+template <typename T, int kLayout>
 __device__ __forceinline__ T crossing(const WalkArgs<T>& a, int e, T s,
                                       T dx, T dy, T dz, T px, T py, T pz,
                                       int* next, bool* reached) {
-  if constexpr (kTwoTier) {
+  if constexpr (kLayout == WALK_TWO_TIER) {
     return twotier_step(a.table_lo + (size_t)e * WALK_TABLE_LO_WIDTH,
                         a.table_hi, e, s, dx, dy, dz, px, py, pz, a.tol, next,
                         reached);
+  } else if constexpr (kLayout == WALK_UNPACKED) {
+    // The 16 plane values in the packed row's order, then walk_step's
+    // arithmetic; the neighbour from the int4 of ids.
+    T r[WALK_TABLE_ADJ];
+    const T* n = a.nrm + (size_t)e * 4 * a.nstride;
+    const T* o = a.off + (size_t)e * 4 * a.ostride;
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      r[3 * f] = n[f * a.nstride];
+      r[3 * f + 1] = n[f * a.nstride + 1];
+      r[3 * f + 2] = n[f * a.nstride + 2];
+      r[WALK_TABLE_OFFSETS + f] = o[f * a.ostride];
+    }
+    const int4 ids = *reinterpret_cast<const int4*>(a.adj + (size_t)e * 4);
+    int f;
+    const T s_exit = walk_exit(r, s, dx, dy, dz, px, py, pz, a.tol, &f);
+    *reached = s_exit >= T(1);
+    *next = f == 0 ? ids.x : f == 1 ? ids.y : f == 2 ? ids.z : ids.w;
+    return *reached ? T(1) : s_exit;
   } else {
     T r[WALK_TABLE_WIDTH];
     walk_load_row(a.table + (size_t)e * WALK_TABLE_WIDTH, r);
@@ -170,7 +216,7 @@ __device__ __forceinline__ void walk_flush(const WalkArgs<T>& a,
   __syncwarp();  // the slot may be written again
 }
 
-template <typename T, bool kTwoTier, bool kScore>
+template <typename T, int kLayout, bool kScore>
 __global__ void __launch_bounds__(WALK_THREADS)
     walk_kernel(const WalkArgs<T> a) {
   __shared__ int block_iters, block_walked, block_skip;
@@ -281,8 +327,8 @@ __global__ void __launch_bounds__(WALK_THREADS)
       if (steps < a.max_iters) {
         int next;
         bool reached;
-        const T s_new = crossing<T, kTwoTier>(a, e, s, dx, dy, dz, px, py,
-                                              pz, &next, &reached);
+        const T s_new = crossing<T, kLayout>(a, e, s, dx, dy, dz, px, py,
+                                             pz, &next, &reached);
         const bool hit_boundary = !reached && next == -1;
         if (a.tally) {
           const T c = (s_new - s) * eff_w;
@@ -359,16 +405,16 @@ __global__ void __launch_bounds__(WALK_THREADS)
   }
 }
 
-template <typename T, bool kTwoTier, bool kScore = false>
+template <typename T, int kLayout, bool kScore = false>
 static int launch_walk(const WalkArgs<T>& a, void* stream) {
   if (a.n <= 0) return static_cast<int>(cudaGetLastError());
   int resident = 0;
   const cudaError_t err = resident_blocks(
-      reinterpret_cast<const void*>(walk_kernel<T, kTwoTier, kScore>),
+      reinterpret_cast<const void*>(walk_kernel<T, kLayout, kScore>),
       WALK_THREADS, 0, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int needed = (a.n + WALK_THREADS - 1) / WALK_THREADS;
-  walk_kernel<T, kTwoTier, kScore>
+  walk_kernel<T, kLayout, kScore>
       <<<needed < resident ? needed : resident, WALK_THREADS, 0,
          static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -388,6 +434,10 @@ static WalkArgs<T> walk_args(const void* table, const void* table_lo,
   a.table = static_cast<const T*>(table);
   a.table_lo = static_cast<const uint16_t*>(table_lo);
   a.table_hi = static_cast<const T*>(table_hi);
+  a.nrm = nullptr;
+  a.off = nullptr;
+  a.adj = nullptr;
+  a.nstride = a.ostride = 0;
   a.x = static_cast<const T*>(x);
   a.elem_in = static_cast<const int*>(elem);
   a.dest = static_cast<const T*>(dest);
@@ -431,6 +481,19 @@ static WalkArgs<T> with_scoring(WalkArgs<T> a, void* bank,
   return a;
 }
 
+// The unpacked arguments of a walk_unpacked entry, set on `a`.
+template <typename T>
+static WalkArgs<T> with_planes(WalkArgs<T> a, const void* nrm,
+                               const void* off, const void* adj, int nstride,
+                               int ostride) {
+  a.nrm = static_cast<const T*>(nrm);
+  a.off = static_cast<const T*>(off);
+  a.adj = static_cast<const int*>(adj);
+  a.nstride = nstride;
+  a.ostride = ostride;
+  return a;
+}
+
 // The particle arguments every entry takes after its tables.
 #define WALK_PARTICLE_PARAMS                                                \
   const void *x, const void *elem, const void *dest, const void *fly,      \
@@ -443,19 +506,19 @@ static WalkArgs<T> with_scoring(WalkArgs<T> a, void* bank,
       exited_out, s_out, iters, next, counts, skip, n, tol, max_iters, tally
 
 extern "C" int pumi_walk_f32(const void* table, WALK_PARTICLE_PARAMS) {
-  return launch_walk<float, false>(
+  return launch_walk<float, WALK_PACKED>(
       walk_args<float>(table, nullptr, nullptr, WALK_PARTICLE_ARGS), stream);
 }
 
 extern "C" int pumi_walk_f64(const void* table, WALK_PARTICLE_PARAMS) {
-  return launch_walk<double, false>(
+  return launch_walk<double, WALK_PACKED>(
       walk_args<double>(table, nullptr, nullptr, WALK_PARTICLE_ARGS), stream);
 }
 
 extern "C" int pumi_walk_twotier_f32(const void* table_lo,
                                      const void* table_hi,
                                      WALK_PARTICLE_PARAMS) {
-  return launch_walk<float, true>(
+  return launch_walk<float, WALK_TWO_TIER>(
       walk_args<float>(nullptr, table_lo, table_hi, WALK_PARTICLE_ARGS),
       stream);
 }
@@ -463,7 +526,7 @@ extern "C" int pumi_walk_twotier_f32(const void* table_lo,
 extern "C" int pumi_walk_twotier_f64(const void* table_lo,
                                      const void* table_hi,
                                      WALK_PARTICLE_PARAMS) {
-  return launch_walk<double, true>(
+  return launch_walk<double, WALK_TWO_TIER>(
       walk_args<double>(nullptr, table_lo, table_hi, WALK_PARTICLE_ARGS),
       stream);
 }
@@ -477,7 +540,7 @@ extern "C" int pumi_walk_twotier_f64(const void* table_lo,
 
 extern "C" int pumi_walk_scored_f32(WALK_SCORE_PARAMS, const void* table,
                                     WALK_PARTICLE_PARAMS) {
-  return launch_walk<float, false, true>(
+  return launch_walk<float, WALK_PACKED, true>(
       with_scoring(walk_args<float>(table, nullptr, nullptr,
                                     WALK_PARTICLE_ARGS),
                    WALK_SCORE_ARGS),
@@ -486,7 +549,7 @@ extern "C" int pumi_walk_scored_f32(WALK_SCORE_PARAMS, const void* table,
 
 extern "C" int pumi_walk_scored_f64(WALK_SCORE_PARAMS, const void* table,
                                     WALK_PARTICLE_PARAMS) {
-  return launch_walk<double, false, true>(
+  return launch_walk<double, WALK_PACKED, true>(
       with_scoring(walk_args<double>(table, nullptr, nullptr,
                                      WALK_PARTICLE_ARGS),
                    WALK_SCORE_ARGS),
@@ -497,7 +560,7 @@ extern "C" int pumi_walk_twotier_scored_f32(WALK_SCORE_PARAMS,
                                             const void* table_lo,
                                             const void* table_hi,
                                             WALK_PARTICLE_PARAMS) {
-  return launch_walk<float, true, true>(
+  return launch_walk<float, WALK_TWO_TIER, true>(
       with_scoring(walk_args<float>(nullptr, table_lo, table_hi,
                                     WALK_PARTICLE_ARGS),
                    WALK_SCORE_ARGS),
@@ -508,9 +571,54 @@ extern "C" int pumi_walk_twotier_scored_f64(WALK_SCORE_PARAMS,
                                             const void* table_lo,
                                             const void* table_hi,
                                             WALK_PARTICLE_PARAMS) {
-  return launch_walk<double, true, true>(
+  return launch_walk<double, WALK_TWO_TIER, true>(
       with_scoring(walk_args<double>(nullptr, table_lo, table_hi,
                                      WALK_PARTICLE_ARGS),
+                   WALK_SCORE_ARGS),
+      stream);
+}
+
+// The unpacked entries: planes through their strides, int32 neighbour ids.
+#define WALK_PLANE_PARAMS                                                 \
+  const void *nrm, const void *off, const void *adj, int nstride, int ostride
+#define WALK_PLANE_ARGS nrm, off, adj, nstride, ostride
+
+extern "C" int pumi_walk_unpacked_f32(WALK_PLANE_PARAMS,
+                                      WALK_PARTICLE_PARAMS) {
+  return launch_walk<float, WALK_UNPACKED>(
+      with_planes(walk_args<float>(nullptr, nullptr, nullptr,
+                                   WALK_PARTICLE_ARGS),
+                  WALK_PLANE_ARGS),
+      stream);
+}
+
+extern "C" int pumi_walk_unpacked_f64(WALK_PLANE_PARAMS,
+                                      WALK_PARTICLE_PARAMS) {
+  return launch_walk<double, WALK_UNPACKED>(
+      with_planes(walk_args<double>(nullptr, nullptr, nullptr,
+                                    WALK_PARTICLE_ARGS),
+                  WALK_PLANE_ARGS),
+      stream);
+}
+
+extern "C" int pumi_walk_unpacked_scored_f32(WALK_SCORE_PARAMS,
+                                             WALK_PLANE_PARAMS,
+                                             WALK_PARTICLE_PARAMS) {
+  return launch_walk<float, WALK_UNPACKED, true>(
+      with_scoring(with_planes(walk_args<float>(nullptr, nullptr, nullptr,
+                                                WALK_PARTICLE_ARGS),
+                               WALK_PLANE_ARGS),
+                   WALK_SCORE_ARGS),
+      stream);
+}
+
+extern "C" int pumi_walk_unpacked_scored_f64(WALK_SCORE_PARAMS,
+                                             WALK_PLANE_PARAMS,
+                                             WALK_PARTICLE_PARAMS) {
+  return launch_walk<double, WALK_UNPACKED, true>(
+      with_scoring(with_planes(walk_args<double>(nullptr, nullptr, nullptr,
+                                                 WALK_PARTICLE_ARGS),
+                               WALK_PLANE_ARGS),
                    WALK_SCORE_ARGS),
       stream);
 }

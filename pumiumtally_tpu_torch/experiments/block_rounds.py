@@ -91,10 +91,10 @@ def record_move(t, origins, dests) -> list:
     rounds = []
     walk_round = eng._round
 
-    def spy(st, tally, *rest):
+    def spy(st, tally, *rest, **kw):
         if tally:
             rounds.append(dict(st))
-        return walk_round(st, tally, *rest)
+        return walk_round(st, tally, *rest, **kw)
 
     eng._round = spy
     try:

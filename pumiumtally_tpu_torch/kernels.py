@@ -16,13 +16,16 @@ it launches its kernel, and nowhere else, so a caller can show that a
 path really went through the kernels (``reset_launch_counts`` first).
 An entry is one C entry point of a library: ``walk`` (W0),
 ``walk_twotier`` (W0's two-tier variant, in the same library),
+``walk_unpacked`` (W0 on the unpacked planes and int32 ids: meshes past
+the float lanes' exact ids, and the float32 tier of a two-tier mesh),
 ``block_walk`` (W1), ``twotier_block_walk`` (W2), ``resident_walk`` (W3),
 the two entries of the row gather G1, ``row_gather_take`` (K4's
 counterpart) and ``row_gather_take_along_axis`` (K5's), and the gather
 block walk W4, ``gather_block_walk`` (packed rows, adjacency in the rows
 or in the int32 sidecar) and ``gather_block_walk_twotier``. The scoring
 instantiations of W0, W2 and W4 are entries of their own, counted apart:
-``walk_scored``, ``walk_twotier_scored``, ``twotier_block_walk_scored``,
+``walk_scored``, ``walk_twotier_scored``, ``walk_unpacked_scored``,
+``twotier_block_walk_scored``,
 ``gather_block_walk_scored`` and ``gather_block_walk_twotier_scored``
 (each takes its scoring arguments ahead of the plain entry's). W4's
 work list of a later round is built by ``gather_work_list``.
@@ -71,16 +74,20 @@ _SCORE = _W2_SCORE + [_I]
 # written in place, flux, pending, iters, counts, the work list and its
 # length), the list's capacity, L, cb, tol, max_iters, tally.
 _W4 = [_P] * 15 + [_I, _I, _I, _D, _I, _I, _P]
+# W0's arguments after its tables: 16 pointers (the particles, flux, the
+# outputs, iters, the counter, counts, skip), n, tol, max_iters, tally.
+_W0 = [_P] * 16 + [_I, _D, _I, _I, _P]
+# W0's unpacked tables: normals, offsets, ids, and the two strides.
+_PLANES = [_P] * 3 + [_I, _I]
 # C entry points: entry -> (library, argtypes, dtypes); the entry's
 # dtypes share its argtypes (``pumi_<entry>_f32`` / ``pumi_<entry>_f64``).
 _ENTRY_ARGS = {
-    "walk": ("walk", [_P] * 17 + [_I, _D, _I, _I, _P], _BOTH),
-    "walk_twotier": ("walk", [_P] * 18 + [_I, _D, _I, _I, _P], _BOTH),
-    "walk_scored": ("walk", _SCORE + [_P] * 17 + [_I, _D, _I, _I, _P],
-                    _BOTH),
-    "walk_twotier_scored": (
-        "walk", _SCORE + [_P] * 18 + [_I, _D, _I, _I, _P], _BOTH,
-    ),
+    "walk": ("walk", [_P] + _W0, _BOTH),
+    "walk_twotier": ("walk", [_P] * 2 + _W0, _BOTH),
+    "walk_unpacked": ("walk", _PLANES + _W0, _BOTH),
+    "walk_scored": ("walk", _SCORE + [_P] + _W0, _BOTH),
+    "walk_twotier_scored": ("walk", _SCORE + [_P] * 2 + _W0, _BOTH),
+    "walk_unpacked_scored": ("walk", _SCORE + _PLANES + _W0, _BOTH),
     "block_walk": (
         "block_walk", [_P] * 16 + [_I, _I, _I, _D, _I, _I, _P], _BOTH,
     ),

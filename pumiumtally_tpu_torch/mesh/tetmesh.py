@@ -21,6 +21,14 @@ moved to the device as flat tensors:
   one 20 B row re-solves the winning face's crossing and names the
   neighbour). The adj lane holds ids as floats, under the same exact-id
   ceiling as the packed table.
+- or the unpacked layout, where no table carries the ids: the face
+  planes in ``stored_face_normals[E,4,3]`` and ``stored_face_offsets[E,4]``
+  beside the int32 ``face_adj``. ``from_arrays`` builds it for a mesh of
+  ``exact_id_limit`` tets or more (2^24 in float32) or when asked
+  (``force_unpacked``); ``with_plane_views`` gives a two-tier mesh the
+  same layout over its refinement tier's planes, as strided views, for
+  the float32 tier's walk. W0 reads the three arrays through their
+  strides (csrc/walk.cu).
 """
 
 from __future__ import annotations
@@ -166,9 +174,11 @@ def mesh_geometry(coords: np.ndarray, tet2vert: np.ndarray):
 
 @dataclasses.dataclass(frozen=True)
 class TetMesh:
-    """Immutable tet mesh as tensors on one device. It carries either the
-    packed ``walk_table`` or the two-tier tables (``walk_table_lo`` and
-    ``walk_table_hi``, both set), never both."""
+    """Immutable tet mesh as tensors on one device. It carries exactly one
+    walk layout: the packed ``walk_table``, the two-tier tables
+    (``walk_table_lo`` and ``walk_table_hi``, both set), or the unpacked
+    planes (``stored_face_normals`` and ``stored_face_offsets``, both
+    set, beside ``face_adj``)."""
 
     coords: torch.Tensor  # [V,3] float
     tet2vert: torch.Tensor  # [E,4] int32
@@ -177,15 +187,23 @@ class TetMesh:
     walk_table: Optional[torch.Tensor]  # [E,20] float: normals|offsets|adj
     walk_table_lo: Optional[torch.Tensor] = None  # [E,16] bf16
     walk_table_hi: Optional[torch.Tensor] = None  # [E*4,5] float
+    # The unpacked layout's planes (None otherwise): may be strided
+    # views (``with_plane_views``).
+    stored_face_normals: Optional[torch.Tensor] = None  # [E,4,3] float
+    stored_face_offsets: Optional[torch.Tensor] = None  # [E,4] float
 
     @property
     def face_normals(self) -> torch.Tensor:
+        if self.stored_face_normals is not None:
+            return self.stored_face_normals
         if self.walk_table is not None:
             return self.walk_table[:, WALK_TABLE_NORMALS].reshape(-1, 4, 3)
         return self.walk_table_hi.reshape(-1, 4, WALK_PLANE_WIDTH)[:, :, :3]
 
     @property
     def face_offsets(self) -> torch.Tensor:
+        if self.stored_face_offsets is not None:
+            return self.stored_face_offsets
         if self.walk_table is not None:
             return self.walk_table[:, WALK_TABLE_OFFSETS]
         return self.walk_table_hi.reshape(-1, 4, WALK_PLANE_WIDTH)[:, :, 3]
@@ -193,6 +211,11 @@ class TetMesh:
     @property
     def two_tier(self) -> bool:
         return self.walk_table_lo is not None
+
+    @property
+    def unpacked(self) -> bool:
+        """Whether the walk reads the unpacked planes and ``face_adj``."""
+        return self.stored_face_normals is not None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -214,12 +237,16 @@ class TetMesh:
     def from_arrays(
         cls, coords: np.ndarray, tet2vert: np.ndarray,
         dtype: Optional[torch.dtype] = None, device: Any = "cpu",
-        table_dtype: str = "float32",
+        table_dtype: str = "float32", force_unpacked: bool = False,
     ) -> "TetMesh":
         """Build a mesh (host-side precompute) from raw connectivity:
         orientation fix, outward face planes, adjacency and volumes.
         ``table_dtype="bfloat16"`` builds the two-tier tables straight
-        from the float64 planes instead of the packed table."""
+        from the float64 planes instead of the packed table. A mesh
+        whose ids the float lanes cannot hold exactly (``exact_id_limit``
+        tets or more), or one built with ``force_unpacked``, takes the
+        unpacked layout (the two-tier tables have no such fallback: past
+        the limit they are refused)."""
         dtype = torch.float32 if dtype is None else dtype
         coords, tet2vert, n, offsets, face_adj, volumes = mesh_geometry(
             coords, tet2vert
@@ -237,13 +264,10 @@ class TetMesh:
                     n_t, off_t, torch.from_numpy(face_adj), dtype
                 ).to(device),
             )
-        if ne >= exact_id_limit(dtype):
-            raise NotImplementedError(
-                f"{ne} elements exceed the exact float-id limit of "
-                f"{dtype} walk tables; the unpacked mesh layout is not "
-                "ported yet (ROADMAP.md queue 1 item 2, 'the unpacked mesh "
-                "layout')"
-            )
+        if ne >= exact_id_limit(dtype) or force_unpacked:
+            return cls.from_numpy(coords, tet2vert, face_adj, volumes, None,
+                                  dtype=dtype, device=device,
+                                  face_normals=n, face_offsets=offsets)
         return cls.from_numpy(
             coords, tet2vert, face_adj, volumes,
             _pack_walk_table(n, offsets, face_adj), dtype=dtype,
@@ -252,20 +276,25 @@ class TetMesh:
 
     @classmethod
     def from_numpy(cls, coords, tet2vert, face_adj, volumes, walk_table,
-                   dtype: torch.dtype, device: Any = "cpu") -> "TetMesh":
+                   dtype: torch.dtype, device: Any = "cpu",
+                   face_normals=None, face_offsets=None) -> "TetMesh":
         """Move host arrays to ``device``: floats in ``dtype`` (the
         table from its float64 form, so ids stay exact), ids int32.
-        ``walk_table`` None leaves the tables to the caller."""
+        ``face_normals`` and ``face_offsets`` (with ``walk_table`` None)
+        give the unpacked layout; neither leaves the tables to the
+        caller."""
         def f(a):
-            return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+            return None if a is None else torch.tensor(
+                np.asarray(a), dtype=dtype, device=device)
 
         def i(a):
             return torch.tensor(np.asarray(a, dtype=np.int32), device=device)
 
         return cls(
             coords=f(coords), tet2vert=i(tet2vert), face_adj=i(face_adj),
-            volumes=f(volumes),
-            walk_table=None if walk_table is None else f(walk_table),
+            volumes=f(volumes), walk_table=f(walk_table),
+            stored_face_normals=f(face_normals),
+            stored_face_offsets=f(face_offsets),
         )
 
     def with_lowp_tables(self) -> "TetMesh":
@@ -278,7 +307,8 @@ class TetMesh:
         _check_two_tier_ids(self.nelems, self.dtype)
         fn, fo = self.face_normals, self.face_offsets
         return dataclasses.replace(
-            self, walk_table=None,
+            self, walk_table=None, stored_face_normals=None,
+            stored_face_offsets=None,
             walk_table_lo=pack_lo_table(fn, fo),
             walk_table_hi=pack_plane_table(fn, fo, self.face_adj,
                                            self.dtype),
@@ -297,13 +327,30 @@ class TetMesh:
         return dataclasses.replace(self, walk_table=table.to(self.dtype),
                                    walk_table_lo=None, walk_table_hi=None)
 
+    def with_plane_views(self) -> "TetMesh":
+        """A two-tier mesh in the unpacked layout over its refinement
+        tier: ``stored_face_normals`` / ``stored_face_offsets`` are
+        strided views of ``walk_table_hi`` (no copy), the neighbours come
+        from ``face_adj``. This is the float32 tier's walk of a two-tier
+        mesh (the JAX walk reads the same planes through the same
+        views). Any other mesh is returned as it is."""
+        if not self.two_tier:
+            return self
+        return dataclasses.replace(
+            self, walk_table_lo=None, walk_table_hi=None,
+            stored_face_normals=self.face_normals,
+            stored_face_offsets=self.face_offsets)
+
     def to(self, dtype: Optional[torch.dtype] = None,
            device: Any = None) -> "TetMesh":
         """This mesh in another working dtype and/or on another device.
         The packed table is rebuilt through float64 so adjacency ids
         survive; a two-tier mesh stays two-tier (the bf16 tier is
         unchanged, the refinement tier converts directly: its ids are
-        exact within the checked limit)."""
+        exact within the checked limit); an unpacked mesh stays unpacked
+        (its planes convert directly, its ids are integers), and so
+        does a packed one with more tets than ``dtype``'s float lanes
+        hold ids for."""
         dtype = self.dtype if dtype is None else dtype
         device = self.device if device is None else device
         common = dict(
@@ -325,6 +372,13 @@ class TetMesh:
                 walk_table_hi=self.walk_table_hi.to(device=device,
                                                     dtype=dtype),
             )
+        if self.unpacked or self.nelems >= exact_id_limit(dtype):
+            return TetMesh(
+                **common, walk_table=None,
+                stored_face_normals=self.face_normals.to(device=device,
+                                                         dtype=dtype),
+                stored_face_offsets=self.face_offsets.to(device=device,
+                                                         dtype=dtype))
         table = self.walk_table.to(torch.float64, copy=True)
         table[:, WALK_TABLE_ADJ] = self.face_adj.double()
         return TetMesh(**common,

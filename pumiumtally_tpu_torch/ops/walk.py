@@ -18,6 +18,14 @@ the row helpers below are its column-wise form). Select in bf16, commit
 in the working dtype; not bitwise against the packed table (a face tie
 below bf16 precision may pick the adjacent face), and conserving.
 
+An unpacked mesh (``TetMesh.unpacked``: past the float lanes' exact ids,
+or a two-tier mesh walked at the float32 tier through
+``with_plane_views``) walks the JAX ``_gather_walk_row`` fallback: the
+same crossing on the planes read from two arrays and the neighbour from
+the int32 ``face_adj`` (W0's unpacked instantiation, launch counters
+``walk_unpacked`` and ``walk_unpacked_scored``), bitwise the packed
+walk's on the same planes.
+
 ``scoring=(kinds, bank, bin_off, fac)`` (tallying walks only) is the JAX
 walk's scoring hook: at every crossing each score adds into lane
 ``elem*stride + bin_off + k`` of the flattened ``bank`` (``score_pair``;
@@ -32,6 +40,10 @@ walks its particle to completion has no lock-step waste to bound),
 ``perm_mode`` and ``tally_seg``. ``max_iters`` is a per-particle step
 budget; the JAX walk checks it every ``cond_every`` (4) steps, so it
 may take up to 3 more.
+
+``walk_xpoints`` replays a move and records each particle's last
+face-crossing point (the reference's ``getIntersectionPoints()``); it is
+an inspection path, plain PyTorch on any device.
 
 ``walk`` launches W0 for CUDA tensors and runs ``walk_plain`` only for
 CPU tensors. Flux is accumulated IN PLACE into the ``flux`` argument
@@ -63,9 +75,6 @@ from pumiumtally_tpu_torch.mesh.tetmesh import (
 )
 from pumiumtally_tpu_torch.scoring.scores import MAX_SCORES
 
-_N0 = WALK_TABLE_NORMALS.start
-_O0 = WALK_TABLE_OFFSETS.start
-_A0 = WALK_TABLE_ADJ.start
 _LN0 = WALK_TABLE_LO_NORMALS.start
 _LO0 = WALK_TABLE_LO_OFFSETS.start
 
@@ -90,6 +99,25 @@ def resolve_table_dtype(dtype: str) -> str:
     return dtype
 
 
+def mesh_for_tier(mesh: TetMesh, table_dtype: Optional[str]) -> TetMesh:
+    """The mesh a walk at tier ``table_dtype`` reads (None: the mesh's
+    own): "bfloat16" needs the two-tier tables, "float32" walks a
+    two-tier mesh's full-precision planes in place
+    (``TetMesh.with_plane_views``). Shared by ``walk`` and
+    ``walk_xpoints``, so a replay walks the tier of the move."""
+    if table_dtype is None:
+        return mesh
+    if resolve_table_dtype(table_dtype) == "float32":
+        return mesh.with_plane_views()
+    if not mesh.two_tier:
+        raise ValueError(
+            "table_dtype='bfloat16' needs the two-tier walk tables — "
+            "build the mesh with table_dtype='bfloat16' or convert it "
+            "with TetMesh.with_lowp_tables()"
+        )
+    return mesh
+
+
 class WalkResult(NamedTuple):
     """Post-walk particle state (fields as in the JAX package)."""
 
@@ -111,31 +139,55 @@ def _crossing(nx, ny, nz, off, s, d0, dest, one, tol):
     return a, b, a * (one - s) > tol
 
 
-def advance_cols(row, s, d0, dest, tol):
+def advance_planes(nrm, off, adj, s, d0, dest, tol):
     """One crossing for every row of a lock-step batch, column-wise —
     the operation order of csrc/walk_step.cuh, so that on the card the
-    kernels match this bitwise. ``row`` is [N,20] (the gathered table
-    rows), ``tol`` a 0-dim tensor in the working dtype. Returns
-    (s_new, next_elem, reached)."""
+    kernels match this bitwise. ``nrm`` [N,12] holds each tet's four
+    normals, ``off`` [N,4] its plane offsets, ``adj`` [N,4] its int32
+    neighbour ids; ``tol`` is a 0-dim tensor in the working dtype.
+    Returns (s_new, next_elem, reached)."""
     one = torch.ones((), dtype=s.dtype, device=s.device)
     inf = torch.full((), float("inf"), dtype=s.dtype, device=s.device)
     s_exit = nxt = None
     for f in range(4):
         a, b, crossing = _crossing(
-            row[:, _N0 + 3 * f], row[:, _N0 + 3 * f + 1],
-            row[:, _N0 + 3 * f + 2], row[:, _O0 + f], s, d0, dest, one, tol,
+            nrm[:, 3 * f], nrm[:, 3 * f + 1], nrm[:, 3 * f + 2], off[:, f],
+            s, d0, dest, one, tol,
         )
         s_f = torch.where(crossing, b / torch.where(crossing, a, one), inf)
         s_f = torch.maximum(s_f, s)
-        adj = row[:, _A0 + f].to(torch.int32)
         if f == 0:
-            s_exit, nxt = s_f, adj
+            s_exit, nxt = s_f, adj[:, f]
         else:
             better = s_f < s_exit  # strict: the first minimal face wins
             s_exit = torch.where(better, s_f, s_exit)
-            nxt = torch.where(better, adj, nxt)
+            nxt = torch.where(better, adj[:, f], nxt)
     reached = s_exit >= one
     return torch.where(reached, one, s_exit), nxt, reached
+
+
+def advance_cols(row, s, d0, dest, tol):
+    """``advance_planes`` on packed table rows ``row`` [N,20] (the ids
+    read from the row's float lanes)."""
+    return advance_planes(row[:, WALK_TABLE_NORMALS],
+                          row[:, WALK_TABLE_OFFSETS],
+                          row[:, WALK_TABLE_ADJ].to(torch.int32), s, d0,
+                          dest, tol)
+
+
+def advance_mesh(mesh: TetMesh, rows, s, d0, dest, tol):
+    """One crossing of every row through the mesh's own layout, as W0
+    reads it: the packed row, the two tiers, or the unpacked planes and
+    ``face_adj`` (the JAX ``_gather_walk_row`` fallback). ``rows``: the
+    particles' elements, int64."""
+    if mesh.two_tier:
+        return advance_twotier(mesh.walk_table_lo, mesh.walk_table_hi, rows,
+                               s, d0, dest, tol)
+    if mesh.unpacked:
+        return advance_planes(mesh.face_normals[rows].reshape(-1, 12),
+                              mesh.face_offsets[rows], mesh.face_adj[rows],
+                              s, d0, dest, tol)
+    return advance_cols(mesh.walk_table[rows], s, d0, dest, tol)
 
 
 def lift_bf16(lo: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -288,8 +340,8 @@ def walk_plain(
     scoring=None,
 ) -> WalkResult:
     """W0's plain PyTorch version: a masked lock-step loop, one crossing
-    of every unfinished particle per iteration (two-tier when the mesh
-    carries the two-tier tables). ``skip`` true: nothing is walked.
+    of every unfinished particle per iteration, through the mesh's
+    layout (``advance_mesh``). ``skip`` true: nothing is walked.
     ``scoring``: see the module docstring; the bank is updated in
     place."""
     n = x.shape[0]
@@ -309,15 +361,8 @@ def walk_plain(
     iters = 0
     while iters < max_iters and not bool(done.all()):
         active = ~done
-        if mesh.two_tier:
-            s_new, nxt, reached = advance_twotier(
-                mesh.walk_table_lo, mesh.walk_table_hi, elem.long(), s, d0,
-                dest, tol_t,
-            )
-        else:
-            s_new, nxt, reached = advance_cols(
-                mesh.walk_table[elem.long()], s, d0, dest, tol_t
-            )
+        s_new, nxt, reached = advance_mesh(mesh, elem.long(), s, d0, dest,
+                                           tol_t)
         hit_boundary = ~reached & (nxt == -1)
         if tally:
             contrib = torch.where(active, (s_new - s) * eff_w,
@@ -342,10 +387,34 @@ def walk_plain(
     )
 
 
+def plane_strides(mesh: TetMesh, device, dtype) -> tuple:
+    """The unpacked planes' strides as W0 reads them: (elements from one
+    face's normal to the next's, the same for the offsets). Raises unless
+    the normals are [E,4,3] and the offsets [E,4] in ``dtype`` on
+    ``device``, each face's three components adjacent and each tet's
+    four faces evenly spaced (the stored arrays: 3 and 1; the two-tier
+    mesh's refinement tier through ``with_plane_views``: 5 and 5)."""
+    nrm, off = mesh.face_normals, mesh.face_offsets
+    ne = mesh.nelems
+    for name, t, shape in (("face_normals", nrm, (ne, 4, 3)),
+                           ("face_offsets", off, (ne, 4))):
+        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"walk: {name} must be {dtype} {shape} on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    ns, os_ = nrm.stride(1), off.stride(1)
+    if (nrm.stride(2), nrm.stride(0), off.stride(0)) != (1, 4 * ns, 4 * os_):
+        raise ValueError(
+            f"walk: the planes' strides {nrm.stride()} / {off.stride()} "
+            "are not a layout the unpacked walk reads")
+    return ns, os_
+
+
 def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
                max_iters, s_init, counts, skip=None, scoring=None):
     dev, dt = x.device, x.dtype
     n, ne = x.shape[0], mesh.nelems
+    table_args = None
     if mesh.two_tier:
         entry = "walk_twotier"
         tables = [
@@ -354,6 +423,13 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
             ("walk_table_hi", mesh.walk_table_hi, dt,
              (ne * 4, WALK_PLANE_WIDTH)),
         ]
+    elif mesh.unpacked:
+        entry = "walk_unpacked"
+        tables = [("face_adj", mesh.face_adj, torch.int32, (ne, 4))]
+        table_args = (kernels.ptr(mesh.face_normals),
+                      kernels.ptr(mesh.face_offsets),
+                      kernels.ptr(mesh.face_adj),
+                      *plane_strides(mesh, dev, dt))
     else:
         entry = "walk"
         tables = [("walk_table", mesh.walk_table, dt,
@@ -385,8 +461,11 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
         score_args = (kernels.ptr(bank), kernels.ptr(bin_off),
                       kernels.ptr(fac), stride, len(kinds),
                       count_mask(kinds), bank.numel())
-    # The kernel reads the packed row or the select row in 16-byte words.
+    # The kernel reads the packed row, the select row or the ids in
+    # 16-byte words.
     kernels.check_aligned("walk", [tables[0][:2]])
+    if table_args is None:
+        table_args = tuple(kernels.ptr(t) for _, t, _, _ in tables)
     x_out = torch.empty((n, 3), dtype=dt, device=dev)
     elem_out = torch.empty((n,), dtype=torch.int32, device=dev)
     done = torch.empty((n,), dtype=torch.bool, device=dev)
@@ -398,8 +477,7 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
     skip_i = None if skip is None else skip.to(torch.int32)
     p = kernels.ptr
     kernels.launch(
-        entry, dt, dev, *score_args, *(p(t) for _, t, _, _ in tables),
-        p(x), p(elem),
+        entry, dt, dev, *score_args, *table_args, p(x), p(elem),
         p(dest), p(in_flight), p(weight), p(s_init),
         p(flux if tally else None),
         p(x_out), p(elem_out), p(done), p(exited), p(s), p(scratch),
@@ -427,10 +505,11 @@ def walk(
     ``table_dtype`` ("bfloat16", "float32" or "auto") asks for a tier,
     as the JAX walk's does: "bfloat16" refuses a mesh without the
     two-tier tables, "float32" walks a two-tier mesh's full-precision
-    planes.
+    planes in place (``TetMesh.with_plane_views``).
 
     CUDA tensors launch kernel W0 (its two-tier variant on a two-tier
-    mesh); CPU tensors run ``walk_plain``. ``counts`` (CUDA only: an
+    mesh, its unpacked one on the unpacked planes); CPU tensors run
+    ``walk_plain``. ``counts`` (CUDA only: an
     int32 [1] tensor) gets the number of particles the kernel walked
     added to it. ``skip`` (a 0-d bool tensor on the particles' device):
     when true, nothing is walked and the inputs come back (x, elem, s
@@ -441,16 +520,7 @@ def walk(
     if counts is not None and not x.is_cuda:
         raise ValueError("walk: counts are counted by the CUDA kernel; the "
                          "plain version has no schedule")
-    if table_dtype is not None:
-        lo_select = resolve_table_dtype(table_dtype) == "bfloat16"
-        if lo_select and not mesh.two_tier:
-            raise ValueError(
-                "table_dtype='bfloat16' needs the two-tier walk tables — "
-                "build the mesh with table_dtype='bfloat16' or convert it "
-                "with TetMesh.with_lowp_tables()"
-            )
-        if not lo_select:
-            mesh = mesh.with_packed_table()
+    mesh = mesh_for_tier(mesh, table_dtype)
     if x.is_cuda:
         return _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux,
                           tally=tally, tol=tol, max_iters=max_iters,
@@ -461,3 +531,39 @@ def walk(
     return walk_plain(mesh, x, elem, dest, in_flight, weight, flux,
                       tally=tally, tol=tol, max_iters=max_iters,
                       s_init=s_init, skip=skip, scoring=scoring)
+
+
+def walk_xpoints(mesh: TetMesh, x, elem, dest, in_flight, *, tol: float,
+                 max_iters: int, table_dtype: Optional[str] = None):
+    """Replay a transport and return each particle's LAST
+    face-intersection point [N,3] (the JAX ``walk_xpoints``, the
+    reference's ``getIntersectionPoints()``, PumiTallyImpl.h:177-178): a
+    particle's starting position until it crosses a face, then the point
+    of every crossing it makes, the boundary exit included. Particles
+    with ``in_flight != 1`` hold. No tally, a masked lock-step loop over
+    every particle: an inspection path, plain PyTorch on any device.
+    ``table_dtype`` picks the tier as ``walk`` does (None: the mesh's),
+    so the replay walks the tier and layout of the move it
+    reconstructs."""
+    mesh = mesh_for_tier(mesh, table_dtype)
+    n = x.shape[0]
+    dest = torch.where((in_flight == 1)[:, None], dest, x)  # stopped: hold
+    d0 = dest - x
+    tol_t = torch.tensor(tol, dtype=x.dtype, device=x.device)
+    s = torch.zeros((n,), dtype=x.dtype, device=x.device)
+    s_cross = torch.zeros_like(s)
+    elem = elem.to(torch.int32)
+    done = torch.zeros((n,), dtype=torch.bool, device=x.device)
+    iters = 0
+    while iters < max_iters and not bool(done.all()):
+        active = ~done
+        s_new, nxt, reached = advance_mesh(mesh, elem.long(), s, d0, dest,
+                                           tol_t)
+        hit_boundary = ~reached & (nxt == -1)
+        # A face was crossed this step (interior or the boundary exit).
+        s_cross = torch.where(active & ~reached, s_new, s_cross)
+        elem = torch.where(active & ~reached & ~hit_boundary, nxt, elem)
+        s = torch.where(active, s_new, s)
+        done = done | reached | hit_boundary
+        iters += 1
+    return x + s_cross[:, None] * d0

@@ -54,11 +54,15 @@ not-done counts (and, for the gather sub-split, the occupied-block
 list) before it decides what to launch, so the engine checks a round's
 overflow on the host and runs the ladder itself.
 
+The sentinel's straggler rung (``retry_stragglers``: the interrupted
+tallying phase resumed at multiplied step and round budgets;
+``declare_lost_stragglers``; ``caller_order_view`` for the audit) is the
+JAX engine's.
+
 Left out against the JAX engine (ROADMAP.md): multi-device meshes and
-collectives (``migrate_collective``, ``placement="pod_rcb"``), the
-straggler rungs ``retry_stragglers`` / ``declare_lost_stragglers`` and
-the compaction cascade (each particle walks to completion or to a
-pause; TallyConfig's cascade knobs are accepted and inert).
+collectives (``migrate_collective``, ``placement="pod_rcb"``) and the
+compaction cascade (each particle walks to completion or to a pause;
+TallyConfig's cascade knobs are accepted and inert).
 """
 
 from __future__ import annotations
@@ -1202,7 +1206,8 @@ class PartitionedEngine:
         # latches when the ladder is exhausted (the facades then refuse
         # every call); ``on_overflow_recovered(escalated)`` and
         # ``on_poisoned()`` are optional callbacks (the JAX facades'
-        # sentinel record and safety save; the port's facades set none).
+        # sentinel record and safety save; the port's facades set the
+        # first when a sentinel is armed).
         self.capacity_factor = float(capacity_factor)
         self.poisoned = False
         self.overflow_recoveries = 0
@@ -1385,17 +1390,20 @@ class PartitionedEngine:
         return dict(st, **{k: st[k].clone() for k in WALKED_ROWS
                            if st[k] is self.state[k]})
 
-    def _round(self, st, tally: bool, n_act: torch.Tensor, work=None):
+    def _round(self, st, tally: bool, n_act: torch.Tensor, work=None,
+               max_iters: Optional[int] = None):
         """One walk round: W2, W1 or W4 (one block, or the occupied
         blocks of the gather sub-split; in place, over ``work``, the
-        migrate's work list, None: every not-done slot). Returns the new
+        migrate's work list, None: every not-done slot), at the engine's
+        step budget unless ``max_iters`` says otherwise. Returns the new
         state, the per-block not-done counts, the paused and not-done
         totals and the block dispatches."""
         args = (st["x"], st["lelem"], st["dest"], st["fly"], st["w"],
                 st["done"], st["exited"],
                 self.flux_padded if tally else None)
-        kw = dict(tally=tally, tol=self.tol, max_iters=self.max_iters,
-                  blocks=self.nparts)
+        kw = dict(tally=tally, tol=self.tol,
+                  max_iters=self.max_iters if max_iters is None
+                  else max_iters, blocks=self.nparts)
         if tally and self.scoring is not None:
             # Tallying rounds only: phase A and localization never score.
             kw["scoring"] = (self.scoring.kinds, self.score_padded,
@@ -1435,16 +1443,21 @@ class PartitionedEngine:
 
     def _phase_loop(self, tally: bool, resume: bool = False,
                     force_full_migrate: bool = False,
-                    prof: Optional[PhaseProfile] = None):
+                    prof: Optional[PhaseProfile] = None,
+                    iters_mult: int = 1, rounds_mult: int = 1):
         """One walk/migrate phase: a walk round, then migrate->walk
         rounds while particles are paused, at most ``max_rounds`` walk
         rounds in all. ``resume`` continues the committed mid-phase
         state (done particles never walk again, paused rows re-derive
         their crossing); ``force_full_migrate`` bypasses the frontier
-        slab. Commits the state (on overflow: the intact pre-migrate
-        snapshot) and returns ``(found_all, overflow, rounds,
-        dispatches, fronts, fallbacks)``."""
+        slab; ``iters_mult`` / ``rounds_mult`` multiply the step and
+        round budgets (the straggler retry). Commits the state (on
+        overflow: the intact pre-migrate snapshot) and returns
+        ``(found_all, overflow, rounds, dispatches, fronts,
+        fallbacks)``."""
         dev = self.device
+        max_iters = self.max_iters * int(iters_mult)
+        max_rounds = self.max_rounds * int(rounds_mult)
         cap_frontier = None if force_full_migrate else self.cap_frontier
         if prof is not None:
             prof.cap_frontier = self.cap_frontier
@@ -1462,13 +1475,14 @@ class PartitionedEngine:
             n_act = _occupancy_counts(st["done"], self.nparts)
         with _section(prof, "walk_s", dev):
             st, n_act, n_p, n_nd, disp = self._round(self._writable(st),
-                                                     tally, n_act)
+                                                     tally, n_act,
+                                                     max_iters=max_iters)
         rounds, disp_total, fronts, fallbacks = 1, disp, [], 0
         overflow = False
         if prof is not None:
             prof.rounds += 1
             prof.dispatches += disp
-        while n_p > 0 and rounds < self.max_rounds:
+        while n_p > 0 and rounds < max_rounds:
             fronts.append(n_p)
             if prof is not None:
                 prof.frontier_sizes.append(n_p)
@@ -1488,8 +1502,8 @@ class PartitionedEngine:
                 n_act = _update_occupancy(self.nparts, cap_frontier, st2,
                                           n_act, dep, arr, fb)
             with _section(prof, "walk_s", dev):
-                st, n_act, n_p, n_nd, disp = self._round(st2, tally, n_act,
-                                                         work)
+                st, n_act, n_p, n_nd, disp = self._round(
+                    st2, tally, n_act, work, max_iters=max_iters)
             disp_total += disp
             if prof is not None:
                 prof.rounds += 1
@@ -1516,12 +1530,16 @@ class PartitionedEngine:
         return found
 
     # -- overflow recovery ------------------------------------------------
-    def _resume_phase(self, tally: bool, force_full_migrate: bool = False):
+    def _resume_phase(self, tally: bool, iters_mult: int = 1,
+                      rounds_mult: int = 1,
+                      force_full_migrate: bool = False):
         """Continue the interrupted phase over the COMMITTED mid-phase
-        state: particles already done never walk again. Returns
-        ``(found_all, overflowed)``."""
+        state: particles already done never walk again; the step and
+        round budgets are multiplied by ``iters_mult`` / ``rounds_mult``.
+        Returns ``(found_all, overflowed)``."""
         found, overflow, rounds, disp, _, _ = self._phase_loop(
-            tally, resume=True, force_full_migrate=force_full_migrate)
+            tally, resume=True, force_full_migrate=force_full_migrate,
+            iters_mult=iters_mult, rounds_mult=rounds_mult)
         self.last_walk_rounds = rounds
         self.last_block_dispatches = disp
         return found, overflow
@@ -1646,6 +1664,61 @@ class PartitionedEngine:
         ok_b = self._run_phase(tally=True, profile=profile)
         return ok_a and ok_b
 
+    # -- the sentinel's straggler rung -----------------------------------
+    def retry_stragglers(self, iters_factor: int = 2) -> bool:
+        """The straggler rung (the JAX engine's): resume the interrupted
+        tallying phase over the committed state with the step AND round
+        budgets multiplied, each floored at its safe bound (64 + L steps,
+        64 rounds) so a deliberately tiny budget does not starve its own
+        cure. Done particles never walk again, so the retry walks only
+        the residue (W4 over the not-done slots). Returns found_all; an
+        overflow goes through the recovery ladder."""
+        f = int(iters_factor)
+        need_iters = max(self.max_iters * f, 64 + self.part.L)
+        need_rounds = max(self.max_rounds * f, 64)
+        ok, overflow = self._resume_phase(
+            True, iters_mult=-(-need_iters // self.max_iters),
+            rounds_mult=-(-need_rounds // self.max_rounds))
+        if overflow:
+            return self._recover_overflow(True)
+        return ok
+
+    def declare_lost_stragglers(self) -> int:
+        """The ladder is exhausted: the still-unfinished particles become
+        ``lost`` (excluded from transport, counted by the facade's
+        ``lost_particles``, revived by a re-located source like a
+        localization loss). Returns how many (a host fetch)."""
+        st = dict(self.state)
+        strag = st["alive"] & ~st["done"] & ~st["lost"]
+        n = int(strag.sum())
+        if n == 0:
+            return 0
+        st["lost"] = st["lost"] | strag
+        st["fly"] = torch.where(strag, torch.zeros_like(st["fly"]),
+                                st["fly"])
+        st["done"] = st["done"] | strag
+        st["pending"] = torch.where(strag, -1, st["pending"]).to(torch.int32)
+        self.state = st
+        self.n_lost = int(st["lost"].sum())
+        return n
+
+    def caller_order_view(self, keys=("x", "lelem", "done")) -> dict:
+        """Caller-order device rows of the slot state ([n], particle
+        order; the sentinel audit and quarantine read them). ``elem_orig``
+        is each particle's original element id, -1 for a lost one."""
+        o = self._order()
+        out = {}
+        for k in keys:
+            if k == "elem_orig":
+                slot = torch.arange(self.cap, device=self.device)
+                glid = (slot // self.cap_per_block) * self.part.L \
+                    + self.state["lelem"].long()
+                out[k] = torch.where(self.state["lost"][o], -1,
+                                     self.part.orig_of_glid[glid[o]])
+            else:
+                out[k] = self.state[k][o]
+        return out
+
     # -- outputs ---------------------------------------------------------
     def _order(self) -> torch.Tensor:
         """Slot order returning caller-visible particle order."""
@@ -1658,12 +1731,8 @@ class PartitionedEngine:
 
     def elem_ids(self) -> np.ndarray:
         """Original element id per particle; -1 for lost particles."""
-        o = self._order()
-        slot = torch.arange(self.cap, device=self.device)
-        glid = (slot // self.cap_per_block) * self.part.L \
-            + self.state["lelem"].long()
-        orig = self.part.orig_of_glid[glid[o]]
-        return torch.where(self.state["lost"][o], -1, orig).cpu().numpy()
+        return self.caller_order_view(("elem_orig",))["elem_orig"] \
+            .cpu().numpy()
 
     def flux_original(self) -> torch.Tensor:
         return self.part.flux_to_original(self.flux_padded)

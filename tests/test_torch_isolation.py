@@ -27,8 +27,10 @@ from pumiumtally_tpu_torch import (
     PumiTally,
     ScoringSpec,
     StreamingPartitionedTally,
+    SentinelPolicy,
     StreamingTally,
     TallyConfig,
+    TetMesh,
     build_box,
     kernels,
 )
@@ -82,7 +84,10 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                 "api/staging.py", "api/streaming.py", "scoring/filters.py",
                 "scoring/scores.py", "scoring/binding.py",
                 "stats/accumulators.py", "stats/estimators.py",
-                "stats/triggers.py"):
+                "stats/triggers.py", "sentinel/__init__.py",
+                "sentinel/policy.py", "sentinel/audit.py",
+                "sentinel/quarantine.py", "sentinel/runner.py",
+                "sentinel/straggler.py"):
         assert PORT / rel in files, rel
     for f in files:
         roots = set(_imported_roots(f))
@@ -132,7 +137,18 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
                   walk_vmem_max_elems=40, walk_block_kernel="gather"),
                   device="cpu"),
               PartitionedPumiTally(mesh, 50, TallyConfig(
-                  walk_vmem_max_elems=40, **bf16), device="cpu")):
+                  walk_vmem_max_elems=40, **bf16), device="cpu"),
+              # The unpacked layout, and the sentinel's ladders (W0's
+              # and the engine's) with a starved step budget.
+              PumiTally(TetMesh.from_arrays(
+                  mesh.coords.numpy(), mesh.tet2vert.numpy(),
+                  dtype=torch.float64, force_unpacked=True), 50,
+                  device="cpu"),
+              PumiTally(mesh, 50, TallyConfig(
+                  max_iters=2, sentinel=SentinelPolicy(), **bf16),
+                  device="cpu"),
+              PartitionedPumiTally(mesh, 50, TallyConfig(
+                  max_iters=2, sentinel=SentinelPolicy()), device="cpu")):
         t.CopyInitialPosition(pts.reshape(-1).copy())
         t.MoveToNextLocation(None, (1.0 - pts).reshape(-1).copy())
         np.testing.assert_allclose(
@@ -163,8 +179,10 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
                              energy=np.full(50, 0.5))
         assert t.score_bank.sum().item() > 0
     assert kernels.launch_counts == {"walk": 0, "walk_twotier": 0,
+                                     "walk_unpacked": 0,
                                      "walk_scored": 0,
                                      "walk_twotier_scored": 0,
+                                     "walk_unpacked_scored": 0,
                                      "block_walk": 0,
                                      "twotier_block_walk": 0,
                                      "twotier_block_walk_scored": 0,

@@ -97,17 +97,35 @@ def test_float32_mesh_keeps_ids_exact():
 
 def test_packed_table_past_exact_ids_refused(monkeypatch):
     """A float32 mesh with as many tets as the float lanes hold exactly
-    (2^24, lowered here to 4 so a 6-tet box crosses it) needs the
-    unpacked layout, which the port lacks: the refusal names its ROADMAP
-    item."""
+    (2^24, lowered here to 4 so a 6-tet box crosses it) is no longer
+    refused: it builds in the unpacked layout (no packed table, the
+    planes and the int32 ids apart) and walks as the packed mesh does,
+    bitwise."""
     from pumiumtally_tpu_torch.mesh import tetmesh
+    from pumiumtally_tpu_torch.ops.walk import walk
 
     arrays = convert.mesh_arrays(build_box(1, 1, 1, 1, 1, 1, dtype=F64))
+    packed = TetMesh.from_arrays(arrays["coords"], arrays["tet2vert"],
+                                 dtype=torch.float32)
     monkeypatch.setattr(tetmesh, "exact_id_limit", lambda dtype: 4)
-    with pytest.raises(NotImplementedError,
-                       match=r"queue 1 item 2, 'the unpacked mesh layout'"):
-        TetMesh.from_arrays(arrays["coords"], arrays["tet2vert"],
-                            dtype=torch.float32)
+    mesh = TetMesh.from_arrays(arrays["coords"], arrays["tet2vert"],
+                               dtype=torch.float32)
+    assert mesh.unpacked and mesh.walk_table is None
+    assert torch.equal(mesh.face_normals, packed.face_normals)
+    assert torch.equal(mesh.face_adj, packed.face_adj)
+    rng = np.random.default_rng(9)
+    n = 64
+    x = torch.tensor(rng.uniform(0.1, 0.9, (n, 3)), dtype=torch.float32)
+    elem = geometry.locate_by_planes(packed.face_normals,
+                                     packed.face_offsets, x, 1e-6)
+    dest = torch.tensor(rng.uniform(-0.2, 1.2, (n, 3)), dtype=torch.float32)
+    out = [walk(m, x, elem.to(torch.int32), dest,
+                torch.ones(n, dtype=torch.int8),
+                torch.ones(n, dtype=torch.float32),
+                torch.zeros(m.nelems, dtype=torch.float32), tally=True,
+                tol=1e-6, max_iters=256) for m in (packed, mesh)]
+    for f in ("x", "elem", "done", "exited", "s", "flux"):
+        assert torch.equal(getattr(out[0], f), getattr(out[1], f)), f
 
 
 def test_convert_round_trip_and_from_jax():
