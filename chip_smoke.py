@@ -8,6 +8,8 @@
     python3 chip_smoke.py --scoring-times # the scoring commit's, no checks
     python3 chip_smoke.py --w4-times      # W4's times, any checkout
     python3 chip_smoke.py --unpacked-sentinel  # this layout's phases alone
+    python3 chip_smoke.py --resilience    # phase 14 alone, with its checks
+    python3 chip_smoke.py --det-times     # DC's time by kernel, no checks
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -235,9 +237,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-6 after each, the last move's walk against ``walk_plain`` on the
    card; the host build's seconds and peak memory, the device table
    bytes, each move's ms.
-13. One JSON line with each kernel's launches, times, bound and error
-   (W0, W2 and W4's instantiations as entries of their own), then the card's
-   name and power limit, then the result line.
+14. The deterministic commit (csrc/det_commit.cu, DC) and the resilience
+   layer. W0's deterministic instantiation (packed, two-tier, unpacked,
+   scoring) and W4's (one block, the gather sub-split with its round 2
+   over the work list, two-tier, scoring) on the box, float32 at 500,000
+   particles and float64 at 100,000: two launches on the same inputs
+   equal bitwise, flux and lanes; equal bitwise to the plain version on
+   the card (``walk_plain`` / ``walk_local_list_plain`` with
+   ``deterministic=True``: their records through ``det_commit_plain``),
+   positions, ids and flags too; equal bitwise to the plain version on
+   the CPU (its serial ``index_add_``, one thread) on the float64 cells
+   and W0's packed float32 cell; flux conserved at rtol 1e-6; a walk
+   into record streams of 1,024 records (overflowed, grown and made
+   again, W4's in-place rows put back) equal to it bitwise. Per
+   float32 cell, a move with the deterministic commit against the
+   atomic one in turns (CUDA events, four passes), and DC alone on the
+   cell's flux records, bitwise against ``det_commit_plain``, beside its
+   bound, the plain version and ``index_put_(accumulate=True)`` under
+   ``torch.use_deterministic_algorithms(True)``. Then the contract:
+   ``PumiTally``, ``StreamingTally`` (chunks of 250,000) and the default
+   ``PartitionedPumiTally`` at 500,000 particles with a
+   ``CheckpointPolicy`` (autosave every batch) over 3 batches of 2
+   continue moves: two runs bitwise (flux, positions, ids), a run saved
+   mid-batch and resumed into a fresh facade bitwise, and a drain arm in
+   subprocesses (``PUMIUMTALLY_FAULT=sigterm@batch:2``, exit 0, then
+   ``--resume``) bitwise; the seconds to save and to resume, and a
+   move's wall ms with the policy against the same campaign without
+   one; ``walk`` / ``gather_block_walk`` and ``det_commit`` launched.
+   The W0 registers check of 6b also holds the deterministic
+   instantiations to no float reduction at all.
+15. One JSON line with each kernel's launches, times, bound and error
+   (W0, W2 and W4's instantiations as entries of their own, DC on the
+   packed float32 W0 cell's flux records), then the card's name and
+   power limit, then the result line.
 
 Kernel comparisons: element ids, done/exited/pending masks and ``iters``
 must be equal; positions and ray coordinates are expected bitwise equal
@@ -299,6 +331,15 @@ another checkout, as ``--w0-times`` does.
 
 ``--unpacked-sentinel`` runs phases 1-2, the scoring instantiations'
 registers, 5b on the box, 10b'' and 12b, with their checks.
+
+``--resilience`` runs phases 1-2, the instantiations' registers and
+phase 14, with their checks (``--resilience-campaign`` is its drain
+arm's subprocess).
+
+``--det-times`` runs phases 1-2, then DC's device time by kernel
+(torch.profiler, four passes) on the box's W0 move, float32, for the
+flux's and the stride-96 spec's lane records, at the scatter's shipped
+pass size and at one pass, 24 MB and 12 MB, one JSON line an arm.
 
 It imports nothing of JAX; it needs one CUDA device and exits non-zero
 without one.
@@ -548,13 +589,15 @@ def phase_build() -> None:
     # off / on): registers and spills, from ptxas's report.
     kernel, spills = None, "spills not reported"
     for line in kernels.build_log("walk").splitlines():
-        m = re.search(r"properties for _Z\d+walk_kernelI(\w)Li(\d)ELb(\d)E",
-                      line)
+        m = re.search(
+            r"properties for _Z\d+walk_kernelI(\w)Li(\d)ELb(\d)ELb(\d)E",
+            line)
         if m:
             dtype = {"f": "float", "d": "double"}[m[1]]
             tier = WALK_LAYOUTS[int(m[2])]
             kernel = (f"walk_kernel<{dtype}> ({tier}"
-                      f"{', scoring' if m[3] == '1' else ''})")
+                      f"{', scoring' if m[3] == '1' else ''}"
+                      f"{', deterministic commit' if m[4] == '1' else ''})")
         elif kernel and "spill" in line:
             spills = line.strip()
         elif kernel and "Used" in line and "registers" in line:
@@ -2407,9 +2450,10 @@ def score_attrs(seed: int, n: int, out: float = SCORE_OUT) -> tuple:
 
 
 def instance_registers(lib: str) -> dict:
-    """(dtype, variant, scoring) -> registers of each instantiation of
-    the library's walk kernel, from ptxas's report: variant "packed" or
-    "two-tier" for W0, "" for W2."""
+    """(dtype, variant, scoring, deterministic) -> registers of each
+    instantiation of the library's walk kernel, from ptxas's report:
+    variant "packed", "two-tier" or "unpacked" for W0, "" for W2 (which
+    has no deterministic instantiation)."""
     from pumiumtally_tpu_torch import kernels
 
     out, key = {}, None
@@ -2423,18 +2467,19 @@ def instance_registers(lib: str) -> dict:
 
 
 def instance_key(lib: str, text: str):
-    """(dtype, variant, scoring) of the walk kernel instantiation a
-    mangled name in ``text`` names (``instance_registers``' keys), or
-    None."""
-    pat = (r"_Z\d+walk_kernelI(\w)Li(\d)ELb(\d)E" if lib == "walk" else
-           r"_Z\d+twotier_block_walk_kernelI(\w)Lb(\d)E")
+    """(dtype, variant, scoring, deterministic) of the walk kernel
+    instantiation a mangled name in ``text`` names
+    (``instance_registers``' keys), or None."""
+    pat = (r"_Z\d+walk_kernelI(\w)Li(\d)ELb(\d)ELb(\d)E" if lib == "walk"
+           else r"_Z\d+twotier_block_walk_kernelI(\w)Lb(\d)E")
     m = re.search(pat, text)
     if not m:
         return None
     dtype = {"f": "float", "d": "double"}[m[1]]
     if lib == "walk":
-        return dtype, WALK_LAYOUTS[int(m[2])], bool(int(m[3]))
-    return dtype, "", bool(int(m[2]))
+        return (dtype, WALK_LAYOUTS[int(m[2])], bool(int(m[3])),
+                bool(int(m[4])))
+    return dtype, "", bool(int(m[2])), False
 
 
 def float_reductions(ops: dict) -> tuple:
@@ -2451,11 +2496,14 @@ def float_reductions(ops: dict) -> tuple:
 
 
 def phase_scoring_registers() -> None:
-    """Registers of every instantiation, scoring off and on, beside its
-    vector and scalar global float reductions in SASS (``cuobjdump``,
-    required); the off ones must equal REGS_BEFORE_SCORING, the float32
-    scoring instantiations must issue vector reductions (the scoring
-    commit's cover) and no other instantiation any."""
+    """Registers of every instantiation, scoring off and on, atomic and
+    deterministic commit (W0's kDet), beside its vector and scalar
+    global float reductions in SASS (``cuobjdump``, required); the
+    atomic scoring-off ones must equal REGS_BEFORE_SCORING, the float32
+    atomic scoring instantiations must issue vector reductions (the
+    scoring commit's cover) and no other instantiation any, and the
+    deterministic ones no float reduction at all (their commit is
+    det_commit.cu's)."""
     for lib in ("walk", "twotier_block_walk"):
         regs = instance_registers(lib)
         sass = {instance_key(lib, fn): ops
@@ -2463,11 +2511,18 @@ def phase_scoring_registers() -> None:
         if set(sass) != set(regs):
             raise AssertionError(f"{lib}: SASS of {sorted(sass, key=str)}, "
                                  f"ptxas reported {sorted(regs)}")
-        for (dtype, variant, score), r in sorted(regs.items()):
-            vec, sca = float_reductions(sass[(dtype, variant, score)])
+        for (dtype, variant, score, det), r in sorted(regs.items()):
+            vec, sca = float_reductions(sass[(dtype, variant, score, det)])
             print(f"# registers {lib}<{dtype}> {variant or ''} scoring "
-                  f"{'on' if score else 'off'}: {r}; global float "
-                  f"reductions in SASS: {vec} vector, {sca} scalar")
+                  f"{'on' if score else 'off'}"
+                  f"{', deterministic commit' if det else ''}: {r}; global "
+                  f"float reductions in SASS: {vec} vector, {sca} scalar")
+            if det:
+                if vec or sca:
+                    raise AssertionError(
+                        f"{lib}<{dtype}> {variant} deterministic: {vec} "
+                        f"vector and {sca} scalar float reductions")
+                continue
             # The unpacked instantiations came after scoring: no record.
             want = REGS_BEFORE_SCORING.get((lib, dtype, variant), r)
             if not score and r != want:
@@ -2479,7 +2534,7 @@ def phase_scoring_registers() -> None:
                 raise AssertionError(
                     f"{lib}<{dtype}> {variant} scoring "
                     f"{'on' if score else 'off'}: {vec} vector reductions")
-        if len(regs) != (12 if lib == "walk" else 4):
+        if len(regs) != (24 if lib == "walk" else 4):
             raise AssertionError(f"{lib}: ptxas reported {sorted(regs)}")
 
 
@@ -3617,6 +3672,685 @@ def phase_xpoints(mesh, pts, card: str) -> None:
           f"returned their start")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the deterministic commit (csrc/det_commit.cu) and the
+# resilience layer
+# ---------------------------------------------------------------------------
+
+DET_PASSES = 4
+# W0's cells: (label, mesh layout, scoring) and W4's: (label, engine
+# knobs, scoring); each runs in float32 at N and float64 at W0_F64_N.
+DET_W0_CELLS = (("packed", "packed", False), ("two-tier", "two-tier", False),
+                ("unpacked", "unpacked", False), ("scoring", "packed", True))
+DET_W4_CELLS = (("one block", {}, False), ("sub-split", W4_SUBSPLIT, False),
+                ("two-tier", dict(table_dtype="bfloat16"), False),
+                ("scoring", {}, True))
+# The resilience campaign: CAMPAIGN_BATCHES source batches of
+# CAMPAIGN_MOVES continue moves on bench.py's trajectory, autosaved every
+# batch; StreamingTally in chunks of CAMPAIGN_CHUNK.
+CAMPAIGN_BATCHES, CAMPAIGN_MOVES = 3, 2
+CAMPAIGN_CHUNK = 250_000
+CAMPAIGN_FACADES = ("PumiTally", "StreamingTally", "PartitionedPumiTally")
+CAMPAIGN_TIMEOUT = 300  # seconds, each campaign subprocess
+
+
+class SerialCpu:
+    """One intra-op CPU thread inside the block: the order of a serial
+    CPU index_add_ (torch may split a large one across threads)."""
+
+    def __enter__(self):
+        import torch
+
+        self.threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.set_num_threads(self.threads)
+
+
+def det_counts(ws, x) -> tuple:
+    """The record counts of the last deterministic walk with the
+    workspace ``ws`` on ``x``'s device and dtype: (flux, lanes)."""
+    return tuple(int(ws.records(x.device, x.dtype, name, 0).count)
+                 for name in ("flux", "lanes"))
+
+
+def det_small_workspace(x):
+    """A deterministic-commit workspace whose streams hold 1,024 records
+    (the least), so that a walk overflows them."""
+    from pumiumtally_tpu_torch.ops.det_commit import DetWorkspace
+
+    ws = DetWorkspace()
+    for name in ("flux", "lanes"):
+        ws.records(x.device, x.dtype, name, 0)
+    return ws
+
+
+def check_det_regrown(what: str, ws, x, records: tuple) -> None:
+    """The small workspace's streams grew to hold the walk's records."""
+    for name, m in zip(("flux", "lanes"), records):
+        rec = ws.records(x.device, x.dtype, name, 0)
+        if m > 1024 and not (rec.cap >= m and int(rec.count) == m):
+            raise AssertionError(f"{what}: the {name} stream holds "
+                                 f"{rec.cap} records after a walk of {m}")
+
+
+def check_bitwise(what: str, got, want) -> None:
+    import torch
+
+    if not torch.equal(got.cpu(), want.cpu()):
+        bad = int((got.cpu() != want.cpu()).sum())
+        raise AssertionError(f"{what}: {bad} entries differ")
+
+
+def det_w0_cell(mesh, label: str, layout: str, scored: bool, pts, n: int,
+                cpu: bool) -> dict:
+    """W0's deterministic instantiation on one cell against the plain
+    version: two launches on the same inputs equal bitwise (flux and
+    lanes); equal bitwise to ``walk_plain(deterministic=True)`` on the
+    card (its records through ``det_commit_plain``), positions, ids and
+    s too; with ``cpu`` equal bitwise to ``walk_plain`` on the CPU, its
+    serial ``index_add_`` (one thread); flux conserved at rtol 1e-6; a
+    walk whose record streams are far too small (grown and made again)
+    equal to it bitwise."""
+    import torch
+
+    from pumiumtally_tpu_torch.ops.det_commit import DetWorkspace
+    from pumiumtally_tpu_torch.ops.walk import walk, walk_plain
+    from pumiumtally_tpu_torch.scoring import ScoringRuntime
+
+    ws = DetWorkspace()
+    args, kw = w0_inputs(mesh, pts, layout == "two-tier", n)
+    if layout == "unpacked":
+        args = (unpacked_of(args[0]), *args[1:])
+    m, x = args[:2]
+    spec = score_spec() if scored else None
+    sc_in = None
+    if scored:
+        rt = ScoringRuntime(spec, m.nelems, x.dtype, x.device)
+        sbin, sfac, _ = score_lanes(rt, n, 5)
+        sc_in = (rt.bank_size, sbin, sfac)
+
+    def run(fn, a, dev, det):
+        flux = torch.zeros((m.nelems,), dtype=x.dtype, device=dev)
+        sc = bank = None
+        if scored:
+            bank = torch.zeros((sc_in[0],), dtype=x.dtype, device=dev)
+            sc = (spec.kinds, bank, sc_in[1].to(dev), sc_in[2].to(dev))
+        return fn(*a, flux, **kw, scoring=sc, deterministic=det), bank
+
+    name = f"W0 det {label} ({str(x.dtype)[6:]}, {n})"
+    (r1, b1), (r2, b2) = (run(walk, args, x.device, ws) for _ in range(2))
+    records = det_counts(ws, x)
+    rp, bp = run(walk_plain, args, x.device, True)
+    # Streams far too small: the walk overflows them, grows them and is
+    # made again; the result must not change.
+    small = det_small_workspace(x)
+    rs, bs = run(walk, args, x.device, small)
+    sync()
+    check_det_regrown(name, small, x, records)
+    check_bitwise(f"{name} flux after regrowing", rs.flux, r1.flux)
+    if scored:
+        check_bitwise(f"{name} lanes after regrowing", bs, b1)
+    check_bitwise(f"{name} flux, two launches", r1.flux, r2.flux)
+    check_bitwise(f"{name} flux vs plain", r1.flux, rp.flux)
+    for f in ("elem", "x", "s", "done", "exited"):
+        check_bitwise(f"{name} {f} vs plain", getattr(r1, f), getattr(rp, f))
+    if scored:
+        check_bitwise(f"{name} lanes, two launches", b1, b2)
+        check_bitwise(f"{name} lanes vs plain", b1, bp)
+    expect = float((args[5].double()
+                    * (r1.x.double() - x.double()).norm(dim=1)).sum())
+    rel = check_conservation(name, r1.flux, expect)
+    cpu_note = "CPU not compared"
+    if cpu:
+        ca = (m.to(device="cpu"), *(a.cpu() for a in args[1:]))
+        t0 = time.perf_counter()
+        with SerialCpu():
+            rc, bc = run(walk_plain, ca, "cpu", False)
+        check_bitwise(f"{name} flux vs CPU plain", r1.flux, rc.flux)
+        check_bitwise(f"{name} x vs CPU plain", r1.x, rc.x)
+        if scored:
+            check_bitwise(f"{name} lanes vs CPU plain", b1, bc)
+        cpu_note = (f"CPU plain (serial index_add_) bitwise, "
+                    f"{time.perf_counter() - t0:.1f} s")
+    print(f"# {name}: {records[0]} flux records"
+          f"{f', {records[1]} lane records' if scored else ''}; two "
+          f"launches bitwise; streams grown from 1,024 records bitwise; "
+          f"bitwise vs plain on the card; {cpu_note}; conservation rel "
+          f"err {rel:.3e}")
+    return {"args": args, "kw": kw, "spec": spec, "sc_in": sc_in,
+            "records": records, "flux": r1.flux, "ws": ws}
+
+
+def det_w4_cell(mesh, label: str, knobs: dict, scored: bool, pts, n: int,
+                cpu: bool) -> dict:
+    """W4's deterministic instantiation on one cell: round 1 of the first
+    move (no list) and, where particles pause at block faces, round 2 over
+    the work list of the migrated state, each against the plain version
+    as ``det_w0_cell`` holds W0 (two launches, the card's plain version,
+    the CPU's serial ``index_add_`` with ``cpu``) and each round's flux
+    conserved at rtol 1e-6 (the walked slots' track from their start to
+    where they stopped); a walk whose record streams are far too small
+    (its rows put back, the streams grown, the walk made again) equal to
+    it bitwise, rows and flux."""
+    import torch
+
+    from pumiumtally_tpu_torch.ops.det_commit import DetWorkspace
+    from pumiumtally_tpu_torch.parallel import partition
+
+    ws = DetWorkspace()
+    spec = score_spec() if scored else None
+    eng, _, st = w4_engine(mesh, pts, n, spec=spec, **knobs)
+    name = f"W4 det {label} ({str(st['x'].dtype)[6:]}, {n})"
+    kw = dict(tally=True, tol=eng.tol, max_iters=eng.max_iters,
+              blocks=eng.nparts)
+    tables = (eng.part.table, eng.part.adj_int, eng.part.table_hi)
+
+    def run(fn, rnd, work, dev, det):
+        rows = {k: v.to(dev).clone() for k, v in rnd.items()}
+        flux = torch.zeros_like(eng.flux_padded, device=dev)
+        sc = bank = None
+        if scored:
+            bank = torch.zeros_like(eng.score_padded, device=dev)
+            sc = (spec.kinds, bank, rows["sbin"], rows["sfac"])
+        tab, adj, hi = (None if t is None else t.to(dev) for t in tables)
+        w = None if work is None else tuple(t.to(dev) for t in work)
+        res = fn(tab, *(rows[k] for k in W4_KEYS), flux, w, adj_int=adj,
+                 table_hi=hi, scoring=sc, deterministic=det, **kw)
+        return res, bank
+
+    rounds, rnd, work, notes = [], st, None, []
+    for r in (1, 2):
+        (a, ba), (b, bb) = (run(partition.walk_local_list, rnd, work,
+                                st["x"].device, ws) for _ in range(2))
+        records = det_counts(ws, st["x"])
+        p, bp = run(partition.walk_local_list_plain, rnd, work,
+                    st["x"].device, True)
+        # Streams far too small: the in-place walk overflows them, its
+        # rows are put back, the streams grow and it is made again.
+        small = det_small_workspace(st["x"])
+        q, bq = run(partition.walk_local_list, rnd, work, st["x"].device,
+                    small)
+        sync()
+        check_det_regrown(f"{name} round {r}", small, st["x"], records)
+        for i, f in enumerate(("x", "lelem", "done", "exited", "pending",
+                               "flux")):
+            check_bitwise(f"{name} round {r} {f} after regrowing", q[i],
+                          a[i])
+        if scored:
+            check_bitwise(f"{name} round {r} lanes after regrowing", bq, ba)
+        check_bitwise(f"{name} round {r} flux, two launches", a[5], b[5])
+        check_bitwise(f"{name} round {r} flux vs plain", a[5], p[5])
+        for i, f in enumerate(("x", "lelem", "done", "exited", "pending")):
+            check_bitwise(f"{name} round {r} {f} vs plain", a[i], p[i])
+        if scored:
+            check_bitwise(f"{name} round {r} lanes, two launches", ba, bb)
+            check_bitwise(f"{name} round {r} lanes vs plain", ba, bp)
+        # The round's track: each walked slot from its start to where it
+        # stopped (its destination, the boundary or a block face).
+        expect = float((rnd["w"].double() * (a[0].double()
+                        - rnd["x"].double()).norm(dim=1)).sum())
+        rel = check_conservation(f"{name} round {r}", a[5], expect)
+        if cpu:
+            with SerialCpu():
+                c, bc = run(partition.walk_local_list_plain, rnd, work,
+                            "cpu", False)
+            check_bitwise(f"{name} round {r} flux vs CPU plain", a[5], c[5])
+            check_bitwise(f"{name} round {r} x vs CPU plain", a[0], c[0])
+            if scored:
+                check_bitwise(f"{name} round {r} lanes vs CPU plain", ba, bc)
+        rounds.append({"round": rnd, "work": work, "records": records})
+        notes.append(f"round {r}: {records[0]} flux records"
+                     f"{f', {records[1]} lane records' if scored else ''}"
+                     f", conservation rel err {rel:.3e}")
+        paused = int((a[4] >= 0).sum())
+        if paused == 0:
+            break
+        nxt = dict(rnd, x=a[0], lelem=a[1], done=a[2], exited=a[3],
+                   pending=a[4])
+        rnd, overflow = partition.migrate(eng.part.L, eng.nparts,
+                                          eng.cap_per_block, nxt)
+        if overflow:
+            raise AssertionError(f"{name}: round 2's migrate overflowed")
+        work = partition.work_list(rnd["done"])
+    print(f"# {name}: {eng.nparts} block(s); " + "; ".join(notes)
+          + "; two launches bitwise; streams grown from 1,024 records "
+          "(rows put back) bitwise; bitwise vs plain on the card"
+          + ("; CPU plain (serial index_add_) bitwise" if cpu else ""))
+    return {"eng": eng, "spec": spec, "rounds": rounds, "run": run,
+            "ws": ws}
+
+
+def det_commit_times(x, rec, m: int, target) -> dict:
+    """DC alone on ``m`` records of stream ``rec`` into a copy of
+    ``target``: its ms (CUDA events, DET_PASSES passes), bitwise against
+    ``det_commit_plain`` on the same records, the plain version's and
+    the library yardstick's ms (``index_put_(accumulate=True)`` under
+    ``torch.use_deterministic_algorithms(True)``, nothing in the port
+    calls it), and the bound (each record read once, the target read and
+    written once)."""
+    import torch
+
+    from pumiumtally_tpu_torch.ops.det_commit import (
+        det_commit,
+        det_commit_plain,
+    )
+
+    key, ord_, val = rec.key[:m], rec.ord[:m], rec.val[:m]
+    got, want = target.clone(), target.clone()
+    det_commit(got, rec, m)
+    det_commit_plain(want, key, ord_, val)
+    sync()
+    check_bitwise("det_commit vs det_commit_plain", got, want)
+    scratch = target.clone()
+    ms = [cuda_ms(lambda: det_commit(scratch, rec, m))
+          for _ in range(DET_PASSES)]
+    plain_ms = wall_ms(lambda: det_commit_plain(scratch, key, ord_, val))
+    keys = key.long()
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        lib_ms = [cuda_ms(lambda: scratch.index_put_((keys,), val,
+                                                      accumulate=True))
+                  for _ in range(DET_PASSES)]
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    k = x.element_size()
+    nbytes = m * (4 + 8 + k) + 2 * target.numel() * k
+    return {"ms": float(np.median(ms)), "ms_passes": ms,
+            "plain_ms": plain_ms, "library_ms": float(np.median(lib_ms)),
+            "library_passes": lib_ms, "max_abs_err": 0.0,
+            **bound_entry(nbytes, 0)}
+
+
+def phase_det_kernels(mesh, pts) -> dict:
+    """The deterministic commit's kernels against their plain versions:
+    W0 (packed, two-tier, unpacked, scoring) and W4 (one block, the
+    gather sub-split, two-tier, scoring) on the box in float32 at N
+    particles and float64 at W0_F64_N, as ``det_w0_cell`` /
+    ``det_w4_cell`` hold them (the CPU's serial index_add_ on the float64
+    cells and the packed float32 W0 cell). Then, per float32 cell, the
+    walk with the deterministic commit against the atomic one in turns
+    (CUDA events, DET_PASSES passes, into standing buffers), and DC
+    alone on the cell's flux records (``det_commit_times``). Returns the
+    kernel line's entry: DC on the packed float32 W0 cell's flux."""
+    import torch
+
+    from pumiumtally_tpu_torch import build_box
+    from pumiumtally_tpu_torch.ops.walk import walk
+
+    box64 = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                      dtype=torch.float64)
+    entry = None
+    for m, n in ((mesh, N), (box64, W0_F64_N)):
+        f32 = m.dtype == torch.float32
+        for label, layout, scored in DET_W0_CELLS:
+            cell = det_w0_cell(m, label, layout, scored, pts, n,
+                               cpu=not f32 or label == "packed")
+            if not f32:
+                continue
+            args, kw, spec, sc_in, ws = (cell[k] for k in
+                                         ("args", "kw", "spec", "sc_in",
+                                          "ws"))
+            x = args[1]
+            flux = torch.zeros_like(cell["flux"])
+            bank = None if spec is None else torch.zeros(
+                (sc_in[0],), dtype=x.dtype, device=x.device)
+            sc = None if spec is None else (spec.kinds, bank, *sc_in[1:])
+            turns = in_turns({
+                "atomic": lambda: walk(*args, flux, **kw, scoring=sc),
+                "deterministic": lambda: walk(*args, flux, **kw, scoring=sc,
+                                              deterministic=ws),
+            }, cuda_ms, passes=DET_PASSES)
+            walk(*args, torch.zeros_like(flux), **kw, scoring=sc,
+                 deterministic=ws)  # the records of one move
+            rec = ws.records(x.device, x.dtype, "flux", 0)
+            t = det_commit_times(x, rec, cell["records"][0],
+                                 torch.zeros_like(flux))
+            print(f"# W0 det {label}: a move in turns (CUDA events, ms): "
+                  + "; ".join(f"{a} {', '.join(f'{v:.4f}' for v in s)}"
+                              for a, s in turns.items())
+                  + f"; {cell['records'][0]} flux records; DC alone "
+                  f"{', '.join(f'{v:.4f}' for v in t['ms_passes'])} ms, "
+                  f"plain {t['plain_ms']:.3f} ms, index_put_ deterministic "
+                  f"{', '.join(f'{v:.4f}' for v in t['library_passes'])} "
+                  f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+            if label == "packed":
+                entry = {"name": "DC deterministic commit (W0 box flux)",
+                         "route": "cuda",
+                         "source": "pumiumtally_tpu_torch/csrc/det_commit.cu",
+                         "replaces": "pumiumtally_tpu/ops/walk.py:196", **t}
+        for label, knobs, scored in DET_W4_CELLS:
+            cell = det_w4_cell(m, label, knobs, scored, pts, n,
+                               cpu=not f32)
+            if not f32:
+                continue
+            run, ws, r1 = cell["run"], cell["ws"], cell["rounds"][0]
+            x = r1["round"]["x"]
+            turns = in_turns({
+                "atomic": lambda: run(partition_list(), r1["round"], None,
+                                      x.device, False),
+                "deterministic": lambda: run(partition_list(), r1["round"],
+                                             None, x.device, ws),
+            }, cuda_ms, passes=DET_PASSES)
+            print(f"# W4 det {label}, round 1 (with its copies of the "
+                  "slot rows) in turns (CUDA events, ms): "
+                  + "; ".join(f"{a} {', '.join(f'{v:.4f}' for v in s)}"
+                              for a, s in turns.items())
+                  + f"; {r1['records'][0]} flux records")
+    return entry
+
+
+def partition_list():
+    from pumiumtally_tpu_torch.parallel.partition import walk_local_list
+
+    return walk_local_list
+
+
+def campaign_facade(name: str, mesh, ckpt_dir=None):
+    """``name``'s facade on the box at N particles, with a
+    ``CheckpointPolicy`` into ``ckpt_dir`` (None: no policy)."""
+    from pumiumtally_tpu_torch import (
+        CheckpointPolicy,
+        PartitionedPumiTally,
+        PumiTally,
+        StreamingTally,
+        TallyConfig,
+    )
+
+    pol = None if ckpt_dir is None else CheckpointPolicy(
+        dir=ckpt_dir, every_n_batches=1, keep=3)
+    cfg = TallyConfig(check_found_all=False, checkpoint=pol)
+    if name == "StreamingTally":
+        return StreamingTally(mesh, N, chunk_size=CAMPAIGN_CHUNK, config=cfg)
+    return {"PumiTally": PumiTally,
+            "PartitionedPumiTally": PartitionedPumiTally}[name](mesh, N, cfg)
+
+
+def campaign_inputs() -> list:
+    """Each batch's sources and destinations: bench.py's trajectory,
+    a batch from its own seed."""
+    from pumiumtally_tpu_torch.experiments.block_rounds import (
+        make_trajectory,
+    )
+
+    return [make_trajectory(np.random.default_rng(100 + b), N,
+                            CAMPAIGN_MOVES + 1)
+            for b in range(CAMPAIGN_BATCHES)]
+
+
+def run_campaign(t, work, start_batch: int = 0, done_moves: int = 0,
+                 stop=None) -> list:
+    """Drive the campaign from (start_batch, done_moves); ``stop``: a
+    (batch, moves) after which to return. Returns each move's wall ms."""
+    moves_ms = []
+    for b in range(start_batch, CAMPAIGN_BATCHES):
+        skip = done_moves if b == start_batch else 0
+        if skip == 0:
+            t.CopyInitialPosition(flat(work[b][0]))
+        for mv in range(skip, CAMPAIGN_MOVES):
+            t0 = time.perf_counter()
+            t.MoveToNextLocation(None, flat(work[b][mv + 1]))
+            moves_ms.append((time.perf_counter() - t0) * 1e3)
+            if stop == (b, mv + 1):
+                return moves_ms
+    return moves_ms
+
+
+def campaign_state(t) -> dict:
+    return {"flux": t.flux.cpu().numpy(), "x": np.asarray(t.positions),
+            "elem": np.asarray(t.elem_ids)}
+
+
+def same_state(what: str, got: dict, want: dict) -> None:
+    for k in ("flux", "x", "elem"):
+        if not np.array_equal(got[k], want[k]):
+            bad = int((got[k] != want[k]).sum())
+            raise AssertionError(f"{what}: {k} differs in {bad} entries")
+
+
+def campaign_process(facade: str, ckpt_dir: str, out: str,
+                     resume: bool) -> None:
+    """The campaign of one facade (``all``: each in turn) in this
+    process, as ``--resilience-campaign`` runs it: with ``resume`` from
+    the newest generation in ``ckpt_dir`` (``<dir>/<facade>``), move by
+    move; the final state sealed with ``checkpoint_now`` and written to
+    ``out`` (``<out>.<facade>.npz``)."""
+    import torch
+
+    from pumiumtally_tpu_torch import build_box
+
+    mesh = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                     dtype=torch.float32)
+    work = campaign_inputs()
+    for name in CAMPAIGN_FACADES if facade == "all" else (facade,):
+        t = campaign_facade(name, mesh, os.path.join(ckpt_dir, name))
+        start = (0, 0)
+        if resume:
+            info = t.resume_latest()
+            if info is not None:
+                start = divmod(t.iter_count, CAMPAIGN_MOVES)
+                print(f"# {name}: resumed generation {info.generation} at "
+                      f"batch {start[0]}", flush=True)
+        run_campaign(t, work, *start)
+        t.checkpoint_now(final=True)
+        np.savez(f"{out}.{name}.npz", **campaign_state(t))
+        del t
+
+
+def campaign_subprocess(facade: str, ckpt_dir: str, out: str,
+                        fault=None, resume: bool = False):
+    env = {k: v for k, v in os.environ.items() if k != "PUMIUMTALLY_FAULT"}
+    if fault:
+        env["PUMIUMTALLY_FAULT"] = fault
+    cmd = [sys.executable, os.path.abspath(__file__),
+           "--resilience-campaign", facade, ckpt_dir, out]
+    if resume:
+        cmd.append("--resume")
+    return subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=CAMPAIGN_TIMEOUT, env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def phase_resilience(mesh, card: str) -> dict:
+    """The resilience contract on the card, on ``PumiTally``,
+    ``StreamingTally`` (chunks of CAMPAIGN_CHUNK) and the default
+    ``PartitionedPumiTally`` at N particles, each with a
+    ``CheckpointPolicy`` (autosave every batch), over the campaign
+    (``campaign_inputs``): two uninterrupted runs equal bitwise (flux,
+    positions, ids); a run saved mid-batch (``checkpoint_now`` after the
+    second batch's first move) and resumed into a fresh facade
+    (``resume_latest``) equal to the uninterrupted one bitwise; a drain
+    arm in a subprocess (``PUMIUMTALLY_FAULT=sigterm@batch:2``: exit 0
+    before the end, then ``--resume``, all three facades in one resuming
+    process) equal too. Launch counts are reset before the first run
+    and read after it (the kernel line's launches). Prints the seconds
+    to save and to resume and a move's wall ms with the policy against
+    the same campaign without one. Returns the launch counts a facade."""
+    from pumiumtally_tpu_torch import kernels
+
+    work = campaign_inputs()
+    counts = {}
+    with tempfile.TemporaryDirectory() as d:
+        ref = {}
+        for name in CAMPAIGN_FACADES:
+            kernels.reset_launch_counts()
+            t = campaign_facade(name, mesh, os.path.join(d, "a", name))
+            ms_armed = run_campaign(t, work)
+            counts[f"resilience_{name}"] = dict(kernels.launch_counts)
+            ref[name] = campaign_state(t)
+            del t
+            t = campaign_facade(name, mesh, os.path.join(d, "b", name))
+            run_campaign(t, work)
+            same_state(f"{name}: two runs", campaign_state(t), ref[name])
+            del t
+            t = campaign_facade(name, mesh, os.path.join(d, "c", name))
+            run_campaign(t, work, stop=(1, 1))
+            t0 = time.perf_counter()
+            t.checkpoint_now(tag="mid_batch")
+            save_s = time.perf_counter() - t0
+            del t
+            t = campaign_facade(name, mesh, os.path.join(d, "c", name))
+            t0 = time.perf_counter()
+            info = t.resume_latest()
+            resume_s = time.perf_counter() - t0
+            if divmod(t.iter_count, CAMPAIGN_MOVES) != (1, 1):
+                raise AssertionError(f"{name}: resumed at iter_count "
+                                     f"{t.iter_count} (generation "
+                                     f"{info.generation})")
+            run_campaign(t, work, 1, 1)
+            same_state(f"{name}: resumed mid-batch", campaign_state(t),
+                       ref[name])
+            del t
+            t = campaign_facade(name, mesh)
+            ms_plain = run_campaign(t, work)
+            l1 = float(np.abs(t.flux.cpu().numpy().astype(np.float64)
+                              - ref[name]["flux"]).sum()
+                       / np.abs(ref[name]["flux"]).sum())
+            del t
+            print(f"# resilience {name}: two runs bitwise; saved mid-batch "
+                  f"in {save_s:.3f} s, resumed in {resume_s:.3f} s, then "
+                  f"bitwise; a move's wall ms with the policy "
+                  f"{', '.join(f'{v:.2f}' for v in ms_armed)} (median "
+                  f"{np.median(ms_armed):.2f}), without "
+                  f"{', '.join(f'{v:.2f}' for v in ms_plain)} (median "
+                  f"{np.median(ms_plain):.2f}); atomic-commit flux L1 "
+                  f"{l1:.3e} of the total; {card}")
+        t0 = time.perf_counter()
+        out = os.path.join(d, "drain")
+        for name in CAMPAIGN_FACADES:
+            r = campaign_subprocess(name, os.path.join(d, "drain"), out,
+                                    fault="sigterm@batch:2")
+            if r.returncode != 0 or os.path.exists(f"{out}.{name}.npz"):
+                raise AssertionError(f"{name}: the drain arm exited "
+                                     f"{r.returncode}: {r.stderr[-2000:]}")
+        r = campaign_subprocess("all", os.path.join(d, "drain"), out,
+                                resume=True)
+        if r.returncode != 0:
+            raise AssertionError(f"the resuming process exited "
+                                 f"{r.returncode}: {r.stderr[-2000:]}")
+        for name in CAMPAIGN_FACADES:
+            if f"# {name}: resumed generation" not in r.stdout:
+                raise AssertionError(f"{name}: no resume in {r.stdout}")
+            with np.load(f"{out}.{name}.npz") as z:
+                same_state(f"{name}: drain arm", dict(z), ref[name])
+        print(f"# resilience drain arm (SIGTERM at the second batch close, "
+              f"exit 0, then --resume): bitwise on "
+              f"{', '.join(CAMPAIGN_FACADES)}; "
+              f"{time.perf_counter() - t0:.1f} s of subprocesses")
+    needs = {"resilience_PumiTally": "walk",
+             "resilience_StreamingTally": "walk",
+             "resilience_PartitionedPumiTally": "gather_block_walk"}
+    for key, entry in needs.items():
+        for e in (entry, "det_commit"):
+            if counts[key][e] == 0:
+                raise AssertionError(f"{key}: kernel {e} never launched: "
+                                     f"{counts[key]}")
+    return counts
+
+
+def main_resilience() -> int:
+    """Phases 1-2, the W0 registers check, and phase 14 alone, with its
+    checks."""
+    import torch
+
+    from pumiumtally_tpu_torch import build_box
+    from pumiumtally_tpu_torch.experiments.block_rounds import (
+        make_trajectory,
+    )
+
+    name, smi = phase_device()
+    phase_build()
+    phase_scoring_registers()
+    mesh = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                     dtype=torch.float32)
+    pts = make_trajectory(np.random.default_rng(0), N, CONTINUE_MOVES + 2)
+    entry = phase_det_kernels(mesh, pts)
+    counts = phase_resilience(mesh, smi)
+    entry["launches"] = sum(c["det_commit"] for c in counts.values())
+    print(f"# det_commit: {json.dumps(entry)}")
+    print(smi)
+    return 0
+
+
+def main_det_times() -> int:
+    """Phases 1-2, then DC's device time by kernel (torch.profiler, four
+    passes) on the box's W0 move at N particles, float32, for the flux's
+    records and the stride-96 spec's lane records, at the scatter's
+    shipped pass size and at one pass, 24 MB and 12 MB; one JSON line an
+    arm. No checks beyond DC against ``det_commit_plain`` (bitwise)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pumiumtally_tpu_torch import build_box
+    from pumiumtally_tpu_torch.experiments.block_rounds import (
+        make_trajectory,
+    )
+    from pumiumtally_tpu_torch.ops import det_commit as dc
+    from pumiumtally_tpu_torch.ops.walk import walk
+    from pumiumtally_tpu_torch.scoring import ScoringRuntime
+
+    ws = dc.DetWorkspace()
+    _, smi = phase_device()
+    phase_build()
+    mesh = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                     dtype=torch.float32)
+    pts = make_trajectory(np.random.default_rng(0), N, CONTINUE_MOVES + 2)
+    args, kw = w0_inputs(mesh, pts, False, N)
+    m, x = args[:2]
+    spec = score_spec()
+    rt = ScoringRuntime(spec, m.nelems, x.dtype, x.device)
+    sbin, sfac, _ = score_lanes(rt, N, 5)
+    targets = {"flux": torch.zeros((m.nelems,), dtype=x.dtype,
+                                   device=x.device),
+               "lanes": torch.zeros((rt.bank_size,), dtype=x.dtype,
+                                    device=x.device)}
+    walk(*args, targets["flux"], **kw, deterministic=ws,
+         scoring=(spec.kinds, targets["lanes"], sbin, sfac))
+    shipped = dc.SCATTER_PASS_BYTES
+    for name, target in targets.items():
+        rec = ws.records(x.device, x.dtype, name, 0)
+        n = int(rec.count)
+        want = torch.zeros_like(target)
+        dc.det_commit_plain(want, rec.key[:n], rec.ord[:n], rec.val[:n])
+        for label, nbytes in (("shipped", shipped), ("one pass", 1 << 62),
+                              ("24 MB", 24 << 20), ("12 MB", 12 << 20)):
+            dc.SCATTER_PASS_BYTES = nbytes
+            got = torch.zeros_like(target)
+            dc.det_commit(got, rec, n)
+            sync()
+            check_bitwise(f"DC {name} ({label})", got, want)
+            passes = []
+            for _ in range(DET_PASSES):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    dc.det_commit(got, rec, n)
+                    sync()
+                by = {}
+                for e in prof.events():
+                    if e.name.startswith(("dc_", "void dc_", "Memset")):
+                        k = re.sub(r"^void |[<(].*$", "", e.name)
+                        by[k] = by.get(k, 0.0) + e.time_range.elapsed_us()
+                passes.append({k: round(v / 1e3, 4) for k, v in by.items()})
+            print(json.dumps({"dc_times": name, "records": n,
+                              "keys": target.numel(), "scatter": label,
+                              "pass_bytes": min(nbytes, 1 << 40),
+                              "ms_by_kernel": passes, "card": smi}))
+        dc.SCATTER_PASS_BYTES = shipped
+    print(smi)
+    return 0
+
+
+def main_resilience_campaign() -> int:
+    """``--resilience-campaign FACADE CKPT_DIR OUT [--resume]``: one
+    campaign process of phase 14's drain arm."""
+    argv = sys.argv[sys.argv.index("--resilience-campaign") + 1:]
+    campaign_process(argv[0], argv[1], argv[2], "--resume" in argv)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3759,6 +4493,10 @@ def main() -> int:
         counts.update(phase_scoring_facades(mesh, pts, path, lattice_box(),
                                             smi))
     counts["large"] = phase_large_mesh(smi)
+    # The deterministic commit against the plain versions, then the
+    # resilience contract through three facades.
+    det = phase_det_kernels(mesh, pts)
+    counts.update(phase_resilience(mesh, smi))
     needs = {"mono": "walk", "part": "block_walk", "mono_bf16": "walk_twotier",
              "part_bf16": "twotier_block_walk", "lat": "walk",
              "lat_bf16": "walk_twotier", "stream": "walk",
@@ -3779,7 +4517,10 @@ def main() -> int:
              "unpacked_main": "walk_unpacked_scored",
              "ladder_mono": "walk", "ladder_mono_bf16": "walk_unpacked",
              "ladder_part": "gather_block_walk", "ladder_stream": "walk",
-             "large": "walk_unpacked"}
+             "large": "walk_unpacked",
+             "resilience_PumiTally": "det_commit",
+             "resilience_StreamingTally": "det_commit",
+             "resilience_PartitionedPumiTally": "det_commit"}
     # W4's list build: the bf16 reroute's full-migrate rounds; the
     # unpacked main path's localization.
     for key, entry in (*needs.items(),
@@ -3815,6 +4556,7 @@ def main() -> int:
                      (w2, "twotier_block_walk"), (sw0, "walk_scored"),
                      (sw0t, "walk_twotier_scored"),
                      (sw2, "twotier_block_walk_scored"),
+                     (det, "det_commit"),
                      *((e, e["entry"]) for e in w4_lines + [w4_list]
                        + wu_lines)):
         e["launches"] = sum(c[entry] for c in counts.values())
@@ -3824,7 +4566,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in (w0, w1, w0t, w2, sw0, sw0t, sw2,
                                             *wu_lines, *w4_lines, w4_list,
-                                            w3, *g1)]}))
+                                            det, w3, *g1)]}))
     print(f"# total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -4303,6 +5045,9 @@ if __name__ == "__main__":
              "--w4-times": main_w4_times,
              "--staging-times": main_staging_times,
              "--scoring-times": main_scoring_times,
-             "--unpacked-sentinel": main_unpacked_sentinel}
+             "--unpacked-sentinel": main_unpacked_sentinel,
+             "--resilience": main_resilience,
+             "--det-times": main_det_times,
+             "--resilience-campaign": main_resilience_campaign}
     sys.exit(next((fn for flag, fn in modes.items()
                    if flag in sys.argv[1:]), main)())

@@ -9,7 +9,10 @@ scoring lanes, ``TallyConfig(batch_stats=True)`` per-batch
 statistics (``TriggerSpec`` for convergence triggers) and
 ``TallyConfig(sentinel=SentinelPolicy())`` the runtime sentinels
 (``health_report()``); ``TallyConfig(record_xpoints=True)`` enables
-``PumiTally.intersection_points()``. The
+``PumiTally.intersection_points()``;
+``TallyConfig(checkpoint=CheckpointPolicy(dir=...))`` arms autosave,
+graceful drain, ``checkpoint_now()`` and ``resume_latest()`` (the
+checkpoint format is the JAX package's, read and written by both). The
 device work runs in hand-written CUDA kernels (``csrc/``, built by
 ``kernels.py`` at first use); every kernel's plain PyTorch version runs
 when the caller asks for ``device="cpu"``. The package imports torch
@@ -26,6 +29,7 @@ from pumiumtally_tpu_torch.config import TallyConfig
 from pumiumtally_tpu_torch.mesh.box import build_box
 from pumiumtally_tpu_torch.mesh.pincell import build_lattice, build_pincell
 from pumiumtally_tpu_torch.mesh.tetmesh import TetMesh
+from pumiumtally_tpu_torch.resilience import CheckpointPolicy, resume_latest
 from pumiumtally_tpu_torch.scoring import (
     SCORES,
     EnergyFilter,
@@ -48,6 +52,7 @@ from pumiumtally_tpu_torch.stats import (
 __all__ = [
     "SCORES",
     "BatchStatistics",
+    "CheckpointPolicy",
     "EnergyFilter",
     "EnginePoisonedError",
     "HealthReport",
@@ -68,4 +73,5 @@ __all__ = [
     "build_lattice",
     "build_pincell",
     "evaluate_trigger",
+    "resume_latest",
 ]

@@ -27,8 +27,11 @@ round budgets (``retry_stragglers``, walked by the block walk of the
 configuration, W4 by default), then ``declare_lost_stragglers`` with
 quarantine records; the engine's overflow recoveries report into the
 health record (``on_overflow_recovered``). ``intersection_points`` is
-refused, as in the JAX package. Left out: multi-device meshes, and the
-resilience safety save on the engine's ``on_poisoned`` hook (left None).
+refused, as in the JAX package. With a ``CheckpointPolicy`` the engine
+walks W4 with the deterministic commit, and an exhausted overflow
+ladder writes an ``overflow_safety`` generation before the poisoned
+refusal (``on_poisoned``, api/partitioned.py:119-127 of the JAX
+package). Left out: multi-device meshes.
 """
 
 from __future__ import annotations
@@ -123,13 +126,12 @@ class PartitionedPumiTally(PumiTally):
             table_dtype=self.config.resolved_table_dtype(),
             scoring=self.config.scoring,
             cap_frontier=self.config.cap_frontier,
+            deterministic=self._deterministic,
         )
         # After the engine: the DROP sentinel is its padded bank's size.
         self._arm_scoring(bank_size=self.engine.score_padded.numel()
                           if self.config.scoring is not None else None)
-        if self._sentinel is not None:
-            self.engine.on_overflow_recovered = \
-                self._sentinel.note_overflow_recovery
+        self._wire_engine_hooks(self.engine)
         self._sync()
         self.tally_times.initialization_time += time.perf_counter() - t0
 

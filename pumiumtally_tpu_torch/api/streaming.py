@@ -50,8 +50,15 @@ resumed phase and declared losses for ``StreamingPartitionedTally``.
 ``StreamingTally``'s localization runs the zero-weight ladder per chunk.
 ``intersection_points`` is refused, as in the JAX package.
 
-Left out against the JAX package (ROADMAP.md): the resilience hooks,
-the service-fusion surface (``_fused_move_stage``),
+Fault tolerance as the base facade's: the autosave runner's batch-close
+hook in ``CopyInitialPosition`` and its move-end hook after each move
+(after every chunk dispatched), the chunks' walks through the
+deterministic commit, and each chunk engine's exhausted overflow ladder
+saving an ``overflow_safety`` generation first; a checkpoint carries the
+per-chunk flux and banks (or every chunk engine's slot rows).
+
+Left out against the JAX package (ROADMAP.md): the service-fusion
+surface (``_fused_move_stage``),
 sharded chunks and ``device_groups`` (one device here). The JAX
 partitioned chunks defer their overflow check to a batch sync point
 (``_recover_deferred_overflow``); the port's engine checks each round on
@@ -257,6 +264,7 @@ class StreamingTally(PumiTally):
         self._check_poisoned()
         t0 = time.perf_counter()
         self._stats_roll_batch()  # each sourcing opens a new batch
+        self._resilience_roll_batch()  # autosave/drain at batch close
         self._lost_total += self._current_lost()
         self._last_dests_host = None  # localization rewrites the state
         self._last_dests_dev = None
@@ -390,6 +398,7 @@ class StreamingTally(PumiTally):
                   "in search")
         self._fence()
         self.tally_times.total_time_to_tally += _perf_counter() - t0
+        self._resilience_note_move()  # drain/timer-cadence safe point
 
     def _after_chunk_dispatch(self) -> None:
         """Hook: per-call checks after every chunk dispatched
@@ -453,7 +462,8 @@ class StreamingTally(PumiTally):
         finished, as a device scalar."""
         bank = None if self._scoring is None else self._score[k]
         kw = dict(tol=self._tol, max_iters=self._max_iters,
-                  scoring=self._score_ops(bank, sbin, sfac))
+                  scoring=self._score_ops(bank, sbin, sfac),
+                  deterministic=self._deterministic)
         if orig is None:
             x, elem, done, s_b = move_step_continue(
                 self.mesh, self._x[k], self._elem[k], dest, fly, w,
@@ -522,11 +532,10 @@ class StreamingPartitionedTally(StreamingTally):
                 # The lost-source warning is printed once per call, for
                 # every chunk (_after_chunk_dispatch).
                 check_found_all=False, part=part, scoring=cfg.scoring,
-                cap_frontier=cfg.cap_frontier, **kw,
+                cap_frontier=cfg.cap_frontier,
+                deterministic=self._deterministic, **kw,
             ))
-            if self._sentinel is not None:
-                self.engines[-1].on_overflow_recovered = \
-                    self._sentinel.note_overflow_recovery
+            self._wire_engine_hooks(self.engines[-1])
         self._dispatched_localize = False
 
     def _engine_poisoned(self) -> bool:

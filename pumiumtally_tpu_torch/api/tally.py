@@ -63,13 +63,26 @@ and ``intersection_points()`` replays it (``ops.walk.walk_xpoints``),
 the reference's ``getIntersectionPoints()``; the partitioned and
 streaming facades refuse it, as the JAX facades do.
 
+Fault tolerance (``TallyConfig.checkpoint``, a ``CheckpointPolicy``;
+resilience/, the JAX facade's api/tally.py:637-686): every facade calls
+the autosave runner at batch close (each ``CopyInitialPosition`` that
+closes a non-empty batch, ``close_batch``, ``finalize``) and at the end
+of each move, which saves atomic, digest-sealed generations at the
+policy's cadence and drains on SIGTERM/SIGINT; ``checkpoint_now()``
+writes one now and ``resume_latest()`` restores the newest intact one.
+With a policy the tallying walks commit through the deterministic
+commit (ops/det_commit.py), so a resumed run equals an uninterrupted one
+bit for bit on the card too. A partitioned engine whose overflow ladder
+is exhausted writes an ``overflow_safety`` generation before the
+poisoned refusal (``on_poisoned``).
+
 The facades run on ``device="cuda"`` by default and raise when no GPU is
 present, unless the caller asks for ``device="cpu"`` (where every
 kernel's plain PyTorch version runs). The poisoned latch (the JAX
 facade's): once a partitioned engine's overflow-recovery ladder is
-exhausted, every protocol call refuses with ``EnginePoisonedError``.
-Left out so far (ROADMAP.md): resilience and the service-fusion
-surface.
+exhausted, every protocol call refuses with ``EnginePoisonedError``,
+checked before anything else. Left out so far (ROADMAP.md): the
+service-fusion surface.
 """
 
 from __future__ import annotations
@@ -92,8 +105,10 @@ from pumiumtally_tpu_torch.io.vtk import (
     write_vtk,
 )
 from pumiumtally_tpu_torch.mesh.tetmesh import TetMesh
+from pumiumtally_tpu_torch.ops.det_commit import DetWorkspace
 from pumiumtally_tpu_torch.ops.geometry import locate_by_planes
 from pumiumtally_tpu_torch.ops.walk import walk, walk_xpoints
+from pumiumtally_tpu_torch.resilience import AutosaveRunner, resume_latest
 from pumiumtally_tpu_torch.scoring.binding import (
     ScoringRuntime,
     score_cell_data,
@@ -264,19 +279,21 @@ def _localize_step(mesh, x, elem, dest, *, tol, max_iters):
 
 
 def move_step_continue(mesh, x, elem, dests, flying, weights, flux, *, tol,
-                       max_iters, scoring=None):
+                       max_iters, scoring=None, deterministic=False):
     """Phase-B-only move: transport from the committed state straight
     to the destinations, tallying into ``flux`` (in place) and, with
-    ``scoring=(kinds, bank, bin_off, fac)``, into the bank. Returns
-    (x, elem, done, s)."""
+    ``scoring=(kinds, bank, bin_off, fac)``, into the bank (through the
+    deterministic commit with ``deterministic``). Returns (x, elem,
+    done, s)."""
     dest_b = torch.where((flying == 1)[:, None], dests, x)  # stopped: hold
     rb = walk(mesh, x, elem, dest_b, flying, weights, flux, tally=True,
-              tol=tol, max_iters=max_iters, scoring=scoring)
+              tol=tol, max_iters=max_iters, scoring=scoring,
+              deterministic=deterministic)
     return rb.x, rb.elem, rb.done, rb.s
 
 
 def move_step(mesh, x, elem, origins, dests, flying, weights, flux, *, tol,
-              max_iters, scoring=None):
+              max_iters, scoring=None, deterministic=False):
     """One full MoveToNextLocation: phase A (relocate, no tally) then
     phase B (transport, tally). Phase A walks nothing when every staged
     origin already equals the committed position (it would walk zero
@@ -290,7 +307,7 @@ def move_step(mesh, x, elem, origins, dests, flying, weights, flux, *, tol,
     x, elem, done_a = ra.x, ra.elem, ra.done
     x2, elem2, done_b, s_b = move_step_continue(
         mesh, x, elem, dests, flying, weights, flux, tol=tol,
-        max_iters=max_iters, scoring=scoring,
+        max_iters=max_iters, scoring=scoring, deterministic=deterministic,
     )
     return x2, elem2, done_a & done_b, s_b
 
@@ -389,6 +406,13 @@ class PumiTally:
         self._sentinel = build_runner(self.config.sentinel, self.dtype,
                                       self.device)
         self._xpoint_stash = None
+        # Fault tolerance: the autosave/drain runner (None: no policy, no
+        # handler installed), and the record streams of the deterministic
+        # commit it needs (the walks' ``deterministic=``).
+        self._resilience = self._deterministic = None
+        if self.config.checkpoint is not None:
+            self._resilience = AutosaveRunner(self.config.checkpoint)
+            self._deterministic = DetWorkspace()
         return self.mesh
 
     def _engine_poisoned(self) -> bool:
@@ -397,6 +421,61 @@ class PumiTally:
         the partitioned facades override this with their engines'
         latches."""
         return False
+
+    def _wire_engine_hooks(self, engine) -> None:
+        """Connect a partitioned engine's overflow-recovery ladder to the
+        facade: recoveries report into the sentinel's health record, and
+        an exhausted ladder writes a safety generation (the intact
+        pre-overflow state) right before the poisoned raise."""
+        if self._sentinel is not None:
+            engine.on_overflow_recovered = \
+                self._sentinel.note_overflow_recovery
+        engine.on_poisoned = self._overflow_safety_save
+
+    def _overflow_safety_save(self) -> None:
+        if self._resilience is not None:
+            self._resilience.save(self, reason="overflow_safety")
+
+    # -- fault tolerance (TallyConfig.checkpoint) ------------------------
+    def _resilience_roll_batch(self) -> None:
+        """Batch-close hook of the autosave runner: every
+        ``CopyInitialPosition`` that closes a non-empty batch (and
+        ``close_batch`` / ``finalize``), before the lost counter rolls and
+        new sources rewrite the state, so a saved generation is the
+        closed batch's end state."""
+        if self._resilience is not None:
+            self._resilience.on_batch_close(self)
+
+    def _resilience_note_move(self) -> None:
+        """Move-end hook: the drain's safety point and the
+        ``every_seconds`` cadence check."""
+        if self._resilience is not None:
+            self._resilience.on_move(self)
+
+    def checkpoint_now(self, **meta):
+        """Write one checkpoint generation now through the configured
+        ``TallyConfig.checkpoint`` policy (e.g. the seal after a
+        campaign's last batch, which no re-sourcing closes); returns
+        (generation, path). Keyword arguments ride in the generation's
+        metadata (the runner's reason/iter_count/batches_closed win). A
+        pending drain request exits cleanly (code 0) after the save."""
+        if self._resilience is None:
+            raise RuntimeError(
+                "checkpoint_now() needs TallyConfig(checkpoint="
+                "resilience.CheckpointPolicy(...)); for one-off manual "
+                "saves use utils.checkpoint.save_tally_state")
+        out = self._resilience.save(self, reason="manual", meta=meta)
+        if self._resilience.drain_requested:
+            self._resilience.close()  # hand the signals back
+            raise SystemExit(0)
+        return out
+
+    def resume_latest(self):
+        """Restore the newest intact generation of the configured
+        policy's directory into this tally (falling back past corrupt
+        ones); returns the ``resilience.ResumeInfo``, or None when no
+        generation exists yet."""
+        return resume_latest(self)
 
     def _check_poisoned(self) -> None:
         if self._engine_poisoned():
@@ -452,7 +531,8 @@ class PumiTally:
             tol=self._tol, base_iters=self._max_iters,
             retry_factor=self.config.sentinel.retry_iters_factor,
             two_tier=self.mesh.two_tier, x_start=x_start, s_init=s_b,
-            scoring=self._score_ops(bank, sbin, sfac))
+            scoring=self._score_ops(bank, sbin, sfac),
+            deterministic=self._deterministic)
         if lost_idx.size:
             self._lost_total += int(lost_idx.size)
             self._quarantine_lost(lost_idx, x_start, dests, w, elem, move,
@@ -664,6 +744,7 @@ class PumiTally:
         batch with no move closes as a no-op."""
         stats = self._require_stats()
         self._close_lanes(reopen=True)
+        self._resilience_roll_batch()  # an explicit close is a batch close
         spec = trigger if trigger is not None \
             else self.config.batch_stats_trigger
         return None if spec is None else evaluate_trigger(stats, spec)
@@ -674,6 +755,7 @@ class PumiTally:
         the next ``CopyInitialPosition`` (or ``close_batch``)."""
         self._require_stats()
         self._close_lanes(reopen=False)
+        self._resilience_roll_batch()  # the final close is a batch close
         return self.batch_statistics()
 
     def batch_statistics(self) -> BatchStatistics:
@@ -809,6 +891,7 @@ class PumiTally:
         self._check_poisoned()
         t0 = time.perf_counter()
         self._stats_roll_batch()  # each sourcing opens a new batch
+        self._resilience_roll_batch()  # autosave/drain at batch close
         # Fold the closing batch's still-lost particles into the
         # cumulative counter before the new localization resets them.
         self._lost_total += self._current_lost()
@@ -913,6 +996,7 @@ class PumiTally:
             print("ERROR: Not all particles are found. May need more loops in search")
         self._fence()
         self.tally_times.total_time_to_tally += _perf_counter() - t0
+        self._resilience_note_move()  # drain/timer-cadence safe point
 
     def _dispatch_move(self, origins, dests, fly, w, sbin=None, sfac=None):
         """One tallied move from staged inputs (origins None: continue
@@ -920,7 +1004,8 @@ class PumiTally:
         Returns whether every particle finished, as a device scalar
         fetched only when read."""
         kw = dict(tol=self._tol, max_iters=self._max_iters,
-                  scoring=self._score_ops(self._score_bank, sbin, sfac))
+                  scoring=self._score_ops(self._score_bank, sbin, sfac),
+                  deterministic=self._deterministic)
         x_prev = self.x  # the phase-B start of a continue move
         if self.config.record_xpoints:
             # What intersection_points() needs to replay this move.

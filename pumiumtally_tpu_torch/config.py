@@ -1,9 +1,9 @@
 """Engine knobs: the subset of ``pumiumtally_tpu.config.TallyConfig``
 that the PyTorch port implements so far.
 
-The JAX fields the port does not have yet are ``checkpoint``,
-``device_mesh``, ``migrate_collective``, ``placement`` and
-``placement_hosts`` (ROADMAP.md queue 1: resilience and multi-device).
+The JAX fields the port does not have yet are ``device_mesh``,
+``migrate_collective``, ``placement`` and ``placement_hosts``
+(ROADMAP.md queue 1, item 6: multi-device).
 A knob the port does not have is not a field, so passing it is a
 ``TypeError``. The few values the JAX package accepts but the port does
 not run yet raise ``NotImplementedError`` naming the ROADMAP.md item
@@ -19,8 +19,9 @@ from typing import Any, Optional
 
 import torch
 
-# The ROADMAP.md item named by the refusal below.
-ROADMAP_MULTI_DEVICE = "ROADMAP.md queue 1, 'Multi-device'"
+# The ROADMAP.md item named by the refusals of the multi-device fields
+# and values.
+ROADMAP_MULTI_DEVICE = "ROADMAP.md queue 1, item 6, 'Multi-device'"
 
 
 @dataclasses.dataclass
@@ -75,6 +76,16 @@ class TallyConfig:
         committed inside the walk kernels (W0, W2 and W4; a partitioned
         engine on the float32 tables scores through the gather block
         walk W4, as the JAX engine does). None: no scoring code runs.
+      checkpoint: a ``resilience.CheckpointPolicy``: autosave of atomic,
+        digest-sealed checkpoint generations into ``policy.dir`` at the
+        policy's cadence (closed source batches and/or wall seconds,
+        checked at batch close and move end), keep-last-K, and the
+        SIGTERM/SIGINT graceful drain; ``checkpoint_now()`` and
+        ``resume_latest()`` on every facade. It also switches W0's and
+        W4's flux and scoring commits to the deterministic commit
+        (ops/det_commit.py), so that a resumed run equals an
+        uninterrupted one bit for bit on the card. None (default):
+        nothing of it runs and no handler is installed.
       sentinel: a ``sentinel.SentinelPolicy``: per-move audit lanes on
         the device (one scalar fetch a move), the straggler-escalation
         ladder instead of silent truncation at ``max_iters``, quarantine
@@ -127,6 +138,7 @@ class TallyConfig:
     batch_stats: bool = False
     batch_stats_trigger: Optional[Any] = None
     scoring: Optional[Any] = None
+    checkpoint: Optional[Any] = None
     sentinel: Optional[Any] = None
     record_xpoints: bool = False
     output_filename: str = "fluxresult.vtk"
@@ -247,6 +259,16 @@ class TallyConfig:
                 raise ValueError(
                     "scoring must be a scoring.ScoringSpec, "
                     f"got {self.scoring!r}"
+                )
+        if self.checkpoint is not None:
+            from pumiumtally_tpu_torch.resilience.policy import (
+                CheckpointPolicy,
+            )
+
+            if not isinstance(self.checkpoint, CheckpointPolicy):
+                raise ValueError(
+                    "checkpoint must be a resilience.CheckpointPolicy, "
+                    f"got {self.checkpoint!r}"
                 )
         if self.sentinel is not None:
             from pumiumtally_tpu_torch.sentinel.policy import SentinelPolicy

@@ -21,8 +21,11 @@ no JAX import here) and build the port's object from such a dict:
   (``stats_*`` over the flux, ``sstats_*`` over the bank: the JAX
   checkpoint's names);
 - a ``TallyConfig``: the fields both packages have (``tally_config``),
-  a JAX ``ScoringSpec``, ``TriggerSpec`` and ``SentinelPolicy`` turned
-  into the port's.
+  a JAX ``ScoringSpec``, ``TriggerSpec``, ``SentinelPolicy`` and
+  ``CheckpointPolicy`` turned into the port's.
+
+Checkpoints need no conversion: both packages read and write the same
+``.npz`` format (utils/checkpoint.py).
 
 Tests build an input once, hand it to both packages through here, and
 compare what comes out. A bf16 tensor crosses as its uint16 bit pattern:
@@ -38,7 +41,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from pumiumtally_tpu_torch.config import TallyConfig
+from pumiumtally_tpu_torch.config import ROADMAP_MULTI_DEVICE, TallyConfig
 from pumiumtally_tpu_torch.mesh.tetmesh import (
     WALK_TABLE_ADJ,
     WALK_TABLE_NORMALS,
@@ -47,6 +50,7 @@ from pumiumtally_tpu_torch.mesh.tetmesh import (
     TetMesh,
 )
 from pumiumtally_tpu_torch.parallel.partition import MeshPartition
+from pumiumtally_tpu_torch.resilience.policy import CheckpointPolicy
 from pumiumtally_tpu_torch.scoring import (
     EnergyFilter,
     ScoringSpec,
@@ -265,7 +269,7 @@ def tally_config(cfg) -> TallyConfig:
         if value is not default and value != default:
             raise NotImplementedError(
                 f"TallyConfig.{f.name}={value!r} has no counterpart in the "
-                "port yet (ROADMAP.md queue 1)"
+                f"port yet: {ROADMAP_MULTI_DEVICE}"
             )
     if kw.get("dtype") is not None:
         kw["dtype"] = {"float32": torch.float32, "float64": torch.float64,
@@ -274,6 +278,8 @@ def tally_config(cfg) -> TallyConfig:
         kw["scoring"] = scoring_spec(kw["scoring"])
     if kw.get("sentinel") is not None:
         kw["sentinel"] = sentinel_policy(kw["sentinel"])
+    if kw.get("checkpoint") is not None:
+        kw["checkpoint"] = checkpoint_policy(kw["checkpoint"])
     if kw.get("batch_stats_trigger") is not None:
         trig = kw["batch_stats_trigger"]
         kw["batch_stats_trigger"] = TriggerSpec(
@@ -300,3 +306,10 @@ def sentinel_policy(policy) -> SentinelPolicy:
     read duck-typed field by field."""
     return SentinelPolicy(**{f.name: getattr(policy, f.name)
                              for f in dataclasses.fields(SentinelPolicy)})
+
+
+def checkpoint_policy(policy) -> CheckpointPolicy:
+    """The port's ``CheckpointPolicy`` from a policy of either package,
+    read duck-typed field by field."""
+    return CheckpointPolicy(**{f.name: getattr(policy, f.name)
+                               for f in dataclasses.fields(CheckpointPolicy)})

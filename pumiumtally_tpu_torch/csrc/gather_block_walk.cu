@@ -65,7 +65,11 @@
 // in element order gained on the box's dense one block and lost on the
 // lattice's sparse one and on a sub-split's first round.
 // Flux goes through atomicAdd, so its summation order, and only that,
-// depends on the schedule.
+// depends on the schedule; the kDet instantiations (entries given a `det`
+// record description, ops/det_commit.py) write one record a contribution
+// instead (det_records.cuh: the block-padded row or lane, the crossing's
+// step in this call and the thread's place in the list, or its slot
+// without one), which det_commit.cu adds in the plain version's order.
 //
 // Scoring (kScore; walk_local's `scoring=` hook, partition.py:563-569,
 // 613-624): block b's lanes are the [L*stride] slice at b*L*stride of
@@ -79,6 +83,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "det_records.cuh"
 #include "twotier_step.cuh"
 #include "walk_step.cuh"
 
@@ -116,6 +121,8 @@ struct GatherArgs {
   const int* bin_off;
   const T* fac;
   int stride, nscores, kinds;
+  // kDet only: the record streams of the flux and the lanes.
+  DetArgs<T> det;
 };
 
 // The packed exit of the tet whose 16 plane values start at `row`, in
@@ -146,7 +153,7 @@ __device__ __forceinline__ T exit_x0(const T r[WALK_TABLE_WIDTH], T s, T dx,
   return s_exit;
 }
 
-template <typename T, bool kTwoTier, bool kScore>
+template <typename T, bool kTwoTier, bool kScore, bool kDet>
 __global__ void __launch_bounds__(GATHER_THREADS)
     gather_block_walk_kernel(const GatherArgs<T> a, int cap) {
   const int n = a.work != nullptr ? *a.n_work : cap;
@@ -208,12 +215,24 @@ __global__ void __launch_bounds__(GATHER_THREADS)
       const bool goes_remote = !reached && next <= -2;
       if (a.tally) {
         const T c = (s_new - s) * eff_w;
-        if (c != T(0)) atomicAdd(a.flux + row0 + e, c);
-        // Outside the c != 0 guard: a zero-length step is a crossing.
-        if constexpr (kScore)
-          if ((long long)e * a.stride + sbin < (long long)a.L * a.stride)
-            score_lanes(a.bank + (row0 + e) * a.stride, a.stride, sbin,
-                        a.nscores, a.kinds, c, !reached, sfac);
+        if constexpr (kDet) {
+          // Records keyed (row or lane, step, the thread's place).
+          const long long ord = det_ord(steps, t);
+          if (c != T(0))
+            det_emit(a.det.flux, static_cast<int>(row0 + e), ord, c);
+          if constexpr (kScore)
+            if ((long long)e * a.stride + sbin < (long long)a.L * a.stride)
+              det_score_lanes(a.det.lanes,
+                              (long long)(row0 + e) * a.stride + sbin,
+                              a.nscores, a.kinds, c, !reached, sfac, ord);
+        } else {
+          if (c != T(0)) atomicAdd(a.flux + row0 + e, c);
+          // Outside the c != 0 guard: a zero-length step is a crossing.
+          if constexpr (kScore)
+            if ((long long)e * a.stride + sbin < (long long)a.L * a.stride)
+              score_lanes(a.bank + (row0 + e) * a.stride, a.stride, sbin,
+                          a.nscores, a.kinds, c, !reached, sfac);
+        }
       }
       if (!reached && !hit_boundary && !goes_remote) e = next;
       s = s_new;
@@ -412,14 +431,25 @@ extern "C" int pumi_gather_work_list_f32(const void* done,
 
 // `cap`: the list's capacity (its tensor's length), or without a list the
 // slot count; it sizes the grid, and the kernel reads the length itself.
-template <typename T, bool kTwoTier, bool kScore>
+template <typename T, bool kTwoTier, bool kScore, bool kDet>
 static int launch_gather(const GatherArgs<T>& a, int cap, void* stream) {
   if (cap <= 0 || a.cb <= 0) return static_cast<int>(cudaGetLastError());
   const unsigned grid = (cap + GATHER_THREADS - 1) / GATHER_THREADS;
-  gather_block_walk_kernel<T, kTwoTier, kScore>
+  gather_block_walk_kernel<T, kTwoTier, kScore, kDet>
       <<<grid, GATHER_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a,
                                                                     cap);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The atomic commit, or with `det` (the host's record description,
+// det_records.cuh det_args) the kDet instantiation.
+template <typename T, bool kTwoTier, bool kScore>
+static int dispatch_gather(GatherArgs<T> a, const void* det, int cap,
+                           void* stream) {
+  if (det == nullptr)
+    return launch_gather<T, kTwoTier, kScore, false>(a, cap, stream);
+  a.det = det_args<T>(static_cast<const long long*>(det));
+  return launch_gather<T, kTwoTier, kScore, true>(a, cap, stream);
 }
 
 template <typename T>
@@ -457,6 +487,7 @@ static GatherArgs<T> gather_args(
   a.bin_off = nullptr;
   a.fac = nullptr;
   a.stride = a.nscores = a.kinds = 0;
+  a.det = DetArgs<T>{};
   return a;
 }
 
@@ -478,7 +509,8 @@ static GatherArgs<T> with_scoring(GatherArgs<T> a, void* bank,
   void *x, void *lelem, const void *dest, const void *fly, const void *w, \
       void *done, void *exited, void *flux, void *pending, void *iters,   \
       void *counts, const void *work, const void *n_work, int cap, int L, \
-      int cb, double tol, int max_iters, int tally, void *stream
+      int cb, double tol, int max_iters, int tally, const void *det,      \
+      void *stream
 #define GATHER_SLOT_ARGS                                                  \
   x, lelem, dest, fly, w, done, exited, flux, pending, iters, counts,     \
       work, n_work, L, cb, tol, max_iters, tally
@@ -490,34 +522,34 @@ static GatherArgs<T> with_scoring(GatherArgs<T> a, void* bank,
 #define GATHER_ENTRIES(SUFFIX, T)                                          \
   extern "C" int pumi_gather_block_walk_##SUFFIX(                          \
       const void* table, const void* adj_int, GATHER_SLOT_PARAMS) {        \
-    return launch_gather<T, false, false>(                                 \
+    return dispatch_gather<T, false, false>(                               \
         gather_args<T>(table, adj_int, nullptr, nullptr, GATHER_SLOT_ARGS), \
-        cap, stream);                                                      \
+        det, cap, stream);                                                 \
   }                                                                        \
   extern "C" int pumi_gather_block_walk_twotier_##SUFFIX(                  \
       const void* table_lo, const void* table_hi, GATHER_SLOT_PARAMS) {    \
-    return launch_gather<T, true, false>(                                  \
+    return dispatch_gather<T, true, false>(                                \
         gather_args<T>(nullptr, nullptr, table_lo, table_hi,               \
                        GATHER_SLOT_ARGS),                                  \
-        cap, stream);                                                      \
+        det, cap, stream);                                                 \
   }                                                                        \
   extern "C" int pumi_gather_block_walk_scored_##SUFFIX(                   \
       GATHER_SCORE_PARAMS, const void* table, const void* adj_int,         \
       GATHER_SLOT_PARAMS) {                                                \
-    return launch_gather<T, false, true>(                                  \
+    return dispatch_gather<T, false, true>(                                \
         with_scoring(gather_args<T>(table, adj_int, nullptr, nullptr,      \
                                     GATHER_SLOT_ARGS),                     \
                      GATHER_SCORE_ARGS),                                   \
-        cap, stream);                                                      \
+        det, cap, stream);                                                 \
   }                                                                        \
   extern "C" int pumi_gather_block_walk_twotier_scored_##SUFFIX(           \
       GATHER_SCORE_PARAMS, const void* table_lo, const void* table_hi,     \
       GATHER_SLOT_PARAMS) {                                                \
-    return launch_gather<T, true, true>(                                   \
+    return dispatch_gather<T, true, true>(                                 \
         with_scoring(gather_args<T>(nullptr, nullptr, table_lo, table_hi,  \
                                     GATHER_SLOT_ARGS),                     \
                      GATHER_SCORE_ARGS),                                   \
-        cap, stream);                                                      \
+        det, cap, stream);                                                 \
   }
 
 GATHER_ENTRIES(f32, float)

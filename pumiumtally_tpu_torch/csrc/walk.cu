@@ -37,7 +37,12 @@
 // - max_iters is a per-particle budget; `iters` is reduced per warp and
 //   per CUDA block and max-ed into global memory once per CUDA block.
 // Flux goes through atomicAdd (double atomics for f64), so its summation
-// order, and only that, varies from run to run. Positions are
+// order, and only that, varies from run to run; the kDet instantiations
+// (entries given a `det` record description, the deterministic commit
+// of ops/det_commit.py) write one record a contribution instead
+// (det_records.cuh: the element, the crossing's step and the particle's
+// index, the value), which det_commit.cu adds in the plain version's
+// order. Positions are
 // materialised once from the ray coordinate at the end; a particle that
 // reaches its destination commits dest bit-exactly (the continue-mode
 // contract). No compaction cascade: the lanes that pull work have no
@@ -69,7 +74,8 @@
 // (score_lanes, walk_step.cuh) covers a crossing's lanes with the fewest
 // naturally aligned vector reductions in f32 (v4 / v2 / scalar, each in
 // one 16-byte quad: 1.5 a crossing at S = 3, not 3 scalar atomics); f64
-// keeps a scalar atomic a lane.
+// keeps a scalar atomic a lane. The kDet instantiations write a record a
+// non-zero lane instead (det_score_lanes).
 //
 // The two-tier variant (kLayout WALK_TWO_TIER; the JAX walk's lo_select
 // branch, ops/walk.py _advance_geometry :425-431) reads, per crossing, the
@@ -95,6 +101,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "det_records.cuh"
 #include "occupancy.cuh"
 #include "twotier_step.cuh"
 #include "walk_step.cuh"
@@ -145,6 +152,8 @@ struct WalkArgs {
   const int* bin_off;
   const T* fac;
   int stride, nscores, kinds, bank_size;
+  // kDet only: the record streams of the flux and the lanes.
+  DetArgs<T> det;
 };
 
 // One crossing of the tet `e` with its rows read from global memory.
@@ -216,7 +225,7 @@ __device__ __forceinline__ void walk_flush(const WalkArgs<T>& a,
   __syncwarp();  // the slot may be written again
 }
 
-template <typename T, int kLayout, bool kScore>
+template <typename T, int kLayout, bool kScore, bool kDet>
 __global__ void __launch_bounds__(WALK_THREADS)
     walk_kernel(const WalkArgs<T> a) {
   __shared__ int block_iters, block_walked, block_skip;
@@ -332,13 +341,24 @@ __global__ void __launch_bounds__(WALK_THREADS)
         const bool hit_boundary = !reached && next == -1;
         if (a.tally) {
           const T c = (s_new - s) * eff_w;
-          if (c != T(0)) atomicAdd(a.flux + e, c);
-          // Outside the c != 0 guard: a zero-length step is a crossing.
-          // The DROP rule, one test a crossing: lanes at or past the bank.
-          if constexpr (kScore)
-            if ((long long)e * a.stride + sbin < a.bank_size)
-              score_lanes(a.bank + (size_t)e * a.stride, a.stride, sbin,
-                          a.nscores, a.kinds, c, !reached, sfac);
+          if constexpr (kDet) {
+            // Records keyed (element or lane, step, particle).
+            const long long ord = det_ord(steps, i);
+            if (c != T(0)) det_emit(a.det.flux, e, ord, c);
+            if constexpr (kScore)
+              if ((long long)e * a.stride + sbin < a.bank_size)
+                det_score_lanes(a.det.lanes, (long long)e * a.stride + sbin,
+                                a.nscores, a.kinds, c, !reached, sfac, ord);
+          } else {
+            if (c != T(0)) atomicAdd(a.flux + e, c);
+            // Outside the c != 0 guard: a zero-length step is a crossing.
+            // The DROP rule, one test a crossing: lanes at or past the
+            // bank.
+            if constexpr (kScore)
+              if ((long long)e * a.stride + sbin < a.bank_size)
+                score_lanes(a.bank + (size_t)e * a.stride, a.stride, sbin,
+                            a.nscores, a.kinds, c, !reached, sfac);
+          }
         }
         if (!reached && !hit_boundary) e = next;
         s = s_new;
@@ -405,19 +425,28 @@ __global__ void __launch_bounds__(WALK_THREADS)
   }
 }
 
-template <typename T, int kLayout, bool kScore = false>
+template <typename T, int kLayout, bool kScore, bool kDet>
 static int launch_walk(const WalkArgs<T>& a, void* stream) {
   if (a.n <= 0) return static_cast<int>(cudaGetLastError());
   int resident = 0;
   const cudaError_t err = resident_blocks(
-      reinterpret_cast<const void*>(walk_kernel<T, kLayout, kScore>),
+      reinterpret_cast<const void*>(walk_kernel<T, kLayout, kScore, kDet>),
       WALK_THREADS, 0, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int needed = (a.n + WALK_THREADS - 1) / WALK_THREADS;
-  walk_kernel<T, kLayout, kScore>
+  walk_kernel<T, kLayout, kScore, kDet>
       <<<needed < resident ? needed : resident, WALK_THREADS, 0,
          static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The atomic commit, or with `det` (the host's record description,
+// det_records.cuh det_args) the kDet instantiation.
+template <typename T, int kLayout, bool kScore = false>
+static int dispatch_walk(WalkArgs<T> a, const void* det, void* stream) {
+  if (det == nullptr) return launch_walk<T, kLayout, kScore, false>(a, stream);
+  a.det = det_args<T>(static_cast<const long long*>(det));
+  return launch_walk<T, kLayout, kScore, true>(a, stream);
 }
 
 template <typename T>
@@ -462,6 +491,7 @@ static WalkArgs<T> walk_args(const void* table, const void* table_lo,
   a.bin_off = nullptr;
   a.fac = nullptr;
   a.stride = a.nscores = a.kinds = a.bank_size = 0;
+  a.det = DetArgs<T>{};
   return a;
 }
 
@@ -500,35 +530,37 @@ static WalkArgs<T> with_planes(WalkArgs<T> a, const void* nrm,
       const void *w, const void *s_init, void *flux, void *x_out,           \
       void *elem_out, void *done_out, void *exited_out, void *s_out,        \
       void *iters, void *next, void *counts, const void *skip, int n,       \
-      double tol, int max_iters, int tally, void *stream
+      double tol, int max_iters, int tally, const void *det, void *stream
 #define WALK_PARTICLE_ARGS                                                  \
   x, elem, dest, fly, w, s_init, flux, x_out, elem_out, done_out,           \
       exited_out, s_out, iters, next, counts, skip, n, tol, max_iters, tally
 
 extern "C" int pumi_walk_f32(const void* table, WALK_PARTICLE_PARAMS) {
-  return launch_walk<float, WALK_PACKED>(
-      walk_args<float>(table, nullptr, nullptr, WALK_PARTICLE_ARGS), stream);
+  return dispatch_walk<float, WALK_PACKED>(
+      walk_args<float>(table, nullptr, nullptr, WALK_PARTICLE_ARGS), det,
+      stream);
 }
 
 extern "C" int pumi_walk_f64(const void* table, WALK_PARTICLE_PARAMS) {
-  return launch_walk<double, WALK_PACKED>(
-      walk_args<double>(table, nullptr, nullptr, WALK_PARTICLE_ARGS), stream);
+  return dispatch_walk<double, WALK_PACKED>(
+      walk_args<double>(table, nullptr, nullptr, WALK_PARTICLE_ARGS), det,
+      stream);
 }
 
 extern "C" int pumi_walk_twotier_f32(const void* table_lo,
                                      const void* table_hi,
                                      WALK_PARTICLE_PARAMS) {
-  return launch_walk<float, WALK_TWO_TIER>(
+  return dispatch_walk<float, WALK_TWO_TIER>(
       walk_args<float>(nullptr, table_lo, table_hi, WALK_PARTICLE_ARGS),
-      stream);
+      det, stream);
 }
 
 extern "C" int pumi_walk_twotier_f64(const void* table_lo,
                                      const void* table_hi,
                                      WALK_PARTICLE_PARAMS) {
-  return launch_walk<double, WALK_TWO_TIER>(
+  return dispatch_walk<double, WALK_TWO_TIER>(
       walk_args<double>(nullptr, table_lo, table_hi, WALK_PARTICLE_ARGS),
-      stream);
+      det, stream);
 }
 
 // The scoring entries: the same walk with the scoring lanes (kScore).
@@ -540,42 +572,42 @@ extern "C" int pumi_walk_twotier_f64(const void* table_lo,
 
 extern "C" int pumi_walk_scored_f32(WALK_SCORE_PARAMS, const void* table,
                                     WALK_PARTICLE_PARAMS) {
-  return launch_walk<float, WALK_PACKED, true>(
+  return dispatch_walk<float, WALK_PACKED, true>(
       with_scoring(walk_args<float>(table, nullptr, nullptr,
                                     WALK_PARTICLE_ARGS),
                    WALK_SCORE_ARGS),
-      stream);
+      det, stream);
 }
 
 extern "C" int pumi_walk_scored_f64(WALK_SCORE_PARAMS, const void* table,
                                     WALK_PARTICLE_PARAMS) {
-  return launch_walk<double, WALK_PACKED, true>(
+  return dispatch_walk<double, WALK_PACKED, true>(
       with_scoring(walk_args<double>(table, nullptr, nullptr,
                                      WALK_PARTICLE_ARGS),
                    WALK_SCORE_ARGS),
-      stream);
+      det, stream);
 }
 
 extern "C" int pumi_walk_twotier_scored_f32(WALK_SCORE_PARAMS,
                                             const void* table_lo,
                                             const void* table_hi,
                                             WALK_PARTICLE_PARAMS) {
-  return launch_walk<float, WALK_TWO_TIER, true>(
+  return dispatch_walk<float, WALK_TWO_TIER, true>(
       with_scoring(walk_args<float>(nullptr, table_lo, table_hi,
                                     WALK_PARTICLE_ARGS),
                    WALK_SCORE_ARGS),
-      stream);
+      det, stream);
 }
 
 extern "C" int pumi_walk_twotier_scored_f64(WALK_SCORE_PARAMS,
                                             const void* table_lo,
                                             const void* table_hi,
                                             WALK_PARTICLE_PARAMS) {
-  return launch_walk<double, WALK_TWO_TIER, true>(
+  return dispatch_walk<double, WALK_TWO_TIER, true>(
       with_scoring(walk_args<double>(nullptr, table_lo, table_hi,
                                      WALK_PARTICLE_ARGS),
                    WALK_SCORE_ARGS),
-      stream);
+      det, stream);
 }
 
 // The unpacked entries: planes through their strides, int32 neighbour ids.
@@ -585,40 +617,40 @@ extern "C" int pumi_walk_twotier_scored_f64(WALK_SCORE_PARAMS,
 
 extern "C" int pumi_walk_unpacked_f32(WALK_PLANE_PARAMS,
                                       WALK_PARTICLE_PARAMS) {
-  return launch_walk<float, WALK_UNPACKED>(
+  return dispatch_walk<float, WALK_UNPACKED>(
       with_planes(walk_args<float>(nullptr, nullptr, nullptr,
                                    WALK_PARTICLE_ARGS),
                   WALK_PLANE_ARGS),
-      stream);
+      det, stream);
 }
 
 extern "C" int pumi_walk_unpacked_f64(WALK_PLANE_PARAMS,
                                       WALK_PARTICLE_PARAMS) {
-  return launch_walk<double, WALK_UNPACKED>(
+  return dispatch_walk<double, WALK_UNPACKED>(
       with_planes(walk_args<double>(nullptr, nullptr, nullptr,
                                     WALK_PARTICLE_ARGS),
                   WALK_PLANE_ARGS),
-      stream);
+      det, stream);
 }
 
 extern "C" int pumi_walk_unpacked_scored_f32(WALK_SCORE_PARAMS,
                                              WALK_PLANE_PARAMS,
                                              WALK_PARTICLE_PARAMS) {
-  return launch_walk<float, WALK_UNPACKED, true>(
+  return dispatch_walk<float, WALK_UNPACKED, true>(
       with_scoring(with_planes(walk_args<float>(nullptr, nullptr, nullptr,
                                                 WALK_PARTICLE_ARGS),
                                WALK_PLANE_ARGS),
                    WALK_SCORE_ARGS),
-      stream);
+      det, stream);
 }
 
 extern "C" int pumi_walk_unpacked_scored_f64(WALK_SCORE_PARAMS,
                                              WALK_PLANE_PARAMS,
                                              WALK_PARTICLE_PARAMS) {
-  return launch_walk<double, WALK_UNPACKED, true>(
+  return dispatch_walk<double, WALK_UNPACKED, true>(
       with_scoring(with_planes(walk_args<double>(nullptr, nullptr, nullptr,
                                                  WALK_PARTICLE_ARGS),
                                WALK_PLANE_ARGS),
                    WALK_SCORE_ARGS),
-      stream);
+      det, stream);
 }

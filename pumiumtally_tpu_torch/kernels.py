@@ -28,7 +28,12 @@ instantiations of W0, W2 and W4 are entries of their own, counted apart:
 ``twotier_block_walk_scored``,
 ``gather_block_walk_scored`` and ``gather_block_walk_twotier_scored``
 (each takes its scoring arguments ahead of the plain entry's). W4's
-work list of a later round is built by ``gather_work_list``.
+work list of a later round is built by ``gather_work_list``. W0's and
+W4's entries take a last pointer, ``det``: null for the atomic commit,
+else the host address of the deterministic commit's record description
+(``ops/det_commit.py``), which launches the kDet instantiation in the
+same entry; ``det_commit`` (csrc/det_commit.cu, the seventh library) adds
+those records in order.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 HEADERS = ("walk_step.cuh", "twotier_step.cuh", "block_walk_sched.cuh",
-           "occupancy.cuh")
+           "occupancy.cuh", "det_records.cuh")
 SOURCES = {
     "walk": "walk.cu",
     "block_walk": "block_walk.cu",
@@ -56,6 +61,7 @@ SOURCES = {
     "resident_walk": "resident_walk.cu",
     "row_gather": "row_gather.cu",
     "gather_block_walk": "gather_block_walk.cu",
+    "det_commit": "det_commit.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -64,6 +70,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _D = ctypes.c_double
 _BOTH = ("f32", "f64")
 # A scoring entry's leading arguments: bank, bin_off, fac, stride,
@@ -72,11 +79,12 @@ _W2_SCORE = [_P] * 3 + [_I] * 3
 _SCORE = _W2_SCORE + [_I]
 # W4's arguments after its two tables: 13 pointers (the slot state,
 # written in place, flux, pending, iters, counts, the work list and its
-# length), the list's capacity, L, cb, tol, max_iters, tally.
-_W4 = [_P] * 15 + [_I, _I, _I, _D, _I, _I, _P]
+# length), the list's capacity, L, cb, tol, max_iters, tally, det.
+_W4 = [_P] * 15 + [_I, _I, _I, _D, _I, _I, _P, _P]
 # W0's arguments after its tables: 16 pointers (the particles, flux, the
-# outputs, iters, the counter, counts, skip), n, tol, max_iters, tally.
-_W0 = [_P] * 16 + [_I, _D, _I, _I, _P]
+# outputs, iters, the counter, counts, skip), n, tol, max_iters, tally,
+# det.
+_W0 = [_P] * 16 + [_I, _D, _I, _I, _P, _P]
 # W0's unpacked tables: normals, offsets, ids, and the two strides.
 _PLANES = [_P] * 3 + [_I, _I]
 # C entry points: entry -> (library, argtypes, dtypes); the entry's
@@ -118,6 +126,10 @@ _ENTRY_ARGS = {
     # entry).
     "gather_work_list": ("gather_block_walk", [_P] * 5 + [_I, _I, _P],
                          ("f32",)),
+    # The deterministic commit: keys, ords, values, their count, the
+    # target, its size, the scatter's passes, then four scratch buffers.
+    "det_commit": ("det_commit", [_P] * 3 + [_I, _P, _L, _I] + [_P] * 5,
+                   _BOTH),
 }
 
 launch_counts: Dict[str, int] = {entry: 0 for entry in _ENTRY_ARGS}

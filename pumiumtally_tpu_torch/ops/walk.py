@@ -41,6 +41,14 @@ walks its particle to completion has no lock-step waste to bound),
 budget; the JAX walk checks it every ``cond_every`` (4) steps, so it
 may take up to 3 more.
 
+``deterministic=True`` (tallying walks) commits flux and lanes through
+the deterministic commit (ops/det_commit.py): on the card W0's kDet
+instantiation writes a record a contribution and DC adds them in the
+order of ``walk_plain``'s serial ``index_add_`` (step, then particle), so
+the flux and the lanes equal the plain version's bitwise; ``walk_plain``
+builds the same records and commits them with ``det_commit_plain``.
+Without it the atomic commit runs, as before.
+
 ``walk_xpoints`` replays a move and records each particle's last
 face-crossing point (the reference's ``getIntersectionPoints()``); it is
 an inspection path, plain PyTorch on any device.
@@ -59,6 +67,7 @@ from __future__ import annotations
 import os
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from pumiumtally_tpu_torch import kernels
@@ -72,6 +81,14 @@ from pumiumtally_tpu_torch.mesh.tetmesh import (
     WALK_TABLE_OFFSETS,
     WALK_TABLE_WIDTH,
     TetMesh,
+)
+from pumiumtally_tpu_torch.ops.det_commit import (
+    FIRST_RECORDS_PER_PARTICLE,
+    det_commit,
+    det_commit_plain,
+    det_ord,
+    walk_deterministic,
+    workspace,
 )
 from pumiumtally_tpu_torch.scoring.scores import MAX_SCORES
 
@@ -267,10 +284,20 @@ def advance_twotier(table_lo, table_hi, rows, s, d0, dest, tol):
     return torch.where(reached, one, s_exit), nxt, reached
 
 
+def ieee_sqrt(a: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root on any device: torch's CPU
+    kernel misses the IEEE rounding of some values, the card's does not,
+    so the CPU goes through numpy's."""
+    if a.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(a.numpy()))
+    return torch.sqrt(a)
+
+
 def eff_weight(d0, in_flight, weight):
-    """eff_w = flying * weight * |d0|, in the kernels' operation order."""
-    seg = torch.sqrt(d0[:, 0] * d0[:, 0] + d0[:, 1] * d0[:, 1]
-                     + d0[:, 2] * d0[:, 2])
+    """eff_w = flying * weight * |d0|, in the kernels' operation order
+    (the square root correctly rounded, as the kernels' is)."""
+    seg = ieee_sqrt(d0[:, 0] * d0[:, 0] + d0[:, 1] * d0[:, 1]
+                    + d0[:, 2] * d0[:, 2])
     return torch.where(in_flight != 0, weight * seg, torch.zeros_like(seg))
 
 
@@ -292,6 +319,26 @@ def add_lanes(bank, sidx, sval, limit: int) -> None:
     ``limit`` (the JAX scatter's ``mode="drop"``)."""
     keep = sidx < limit
     bank.index_add_(0, sidx[keep], sval[keep])
+
+
+class PlainRecords:
+    """The deterministic commit's records of a plain walk, one lock-step
+    iteration at a time: the non-zero contributions, keyed (bank index,
+    step, particle), committed at the end in that order
+    (``det_commit_plain``), as W0's and W4's kDet instantiations write
+    them."""
+
+    def __init__(self):
+        self.parts = []
+
+    def add(self, key, step: int, pid, val, keep=None) -> None:
+        keep = val != 0 if keep is None else keep & (val != 0)
+        self.parts.append((key[keep], det_ord(step, pid[keep]), val[keep]))
+
+    def commit(self, target) -> None:
+        if self.parts:
+            key, ord_, val = (torch.cat(c) for c in zip(*self.parts))
+            det_commit_plain(target, key, ord_, val)
 
 
 def count_mask(kinds) -> int:
@@ -337,13 +384,15 @@ def _skipped(x, elem, s_init) -> WalkResult:
 def walk_plain(
     mesh: TetMesh, x, elem, dest, in_flight, weight, flux, *,
     tally: bool, tol: float, max_iters: int, s_init=None, skip=None,
-    scoring=None,
+    scoring=None, deterministic=False,
 ) -> WalkResult:
     """W0's plain PyTorch version: a masked lock-step loop, one crossing
     of every unfinished particle per iteration, through the mesh's
     layout (``advance_mesh``). ``skip`` true: nothing is walked.
     ``scoring``: see the module docstring; the bank is updated in
-    place."""
+    place. ``deterministic``: the flux and lanes are committed as the
+    deterministic commit's records (``PlainRecords``) instead of by
+    ``index_add_`` each iteration: the same values in the same order."""
     n = x.shape[0]
     if scoring is not None:
         stride = check_scoring("walk_plain", scoring,
@@ -358,6 +407,9 @@ def walk_plain(
          else s_init.to(x.dtype).clone())
     elem = elem.to(torch.int32).clone()
     done = torch.zeros((n,), dtype=torch.bool, device=x.device)
+    recs = (PlainRecords(), PlainRecords()) if deterministic and tally \
+        else None
+    pid = torch.arange(n, device=x.device)
     iters = 0
     while iters < max_iters and not bool(done.all()):
         active = ~done
@@ -367,17 +419,29 @@ def walk_plain(
         if tally:
             contrib = torch.where(active, (s_new - s) * eff_w,
                                   torch.zeros_like(s))
-            flux.index_add_(0, elem.long(), contrib)
+            if recs is None:
+                flux.index_add_(0, elem.long(), contrib)
+            else:
+                recs[0].add(elem, iters, pid, contrib)
             if scoring is not None:
                 crossed = (active & ~reached).to(contrib.dtype)
-                add_lanes(bank, *score_pair(kinds, stride, elem, bin_off,
-                                            fac, contrib, crossed),
-                          bank.numel())
+                sidx, sval = score_pair(kinds, stride, elem, bin_off, fac,
+                                        contrib, crossed)
+                if recs is None:
+                    add_lanes(bank, sidx, sval, bank.numel())
+                else:
+                    recs[1].add(sidx, iters,
+                                pid.repeat_interleave(len(kinds)), sval,
+                                sidx < bank.numel())
         moving = active & ~reached & ~hit_boundary
         elem = torch.where(moving, nxt, elem)
         s = torch.where(active, s_new, s)
         done = done | reached | hit_boundary
         iters += 1
+    if recs is not None:
+        recs[0].commit(flux)
+        if scoring is not None:
+            recs[1].commit(bank)
     exited = done & (s < 1)
     at_dest = (done & ~exited)[:, None]
     x_fin = torch.where(at_dest, dest, dest + (s - 1)[:, None] * d0)
@@ -411,7 +475,8 @@ def plane_strides(mesh: TetMesh, device, dtype) -> tuple:
 
 
 def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
-               max_iters, s_init, counts, skip=None, scoring=None):
+               max_iters, s_init, counts, skip=None, scoring=None,
+               deterministic=False):
     dev, dt = x.device, x.dtype
     n, ne = x.shape[0], mesh.nelems
     table_args = None
@@ -476,22 +541,57 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
     # The kernel reads the flag as an int32 (held until after launch).
     skip_i = None if skip is None else skip.to(torch.int32)
     p = kernels.ptr
-    kernels.launch(
-        entry, dt, dev, *score_args, *table_args, p(x), p(elem),
-        p(dest), p(in_flight), p(weight), p(s_init),
-        p(flux if tally else None),
-        p(x_out), p(elem_out), p(done), p(exited), p(s), p(scratch),
-        p(scratch[1:]), p(counts), p(skip_i), n, float(tol),
-        int(max_iters), int(bool(tally)),
-    )
+
+    def launch(det=None):
+        kernels.launch(
+            entry, dt, dev, *score_args, *table_args, p(x), p(elem),
+            p(dest), p(in_flight), p(weight), p(s_init),
+            p(flux if tally else None),
+            p(x_out), p(elem_out), p(done), p(exited), p(s), p(scratch),
+            p(scratch[1:]), p(counts), p(skip_i), n, float(tol),
+            int(max_iters), int(bool(tally)), det,
+        )
+
+    if not (deterministic and tally):
+        launch()
+    else:
+        _walk_cuda_det(launch, n, dt, dev, flux, scoring, scratch, counts,
+                       workspace(deterministic))
     return WalkResult(x=x_out, elem=elem_out, done=done, exited=exited,
                       flux=flux, iters=scratch[0], s=s)
+
+
+def _walk_cuda_det(launch, n: int, dt, dev, flux, scoring, scratch,
+                   counts, ws) -> None:
+    """W0's kDet instantiation, then DC over its records (the streams of
+    the workspace ``ws``): the flux's, and the lanes' with scoring. A
+    stream that ran out of room is grown and the walk made again (W0
+    writes new outputs; its counters are put back first)."""
+    flux_rec = ws.records(dev, dt, "flux", FIRST_RECORDS_PER_PARTICLE * n)
+    lane_rec = None
+    if scoring is not None:
+        lane_rec = ws.records(dev, dt, "lanes",
+                              FIRST_RECORDS_PER_PARTICLE * n
+                              * len(scoring[0]))
+    counts0 = None if counts is None else counts.clone()
+
+    def again(det):
+        scratch.zero_()
+        if counts0 is not None:
+            counts.copy_(counts0)
+        launch(det)
+
+    m = walk_deterministic(again, (flux_rec, lane_rec))
+    det_commit(flux, flux_rec, m[0])
+    if lane_rec is not None:
+        det_commit(scoring[1], lane_rec, m[1])
 
 
 def walk(
     mesh: TetMesh, x, elem, dest, in_flight, weight, flux, *,
     tally: bool, tol: float, max_iters: int, s_init=None,
     table_dtype: Optional[str] = None, counts=None, skip=None, scoring=None,
+    deterministic=False,
 ) -> WalkResult:
     """Walk every particle from ``x`` (inside ``elem``) toward ``dest``.
 
@@ -514,7 +614,10 @@ def walk(
     added to it. ``skip`` (a 0-d bool tensor on the particles' device):
     when true, nothing is walked and the inputs come back (x, elem, s
     = ``s_init`` or 0, done, not exited). ``scoring``: ``(kinds, bank,
-    bin_off, fac)``, see the module docstring."""
+    bin_off, fac)``, see the module docstring. ``deterministic``: the
+    deterministic commit (module docstring; W0's kDet instantiation and
+    DC on the card), for a tallying walk: True, or the
+    ``det_commit.DetWorkspace`` whose record streams it reuses."""
     if tally and flux is None:
         raise ValueError("a tallying walk needs a flux tensor")
     if counts is not None and not x.is_cuda:
@@ -525,12 +628,13 @@ def walk(
         return _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux,
                           tally=tally, tol=tol, max_iters=max_iters,
                           s_init=s_init, counts=counts, skip=skip,
-                          scoring=scoring)
+                          scoring=scoring, deterministic=deterministic)
     if x.device.type != "cpu":
         raise ValueError(f"walk runs on CUDA or CPU tensors, not {x.device}")
     return walk_plain(mesh, x, elem, dest, in_flight, weight, flux,
                       tally=tally, tol=tol, max_iters=max_iters,
-                      s_init=s_init, skip=skip, scoring=scoring)
+                      s_init=s_init, skip=skip, scoring=scoring,
+                      deterministic=deterministic)
 
 
 def walk_xpoints(mesh: TetMesh, x, elem, dest, in_flight, *, tol: float,

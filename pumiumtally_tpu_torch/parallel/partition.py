@@ -54,6 +54,11 @@ not-done counts (and, for the gather sub-split, the occupied-block
 list) before it decides what to launch, so the engine checks a round's
 overflow on the host and runs the ladder itself.
 
+With ``deterministic=True`` (the facades' ``CheckpointPolicy``) W4's
+tallying rounds commit flux and lanes through the deterministic commit
+(ops/det_commit.py), so a campaign's flux is the same bits from run to
+run on the card; W1's and W2's rounds keep their float atomics.
+
 The sentinel's straggler rung (``retry_stragglers``: the interrupted
 tallying phase resumed at multiplied step and round budgets;
 ``declare_lost_stragglers``; ``caller_order_view`` for the audit) is the
@@ -97,7 +102,14 @@ from pumiumtally_tpu_torch.ops.vmem_walk import (
     effective_vmem_bound,
     vmem_walk_local,
 )
+from pumiumtally_tpu_torch.ops.det_commit import (
+    FIRST_RECORDS_PER_PARTICLE,
+    det_commit,
+    walk_deterministic,
+    workspace,
+)
 from pumiumtally_tpu_torch.ops.walk import (
+    PlainRecords,
     check_scoring,
     count_mask,
     eff_weight,
@@ -361,7 +373,8 @@ def exit_cols_x0(row, s, x0, d0, tol, adj=None):
 
 def walk_local_plain(table, x, lelem, dest, flying, weight, done, exited,
                      flux, *, tally: bool, tol: float, max_iters: int,
-                     adj_int=None, table_hi=None, scoring=None):
+                     adj_int=None, table_hi=None, scoring=None,
+                     deterministic=False):
     """W4's plain PyTorch version: the JAX ``walk_local`` on ONE block
     (its no-cascade form), a masked lock-step loop.
 
@@ -374,15 +387,19 @@ def walk_local_plain(table, x, lelem, dest, flying, weight, done, exited,
     bank are updated IN PLACE. ``iters`` is the most steps any particle
     took (the JAX value may exceed it by up to ``cond_every``). Returns
     ``(x, lelem, done, exited, pending, flux, iters)``, plus the bank
-    when ``scoring = (kinds, bank [L*stride], bin_off, fac)``."""
+    when ``scoring = (kinds, bank [L*stride], bin_off, fac)``.
+    ``deterministic``: flux and lanes committed as the deterministic
+    commit's records (ops/det_commit.py), the same values in the same
+    order as ``index_add_``."""
     return _walk_loop(table, x, lelem, dest, flying, weight, done, exited,
                       flux, tally=tally, tol=tol, max_iters=max_iters,
-                      adj_int=adj_int, table_hi=table_hi, scoring=scoring)
+                      adj_int=adj_int, table_hi=table_hi, scoring=scoring,
+                      deterministic=deterministic)
 
 
 def _walk_loop(table, x, lelem, dest, flying, weight, done, exited, flux, *,
                tally, tol, max_iters, adj_int, table_hi, scoring, base=None,
-               lane_end=None):
+               lane_end=None, deterministic=False):
     """``walk_local_plain``'s loop. ``base`` (int64 [n], None: 0) offsets
     each slot's rows into stacked blocks, so that one lock-step loop
     walks the slots of several blocks (each slot's steps are its own,
@@ -412,6 +429,11 @@ def _walk_loop(table, x, lelem, dest, flying, weight, done, exited, flux, *,
     done = done.clone()
     exited = exited.clone()
     pending = torch.full((n,), -1, dtype=torch.int32, device=x.device)
+    # The deterministic commit's records: keyed (row or lane, step, the
+    # slot's place in this call), W4's kDet order.
+    recs = (PlainRecords(), PlainRecords()) if deterministic and tally \
+        else None
+    pid = torch.arange(n, device=x.device)
     iters = 0
     while iters < max_iters:
         active = ~done & (pending < 0)
@@ -433,7 +455,10 @@ def _walk_loop(table, x, lelem, dest, flying, weight, done, exited, flux, *,
         if tally:
             contrib = torch.where(active, (s_new - s) * eff_w,
                                   torch.zeros_like(s))
-            flux.index_add_(0, rows, contrib)
+            if recs is None:
+                flux.index_add_(0, rows, contrib)
+            else:
+                recs[0].add(rows, iters, pid, contrib)
             if scoring is not None:
                 # A pause at a block face commits its crossing: counted
                 # once across the migration.
@@ -441,7 +466,12 @@ def _walk_loop(table, x, lelem, dest, flying, weight, done, exited, flux, *,
                 sidx, sval = score_pair(kinds, stride, rows, bin_off, fac,
                                         contrib, crossed)
                 keep = sidx < limit
-                bank.index_add_(0, sidx[keep], sval[keep])
+                if recs is None:
+                    bank.index_add_(0, sidx[keep], sval[keep])
+                else:
+                    recs[1].add(sidx, iters,
+                                pid.repeat_interleave(len(kinds)), sval,
+                                keep)
         moving = active & ~reached & ~hit_boundary & ~goes_remote
         lelem = torch.where(moving, nxt, lelem)
         s = torch.where(active, s_new, s)
@@ -449,6 +479,10 @@ def _walk_loop(table, x, lelem, dest, flying, weight, done, exited, flux, *,
         done = done | (active & (reached | hit_boundary))
         exited = exited | (active & hit_boundary)
         iters += 1
+    if recs is not None:
+        recs[0].commit(flux)
+        if scoring is not None:
+            recs[1].commit(bank)
     # A particle that reached its destination commits dest bit-exactly;
     # everyone else commits x0 + s*d0 from the round's start x0.
     x_fin = torch.where((done & ~exited)[:, None], dest,
@@ -533,7 +567,7 @@ def work_list(done: torch.Tensor, walked: Optional[torch.Tensor] = None):
 
 def _walk_list_cuda(table, x, lelem, dest, flying, weight, done, exited,
                     flux, work, *, tally, tol, max_iters, adj_int,
-                    table_hi, scoring, blocks, counts):
+                    table_hi, scoring, blocks, counts, deterministic=False):
     dev, dt = x.device, x.dtype
     n = x.shape[0]
     L, cb = _block_layout(table, table_hi, adj_int, n, blocks)
@@ -586,22 +620,61 @@ def _walk_list_cuda(table, x, lelem, dest, flying, weight, done, exited,
     cap = n if ids is None else ids.numel()
     if cap and cb:
         p = kernels.ptr
-        kernels.launch(
-            entry, dt, dev, *score_args, *(p(t) for _, t, _, _ in tables),
-            p(x), p(lelem), p(dest), p(flying), p(weight), p(done),
-            p(exited), p(flux if tally else None), p(pending), p(iters),
-            p(counts), p(ids), p(n_work), cap, L, cb, float(tol),
-            int(max_iters), int(bool(tally)),
-        )
+
+        def launch(det=None):
+            kernels.launch(
+                entry, dt, dev, *score_args,
+                *(p(t) for _, t, _, _ in tables),
+                p(x), p(lelem), p(dest), p(flying), p(weight), p(done),
+                p(exited), p(flux if tally else None), p(pending), p(iters),
+                p(counts), p(ids), p(n_work), cap, L, cb, float(tol),
+                int(max_iters), int(bool(tally)), det,
+            )
+
+        if deterministic and tally:
+            _walk_list_cuda_det(launch, cap, dt, dev, flux, scoring,
+                                (x, lelem, done, exited, pending, iters,
+                                 counts), workspace(deterministic))
+        else:
+            launch()
     res = (x, lelem, done, exited, pending, flux, iters)
     return res + (scoring[1],) if scoring is not None else res
+
+
+def _walk_list_cuda_det(launch, cap: int, dt, dev, flux, scoring,
+                        written, ws) -> None:
+    """W4's kDet instantiation, then DC over its records (the streams of
+    the workspace ``ws``). W4 writes the slot rows in place, so they (and
+    pending, iters, counts) are copied first: a record stream that ran
+    out of room is grown, the rows put back, and the walk made again."""
+    if flux.numel() >= 2**31 or (
+            scoring is not None and scoring[1].numel() >= 2**31):
+        raise ValueError("walk_local: the deterministic commit keys a "
+                         "bank of fewer than 2**31 entries")
+    flux_rec = ws.records(dev, dt, "flux", FIRST_RECORDS_PER_PARTICLE * cap)
+    lane_rec = None
+    if scoring is not None:
+        lane_rec = ws.records(dev, dt, "lanes", FIRST_RECORDS_PER_PARTICLE
+                              * cap * len(scoring[0]))
+    saved = [None if t is None else t.clone() for t in written]
+
+    def restore():
+        for t, t0 in zip(written, saved):
+            if t is not None:
+                t.copy_(t0)
+
+    m = walk_deterministic(launch, (flux_rec, lane_rec), restore)
+    det_commit(flux, flux_rec, m[0])
+    if lane_rec is not None:
+        det_commit(scoring[1], lane_rec, m[1])
 
 
 def walk_local_list(table, x, lelem, dest, flying, weight, done, exited,
                     flux, work=None, *, tally: bool, tol: float,
                     max_iters: int, adj_int=None, table_hi=None,
                     scoring=None, blocks: int = 1,
-                    counts: Optional[torch.Tensor] = None):
+                    counts: Optional[torch.Tensor] = None,
+                    deterministic=False):
     """The gather block walk, IN PLACE, over a work list: ``x``,
     ``lelem``, ``done`` and ``exited`` of the slots it walks are written
     into those tensors, and a slot it does not walk is not written.
@@ -619,7 +692,11 @@ def walk_local_list(table, x, lelem, dest, flying, weight, done, exited,
     list; a later round takes the frontier migrate's arrivals' list, or
     ``work_list`` after a full migrate. CUDA tensors launch kernel W4
     (csrc/gather_block_walk.cu); CPU tensors run
-    ``walk_local_list_plain``."""
+    ``walk_local_list_plain``. ``deterministic``: the deterministic
+    commit (ops/det_commit.py: W4's kDet instantiation and DC), for a
+    tallying walk: True, or the ``DetWorkspace`` whose record streams it
+    reuses; its records are ordered by step, then by the slot's place in
+    the list (its slot without one)."""
     blocks = int(blocks)
     if tally and flux is None:
         raise ValueError("a tallying walk needs a flux tensor")
@@ -632,14 +709,15 @@ def walk_local_list(table, x, lelem, dest, flying, weight, done, exited,
     return fn(table, x, lelem, dest, flying, weight, done, exited, flux,
               work, tally=tally, tol=tol, max_iters=max_iters,
               adj_int=adj_int, table_hi=table_hi, scoring=scoring,
-              blocks=blocks, counts=counts)
+              blocks=blocks, counts=counts, deterministic=deterministic)
 
 
 def walk_local_list_plain(table, x, lelem, dest, flying, weight, done,
                           exited, flux, work=None, *, tally: bool,
                           tol: float, max_iters: int, adj_int=None,
                           table_hi=None, scoring=None, blocks: int = 1,
-                          counts: Optional[torch.Tensor] = None):
+                          counts: Optional[torch.Tensor] = None,
+                          deterministic=False):
     """``walk_local_list`` in plain PyTorch: the walked slots walk as
     ``walk_local_blocks_plain`` walks a block's slots (one lock-step
     loop, rows offset to their blocks, scoring lanes dropped at their
@@ -661,7 +739,7 @@ def walk_local_list_plain(table, x, lelem, dest, flying, weight, done,
                    weight[sel], done[sel], exited[sel], flux, tally=tally,
                    tol=tol, max_iters=max_iters, adj_int=adj_int,
                    table_hi=table_hi, scoring=sc, base=slot_block * L,
-                   lane_end=lane_end)
+                   lane_end=lane_end, deterministic=deterministic)
     pending = torch.full((n,), -1, dtype=torch.int32, device=x.device)
     for t, v in zip((x, lelem, done, exited, pending), r):
         t[sel] = v
@@ -696,7 +774,8 @@ def _walk_local_cuda(table, x, lelem, dest, flying, weight, done, exited,
 def walk_local(table, x, lelem, dest, flying, weight, done, exited, flux,
                *, tally: bool, tol: float, max_iters: int, adj_int=None,
                table_hi=None, scoring=None, blocks: int = 1,
-               block_ids: Optional[torch.Tensor] = None):
+               block_ids: Optional[torch.Tensor] = None,
+               deterministic=False):
     """The gather block walk over ``blocks`` stacked blocks: returns
     ``(x, lelem, done, exited, pending, flux, iters)``, plus the bank
     when scoring (the JAX ``walk_local``'s tuple).
@@ -717,7 +796,8 @@ def walk_local(table, x, lelem, dest, flying, weight, done, exited, flux,
     as ``gather_block_walk``, ``gather_block_walk_twotier`` and their
     ``_scored`` instantiations) once, over the work list of the listed
     blocks' not-done slots (``work_list``), into new tensors; CPU
-    tensors run ``walk_local_plain`` block by block."""
+    tensors run ``walk_local_plain`` block by block.
+    ``deterministic``: the deterministic commit (``walk_local_list``)."""
     blocks = int(blocks)
     if tally and flux is None:
         raise ValueError("a tallying walk needs a flux tensor")
@@ -726,7 +806,7 @@ def walk_local(table, x, lelem, dest, flying, weight, done, exited, flux,
             table, x, lelem, dest, flying, weight, done, exited, flux,
             tally=tally, tol=tol, max_iters=max_iters, adj_int=adj_int,
             table_hi=table_hi, scoring=scoring, blocks=blocks,
-            block_ids=block_ids)
+            block_ids=block_ids, deterministic=deterministic)
     if x.device.type != "cpu":
         raise ValueError(
             f"walk_local runs on CUDA or CPU tensors, not {x.device}")
@@ -734,19 +814,21 @@ def walk_local(table, x, lelem, dest, flying, weight, done, exited, flux,
         return walk_local_plain(table, x, lelem, dest, flying, weight, done,
                                 exited, flux, tally=tally, tol=tol,
                                 max_iters=max_iters, adj_int=adj_int,
-                                table_hi=table_hi, scoring=scoring)
+                                table_hi=table_hi, scoring=scoring,
+                                deterministic=deterministic)
     return walk_local_blocks_plain(
         table, x, lelem, dest, flying, weight, done, exited, flux,
         tally=tally, tol=tol, max_iters=max_iters, adj_int=adj_int,
         table_hi=table_hi, scoring=scoring, blocks=blocks,
-        block_ids=block_ids)
+        block_ids=block_ids, deterministic=deterministic)
 
 
 def walk_local_blocks_plain(table, x, lelem, dest, flying, weight, done,
                             exited, flux, *, tally: bool, tol: float,
                             max_iters: int, adj_int=None, table_hi=None,
                             scoring=None, blocks: int = 1,
-                            block_ids: Optional[torch.Tensor] = None):
+                            block_ids: Optional[torch.Tensor] = None,
+                            deterministic=False):
     """``walk_local``'s stacked-block contract in plain PyTorch: the
     slots of the listed blocks walk as ``walk_local_plain`` walks each
     block's slice (in one lock-step loop, rows offset to their block,
@@ -772,7 +854,7 @@ def walk_local_blocks_plain(table, x, lelem, dest, flying, weight, done,
                    weight[sel], done[sel], exited[sel], flux, tally=tally,
                    tol=tol, max_iters=max_iters, adj_int=adj_int,
                    table_hi=table_hi, scoring=sc, base=slot_block[sel] * L,
-                   lane_end=lane_end)
+                   lane_end=lane_end, deterministic=deterministic)
     res = [x.clone(), lelem.to(torch.int32).clone(), done.clone(),
            exited.clone(),
            torch.full((n,), -1, dtype=torch.int32, device=x.device)]
@@ -1132,6 +1214,7 @@ class PartitionedEngine:
         part: Optional[MeshPartition] = None,
         scoring=None,
         cap_frontier: Optional[int] = None,
+        deterministic=None,
     ):
         """``block_kernel`` and ``vmem_walk_max_elems`` as in
         ``engine_block_bound``. ``part``: a prebuilt partition (shared
@@ -1140,7 +1223,10 @@ class PartitionedEngine:
         (``engine_partition``). ``scoring``: a ``ScoringSpec`` (module
         docstring). ``cap_frontier``: the frontier slab's rows (clamped
         to the capacity; None: the full migrate every round, 0: the
-        fallback every round)."""
+        fallback every round). ``deterministic``: a ``DetWorkspace`` (the
+        facades' with a ``CheckpointPolicy``) or True: W4's tallying
+        rounds commit through the deterministic commit
+        (ops/det_commit.py); W1 and W2 keep their atomic commit."""
         if part is not None:
             table_dtype = ("bfloat16" if part.table_hi is not None
                            else "float32")
@@ -1183,6 +1269,8 @@ class PartitionedEngine:
                 "one part per device"
             )
         self.scoring = scoring
+        self.deterministic = (None if not deterministic
+                              else workspace(deterministic))
         self.score_stride = (0 if scoring is None
                              else scoring.n_bins * scoring.n_scores)
         self.check_found_all = check_found_all
@@ -1425,7 +1513,8 @@ class PartitionedEngine:
             # The not-done slots lie in exactly those blocks.
             res = walk_local_list(self.part.table, *args, work,
                                   adj_int=self.part.adj_int,
-                                  table_hi=self.part.table_hi, **kw)
+                                  table_hi=self.part.table_hi,
+                                  deterministic=self.deterministic, **kw)
             if ids is None:
                 disp = 1
                 n_act = _occupancy_counts(res[2], 1)

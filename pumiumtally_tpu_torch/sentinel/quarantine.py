@@ -22,6 +22,8 @@ import json
 import os
 from typing import List, Optional
 
+from pumiumtally_tpu_torch.utils.checkpoint import atomic_append
+
 QUARANTINE_FILENAME = "quarantine.jsonl"
 
 
@@ -48,46 +50,6 @@ def build_records(idx, origins, dests, elems, weights, move: int, *,
         }
         for i in range(len(idx))
     ]
-
-
-def _fsync_dir(d: str) -> None:
-    try:
-        fd = os.open(d, os.O_RDONLY)
-    except OSError:
-        return
-    try:
-        os.fsync(fd)
-    except OSError:
-        pass
-    finally:
-        os.close(fd)
-
-
-def atomic_append(path: str, payload: bytes) -> None:
-    """Append ``payload`` to ``path`` atomically: the old content and
-    the payload go to a temporary file in the same directory, which is
-    flushed, fsynced and renamed over ``path``; then the directory is
-    fsynced. O(file) an append: quarantine events are rare."""
-    try:
-        with open(path, "rb") as f:
-            existing = f.read()
-    except FileNotFoundError:
-        existing = b""
-    tmp = f"{path}.tmp-{os.getpid()}"
-    try:
-        with open(tmp, "wb") as f:
-            f.write(existing)
-            f.write(payload)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
-    _fsync_dir(os.path.dirname(path) or ".")
 
 
 def append_quarantine(directory: Optional[str], records: List[dict]) -> None:

@@ -42,7 +42,8 @@ def padded_size(k: int, floor: int = 8) -> int:
 
 def _retry_step(mesh, x, elem, dest, fly, w, flux, k: int, s_init=None,
                 scoring=None, *, tol: float, max_iters: int,
-                table_dtype: Optional[str] = None):
+                table_dtype: Optional[str] = None,
+                deterministic=False):
     """One rung: a tallied walk of a compacted batch whose first ``k``
     rows are real (the pad rows are made to hold). Returns
     ``(x, elem, done, s)``; flux and the bank are updated in place."""
@@ -51,15 +52,16 @@ def _retry_step(mesh, x, elem, dest, fly, w, flux, k: int, s_init=None,
     dest_v = torch.where((fly_v == 1)[:, None], dest, x)
     r = walk(mesh, x, elem, dest_v, fly_v, w, flux, tally=True, tol=tol,
              max_iters=max_iters, s_init=s_init, table_dtype=table_dtype,
-             scoring=scoring)
+             scoring=scoring, deterministic=deterministic)
     return r.x, r.elem, r.done, r.s
 
 
 def run_ladder(mesh, x, elem, dests, fly, w, flux, unfinished: np.ndarray,
                *, tol: float, base_iters: int, retry_factor: int,
                two_tier: bool = False, x_start=None, s_init=None,
-               scoring=None) -> Tuple[torch.Tensor, torch.Tensor,
-                                      np.ndarray, np.ndarray]:
+               scoring=None, deterministic=False
+               ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray,
+                          np.ndarray]:
     """The ladder over the host mask ``unfinished`` (call it only when
     the mask has a set entry). The tensors are the facade's committed
     caller-order state. With ``x_start`` / ``s_init`` (the phase's start
@@ -67,7 +69,10 @@ def run_ladder(mesh, x, elem, dests, fly, w, flux, unfinished: np.ndarray,
     the original parametrisation; without them (the non-tallying
     localization ladder) they restart from the committed positions.
     ``scoring``: ``(kinds, bank, bin_off, fac)`` of the interrupted
-    move. Flux (and the bank) are updated in place. Returns ``(x, elem,
+    move; ``deterministic``: the rungs' walks commit through the
+    deterministic commit (the facade's workspace, with a
+    ``CheckpointPolicy``). Flux (and
+    the bank) are updated in place. Returns ``(x, elem,
     recovered_idx, lost_idx)``: new tensors with the straggler rows
     replaced, and the index sets as host arrays."""
     idx = np.flatnonzero(unfinished)
@@ -95,7 +100,8 @@ def run_ladder(mesh, x, elem, dests, fly, w, flux, unfinished: np.ndarray,
     for table_dtype in rungs:
         xr, er, done_r, sr = _retry_step(
             mesh, xs, es, ds, fs, ws, flux, k, ss, sc, tol=tol,
-            max_iters=retry_iters, table_dtype=table_dtype)
+            max_iters=retry_iters, table_dtype=table_dtype,
+            deterministic=deterministic)
         if done_acc is None:
             x_out, e_out, done_acc = xr, er, done_r
         else:

@@ -67,9 +67,21 @@ class BatchAccumulator:
         self.open_flux = flux.clone() if reopen else None
         self.moves_in_batch = 0
 
+    def reset(self, open_flux: Optional[torch.Tensor]) -> None:
+        """Zero the lanes and counters and open a batch at ``open_flux``
+        (the restored flux), so that a resumed run's next close measures
+        the right delta: the restore of a checkpoint without
+        statistics."""
+        self.flux_sum = self._zeros()
+        self.flux_sq_sum = self._zeros()
+        self.num_batches = 0
+        self.moves_in_batch = 0
+        self.open_flux = open_flux
+
     def restore(self, flux_sum, flux_sq_sum, num_batches: int,
                 moves_in_batch: int, open_flux) -> None:
-        """Exact state restore (``convert.load_facade_state``)."""
+        """Exact state restore (a checkpoint's lanes, or
+        ``convert.load_facade_state``)."""
         def t(a):
             return torch.as_tensor(a).to(device=self.device,
                                          dtype=self.dtype).clone()

@@ -1,1 +1,1 @@
-"""Logging."""
+"""Logging, and checkpoint/resume of tally state (checkpoint.py)."""

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from pumiumtally_tpu_torch import (
+    CheckpointPolicy,
     EnergyFilter,
     PartitionedPumiTally,
     PumiTally,
@@ -87,7 +88,10 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                 "stats/triggers.py", "sentinel/__init__.py",
                 "sentinel/policy.py", "sentinel/audit.py",
                 "sentinel/quarantine.py", "sentinel/runner.py",
-                "sentinel/straggler.py"):
+                "sentinel/straggler.py", "resilience/__init__.py",
+                "resilience/faults.py", "resilience/generations.py",
+                "resilience/policy.py", "utils/checkpoint.py",
+                "ops/det_commit.py"):
         assert PORT / rel in files, rel
     for f in files:
         roots = set(_imported_roots(f))
@@ -110,7 +114,7 @@ def test_facade_without_device_raises_when_no_gpu():
                                   config=TallyConfig(walk_vmem_max_elems=2))
 
 
-def test_cpu_runs_plain_versions_and_counts_no_launch():
+def test_cpu_runs_plain_versions_and_counts_no_launch(tmp_path):
     kernels.reset_launch_counts()
     mesh = build_box(1, 1, 1, 3, 3, 3, dtype=torch.float64)
     pts = np.random.default_rng(2).uniform(0.05, 0.95, (50, 3))
@@ -148,7 +152,16 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
                   max_iters=2, sentinel=SentinelPolicy(), **bf16),
                   device="cpu"),
               PartitionedPumiTally(mesh, 50, TallyConfig(
-                  max_iters=2, sentinel=SentinelPolicy()), device="cpu")):
+                  max_iters=2, sentinel=SentinelPolicy()), device="cpu"),
+              # A CheckpointPolicy: the deterministic commit's plain
+              # version (W0's and W4's records, det_commit_plain).
+              PumiTally(mesh, 50, TallyConfig(checkpoint=CheckpointPolicy(
+                  dir=str(tmp_path / "m"), handle_signals=False)),
+                  device="cpu"),
+              PartitionedPumiTally(mesh, 50, TallyConfig(
+                  checkpoint=CheckpointPolicy(dir=str(tmp_path / "p"),
+                                              handle_signals=False)),
+                  device="cpu")):
         t.CopyInitialPosition(pts.reshape(-1).copy())
         t.MoveToNextLocation(None, (1.0 - pts).reshape(-1).copy())
         np.testing.assert_allclose(
@@ -193,7 +206,8 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
                                      "gather_block_walk_twotier": 0,
                                      "gather_block_walk_scored": 0,
                                      "gather_block_walk_twotier_scored": 0,
-                                     "gather_work_list": 0}
+                                     "gather_work_list": 0,
+                                     "det_commit": 0}
 
 
 def test_cuda_argument_checks():

@@ -1,8 +1,8 @@
 """PyTorch port, the runtime sentinels: the counterparts of
-tests/test_sentinel.py (except its resilience cases: the subprocess
-safety save and the checkpoint restore, which the port does not have
-yet), on the port's four facades, their kernels' plain versions on the
-CPU, float64.
+tests/test_sentinel.py (its resilience cases too: the exhausted
+overflow ladder's safety save in a subprocess, and a checkpoint
+restored after a capacity escalation), on the port's four facades,
+their kernels' plain versions on the CPU, float64.
 
 Tolerances: recovered runs against unconstrained runs of the same facade
 bitwise in positions and element ids; flux bitwise on ``PumiTally`` and
@@ -453,3 +453,110 @@ def test_ladder_per_element_matches_jax(kind, monkeypatch):
                                   np.asarray(jax_t.positions))
     np.testing.assert_allclose(port.flux.numpy(), np.asarray(jax_t.flux),
                                rtol=1e-10, atol=1e-15)
+
+
+# ---------------------------------------------------------------------------
+# The overflow ladder and the resilience layer
+# ---------------------------------------------------------------------------
+
+_POISON_ARM = r"""
+import json, sys
+import numpy as np
+from pumiumtally_tpu_torch import (CheckpointPolicy, PartitionedPumiTally,
+                                   SentinelPolicy, TallyConfig, build_box,
+                                   EnginePoisonedError)
+from pumiumtally_tpu_torch.resilience import GenerationStore
+import torch
+workdir = sys.argv[1]
+mesh = build_box(1.0, 1.0, 1.0, 4, 4, 4, dtype=torch.float64)
+n = 40
+rng = np.random.default_rng(7)
+src = rng.uniform(0.1, 0.9, (n, 3))
+corner = rng.uniform(0.02, 0.10, (n, 3))
+t = PartitionedPumiTally(mesh, n, TallyConfig(
+    check_found_all=False, capacity_factor=1.05, walk_vmem_max_elems=100,
+    walk_block_kernel="gather", sentinel=SentinelPolicy(),
+    checkpoint=CheckpointPolicy(dir=workdir, handle_signals=False)),
+    device="cpu")
+# The ladder's escalation rungs disabled: the overflow has no cure.
+t.engine._escalate_capacity = lambda *a, **k: None
+try:
+    t.CopyInitialPosition(src.reshape(-1).copy())
+    t.MoveToNextLocation(None, corner.reshape(-1).copy())
+    raise SystemExit("expected the ladder to exhaust")
+except RuntimeError as e:
+    ladder_msg = str(e)
+try:
+    t.MoveToNextLocation(None, corner.reshape(-1).copy())
+    raise SystemExit("expected the poisoned refusal")
+except EnginePoisonedError as e:
+    refusal_msg = str(e)
+store = GenerationStore(workdir)
+gens = store.generations()
+print(json.dumps({
+    "poisoned": t.engine.poisoned,
+    "ladder_msg_has_poisoned": "poisoned" in ladder_msg,
+    "refusal_msg_has_resume": "resume from checkpoint" in refusal_msg,
+    "generations": len(gens),
+    "save_reasons": [store.read_generation(p)[2].get("reason")
+                     for _, p in gens],
+}))
+"""
+
+
+def test_overflow_poison_and_safety_save_subprocess(tmp_path):
+    """The exhausted ladder (escalation disabled), across a process
+    boundary: one ``overflow_safety`` generation written through the
+    armed ``CheckpointPolicy``, the engine latched poisoned, and the next
+    call refused with the resume-from-checkpoint error."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _POISON_ARM, str(tmp_path)],
+        capture_output=True, text=True, timeout=300, cwd=root,
+        env={**os.environ, "PYTHONPATH": root, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    rec = json.loads([ln for ln in proc.stdout.splitlines()
+                      if ln.startswith("{")][-1])
+    assert rec["poisoned"] is True
+    assert rec["ladder_msg_has_poisoned"] is True
+    assert rec["refusal_msg_has_resume"] is True
+    assert rec["generations"] >= 1
+    assert "overflow_safety" in rec["save_reasons"]
+
+
+def test_checkpoint_restore_after_capacity_escalation(tmp_path):
+    """A checkpoint saved after the overflow ladder escalated capacity
+    holds a distribution a freshly built engine cannot place: the
+    restore escalates and retries as the live ladder does, restores the
+    state exactly, and the restored engine keeps transporting."""
+    from pumiumtally_tpu_torch.utils.checkpoint import (
+        load_tally_state,
+        save_tally_state,
+    )
+
+    mesh = convert.tetmesh_from_arrays(convert.mesh_arrays(
+        jax_build_box(1.0, 1.0, 1.0, 4, 4, 4)))
+    n = 40
+    rng = np.random.default_rng(9)
+    src = rng.uniform(0.1, 0.9, (n, 3))
+    corner = rng.uniform(0.02, 0.10, (n, 3))
+    cfg = TallyConfig(check_found_all=False, capacity_factor=1.05,
+                      walk_vmem_max_elems=100, walk_block_kernel="gather",
+                      sentinel=SentinelPolicy())
+    t = PartitionedPumiTally(mesh, n, cfg, device="cpu")
+    _drive(t, src, [corner])
+    assert t.engine.capacity_escalations >= 1  # the premise
+    path = str(tmp_path / "escalated.npz")
+    save_tally_state(t, path)
+    t2 = PartitionedPumiTally(mesh, n, cfg, device="cpu")
+    load_tally_state(t2, path)
+    assert t2.engine.capacity_escalations >= 1
+    np.testing.assert_array_equal(t2.positions, t.positions)
+    np.testing.assert_array_equal(t2.elem_ids, t.elem_ids)
+    np.testing.assert_allclose(t2.flux.numpy(), t.flux.numpy(), rtol=1e-12,
+                               atol=1e-15)
+    t2.MoveToNextLocation(None, src.reshape(-1).copy())
+    assert not t2.engine.poisoned
