@@ -10,6 +10,8 @@
     python3 chip_smoke.py --unpacked-sentinel  # this layout's phases alone
     python3 chip_smoke.py --resilience    # phase 14 alone, with its checks
     python3 chip_smoke.py --det-times     # DC's time by kernel, no checks
+    python3 chip_smoke.py --service       # W0's segmented commit and the
+                                          # service phase, with checks
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -265,11 +267,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    move's wall ms with the policy against the same campaign without
    one; ``walk`` / ``gather_block_walk`` and ``det_commit`` launched.
    The W0 registers check of 6b also holds the deterministic
-   instantiations to no float reduction at all.
-15. One JSON line with each kernel's launches, times, bound and error
+   instantiations to no float reduction at all. The block walks' kDet
+   instantiations (W1, W2, W2 with scoring lanes) on round 1 of the
+   sub-split's first move, float32 at 500,000 and float64 at 100,000:
+   bitwise against their plain versions on the card, across two launches
+   and after their record streams regrew, timed against the atomic form
+   in turns; and their facades' campaigns (two runs, a mid-batch resume:
+   bitwise).
+15. The service. W0's segmented commit (``walk(tally_seg=)``): 8
+   sessions of 62,500 particles and a walking padding row at 8*E, on
+   the packed and two-tier tables and with scoring: the atomic form's
+   positions bitwise its plain version and flux at rtol 1e-4, the kDet
+   form bitwise, each segment conserving its own sessions' track. Then
+   ``TallyService`` over 10 sessions of 100,000 particles on the box
+   (6 ``PumiTally``, 1 with scoring and a sentinel, 2 ``StreamingTally``
+   in chunks of 50,000, 1 default ``PartitionedPumiTally``), 3 batches
+   of 2 moves: every session bitwise its solo replay and the
+   ``fuse_sessions=False`` run, the fused groups 6 and 2 wide, no
+   fallback; served moves/s fused and not, dispatches a move, the
+   fused launch's ms and DC's share. Then a ``SocketFrontend`` on
+   127.0.0.1 under ``tools/loadgen.py`` (32 clients of 10,000
+   particles): every client served, two clients' fluxes bitwise their
+   solo replays.
+16. One JSON line with each kernel's launches, times, bound and error
    (W0, W2 and W4's instantiations as entries of their own, DC on the
-   packed float32 W0 cell's flux records), then the card's name and
-   power limit, then the result line.
+   packed float32 W0 cell's flux records, the block walks' kDet forms,
+   W0's segmented commit), then the card's name and power limit, then
+   the result line.
 
 Kernel comparisons: element ids, done/exited/pending masks and ``iters``
 must be equal; positions and ray coordinates are expected bitwise equal
@@ -335,6 +359,9 @@ registers, 5b on the box, 10b'' and 12b, with their checks.
 ``--resilience`` runs phases 1-2, the instantiations' registers and
 phase 14, with their checks (``--resilience-campaign`` is its drain
 arm's subprocess).
+
+``--service`` runs phases 1-2 and phase 15 (W0's segmented-commit cells
+and the service), with their checks.
 
 ``--det-times`` runs phases 1-2, then DC's device time by kernel
 (torch.profiler, four passes) on the box's W0 move, float32, for the
@@ -2450,10 +2477,10 @@ def score_attrs(seed: int, n: int, out: float = SCORE_OUT) -> tuple:
 
 
 def instance_registers(lib: str) -> dict:
-    """(dtype, variant, scoring, deterministic) -> registers of each
-    instantiation of the library's walk kernel, from ptxas's report:
+    """(dtype, variant, scoring, deterministic, segmented) -> registers of
+    each instantiation of the library's walk kernel, from ptxas's report:
     variant "packed", "two-tier" or "unpacked" for W0, "" for W2 (which
-    has no deterministic instantiation)."""
+    has no segmented instantiation)."""
     from pumiumtally_tpu_torch import kernels
 
     out, key = {}, None
@@ -2467,19 +2494,20 @@ def instance_registers(lib: str) -> dict:
 
 
 def instance_key(lib: str, text: str):
-    """(dtype, variant, scoring, deterministic) of the walk kernel
-    instantiation a mangled name in ``text`` names
+    """(dtype, variant, scoring, deterministic, segmented) of the walk
+    kernel instantiation a mangled name in ``text`` names
     (``instance_registers``' keys), or None."""
-    pat = (r"_Z\d+walk_kernelI(\w)Li(\d)ELb(\d)ELb(\d)E" if lib == "walk"
-           else r"_Z\d+twotier_block_walk_kernelI(\w)Lb(\d)E")
+    pat = (r"_Z\d+walk_kernelI(\w)Li(\d)ELb(\d)ELb(\d)ELb(\d)E"
+           if lib == "walk"
+           else r"_Z\d+twotier_block_walk_kernelI(\w)Lb(\d)ELb(\d)E")
     m = re.search(pat, text)
     if not m:
         return None
     dtype = {"f": "float", "d": "double"}[m[1]]
     if lib == "walk":
         return (dtype, WALK_LAYOUTS[int(m[2])], bool(int(m[3])),
-                bool(int(m[4])))
-    return dtype, "", bool(int(m[2])), False
+                bool(int(m[4])), bool(int(m[5])))
+    return dtype, "", bool(int(m[2])), bool(int(m[3])), False
 
 
 def float_reductions(ops: dict) -> tuple:
@@ -2497,11 +2525,12 @@ def float_reductions(ops: dict) -> tuple:
 
 def phase_scoring_registers() -> None:
     """Registers of every instantiation, scoring off and on, atomic and
-    deterministic commit (W0's kDet), beside its vector and scalar
-    global float reductions in SASS (``cuobjdump``, required); the
-    atomic scoring-off ones must equal REGS_BEFORE_SCORING, the float32
-    atomic scoring instantiations must issue vector reductions (the
-    scoring commit's cover) and no other instantiation any, and the
+    deterministic commit (W0's and W2's kDet), W0 with and without the
+    segmented commit (kSeg), beside its vector and scalar global float
+    reductions in SASS (``cuobjdump``, required); the atomic,
+    unsegmented scoring-off ones must equal REGS_BEFORE_SCORING, the
+    float32 atomic scoring instantiations must issue vector reductions
+    (the scoring commit's cover) and no other instantiation any, and the
     deterministic ones no float reduction at all (their commit is
     det_commit.cu's)."""
     for lib in ("walk", "twotier_block_walk"):
@@ -2511,11 +2540,13 @@ def phase_scoring_registers() -> None:
         if set(sass) != set(regs):
             raise AssertionError(f"{lib}: SASS of {sorted(sass, key=str)}, "
                                  f"ptxas reported {sorted(regs)}")
-        for (dtype, variant, score, det), r in sorted(regs.items()):
-            vec, sca = float_reductions(sass[(dtype, variant, score, det)])
+        for key, r in sorted(regs.items()):
+            dtype, variant, score, det, seg = key
+            vec, sca = float_reductions(sass[key])
             print(f"# registers {lib}<{dtype}> {variant or ''} scoring "
                   f"{'on' if score else 'off'}"
-                  f"{', deterministic commit' if det else ''}: {r}; global "
+                  f"{', deterministic commit' if det else ''}"
+                  f"{', segmented commit' if seg else ''}: {r}; global "
                   f"float reductions in SASS: {vec} vector, {sca} scalar")
             if det:
                 if vec or sca:
@@ -2525,7 +2556,7 @@ def phase_scoring_registers() -> None:
                 continue
             # The unpacked instantiations came after scoring: no record.
             want = REGS_BEFORE_SCORING.get((lib, dtype, variant), r)
-            if not score and r != want:
+            if not score and not seg and r != want:
                 raise AssertionError(
                     f"{lib}<{dtype}> {variant}: the scoring-off "
                     f"instantiation uses {r} registers, {want} before "
@@ -2534,7 +2565,7 @@ def phase_scoring_registers() -> None:
                 raise AssertionError(
                     f"{lib}<{dtype}> {variant} scoring "
                     f"{'on' if score else 'off'}: {vec} vector reductions")
-        if len(regs) != (24 if lib == "walk" else 4):
+        if len(regs) != (48 if lib == "walk" else 8):
             raise AssertionError(f"{lib}: ptxas reported {sorted(regs)}")
 
 
@@ -4044,6 +4075,717 @@ def phase_det_kernels(mesh, pts) -> dict:
     return entry
 
 
+# The block walks' deterministic cells (phase 14): (label, kind, scoring),
+# each on the box's sub-split (blocks of <= VMEM_BOUND elements), float32
+# at N particles and float64 at W0_F64_N.
+DET_BLOCK_CELLS = (("W1", "W1", False), ("W2", "W2", False),
+                   ("W2 scoring", "W2", True))
+DET_BLOCK_ENTRIES = {  # cell -> (kernel line name, source, replaces)
+    "W1": ("W1 block_walk, deterministic commit (kDet)", "block_walk.cu",
+           "pumiumtally_tpu/ops/vmem_walk.py:250"),
+    "W2": ("W2 twotier_block_walk, deterministic commit (kDet)",
+           "twotier_block_walk.cu", "pumiumtally_tpu/ops/pallas_walk.py:175"),
+    "W2 scoring": ("W2 twotier_block_walk_scored, deterministic commit "
+                   "(kDet)", "twotier_block_walk.cu",
+                   "pumiumtally_tpu/ops/pallas_walk.py:475"),
+}
+# W0's segmented commit (the service's fused launch): SEG_K sessions of
+# N / SEG_K particles in one slab and one padding row at SEG_K * E that
+# walks and must tally nowhere; (label, layout, scoring).
+SEG_K = 8
+SEG_CELLS = (("packed", "packed", False), ("two-tier", "two-tier", False),
+             ("scoring", "packed", True))
+
+
+def block_round1(mesh, pts, kind: str, n: int, spec=None) -> tuple:
+    """The first move's tallied round 1 on the box's sub-split as a
+    ``PartitionedPumiTally`` builds it (W1 on the packed table; W2 on the
+    two-tier tables, ``walk_kernel="pallas"``): (engine, tables, the
+    kernel's keywords, the slot state, with ``sbin``/``sfac`` rows from
+    ``score_lanes`` when ``spec``)."""
+    import torch
+
+    from pumiumtally_tpu_torch import PartitionedPumiTally, TallyConfig
+
+    w2 = kind == "W2"
+    t = PartitionedPumiTally(
+        mesh, n, TallyConfig(capacity_factor=CAPACITY_FACTOR,
+                             walk_vmem_max_elems=VMEM_BOUND, scoring=spec,
+                             check_found_all=False,
+                             **(dict(walk_kernel="pallas", **BF16) if w2
+                                else {})))
+    t.CopyInitialPosition(flat(pts[0][:n]))
+    eng = t.engine
+    st = dict(eng.state)
+    st["fly"] = st["alive"].to(torch.int8)
+    st["w"] = st["fly"].to(t.dtype)
+    st["done"] = ~st["alive"]
+    st["exited"] = torch.zeros_like(st["done"])
+    st["dest"] = eng._by_pid(torch.as_tensor(pts[1][:n], dtype=t.dtype,
+                                             device=t.device), 0.0)
+    if spec is not None:
+        sbin_n, sfac_n, _ = score_lanes(t._scoring, n, 6)
+        st["sbin"] = eng._by_pid(sbin_n, 0)
+        st["sfac"] = eng._by_pid(sfac_n, 0.0)
+    tables = ((eng.part.table, eng.part.table_hi) if w2
+              else (eng.part.table,))
+    kw = dict(tally=True, tol=eng.tol, max_iters=eng.max_iters,
+              blocks=eng.nparts)
+    return eng, tables, kw, st
+
+
+def det_block_cell(mesh, label: str, kind: str, scored: bool, pts,
+                   n: int) -> dict:
+    """W1's or W2's deterministic instantiation on round 1 of the first
+    move against its plain version: two launches bitwise (flux, lanes),
+    bitwise the plain version with ``deterministic=True`` on the card
+    (every output), a walk whose record streams are far too small (grown
+    and made again) bitwise, flux conserved at rtol 1e-6. In float32:
+    the walk with the deterministic commit against the atomic one in
+    turns (CUDA events, DET_PASSES passes), the plain version's ms and
+    the bound (the round's bytes, the records written once, the
+    crossings' operations). Returns the kernel line's entry (float32)."""
+    import torch
+
+    from pumiumtally_tpu_torch.experiments.block_rounds import round_bytes
+    from pumiumtally_tpu_torch.ops.det_commit import DetWorkspace
+    from pumiumtally_tpu_torch.ops.pallas_walk import (
+        pallas_walk_local,
+        pallas_walk_local_plain,
+    )
+    from pumiumtally_tpu_torch.ops.vmem_walk import (
+        vmem_walk_local,
+        vmem_walk_local_plain,
+    )
+
+    ws = DetWorkspace()
+    spec = score_spec() if scored else None
+    eng, tables, kw, st = block_round1(mesh, pts, kind, n, spec)
+    x = st["x"]
+    w2 = kind == "W2"
+    fn, plain = ((pallas_walk_local, pallas_walk_local_plain) if w2
+                 else (vmem_walk_local, vmem_walk_local_plain))
+    name = f"{label} det ({str(x.dtype)[6:]}, {n})"
+
+    def run(f, det):
+        flux = torch.zeros_like(eng.flux_padded)
+        bank, sc = None, {}
+        if scored:
+            bank = torch.zeros_like(eng.score_padded)
+            sc = dict(scoring=(spec.kinds, bank, st["sbin"], st["sfac"]))
+        r = f(*tables, st["x"], st["lelem"], st["dest"], st["fly"], st["w"],
+              st["done"], st["exited"], flux, deterministic=det, **kw, **sc)
+        return r, bank
+
+    (a, ba), (b, bb) = run(fn, ws), run(fn, ws)
+    records = det_counts(ws, x)
+    p, bp = run(plain, True)
+    small = det_small_workspace(x)
+    q, bq = run(fn, small)
+    sync()
+    check_det_regrown(name, small, x, records)
+    outs = ("x", "lelem", "done", "exited", "pending", "flux", "iters")
+    for i, f in enumerate(outs):
+        check_bitwise(f"{name} {f} vs plain", a[i], p[i])
+        check_bitwise(f"{name} {f} after regrowing", q[i], a[i])
+    check_bitwise(f"{name} flux, two launches", a[5], b[5])
+    if scored:
+        check_bitwise(f"{name} lanes, two launches", ba, bb)
+        check_bitwise(f"{name} lanes vs plain", ba, bp)
+        check_bitwise(f"{name} lanes after regrowing", bq, ba)
+    expect = float((st["w"].double()
+                    * (a[0].double() - x.double()).norm(dim=1)).sum())
+    rel = check_conservation(name, a[5], expect)
+    note = (f"# {name}: {eng.nparts} blocks; {records[0]} flux records"
+            f"{f', {records[1]} lane records' if scored else ''}; two "
+            f"launches bitwise; streams grown from 1,024 records bitwise; "
+            f"bitwise vs plain on the card; conservation rel err {rel:.3e}")
+    if x.dtype != torch.float32:
+        print(note)
+        return {}
+    turns = in_turns({"atomic": lambda: run(fn, False),
+                      "deterministic": lambda: run(fn, ws)}, cuda_ms,
+                     passes=DET_PASSES)
+    plain_ms = wall_ms(lambda: run(plain, True))
+    L = eng.part.L
+    step = twotier_step(*tables) if w2 else packed_step(tables[0])
+    S = x.shape[0]
+    base = (torch.arange(S, device=x.device) // eng.cap_per_block) * L
+    dest_c = x + (st["dest"] - x) if w2 else st["dest"]
+    crossings = count_crossings(step, x, st["lelem"], dest_c, ~st["done"],
+                                base, eng.tol)
+    k = x.element_size()
+    nbytes = round_bytes(st["done"], st["exited"], eng.nparts, L,
+                         32 + 4 * 20 if w2 else 80, k)
+    # Each record written once (key, ord, value).
+    nbytes += sum(records) * (4 + 8 + k)
+    if scored:
+        # The slots' bin offsets and factors, each bank lane touched read
+        # and written once.
+        nbytes += S * (4 + spec.n_scores * k) + 2 * records[1] * k
+    bound = bound_entry(nbytes, crossings,
+                        FLOPS_PER_CROSSING_TWO_TIER if w2
+                        else FLOPS_PER_CROSSING)
+    print(note + "; round 1 in turns (CUDA events, ms): "
+          + "; ".join(f"{arm} {', '.join(f'{v:.4f}' for v in s)}"
+                      for arm, s in turns.items())
+          + f"; plain (deterministic) {plain_ms:.3f} ms; {crossings} "
+          f"crossings; bound {bound}")
+    ename, src, line = DET_BLOCK_ENTRIES[label]
+    return {"name": ename, "route": "cuda",
+            "source": f"pumiumtally_tpu_torch/csrc/{src}", "replaces": line,
+            "max_abs_err": 0.0,
+            "ms": float(np.median(turns["deterministic"])),
+            "plain_ms": plain_ms, **bound, "library_ms": None,
+            "entry": "twotier_block_walk_scored" if scored
+            else "twotier_block_walk" if w2 else "block_walk"}
+
+
+def seg_w0_cell(mesh, label: str, layout: str, scored: bool, pts) -> dict:
+    """W0's segmented commit on one slab: SEG_K sessions of N / SEG_K
+    particles each (session k's flux at k*E + elem of a [SEG_K*E] bank;
+    with scoring its bin offsets shifted by k*E*stride, a dropped one at
+    the bank's end) and one padding row at offset SEG_K*E that walks.
+    The atomic commit: positions, ids, s and flags bitwise its plain
+    version, flux rtol 1e-4, lanes by ``check_bank``. The deterministic
+    commit (kDet): two launches bitwise, bitwise its plain version (flux,
+    lanes, positions). Each segment's flux conserves its own sessions'
+    track at rtol 1e-6, the padding row's tallies nowhere. Timed in turns
+    (CUDA events) against the same slab without segments into one [E]
+    flux. Returns the kernel line's entry."""
+    import torch
+
+    from pumiumtally_tpu_torch.ops.det_commit import DetWorkspace
+    from pumiumtally_tpu_torch.ops.walk import walk, walk_plain
+    from pumiumtally_tpu_torch.scoring import ScoringRuntime
+
+    args, kw = w0_inputs(mesh, pts, layout == "two-tier", N)
+    m, x, elem, dest, fly, w = args
+    dev, dt = x.device, x.dtype
+    E, per = m.nelems, N // SEG_K
+    # The padding row: particle 0 again, walking to particle 1's
+    # destination.
+    args = (m, torch.cat([x, x[:1]]), torch.cat([elem, elem[:1]]),
+            torch.cat([dest, dest[1:2]]), torch.cat([fly, fly[:1]]),
+            torch.cat([w, w[:1]]))
+    x = args[1]
+    n = x.shape[0]
+    k_of = (torch.arange(n, device=dev) // per).clamp(max=SEG_K - 1)
+    k_of[-1] = SEG_K
+    seg = (k_of * E).to(torch.int32)
+    spec = sc_in = None
+    if scored:
+        spec = score_spec()
+        rt = ScoringRuntime(spec, E, dt, dev)
+        sbin, sfac, _ = score_lanes(rt, n, 5)
+        drop = SEG_K * E * rt.stride
+        sbin = torch.where(sbin >= rt.stride, torch.full_like(sbin, drop),
+                           sbin + seg * rt.stride).to(torch.int32)
+        sc_in = (drop, sbin, sfac)
+    ws = DetWorkspace()
+    name = f"W0 seg {label} (K={SEG_K}, {N} + 1 padding row)"
+
+    def run(fn, det, segmented=True):
+        flux = torch.zeros((SEG_K * E if segmented else E,), dtype=dt,
+                           device=dev)
+        bank = sc = None
+        if scored and segmented:
+            bank = torch.zeros((sc_in[0],), dtype=dt, device=dev)
+            sc = (spec.kinds, bank, sc_in[1], sc_in[2])
+        r = fn(*args, flux, **kw, scoring=sc, deterministic=det,
+               tally_seg=seg if segmented else None)
+        return r, bank
+
+    (ra, ba), (rp, bp) = run(walk, False), run(walk_plain, False)
+    (rd, bd), (rd2, bd2) = run(walk, ws), run(walk, ws)
+    rdp, bdp = run(walk_plain, True)
+    sync()
+    for f in ("elem", "done", "exited", "iters", "x", "s"):
+        check_equal(f"{name} {f}", getattr(ra, f), getattr(rp, f))
+        check_bitwise(f"{name} deterministic {f} vs plain", getattr(rd, f),
+                      getattr(rdp, f))
+    err = check_flux(name, ra.flux, rp.flux)
+    check_bitwise(f"{name} deterministic flux vs plain", rd.flux, rdp.flux)
+    check_bitwise(f"{name} deterministic flux, two launches", rd.flux,
+                  rd2.flux)
+    if scored:
+        check_bank(name, ba, bp, spec.kinds)
+        check_bitwise(f"{name} deterministic lanes vs plain", bd, bdp)
+        check_bitwise(f"{name} deterministic lanes, two launches", bd, bd2)
+    track = (args[5].double() * (rd.x.double() - x.double()).norm(dim=1))
+    pad_track = float(track[-1])
+    if pad_track <= 0:
+        raise AssertionError(f"{name}: the padding row did not walk")
+    for k in range(SEG_K):
+        for r in (ra, rd):
+            check_conservation(f"{name} segment {k}",
+                               r.flux[k * E:(k + 1) * E],
+                               float(track[k_of == k].sum()))
+    turns = in_turns({
+        "atomic, segmented": lambda: run(walk, False),
+        "deterministic, segmented": lambda: run(walk, ws),
+        "atomic, one flux": lambda: run(walk, False, segmented=False),
+    }, cuda_ms, passes=DET_PASSES)
+    plain_ms = wall_ms(lambda: run(walk_plain, False))
+    step = (twotier_step(m.walk_table_lo, m.walk_table_hi) if m.two_tier
+            else packed_step(m.walk_table))
+    crossings = count_crossings(step, x, args[2], args[3],
+                                torch.ones_like(args[4], dtype=torch.bool),
+                                0, kw["tol"])
+    k = x.element_size()
+    row_bytes = 32 + 4 * 5 * k if m.two_tier else 20 * k
+    # As phase_w0's, plus each particle's offset; the flux bank of SEG_K
+    # segments read and written.
+    nbytes = n * (11 * k + 15) + E * row_bytes + SEG_K * E * 2 * k
+    bound = bound_entry(nbytes, crossings,
+                        FLOPS_PER_CROSSING_TWO_TIER if m.two_tier
+                        else FLOPS_PER_CROSSING)
+    records = det_counts(ws, x)
+    print(f"# {name}: atomic x/ids/s bitwise vs plain, flux max abs diff "
+          f"{err:.3e}; deterministic bitwise vs plain and across two "
+          f"launches ({records[0]} flux records"
+          f"{f', {records[1]} lane records' if scored else ''}); each "
+          f"segment conserves its sessions' track; the padding row "
+          f"(track {pad_track:.4f}) tallied nowhere; in turns (CUDA "
+          f"events, ms): "
+          + "; ".join(f"{arm} {', '.join(f'{v:.4f}' for v in s)}"
+                      for arm, s in turns.items())
+          + f"; plain {plain_ms:.3f} ms; {crossings} crossings; bound "
+          f"{bound}")
+    entry = {"scoring": "walk_scored", "two-tier": "walk_twotier"}.get(
+        label, "walk")
+    return {"name": f"W0 {entry}, segmented commit (tally_seg)",
+            "route": "cuda", "source": "pumiumtally_tpu_torch/csrc/walk.cu",
+            "replaces": "pumiumtally_tpu/ops/walk.py:470",
+            "max_abs_err": err,
+            "ms": float(np.median(turns["atomic, segmented"])),
+            "det_ms": float(np.median(turns["deterministic, segmented"])),
+            "plain_ms": plain_ms, **bound, "library_ms": None,
+            "entry": entry}
+
+
+def phase_block_det(mesh, pts) -> list:
+    """W1's and W2's deterministic cells (``det_block_cell``), float32 at
+    N and float64 at W0_F64_N. Returns the float32 cells' kernel line
+    entries."""
+    import torch
+
+    from pumiumtally_tpu_torch import build_box
+
+    box64 = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                      dtype=torch.float64)
+    entries = []
+    for m, n in ((mesh, N), (box64, W0_F64_N)):
+        for label, kind, scored in DET_BLOCK_CELLS:
+            e = det_block_cell(m, label, kind, scored, pts, n)
+            if e:
+                entries.append(e)
+    return entries
+
+
+def phase_seg(mesh, pts) -> dict:
+    """W0's segmented-commit cells (``seg_w0_cell``): packed, two-tier
+    and scoring. Returns the packed cell's kernel line entry (the
+    service's fused launches are packed W0 walks)."""
+    cells = [seg_w0_cell(mesh, label, layout, scored, pts)
+             for label, layout, scored in SEG_CELLS]
+    return cells[0]
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the multi-session service (service/) with cross-session fusion
+# ---------------------------------------------------------------------------
+
+# README's session size; the sessions: SERVICE_MONO plain PumiTally
+# sessions (one fusion key), one PumiTally with scoring and a sentinel,
+# SERVICE_STREAM StreamingTally sessions in chunks of SERVICE_CHUNK (one
+# chunk-wise key) and one default PartitionedPumiTally; SERVICE_BATCHES
+# source batches of SERVICE_MOVES continue moves each, on bench.py's
+# trajectory (a session and a batch a seed).
+SERVICE_N = 100_000
+SERVICE_MONO, SERVICE_STREAM = 6, 2
+SERVICE_CHUNK = 50_000
+SERVICE_BATCHES, SERVICE_MOVES = 3, 2
+# The socket front end under tools/loadgen.py: clients, particles each.
+LOADGEN_CLIENTS, LOADGEN_N = 32, 10_000
+
+
+def service_sessions(mesh) -> list:
+    """(kind, facade) of the service phase's sessions, on one caller
+    mesh (so that each kind's sessions share one fusion key)."""
+    from pumiumtally_tpu_torch import (
+        PartitionedPumiTally,
+        PumiTally,
+        ScoringSpec,
+        SentinelPolicy,
+        StreamingTally,
+        TallyConfig,
+    )
+
+    cfg = TallyConfig(check_found_all=False)
+    out = [("mono", PumiTally(mesh, SERVICE_N, cfg))
+           for _ in range(SERVICE_MONO)]
+    out.append(("scoring", PumiTally(mesh, SERVICE_N, TallyConfig(
+        check_found_all=False, scoring=ScoringSpec(scores=["flux",
+                                                          "events"]),
+        sentinel=SentinelPolicy()))))
+    out += [("stream", StreamingTally(mesh, SERVICE_N,
+                                      chunk_size=SERVICE_CHUNK, config=cfg))
+            for _ in range(SERVICE_STREAM)]
+    out.append(("part", PartitionedPumiTally(mesh, SERVICE_N, cfg)))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def service_work(i: int) -> list:
+    from pumiumtally_tpu_torch.experiments.block_rounds import (
+        make_trajectory,
+    )
+
+    return [make_trajectory(np.random.default_rng([700 + i, b]), SERVICE_N,
+                            SERVICE_MOVES)
+            for b in range(SERVICE_BATCHES)]
+
+
+def drive_service(mesh, fuse: bool) -> tuple:
+    """Every session's campaign through one ``TallyService``, queued
+    against the stopped worker then run: (each session's flux, positions
+    and bank, the fusion telemetry, the fallbacks, the seconds the
+    worker spent dispatching moves (fused groups and solo moves, each
+    ending in its facades' fence), the group sizes the worker
+    launched)."""
+    from pumiumtally_tpu_torch import TallyService
+    from pumiumtally_tpu_torch.service import fusion, staging
+
+    sizes, move_s = [], []
+    real_group, real_op = fusion.run_group, staging.run_op_contained
+
+    def group(items):
+        sizes.append(len(items))
+        t0 = time.perf_counter()
+        out = real_group(items)
+        move_s.append(time.perf_counter() - t0)
+        return out
+
+    def op(tally, o):
+        t0 = time.perf_counter()
+        out = real_op(tally, o)
+        if o.kind == "move":
+            move_s.append(time.perf_counter() - t0)
+        return out
+
+    fusion.run_group, staging.run_op_contained = group, op
+    try:
+        svc = TallyService(autostart=False, fuse_sessions=fuse)
+        sessions = service_sessions(mesh)
+        handles = [svc.open_session(t, session_id=f"{kind}{i}",
+                                    max_queue=SERVICE_BATCHES
+                                    * (SERVICE_MOVES + 1))
+                   for i, (kind, t) in enumerate(sessions)]
+        futs = []
+        for b in range(SERVICE_BATCHES):
+            for i, h in enumerate(handles):
+                work = service_work(i)[b]
+                futs.append(h.copy_initial_position(flat(work[0])))
+                futs += [h.move(None, flat(d)) for d in work[1:]]
+        svc.start()
+        for f in futs:
+            f.result(timeout=600)
+        out = []
+        for (kind, t), h in zip(sessions, handles):
+            o = {"kind": kind, "flux": h.flux().result(timeout=600),
+                 "x": np.asarray(t.positions)}
+            if kind == "scoring":
+                o["bank"] = h.score_bank().result(timeout=600)
+            out.append(o)
+        stats, fallbacks = dict(svc.fusion_stats), svc.fusion_fallbacks
+        svc.shutdown(drain=False, timeout=600)
+    finally:
+        fusion.run_group, staging.run_op_contained = real_group, real_op
+    return out, stats, fallbacks, sum(move_s), sizes
+
+
+def fused_launch_ms(mesh) -> dict:
+    """The mono group's fused launch alone: SERVICE_MONO sessions' state
+    in one slab, one ``move_step_continue`` with the segmented and the
+    deterministic commit (``fusion._fused_move``, CUDA events), and DC's
+    share: DC alone on that launch's records into the [K*E] bank."""
+    import torch
+
+    from pumiumtally_tpu_torch.ops.det_commit import det_commit
+    from pumiumtally_tpu_torch.service import fusion
+
+    sessions = [t for kind, t in service_sessions(mesh) if kind == "mono"]
+    for i, t in enumerate(sessions):
+        t._arm_deterministic()
+        t.CopyInitialPosition(flat(service_work(i)[0][0]))
+    rep = sessions[0]
+    dests = torch.cat([torch.as_tensor(service_work(i)[0][1],
+                                       dtype=rep.dtype, device=rep.device)
+                       for i in range(len(sessions))])
+    n = dests.shape[0]
+    fly = torch.ones((n,), dtype=torch.int8, device=rep.device)
+    w = torch.ones((n,), dtype=rep.dtype, device=rep.device)
+    spans = tuple(t.num_particles for t in sessions)
+
+    def launch():
+        return fusion._fused_move(
+            rep, [t.x for t in sessions], [t.elem for t in sessions],
+            [t.flux for t in sessions], None, None, None, dests, fly, w,
+            None, spans=spans, use_committed=(True,) * len(sessions))
+
+    ms = [cuda_ms(launch) for _ in range(DET_PASSES)]
+    rec = rep._deterministic.records(rep.x.device, rep.dtype, "flux", 0)
+    m = int(rec.count)
+    target = torch.zeros((len(sessions) * rep.mesh.nelems,),
+                         dtype=rep.dtype, device=rep.device)
+    dc_ms = [cuda_ms(lambda: det_commit(target, rec, m))
+             for _ in range(DET_PASSES)]
+    return {"ms": ms, "dc_ms": dc_ms, "records": m,
+            "sessions": len(sessions)}
+
+
+def phase_service(mesh, card: str) -> tuple:
+    """The multi-session service on the card: the sessions of
+    ``service_sessions`` (SERVICE_N particles each) through one
+    ``TallyService`` with fusion on, every move of a kind's sessions
+    fused (the mono group SERVICE_MONO wide, the streaming group
+    SERVICE_STREAM wide, the scoring and the partitioned session alone),
+    no fallback; each session bitwise its solo replay (a facade with the
+    deterministic commit armed, driven directly), and the whole run
+    bitwise the same service with ``fuse_sessions=False``. Launch counts
+    are reset before the fused run and read after it. Prints served
+    moves/s fused and unfused, dispatches a move, the mono group's fused
+    launch alone and DC's share. Then a ``SocketFrontend`` on 127.0.0.1
+    under ``tools/loadgen.py`` ``run_load`` (LOADGEN_CLIENTS clients of
+    LOADGEN_N particles, the box): every client served, and the first
+    two clients' fluxes bitwise their solo replays. Returns the launch
+    counts and the fused run's telemetry."""
+    from pumiumtally_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    # Unfused first: a first run pays the set-up costs (the partitioned
+    # session's first point location) that the second does not.
+    unfused, stats_u, _, wall_u, _ = drive_service(mesh, False)
+    kernels.reset_launch_counts()
+    fused, stats, fallbacks, wall_f, sizes = drive_service(mesh, True)
+    counts = {"service": dict(kernels.launch_counts)}
+    moves = (SERVICE_MONO + SERVICE_STREAM + 2) * SERVICE_BATCHES \
+        * SERVICE_MOVES
+    if fallbacks:
+        raise AssertionError(f"service: {fallbacks} fused launches fell "
+                             "back to solo")
+    want_sizes = sorted([SERVICE_MONO, SERVICE_STREAM]
+                        * (SERVICE_BATCHES * SERVICE_MOVES))
+    got_sizes = sorted(sizes)
+    if got_sizes != want_sizes:
+        raise AssertionError(f"service: fused group sizes {got_sizes}, "
+                             f"expected {want_sizes}")
+    fused_moves = (SERVICE_MONO + SERVICE_STREAM) * SERVICE_BATCHES \
+        * SERVICE_MOVES
+    if stats["fused_moves"] != fused_moves:
+        raise AssertionError(f"service: {stats}")
+    if stats_u["fused_groups"]:
+        raise AssertionError(f"service, fusion off: {stats_u}")
+    for i, (a, b) in enumerate(zip(fused, unfused)):
+        for k in a:
+            if k != "kind" and not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"service session {i} ({a['kind']}): "
+                                     f"{k} fused differs from unfused")
+    for i, (kind, t) in enumerate(service_sessions(mesh)):
+        t._arm_deterministic()
+        for work in service_work(i):
+            t.CopyInitialPosition(flat(work[0]))
+            for d in work[1:]:
+                t.MoveToNextLocation(None, flat(d))
+        for k, v in (("flux", t.flux), ("x", t.positions),
+                     ("bank", t.score_bank if kind == "scoring" else None)):
+            if v is None:
+                continue
+            v = v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v)
+            if not np.array_equal(fused[i][k], v):
+                raise AssertionError(f"service session {i} ({kind}): {k} "
+                                     "differs from its solo replay")
+        del t
+    dispatches = stats["fused_groups"] + stats["solo_moves"]
+    launch = fused_launch_ms(mesh)
+    print(f"# service: {len(fused)} sessions of {SERVICE_N} "
+          f"({SERVICE_MONO} mono, 1 scoring + sentinel, {SERVICE_STREAM} "
+          f"streaming in chunks of {SERVICE_CHUNK}, 1 partitioned), "
+          f"{SERVICE_BATCHES} batches of {SERVICE_MOVES} moves: every "
+          f"session bitwise its solo replay and the fuse_sessions=False "
+          f"run; group sizes {got_sizes}; 0 fallbacks; telemetry {stats}; "
+          f"served (the worker's move dispatches, {wall_f:.3f} s fused, "
+          f"{wall_u:.3f} s unfused) {moves / wall_f:.1f} moves/s fused "
+          f"({moves * SERVICE_N / wall_f / 1e6:.1f} M particle moves/s), "
+          f"{moves / wall_u:.1f} unfused "
+          f"({moves * SERVICE_N / wall_u / 1e6:.1f} M); "
+          f"{dispatches / moves:.3f} dispatches a move fused (unfused 1); "
+          f"the mono group's fused launch ({launch['sessions']} x "
+          f"{SERVICE_N}) {', '.join(f'{v:.4f}' for v in launch['ms'])} ms, "
+          f"DC alone on its {launch['records']} records "
+          f"{', '.join(f'{v:.4f}' for v in launch['dc_ms'])} ms (share "
+          f"{np.median(launch['dc_ms']) / np.median(launch['ms']):.2f}); "
+          f"{card}")
+    counts["loadgen"] = phase_loadgen(card)
+    print(f"# service phase: {time.perf_counter() - t0:.1f} s")
+    return counts, stats
+
+
+def phase_loadgen(card: str) -> dict:
+    """``tools/loadgen.py`` against a ``SocketFrontend`` on 127.0.0.1 on
+    the card (the box, float32): every client served with no error, and
+    the first two clients' fluxes bitwise their solo replays."""
+    import torch
+
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig, build_box
+    from pumiumtally_tpu_torch import kernels
+    from pumiumtally_tpu_torch.service import SocketFrontend, TallyService
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import loadgen
+
+    box = (1.0, 1.0, 1.0, MESH_DIV, MESH_DIV, MESH_DIV)
+    kernels.reset_launch_counts()
+    svc = TallyService()
+    front = SocketFrontend(svc, host="127.0.0.1")
+    front.start()
+    try:
+        rep = loadgen.run_load(front.host, front.port,
+                               clients=LOADGEN_CLIENTS, particles=LOADGEN_N,
+                               batches=1, moves=2, mesh_box=box, seed=0,
+                               collect_flux=2, timeout=600)
+        stats = svc.stats()
+    finally:
+        front.stop()
+        svc.shutdown(drain=False, timeout=600)
+    counts = dict(kernels.launch_counts)
+    if rep["clients_failed"] or rep["clients_timed_out"] or rep["errors"]:
+        raise AssertionError(f"loadgen: {rep['errors'][:3]}")
+    mesh = build_box(*box, dtype=torch.float32)
+    for row in rep["parity"]:
+        t = PumiTally(mesh, LOADGEN_N, TallyConfig(check_found_all=False))
+        t._arm_deterministic()
+        for src, dests in loadgen.client_campaign(0, row["client"],
+                                                  LOADGEN_N, 1, 2):
+            t.CopyInitialPosition(src)
+            for d in dests:
+                t.MoveToNextLocation(None, d, np.ones(LOADGEN_N, np.int8))
+        if not np.array_equal(row["flux"],
+                              t.flux.cpu().numpy().astype(np.float64)):
+            raise AssertionError(f"loadgen client {row['client']}: flux "
+                                 "differs from its solo replay")
+    print(f"# loadgen ({LOADGEN_CLIENTS} clients x {LOADGEN_N} particles, "
+          f"the box, SocketFrontend on 127.0.0.1): served "
+          f"{rep['served_moves']} moves, {rep['moves_per_s']:.1f} moves/s, "
+          f"latency p50 {rep['latency_ms']['p50']:.2f} ms p99 "
+          f"{rep['latency_ms']['p99']:.2f} ms, refusals {rep['refusals']}, "
+          f"fusion {stats['fusion']}; clients 0-1 bitwise their solo "
+          f"replays; {card}")
+    return counts
+
+
+def main_service() -> int:
+    """Phases 1-2 and the service phase alone, with its checks (W0's
+    segmented-commit cells first)."""
+    import torch
+
+    from pumiumtally_tpu_torch import build_box
+    from pumiumtally_tpu_torch.experiments.block_rounds import (
+        make_trajectory,
+    )
+
+    _, smi = phase_device()
+    phase_build()
+    mesh = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                     dtype=torch.float32)
+    pts = make_trajectory(np.random.default_rng(0), N, CONTINUE_MOVES + 2)
+    phase_seg(mesh, pts)
+    counts, _ = phase_service(mesh, smi)
+    for key, entry in (("service", "walk"), ("service", "det_commit"),
+                       ("service", "walk_scored"),
+                       ("service", "gather_block_walk"),
+                       ("loadgen", "walk")):
+        if counts[key][entry] == 0:
+            raise AssertionError(f"{key}: kernel {entry} never launched")
+    print(smi)
+    return 0
+
+
+# The block walks' campaigns (phase 14): the partitioned facade's
+# sub-split walks W1 and W2 (and W2 with scoring lanes) with a
+# CheckpointPolicy, two runs and a mid-batch resume, over the campaign's
+# first CAMPAIGN_BLOCK_BATCHES batches and its first CAMPAIGN_BLOCK_N
+# particles (cut from CAMPAIGN_BATCHES and N to keep the script's time:
+# the brute-force point location of each source batch dominates; the
+# resume still lands mid-batch in the second).
+CAMPAIGN_BLOCK_BATCHES = 2
+CAMPAIGN_BLOCK_N = 250_000
+CAMPAIGN_BLOCK_FACADES = {
+    "PartitionedPumiTally W1": dict(walk_vmem_max_elems=VMEM_BOUND,
+                                    capacity_factor=CAPACITY_FACTOR),
+    "PartitionedPumiTally W2": dict(walk_vmem_max_elems=VMEM_BOUND,
+                                    capacity_factor=CAPACITY_FACTOR,
+                                    walk_kernel="pallas", **BF16),
+    "PartitionedPumiTally W2 scoring": dict(
+        walk_vmem_max_elems=VMEM_BOUND, capacity_factor=CAPACITY_FACTOR,
+        walk_kernel="pallas", **BF16),
+}
+
+
+def phase_block_resilience(mesh, card: str) -> dict:
+    """The resilience contract on the sub-split partitioned facades
+    (``CAMPAIGN_BLOCK_FACADES``: W1, W2, W2 with scoring lanes), each with
+    a ``CheckpointPolicy`` over the campaign: two uninterrupted runs
+    bitwise (flux, positions, ids; with scoring the bank too), and a run
+    saved mid-batch and resumed into a fresh facade bitwise. Launch
+    counts are reset before each first run and read after it."""
+    from pumiumtally_tpu_torch import kernels
+
+    work = campaign_inputs()
+    counts = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name in CAMPAIGN_BLOCK_FACADES:
+            t0 = time.perf_counter()
+            kernels.reset_launch_counts()
+            nb = CAMPAIGN_BLOCK_BATCHES
+            t = campaign_facade(name, mesh, os.path.join(d, "a", name))
+            run_campaign(t, work, batches=nb)
+            counts[f"resilience_{name}"] = dict(kernels.launch_counts)
+            ref = campaign_state(t)
+            del t
+            t = campaign_facade(name, mesh, os.path.join(d, "b", name))
+            run_campaign(t, work, batches=nb)
+            same_state(f"{name}: two runs", campaign_state(t), ref)
+            del t
+            t = campaign_facade(name, mesh, os.path.join(d, "c", name))
+            run_campaign(t, work, stop=(1, 1), batches=nb)
+            t.checkpoint_now(tag="mid_batch")
+            del t
+            t = campaign_facade(name, mesh, os.path.join(d, "c", name))
+            t.resume_latest()
+            if divmod(t.iter_count, CAMPAIGN_MOVES) != (1, 1):
+                raise AssertionError(f"{name}: resumed at iter_count "
+                                     f"{t.iter_count}")
+            run_campaign(t, work, 1, 1, batches=nb)
+            same_state(f"{name}: resumed mid-batch", campaign_state(t), ref)
+            del t
+            print(f"# resilience {name}: two runs bitwise, resumed "
+                  f"mid-batch bitwise"
+                  f"{' (flux, positions, ids, bank)' if 'scoring' in name else ''}"
+                  f"; {time.perf_counter() - t0:.1f} s; {card}")
+    needs = {"PartitionedPumiTally W1": "block_walk",
+             "PartitionedPumiTally W2": "twotier_block_walk",
+             "PartitionedPumiTally W2 scoring": "twotier_block_walk_scored"}
+    for name, entry in needs.items():
+        for e in (entry, "det_commit"):
+            if counts[f"resilience_{name}"][e] == 0:
+                raise AssertionError(f"{name}: kernel {e} never launched: "
+                                     f"{counts[f'resilience_{name}']}")
+    return counts
+
+
 def partition_list():
     from pumiumtally_tpu_torch.parallel.partition import walk_local_list
 
@@ -4064,6 +4806,14 @@ def campaign_facade(name: str, mesh, ckpt_dir=None):
     pol = None if ckpt_dir is None else CheckpointPolicy(
         dir=ckpt_dir, every_n_batches=1, keep=3)
     cfg = TallyConfig(check_found_all=False, checkpoint=pol)
+    if name in CAMPAIGN_BLOCK_FACADES:
+        from pumiumtally_tpu_torch import ScoringSpec
+
+        spec = (ScoringSpec(scores=["flux", "events"])
+                if name.endswith("scoring") else None)
+        return PartitionedPumiTally(mesh, CAMPAIGN_BLOCK_N, TallyConfig(
+            check_found_all=False, checkpoint=pol, scoring=spec,
+            **CAMPAIGN_BLOCK_FACADES[name]))
     if name == "StreamingTally":
         return StreamingTally(mesh, N, chunk_size=CAMPAIGN_CHUNK, config=cfg)
     return {"PumiTally": PumiTally,
@@ -4083,11 +4833,12 @@ def campaign_inputs() -> list:
 
 
 def run_campaign(t, work, start_batch: int = 0, done_moves: int = 0,
-                 stop=None) -> list:
-    """Drive the campaign from (start_batch, done_moves); ``stop``: a
-    (batch, moves) after which to return. Returns each move's wall ms."""
+                 stop=None, batches: int = CAMPAIGN_BATCHES) -> list:
+    """Drive the campaign from (start_batch, done_moves) to ``batches``;
+    ``stop``: a (batch, moves) after which to return. Returns each move's
+    wall ms."""
     moves_ms = []
-    for b in range(start_batch, CAMPAIGN_BATCHES):
+    for b in range(start_batch, batches):
         skip = done_moves if b == start_batch else 0
         if skip == 0:
             t.CopyInitialPosition(flat(work[b][0]))
@@ -4101,12 +4852,15 @@ def run_campaign(t, work, start_batch: int = 0, done_moves: int = 0,
 
 
 def campaign_state(t) -> dict:
-    return {"flux": t.flux.cpu().numpy(), "x": np.asarray(t.positions),
-            "elem": np.asarray(t.elem_ids)}
+    out = {"flux": t.flux.cpu().numpy(), "x": np.asarray(t.positions),
+           "elem": np.asarray(t.elem_ids)}
+    if t._scoring is not None:
+        out["bank"] = t.score_bank.cpu().numpy()
+    return out
 
 
 def same_state(what: str, got: dict, want: dict) -> None:
-    for k in ("flux", "x", "elem"):
+    for k in want:
         if not np.array_equal(got[k], want[k]):
             bad = int((got[k] != want[k]).sum())
             raise AssertionError(f"{what}: {k} differs in {bad} entries")
@@ -4269,7 +5023,9 @@ def main_resilience() -> int:
                      dtype=torch.float32)
     pts = make_trajectory(np.random.default_rng(0), N, CONTINUE_MOVES + 2)
     entry = phase_det_kernels(mesh, pts)
+    phase_block_det(mesh, pts)
     counts = phase_resilience(mesh, smi)
+    counts.update(phase_block_resilience(mesh, smi))
     entry["launches"] = sum(c["det_commit"] for c in counts.values())
     print(f"# det_commit: {json.dumps(entry)}")
     print(smi)
@@ -4496,7 +5252,14 @@ def main() -> int:
     # The deterministic commit against the plain versions, then the
     # resilience contract through three facades.
     det = phase_det_kernels(mesh, pts)
+    blk = phase_block_det(mesh, pts)
     counts.update(phase_resilience(mesh, smi))
+    counts.update(phase_block_resilience(mesh, smi))
+    # The service: W0's segmented commit, then the sessions, fused and
+    # not, and the socket front end under the load generator.
+    seg = phase_seg(mesh, pts)
+    svc_counts, _ = phase_service(mesh, smi)
+    counts.update(svc_counts)
     needs = {"mono": "walk", "part": "block_walk", "mono_bf16": "walk_twotier",
              "part_bf16": "twotier_block_walk", "lat": "walk",
              "lat_bf16": "walk_twotier", "stream": "walk",
@@ -4520,12 +5283,21 @@ def main() -> int:
              "large": "walk_unpacked",
              "resilience_PumiTally": "det_commit",
              "resilience_StreamingTally": "det_commit",
-             "resilience_PartitionedPumiTally": "det_commit"}
+             "resilience_PartitionedPumiTally": "det_commit",
+             "resilience_PartitionedPumiTally W1": "block_walk",
+             "resilience_PartitionedPumiTally W2": "twotier_block_walk",
+             "resilience_PartitionedPumiTally W2 scoring":
+                 "twotier_block_walk_scored",
+             "service": "walk", "loadgen": "walk"}
     # W4's list build: the bf16 reroute's full-migrate rounds; the
     # unpacked main path's localization.
     for key, entry in (*needs.items(),
                        ("part_gather_bf16", "gather_work_list"),
-                       ("unpacked_main", "walk_unpacked")):
+                       ("unpacked_main", "walk_unpacked"),
+                       ("service", "det_commit"),
+                       ("service", "walk_scored"),
+                       ("service", "gather_block_walk"),
+                       ("loadgen", "det_commit")):
         if counts[key][entry] == 0:
             raise AssertionError(f"{key}: kernel {entry} never launched on "
                                  f"its main path: {counts[key]}")
@@ -4560,13 +5332,21 @@ def main() -> int:
                      *((e, e["entry"]) for e in w4_lines + [w4_list]
                        + wu_lines)):
         e["launches"] = sum(c[entry] for c in counts.values())
+    # The deterministic block walks: their entries' launches in the armed
+    # campaigns (every tallying round there is a kDet launch); W0's
+    # segmented commit: W0's launches in the service's fused run.
+    for e in blk:
+        e["launches"] = counts["resilience_PartitionedPumiTally " + {
+            "block_walk": "W1", "twotier_block_walk": "W2",
+            "twotier_block_walk_scored": "W2 scoring"}[e["entry"]]][e["entry"]]
+    seg["launches"] = counts["service"]["walk"]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in (w0, w1, w0t, w2, sw0, sw0t, sw2,
                                             *wu_lines, *w4_lines, w4_list,
-                                            det, w3, *g1)]}))
+                                            det, *blk, seg, w3, *g1)]}))
     print(f"# total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -5048,6 +5828,7 @@ if __name__ == "__main__":
              "--unpacked-sentinel": main_unpacked_sentinel,
              "--resilience": main_resilience,
              "--det-times": main_det_times,
+             "--service": main_service,
              "--resilience-campaign": main_resilience_campaign}
     sys.exit(next((fn for flag, fn in modes.items()
                    if flag in sys.argv[1:]), main)())

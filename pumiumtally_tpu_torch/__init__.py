@@ -12,7 +12,9 @@ statistics (``TriggerSpec`` for convergence triggers) and
 ``PumiTally.intersection_points()``;
 ``TallyConfig(checkpoint=CheckpointPolicy(dir=...))`` arms autosave,
 graceful drain, ``checkpoint_now()`` and ``resume_latest()`` (the
-checkpoint format is the JAX package's, read and written by both). The
+checkpoint format is the JAX package's, read and written by both).
+``TallyService`` (service/) serves many client sessions on one device,
+fusing compatible sessions' moves into one launch. The
 device work runs in hand-written CUDA kernels (``csrc/``, built by
 ``kernels.py`` at first use); every kernel's plain PyTorch version runs
 when the caller asks for ``device="cpu"``. The package imports torch
@@ -42,6 +44,13 @@ from pumiumtally_tpu_torch.sentinel import (
     SentinelAnomalyError,
     SentinelPolicy,
 )
+from pumiumtally_tpu_torch.service import (
+    ServiceBusyError,
+    ServiceDrainingError,
+    SessionClosedError,
+    SessionState,
+    TallyService,
+)
 from pumiumtally_tpu_torch.stats import (
     BatchStatistics,
     TriggerResult,
@@ -61,9 +70,14 @@ __all__ = [
     "ScoringSpec",
     "SentinelAnomalyError",
     "SentinelPolicy",
+    "ServiceBusyError",
+    "ServiceDrainingError",
+    "SessionClosedError",
+    "SessionState",
     "StreamingPartitionedTally",
     "StreamingTally",
     "TallyConfig",
+    "TallyService",
     "TallyTimes",
     "TetMesh",
     "TimeFilter",

@@ -138,6 +138,9 @@ class PartitionedPumiTally(PumiTally):
     def _engine_poisoned(self) -> bool:
         return self.engine.poisoned
 
+    def _engines(self) -> list:
+        return [self.engine]
+
     # -- dispatch hooks ---------------------------------------------------
     def _dispatch_localize(self, dest: torch.Tensor):
         return self.engine.localize(dest), 0

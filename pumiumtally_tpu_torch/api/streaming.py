@@ -57,9 +57,16 @@ deterministic commit, and each chunk engine's exhausted overflow ladder
 saving an ``overflow_safety`` generation first; a checkpoint carries the
 per-chunk flux and banks (or every chunk engine's slot rows).
 
-Left out against the JAX package (ROADMAP.md): the service-fusion
-surface (``_fused_move_stage``),
-sharded chunks and ``device_groups`` (one device here). The JAX
+The service's chunk-wise fusion (service/fusion.py, the JAX facade's
+api/streaming.py:623-792): ``StreamingTally._fusion_key`` pins the chunk
+grid, ``_fused_move_stage`` stages a move chunk by chunk on the host
+under the solo staging's padding rules (``FusedStreamStage``), and
+``_fused_move_commit`` adopts each chunk's slice of the shared per-chunk
+launches and runs the solo move's post-dispatch sequence.
+``StreamingPartitionedTally`` never fuses.
+
+Left out against the JAX package (ROADMAP.md): sharded chunks and
+``device_groups`` (one device here). The JAX
 partitioned chunks defer their overflow check to a batch sync point
 (``_recover_deferred_overflow``); the port's engine checks each round on
 the host and recovers inside the chunk's own call, so the JAX
@@ -70,6 +77,7 @@ phase B walked) cannot arise.
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 from typing import Any, List, Optional, Union
 
 import numpy as np
@@ -98,6 +106,25 @@ from pumiumtally_tpu_torch.parallel.partition import (
 )
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+@dataclass
+class FusedStreamStage:
+    """One streaming session's share of a fused chunk-wise launch (the
+    JAX ``FusedStreamStage``): the host half of a move, one entry a
+    chunk, padded to ``chunk_size`` by the solo staging's rules
+    (positions repeat the last row; pad slots never fly; unit weights
+    include the pad rows, staged weights pad 0.0), so each slab segment
+    holds the rows a solo chunk stages. The scoring operands are the
+    per-chunk device tensors a solo move resolves (None with scoring
+    off)."""
+
+    dests: List[np.ndarray]  # per chunk [chunk,3] working dtype, host
+    origins: Optional[List[np.ndarray]]  # None: continue mode
+    fly: List[np.ndarray]  # per chunk [chunk] int8 host, pads grounded
+    w: List[np.ndarray]  # per chunk [chunk] working dtype, host
+    sbin: Optional[List[torch.Tensor]]  # per chunk, device (scoring only)
+    sfac: Optional[List[torch.Tensor]]
 
 
 class StreamingTally(PumiTally):
@@ -477,6 +504,109 @@ class StreamingTally(PumiTally):
             self._move_done[k], self._move_s[k] = done, s_b
         return done.all()
 
+    # -- the service's chunk-wise fusion (service/fusion.py) -------------
+    def _fusion_key(self):
+        """The streaming arm of ``PumiTally._fusion_key``: streaming
+        sessions on one chunk grid fuse chunk by chunk (one shared launch
+        a chunk index). The kind leads, so monolithic and streaming heads
+        never mix; ``StreamingPartitionedTally`` and xpoint recorders
+        never fuse."""
+        if type(self) is not StreamingTally or self.config.record_xpoints:
+            return None
+        return (("stream",) + self._fusion_statics()
+                + (self.num_particles, self.chunk_size))
+
+    def _fused_chunk_positions(self, host: np.ndarray, k: int) -> np.ndarray:
+        """Chunk k of a flat [3n] buffer as ``_positions_spec`` stages it
+        (working dtype, the last row repeated), left on the host."""
+        lo, hi = self._chunk_bounds(k)
+        a = np.empty((self.chunk_size, 3), _NP_DTYPE[self.dtype])
+        np.copyto(a[:hi - lo], host[3 * lo:3 * hi].reshape(hi - lo, 3),
+                  casting="unsafe")
+        a[hi - lo:] = a[hi - lo - 1]
+        return a
+
+    def _fused_chunk_vec(self, host: np.ndarray, k: int, dtype,
+                         pad) -> np.ndarray:
+        """Chunk k of a flat [n] buffer as ``_vec_spec`` stages it."""
+        lo, hi = self._chunk_bounds(k)
+        a = np.empty((self.chunk_size,), dtype)
+        np.copyto(a[:hi - lo], host[lo:hi], casting="unsafe")
+        a[hi - lo:] = pad
+        return a
+
+    def _fused_move_stage(self, op) -> FusedStreamStage:
+        """The host half of one streaming move for a fused group (the
+        contract of ``PumiTally._fused_move_stage``), chunk by chunk; the
+        scoring operands are resolved per chunk as a solo move resolves
+        them."""
+        self._check_movable()
+        self._score_args_check(op.energy, op.time)
+        wd = _NP_DTYPE[self.dtype]
+        st = FusedStreamStage(
+            dests=[], origins=None if op.origins is None else [], fly=[],
+            w=[], sbin=None if self._scoring is None else [],
+            sfac=None if self._scoring is None else [])
+        for k in range(self.nchunks):
+            lo, hi = self._chunk_bounds(k)
+            st.dests.append(self._fused_chunk_positions(op.dests, k))
+            if op.origins is not None:
+                st.origins.append(self._fused_chunk_positions(op.origins, k))
+            if op.flying is None:
+                f = np.zeros((self.chunk_size,), np.int8)
+                f[:hi - lo] = 1  # pad slots never fly
+            else:
+                f = self._fused_chunk_vec(op.flying, k, np.int8, 0)
+            st.fly.append(f)
+            st.w.append(np.ones((self.chunk_size,), wd) if op.weights is None
+                        else self._fused_chunk_vec(op.weights, k, wd, 0.0))
+            if self._scoring is not None:
+                attrs = [None if a is None else torch.from_numpy(
+                    self._fused_chunk_vec(a, k, wd, 0.0)).to(self.device)
+                    for a in (op.energy, op.time)]
+                sb, sf = self._scoring.resolve(*attrs, self.chunk_size)
+                st.sbin.append(sb)
+                st.sfac.append(sf)
+        return st
+
+    def _fused_move_commit(self, res, stage: FusedStreamStage, t0: float,
+                           sentinel_ops=None) -> None:
+        """The state half of one fused streaming move: adopt each chunk's
+        slice ``(x, elem, flux, done, s, bank or None)`` of the shared
+        per-chunk launches (flux and banks copied into the chunk's own
+        tensors), then the solo move's post-dispatch sequence in its
+        order. ``sentinel_ops``: one ``(origins or None, dests, fly, w)``
+        tuple of device slices a chunk, needed iff a sentinel is
+        armed."""
+        stash = [] if self._sentinel is not None else None
+        if stash is not None:
+            self._move_done, self._move_s = {}, {}
+        oks = []
+        for k, (x2, elem2, flux2, done, s_b, bank2) in enumerate(res):
+            if stash is not None:
+                org, dest, fly, w = sentinel_ops[k]
+                stash.append((
+                    k, self._chunk_phase_b_start(k, org), dest, fly, w,
+                    None if stage.sbin is None else stage.sbin[k],
+                    None if stage.sfac is None else stage.sfac[k]))
+                self._move_done[k], self._move_s[k] = done, s_b
+            self._x[k], self._elem[k] = x2, elem2
+            self._flux[k].copy_(flux2)
+            if self._scoring is not None:
+                self._score[k].copy_(bank2)
+            oks.append(done.all())
+        self.iter_count += 1
+        self._stats_note_move()
+        self._after_chunk_dispatch()
+        if stash is not None:
+            oks = self._sentinel_chunks_post_move(stash, oks)
+        if self.config.check_found_all and not all(bool(o) for o in oks):
+            print("ERROR: Not all particles are found. May need more loops "
+                  "in search")
+        self._fence()
+        self.tally_times.total_time_to_tally += _perf_counter() - t0
+        self._resilience_note_move()  # drain/timer-cadence safe point
+
     # -- state views ------------------------------------------------------
     @property
     def x(self) -> torch.Tensor:
@@ -540,6 +670,9 @@ class StreamingPartitionedTally(StreamingTally):
 
     def _engine_poisoned(self) -> bool:
         return any(e.poisoned for e in self.engines)
+
+    def _engines(self) -> list:
+        return list(self.engines)
 
     def _arm_chunk_scoring(self) -> None:
         # The DROP sentinel is the shared partition's padded bank size.

@@ -81,16 +81,28 @@ present, unless the caller asks for ``device="cpu"`` (where every
 kernel's plain PyTorch version runs). The poisoned latch (the JAX
 facade's): once a partitioned engine's overflow-recovery ladder is
 exhausted, every protocol call refuses with ``EnginePoisonedError``,
-checked before anything else. Left out so far (ROADMAP.md): the
-service-fusion surface.
+checked before anything else.
+
+The service-fusion surface (service/fusion.py, the JAX facade's
+api/tally.py:1368-1470): ``_fusion_key`` names the moves that may share
+one fused launch, ``_fused_move_stage`` stages a service op's move on
+the host without touching the facade's state, ``_fused_move_commit``
+adopts its slice of the shared launch and runs the solo move's post-walk
+sequence; ``_arm_deterministic`` switches the deterministic commit on
+(every service session walks with it, so each equals its solo run bit
+for bit on the card). Facades built from one caller ``TetMesh`` in the
+same dtype, device and tier share one converted mesh (``shared_mesh``),
+so their moves can fuse and they hold one copy of the tables.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 import warnings
+import weakref
 from dataclasses import dataclass
-from typing import Any, Optional, Union
+from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -134,6 +146,12 @@ from pumiumtally_tpu_torch.stats import (
 # shadows the module inside that method.
 _perf_counter = time.perf_counter
 
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _np_dtype(dtype: torch.dtype):
+    return np.dtype(_NP_DTYPES[dtype])
+
 
 # Consecutive origin-echo misses after which a facade stops paying for
 # echo snapshots (the caller has proven it resamples every move).
@@ -165,6 +183,35 @@ class TallyTimes:
             + self.vtk_file_write_time
         )
         print(f"[TIME] Total PUMI-Tally time   : {total:f} seconds")
+
+
+# Converted meshes shared by the facades built from one caller mesh
+# (``shared_mesh``): held weakly, so the last facade's end frees them.
+_SHARED_MESHES: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+_SHARED_SOURCES: dict = {}
+_SHARED_LOCK = threading.Lock()
+
+
+def shared_mesh(src: TetMesh, dtype: torch.dtype, device: torch.device,
+                tier: str, build: Callable[[], TetMesh]) -> TetMesh:
+    """The facade mesh converted from the caller's ``src`` for
+    ``(dtype, device, tier)``: built by ``build()`` once and shared by
+    every facade built from the same ``src`` object while one of them
+    lives. The service keys fusion on the facade mesh's identity (the
+    JAX facade's ``id(self.mesh)``), so sessions opened on one caller
+    mesh co-fuse, and they hold one copy of the tables."""
+    key = (id(src), dtype, str(device), tier)
+    with _SHARED_LOCK:
+        ref = _SHARED_SOURCES.get(key)
+        mesh = _SHARED_MESHES.get(key)
+        if mesh is not None and ref is not None and ref() is src:
+            return mesh
+        mesh = build()
+        for k in [k for k, r in _SHARED_SOURCES.items() if r() is None]:
+            del _SHARED_SOURCES[k]
+        _SHARED_MESHES[key] = mesh
+        _SHARED_SOURCES[key] = weakref.ref(src)
+        return mesh
 
 
 def resolve_device(device: Any) -> torch.device:
@@ -279,27 +326,31 @@ def _localize_step(mesh, x, elem, dest, *, tol, max_iters):
 
 
 def move_step_continue(mesh, x, elem, dests, flying, weights, flux, *, tol,
-                       max_iters, scoring=None, deterministic=False):
+                       max_iters, scoring=None, deterministic=False,
+                       tally_seg=None):
     """Phase-B-only move: transport from the committed state straight
     to the destinations, tallying into ``flux`` (in place) and, with
     ``scoring=(kinds, bank, bin_off, fac)``, into the bank (through the
-    deterministic commit with ``deterministic``). Returns (x, elem,
-    done, s)."""
+    deterministic commit with ``deterministic``). ``tally_seg``: the
+    walk's segmented commit (``flux`` then concatenates several
+    sessions' banks; the service's fused move). Returns (x, elem, done,
+    s)."""
     dest_b = torch.where((flying == 1)[:, None], dests, x)  # stopped: hold
     rb = walk(mesh, x, elem, dest_b, flying, weights, flux, tally=True,
               tol=tol, max_iters=max_iters, scoring=scoring,
-              deterministic=deterministic)
+              deterministic=deterministic, tally_seg=tally_seg)
     return rb.x, rb.elem, rb.done, rb.s
 
 
 def move_step(mesh, x, elem, origins, dests, flying, weights, flux, *, tol,
-              max_iters, scoring=None, deterministic=False):
+              max_iters, scoring=None, deterministic=False, tally_seg=None):
     """One full MoveToNextLocation: phase A (relocate, no tally) then
     phase B (transport, tally). Phase A walks nothing when every staged
     origin already equals the committed position (it would walk zero
     distance for everyone), decided on the device: the JAX move's
     ``lax.cond(trivial, skip_a, run_a)`` as W0's ``skip`` flag. Returns
-    (x, elem, done, s). Phase A never scores."""
+    (x, elem, done, s). Phase A never scores nor tallies; ``tally_seg``
+    reaches phase B."""
     dest_a = torch.where((flying == 1)[:, None], origins, x)
     ra = walk(mesh, x, elem, dest_a, flying, torch.zeros_like(weights),
               None, tally=False, tol=tol, max_iters=max_iters,
@@ -308,8 +359,29 @@ def move_step(mesh, x, elem, origins, dests, flying, weights, flux, *, tol,
     x2, elem2, done_b, s_b = move_step_continue(
         mesh, x, elem, dests, flying, weights, flux, tol=tol,
         max_iters=max_iters, scoring=scoring, deterministic=deterministic,
+        tally_seg=tally_seg,
     )
     return x2, elem2, done_a & done_b, s_b
+
+
+@dataclass
+class FusedMoveStage:
+    """One session's share of a fused cross-session launch (the JAX
+    facade's ``FusedMoveStage``): the host half of a move, made by
+    ``PumiTally._fused_move_stage`` and packed by service/fusion.py.
+    Positions and weights are HOST arrays in the working dtype (None
+    weights / flying: the unit defaults); the scoring operands are the
+    device tensors a solo move would resolve (None with scoring off).
+    ``x_prev`` is the committed positions before the move: the phase-B
+    start the sentinel's audit needs in continue mode."""
+
+    dests: np.ndarray  # [n,3] working dtype, host
+    origins: Optional[np.ndarray]  # [n,3] host, None: continue mode
+    fly: Optional[np.ndarray]  # [n] int8 host, None: all in flight
+    w: Optional[np.ndarray]  # [n] working dtype host, None: unit
+    sbin: Optional[torch.Tensor]  # [n] int32 device (scoring only)
+    sfac: Optional[torch.Tensor]  # [n,S] device (scoring only)
+    x_prev: Optional[torch.Tensor] = None
 
 
 class PumiTally:
@@ -355,21 +427,18 @@ class PumiTally:
             # it sets none, the JAX package's default off x64 mode).
             self.dtype = (torch.float32 if self.config.dtype is None
                           else self.config.dtype)
-            mesh = load_mesh(mesh, dtype=self.dtype)
+            mesh = self._facade_mesh(load_mesh(mesh, dtype=self.dtype),
+                                     lowp_mesh)
         else:
             # A prebuilt mesh fixes the working dtype unless the config
             # asks for one explicitly.
             self.dtype = mesh.dtype if self.config.dtype is None \
                 else self.config.dtype
-        mesh = mesh.to(dtype=self.dtype, device=self.device)
-        if lowp_mesh and self.config.resolved_table_dtype() == "bfloat16":
-            mesh = mesh.with_lowp_tables()
-        elif lowp_mesh:
-            # The float32 tier walks a two-tier mesh's full-precision
-            # planes, as the JAX walk does: packed once here, so every
-            # move runs the packed W0 (a call-time tier reads them in
-            # place, ops.walk.mesh_for_tier).
-            mesh = mesh.with_packed_table()
+            src = mesh
+            mesh = shared_mesh(
+                src, self.dtype, self.device,
+                self.config.resolved_table_dtype() if lowp_mesh else "",
+                lambda: self._facade_mesh(src, lowp_mesh))
         self.mesh = mesh
         self.num_particles = int(num_particles)
         self._tol = self.config.resolved_tolerance(self.dtype)
@@ -414,6 +483,20 @@ class PumiTally:
             self._resilience = AutosaveRunner(self.config.checkpoint)
             self._deterministic = DetWorkspace()
         return self.mesh
+
+    def _facade_mesh(self, mesh: TetMesh, lowp_mesh: bool) -> TetMesh:
+        """The caller's mesh in the working dtype on the device, with the
+        tables of the configured tier when ``lowp_mesh``."""
+        mesh = mesh.to(dtype=self.dtype, device=self.device)
+        if lowp_mesh and self.config.resolved_table_dtype() == "bfloat16":
+            return mesh.with_lowp_tables()
+        if lowp_mesh:
+            # The float32 tier walks a two-tier mesh's full-precision
+            # planes, as the JAX walk does: packed once here, so every
+            # move runs the packed W0 (a call-time tier reads them in
+            # place, ops.walk.mesh_for_tier).
+            return mesh.with_packed_table()
+        return mesh
 
     def _engine_poisoned(self) -> bool:
         """Whether this tally's engine state is known-corrupt: only a
@@ -1022,6 +1105,98 @@ class PumiTally:
         return self._sentinel_post_move(
             x_prev if origins is None else origins, dests, fly, w, done,
             s_b, sbin, sfac)
+
+    # -- the service's cross-session fusion (service/fusion.py) ----------
+    def _arm_deterministic(self) -> None:
+        """Commit every tallying walk of this facade (its engines' too)
+        through the deterministic commit from now on: what the service
+        arms on each session, so that a session equals its solo run bit
+        for bit on the card, fused or not. Values do not change: the
+        plain versions' flux is the same either way."""
+        if self._deterministic is None:
+            self._deterministic = DetWorkspace()
+        for eng in self._engines():
+            eng.deterministic = self._deterministic
+
+    def _engines(self) -> list:
+        """The partitioned engines this facade walks through (none
+        here)."""
+        return []
+
+    def _fusion_key(self):
+        """The co-fusability identity of this facade's moves, or None
+        when they never share a fused launch (the JAX facade's): the
+        same mesh object, dtype, device, tolerance, step budget, table
+        tier, commit and the scoring spec's static key. Subclasses other
+        than ``StreamingTally`` (partitioned: engine-owned state) and
+        xpoint recorders never fuse."""
+        if type(self) is not PumiTally or self.config.record_xpoints:
+            return None
+        return ("mono",) + self._fusion_statics()
+
+    def _fusion_statics(self) -> tuple:
+        spec = self.config.scoring
+        return (id(self.mesh), str(self.dtype), str(self.device), self._tol,
+                self._max_iters, self.config.resolved_table_dtype(),
+                self._deterministic is not None,
+                None if spec is None else spec.static_key())
+
+    def _check_movable(self) -> None:
+        """The protocol-order checks a move runs first."""
+        self._check_poisoned()
+        if not self.is_initialized:
+            raise RuntimeError(
+                "CopyInitialPosition must be called before "
+                "MoveToNextLocation (reference invariant, "
+                "PumiTallyImpl.cpp:437-438)"
+            )
+
+    def _fused_move_stage(self, op) -> FusedMoveStage:
+        """The host half of one move for a fused group: the service op's
+        buffers (validated at submit, service/staging.py) cast to the
+        working dtype, and the scoring operands resolved, with NO facade
+        state changed, so a failed launch can still run the move solo.
+        The protocol-order checks re-run, with the solo move's errors."""
+        self._check_movable()
+        n = self.num_particles
+        wd = _np_dtype(self.dtype)
+        sbin, sfac = self._resolve_move_scoring(op.energy, op.time)
+        return FusedMoveStage(
+            dests=np.asarray(op.dests.reshape(n, 3), dtype=wd),
+            origins=(None if op.origins is None
+                     else np.asarray(op.origins.reshape(n, 3), dtype=wd)),
+            fly=op.flying,
+            w=None if op.weights is None else np.asarray(op.weights, wd),
+            sbin=sbin, sfac=sfac, x_prev=self.x)
+
+    def _fused_move_commit(self, res, stage: FusedMoveStage, t0: float,
+                           sentinel_ops=None) -> None:
+        """The state half of one fused move: adopt this session's slice
+        ``res = (x, elem, flux, done, s, bank or None)`` of the shared
+        launch (flux and bank copied into the facade's own tensors), then
+        the solo move's post-walk sequence in its order: the sentinel's
+        audit and ladder (``sentinel_ops = (x_start, dests, fly, w)``,
+        device slices, needed iff a sentinel is armed), counters, the
+        found-all check, fence, timing, the resilience hook. ``t0`` is
+        the group's start. The echo snapshots stay as they were (their
+        host and device halves still agree)."""
+        x2, elem2, flux2, done, s_b, bank2 = res
+        self.x, self.elem = x2, elem2
+        self.flux.copy_(flux2)
+        if self._scoring is not None:
+            self._score_bank.copy_(bank2)
+        found_all = done.all()
+        if self._sentinel is not None:
+            x_start, dests, fly, w = sentinel_ops
+            found_all = self._sentinel_post_move(
+                x_start, dests, fly, w, done, s_b, stage.sbin, stage.sfac)
+        self.iter_count += 1
+        self._stats_note_move()
+        if self.config.check_found_all and not bool(found_all):
+            print("ERROR: Not all particles are found. May need more loops in search")
+        self._fence()
+        self.tally_times.total_time_to_tally += _perf_counter() - t0
+        self._resilience_note_move()  # drain/timer-cadence safe point
 
     def WriteTallyResults(self, filename: Optional[str] = None) -> None:
         """Normalize flux by element volume and write a legacy VTK file

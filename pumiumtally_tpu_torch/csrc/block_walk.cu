@@ -41,10 +41,17 @@
 // max-ed into global memory once per CUDA block. Shared memory: the
 // [L,20] table, the [L] partial and the list (84 B per element in f32
 // plus 2 KB at least: L <= 2,742 in f32, 1,371 in f64).
+//
+// The kDet instantiation (the entry given a `det` record description,
+// ops/det_commit.py) skips the partial, whose shared-memory sums are in
+// no fixed order, and writes one record a contribution instead
+// (det_records.cuh: the block-padded row b*L + e, the crossing's step and
+// the slot), which det_commit.cu adds in the plain version's order.
 
 #include <cuda_runtime.h>
 
 #include "block_walk_sched.cuh"
+#include "det_records.cuh"
 #include "walk_step.cuh"
 
 template <typename T>
@@ -67,6 +74,8 @@ struct BlockWalkArgs {
   int* counts;
   int L, cap_b, list_cap, stage_bytes, max_iters, tally;
   T tol;
+  // kDet only: the flux's record stream.
+  DetArgs<T> det;
 };
 
 // Commit slot i: a particle that reached its destination commits dest
@@ -88,10 +97,11 @@ __device__ __forceinline__ void commit(const BlockWalkArgs<T>& a, size_t i,
 }
 
 // Walk slot i until it is done or paused; `rows` is the block's table
-// in shared memory, `acc` its flux partial. Returns steps.
-template <typename T>
+// in shared memory, `acc` its flux partial (kDet: records keyed from the
+// block's first padded row `row0`). Returns steps.
+template <typename T, bool kDet>
 __device__ __forceinline__ int walk_slot(const BlockWalkArgs<T>& a, size_t i,
-                                         const T* rows, T* acc) {
+                                         const T* rows, T* acc, int row0) {
   const T px = a.dest[3 * i], py = a.dest[3 * i + 1], pz = a.dest[3 * i + 2];
   const T dx = px - a.x[3 * i], dy = py - a.x[3 * i + 1],
           dz = pz - a.x[3 * i + 2];
@@ -111,7 +121,13 @@ __device__ __forceinline__ int walk_slot(const BlockWalkArgs<T>& a, size_t i,
     const bool hit_boundary = !reached && next == -1;
     if (a.tally) {
       const T c = (s_new - s) * eff_w;
-      if (c != T(0)) atomicAdd(acc + e, c);
+      if constexpr (kDet) {
+        if (c != T(0))
+          det_emit(a.det.flux, row0 + e, det_ord(steps, static_cast<int>(i)),
+                   c);
+      } else {
+        if (c != T(0)) atomicAdd(acc + e, c);
+      }
     }
     s = s_new;
     ++steps;
@@ -130,7 +146,7 @@ __device__ __forceinline__ int walk_slot(const BlockWalkArgs<T>& a, size_t i,
   return steps;
 }
 
-template <typename T>
+template <typename T, bool kDet>
 __global__ void __launch_bounds__(SCHED_THREADS, 2)
     block_walk_kernel(const BlockWalkArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -141,9 +157,10 @@ __global__ void __launch_bounds__(SCHED_THREADS, 2)
   const T* tbl_s = reinterpret_cast<const T*>(smem_raw + SCHED_HEADER_BYTES);
   T* part = reinterpret_cast<T*>(smem_raw + sched_part_offset(a.stage_bytes));
 
+  // kDet: no partial to zero or to add into flux.
   sched_block<T>(
       smem_raw, blockIdx.y, gridDim.y, a.cap_b, a.list_cap, table_b,
-      a.stage_bytes, a.L, a.tally != 0, flux_b, a.iters, a.counts,
+      a.stage_bytes, a.L, a.tally != 0 && !kDet, flux_b, a.iters, a.counts,
       [&](int slot) { return !a.done_in[base + slot]; },
       [&](int slot) {
         // An idle slot commits dest unless it left the mesh, so x is read
@@ -162,7 +179,9 @@ __global__ void __launch_bounds__(SCHED_THREADS, 2)
                exited, -1);
       },
       // The table is always staged before the first walk.
-      [&](int slot, bool) { return walk_slot(a, base + slot, tbl_s, part); });
+      [&](int slot, bool) {
+        return walk_slot<T, kDet>(a, base + slot, tbl_s, part, b * a.L);
+      });
 }
 
 template <typename T>
@@ -174,7 +193,8 @@ static int launch_block_walk(const void* table, const void* x,
                              void* done_out, void* exited_out,
                              void* pending_out, void* iters, void* counts,
                              int blocks, int L, int cap_b, double tol,
-                             int max_iters, int tally, void* stream) {
+                             int max_iters, int tally, const void* det,
+                             void* stream) {
   const size_t table_bytes = (size_t)L * WALK_TABLE_WIDTH * sizeof(T);
   size_t smem = 0;
   int list_cap = 0;
@@ -182,7 +202,10 @@ static int launch_block_walk(const void* table, const void* x,
       !sched_layout(table_bytes, (size_t)L * sizeof(T), &smem, &list_cap))
     return static_cast<int>(cudaErrorInvalidValue);
   if (blocks <= 0 || cap_b <= 0) return static_cast<int>(cudaGetLastError());
-  const void* kernel = reinterpret_cast<const void*>(block_walk_kernel<T>);
+  const void* kernel =
+      det != nullptr
+          ? reinterpret_cast<const void*>(block_walk_kernel<T, true>)
+          : reinterpret_cast<const void*>(block_walk_kernel<T, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -214,9 +237,14 @@ static int launch_block_walk(const void* table, const void* x,
   a.max_iters = max_iters;
   a.tally = tally;
   a.tol = static_cast<T>(tol);
+  a.det = det != nullptr ? det_args<T>(static_cast<const long long*>(det))
+                         : DetArgs<T>{};
   const dim3 grid(blocks, k);
-  block_walk_kernel<T><<<grid, SCHED_THREADS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (det != nullptr)
+    block_walk_kernel<T, true><<<grid, SCHED_THREADS, smem, st>>>(a);
+  else
+    block_walk_kernel<T, false><<<grid, SCHED_THREADS, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -226,12 +254,12 @@ extern "C" int pumi_block_walk_f32(
     void* flux, void* x_out, void* lelem_out, void* done_out,
     void* exited_out, void* pending_out, void* iters, void* counts,
     int blocks, int L, int cap_b, double tol, int max_iters, int tally,
-    void* stream) {
+    const void* det, void* stream) {
   return launch_block_walk<float>(table, x, lelem, dest, fly, w, done, exited,
                                   flux, x_out, lelem_out, done_out,
                                   exited_out, pending_out, iters, counts,
                                   blocks, L, cap_b, tol, max_iters, tally,
-                                  stream);
+                                  det, stream);
 }
 
 extern "C" int pumi_block_walk_f64(
@@ -240,10 +268,10 @@ extern "C" int pumi_block_walk_f64(
     void* flux, void* x_out, void* lelem_out, void* done_out,
     void* exited_out, void* pending_out, void* iters, void* counts,
     int blocks, int L, int cap_b, double tol, int max_iters, int tally,
-    void* stream) {
+    const void* det, void* stream) {
   return launch_block_walk<double>(table, x, lelem, dest, fly, w, done,
                                    exited, flux, x_out, lelem_out, done_out,
                                    exited_out, pending_out, iters, counts,
                                    blocks, L, cap_b, tol, max_iters, tally,
-                                   stream);
+                                   det, stream);
 }

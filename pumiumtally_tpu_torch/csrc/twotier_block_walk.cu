@@ -69,11 +69,19 @@
 // per slot; the scoring-off instantiation is the kernel without any of
 // this (the same shared-memory layout), and scoring changes no position,
 // element, pause or flag.
+//
+// The kDet instantiations (the entries given a `det` record description,
+// ops/det_commit.py) skip the flux partial, whose shared-memory sums are
+// in no fixed order, and write one record a contribution instead
+// (det_records.cuh: the block-padded row b*L + e or its lane, the
+// crossing's step and the slot), which det_commit.cu adds in the plain
+// version's order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "block_walk_sched.cuh"
+#include "det_records.cuh"
 #include "twotier_step.cuh"
 #include "walk_step.cuh"
 
@@ -104,6 +112,8 @@ struct TwoTierArgs {
   const int* bin_off;
   const T* fac;
   int stride, nscores, kinds;
+  // kDet only: the record streams of the flux and the lanes.
+  DetArgs<T> det;
 };
 
 // Commit slot i: dest bit-exactly for a particle that reached it, else
@@ -125,12 +135,12 @@ __device__ __forceinline__ void commit(const TwoTierArgs<T>& a, size_t i,
 
 // Walk slot i until it is done or paused; `lo` is the block's select
 // tier (shared or global), `hi_b` its refinement tier, `acc` its flux
-// (partial or global), `bank_b` its scoring lanes (kScore). Returns
-// steps.
-template <typename T, bool kScore>
+// (partial or global), `bank_b` its scoring lanes (kScore); kDet: records
+// keyed from the block's first padded row `row0`. Returns steps.
+template <typename T, bool kScore, bool kDet>
 __device__ __forceinline__ int walk_slot(const TwoTierArgs<T>& a, size_t i,
                                          const uint16_t* lo, const T* hi_b,
-                                         T* acc, T* bank_b) {
+                                         T* acc, T* bank_b, int row0) {
   const T x0x = a.x[3 * i], x0y = a.x[3 * i + 1], x0z = a.x[3 * i + 2];
   const T dx = a.dest[3 * i] - x0x, dy = a.dest[3 * i + 1] - x0y,
           dz = a.dest[3 * i + 2] - x0z;
@@ -161,13 +171,25 @@ __device__ __forceinline__ int walk_slot(const TwoTierArgs<T>& a, size_t i,
     const bool hit_boundary = !reached && next == -1;
     if (a.tally) {
       const T c = (s_new - s) * eff_w;
-      if (c != T(0)) atomicAdd(acc + e, c);
-      // Outside the c != 0 guard: a zero-length step is a crossing.
-      // The DROP rule, one test a crossing: lanes past the element's row.
-      if constexpr (kScore)
-        if (sbin < a.stride)
-          score_lanes(bank_b + (size_t)e * a.stride, a.stride, sbin,
-                      a.nscores, a.kinds, c, !reached, sfac);
+      if constexpr (kDet) {
+        // Records keyed (padded row or lane, step, slot).
+        const long long ord = det_ord(steps, static_cast<int>(i));
+        if (c != T(0)) det_emit(a.det.flux, row0 + e, ord, c);
+        if constexpr (kScore)
+          if (sbin < a.stride)
+            det_score_lanes(a.det.lanes,
+                            (long long)(row0 + e) * a.stride + sbin,
+                            a.nscores, a.kinds, c, !reached, sfac, ord);
+      } else {
+        if (c != T(0)) atomicAdd(acc + e, c);
+        // Outside the c != 0 guard: a zero-length step is a crossing.
+        // The DROP rule, one test a crossing: lanes past the element's
+        // row.
+        if constexpr (kScore)
+          if (sbin < a.stride)
+            score_lanes(bank_b + (size_t)e * a.stride, a.stride, sbin,
+                        a.nscores, a.kinds, c, !reached, sfac);
+      }
     }
     s = s_new;
     ++steps;
@@ -186,7 +208,7 @@ __device__ __forceinline__ int walk_slot(const TwoTierArgs<T>& a, size_t i,
   return steps;
 }
 
-template <typename T, bool kScore>
+template <typename T, bool kScore, bool kDet>
 __global__ void __launch_bounds__(SCHED_THREADS, 2)
     twotier_block_walk_kernel(const TwoTierArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -200,9 +222,10 @@ __global__ void __launch_bounds__(SCHED_THREADS, 2)
       reinterpret_cast<const uint16_t*>(smem_raw + SCHED_HEADER_BYTES);
   T* part = reinterpret_cast<T*>(smem_raw + sched_part_offset(a.stage_bytes));
 
+  // kDet: no partial to zero or to add into flux.
   sched_block<T>(
       smem_raw, blockIdx.y, gridDim.y, a.cap_b, a.list_cap, lo_b,
-      a.stage_bytes, a.L, a.tally != 0, flux_b, a.iters, a.counts,
+      a.stage_bytes, a.L, a.tally != 0 && !kDet, flux_b, a.iters, a.counts,
       [&](int slot) { return !a.done_in[base + slot]; },
       [&](int slot) {
         // An idle slot commits dest unless it left the mesh, so x is read
@@ -222,11 +245,12 @@ __global__ void __launch_bounds__(SCHED_THREADS, 2)
                exited, -1);
       },
       [&](int slot, bool staged) {
-        return staged
-                   ? walk_slot<T, kScore>(a, base + slot, lo_s, hi_b, part,
-                                          bank_b)
-                   : walk_slot<T, kScore>(a, base + slot, lo_b, hi_b, flux_b,
-                                          bank_b);
+        const int row0 = b * a.L;
+        return staged ? walk_slot<T, kScore, kDet>(a, base + slot, lo_s,
+                                                   hi_b, part, bank_b, row0)
+                      : walk_slot<T, kScore, kDet>(a, base + slot, lo_b,
+                                                   hi_b, flux_b, bank_b,
+                                                   row0);
       });
 }
 
@@ -246,7 +270,7 @@ static int launch_twotier_block_walk(
     void* x_out, void* lelem_out, void* done_out, void* exited_out,
     void* pending_out, void* iters, void* counts, int blocks, int L,
     int cap_b, double tol, int max_iters, int tally, int use_shared,
-    void* stream) {
+    const void* det, void* stream) {
   // Without staging the block reserves only the header and the list.
   const size_t table_bytes =
       use_shared ? (size_t)L * WALK_TABLE_LO_WIDTH * sizeof(uint16_t) : 0;
@@ -256,10 +280,16 @@ static int launch_twotier_block_walk(
   if (!sched_layout(table_bytes, part_bytes, &smem, &list_cap))
     return static_cast<int>(cudaErrorInvalidValue);
   if (blocks <= 0 || cap_b <= 0) return static_cast<int>(cudaGetLastError());
-  const bool score = sc.bank != nullptr;
+  const bool score = sc.bank != nullptr, kdet = det != nullptr;
   const void* kernel =
-      score ? reinterpret_cast<const void*>(twotier_block_walk_kernel<T, true>)
-            : reinterpret_cast<const void*>(twotier_block_walk_kernel<T, false>);
+      score ? (kdet ? reinterpret_cast<const void*>(
+                          twotier_block_walk_kernel<T, true, true>)
+                    : reinterpret_cast<const void*>(
+                          twotier_block_walk_kernel<T, true, false>))
+            : (kdet ? reinterpret_cast<const void*>(
+                          twotier_block_walk_kernel<T, false, true>)
+                    : reinterpret_cast<const void*>(
+                          twotier_block_walk_kernel<T, false, false>));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -298,12 +328,22 @@ static int launch_twotier_block_walk(
   a.stride = sc.stride;
   a.nscores = sc.nscores;
   a.kinds = sc.kinds;
+  a.det = kdet ? det_args<T>(static_cast<const long long*>(det))
+               : DetArgs<T>{};
   const dim3 grid(blocks, k);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (score)
-    twotier_block_walk_kernel<T, true><<<grid, SCHED_THREADS, smem, st>>>(a);
+  if (score && kdet)
+    twotier_block_walk_kernel<T, true, true>
+        <<<grid, SCHED_THREADS, smem, st>>>(a);
+  else if (score)
+    twotier_block_walk_kernel<T, true, false>
+        <<<grid, SCHED_THREADS, smem, st>>>(a);
+  else if (kdet)
+    twotier_block_walk_kernel<T, false, true>
+        <<<grid, SCHED_THREADS, smem, st>>>(a);
   else
-    twotier_block_walk_kernel<T, false><<<grid, SCHED_THREADS, smem, st>>>(a);
+    twotier_block_walk_kernel<T, false, false>
+        <<<grid, SCHED_THREADS, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -315,11 +355,11 @@ static int launch_twotier_block_walk(
       void *lelem_out, void *done_out, void *exited_out,                   \
       void *pending_out, void *iters, void *counts, int blocks, int L,     \
       int cap_b, double tol, int max_iters, int tally, int use_shared,     \
-      void *stream
+      const void *det, void *stream
 #define W2_ARGS                                                            \
   table_lo, table_hi, x, lelem, dest, fly, w, done, exited, flux, x_out,   \
       lelem_out, done_out, exited_out, pending_out, iters, counts, blocks, \
-      L, cap_b, tol, max_iters, tally, use_shared, stream
+      L, cap_b, tol, max_iters, tally, use_shared, det, stream
 #define W2_SCORE_PARAMS                                                    \
   void *bank, const void *bin_off, const void *fac, int stride,            \
       int nscores, int kinds

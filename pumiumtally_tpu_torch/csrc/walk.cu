@@ -97,6 +97,16 @@
 // The plane values are scalar loads (the strides are run-time); the
 // arithmetic is walk_step.cuh's, so positions and ids equal the packed
 // walk's on the same planes.
+//
+// The segmented commit (kSeg; the JAX walk's `tally_seg`, ops/walk.py:470,
+// :533-556, the service's cross-session fusion): an int32 offset a
+// particle, `seg[i]`, moves its flux index to seg[i] + e, in a flux bank
+// of `flux_size` entries that concatenates several sessions' [E] fluxes;
+// an index at or past flux_size (a padding row's) is dropped, as the
+// scoring lanes drop theirs. The atomic commit and the kDet records both
+// take the shifted index. The scoring lanes keep e*stride + bin_off (the
+// caller shifts bin_off). A null `seg` launches the instantiation without
+// any of this, the code as before.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -154,6 +164,9 @@ struct WalkArgs {
   int stride, nscores, kinds, bank_size;
   // kDet only: the record streams of the flux and the lanes.
   DetArgs<T> det;
+  // kSeg only: each particle's flux offset and the flux bank's length.
+  const int* seg;
+  int flux_size;
 };
 
 // One crossing of the tet `e` with its rows read from global memory.
@@ -225,7 +238,7 @@ __device__ __forceinline__ void walk_flush(const WalkArgs<T>& a,
   __syncwarp();  // the slot may be written again
 }
 
-template <typename T, int kLayout, bool kScore, bool kDet>
+template <typename T, int kLayout, bool kScore, bool kDet, bool kSeg>
 __global__ void __launch_bounds__(WALK_THREADS)
     walk_kernel(const WalkArgs<T> a) {
   __shared__ int block_iters, block_walked, block_skip;
@@ -277,6 +290,7 @@ __global__ void __launch_bounds__(WALK_THREADS)
   int e = 0, steps = 0, steps_max = 0, walked = 0;
   int sbin = 0;  // scoring: the particle's lane offset and factors
   T sfac[3] = {0, 0, 0};
+  int soff = 0;  // kSeg: the particle's flux offset
   for (;;) {
     // Once WALK_REFILL lanes (or all) have no particle, they take the
     // next indices of the warp's share, in lane order; an empty share is
@@ -326,6 +340,7 @@ __global__ void __launch_bounds__(WALK_THREADS)
           for (int k = 0; k < 3; ++k)
             sfac[k] = k < a.nscores ? a.fac[(size_t)i * a.nscores + k] : T(0);
         }
+        if constexpr (kSeg) soff = a.seg[i];
       }
       pool = min(pool + __popc(idle), pool_end);
     }
@@ -344,13 +359,23 @@ __global__ void __launch_bounds__(WALK_THREADS)
           if constexpr (kDet) {
             // Records keyed (element or lane, step, particle).
             const long long ord = det_ord(steps, i);
-            if (c != T(0)) det_emit(a.det.flux, e, ord, c);
+            if constexpr (kSeg) {
+              if (c != T(0) && (long long)soff + e < a.flux_size)
+                det_emit(a.det.flux, soff + e, ord, c);
+            } else {
+              if (c != T(0)) det_emit(a.det.flux, e, ord, c);
+            }
             if constexpr (kScore)
               if ((long long)e * a.stride + sbin < a.bank_size)
                 det_score_lanes(a.det.lanes, (long long)e * a.stride + sbin,
                                 a.nscores, a.kinds, c, !reached, sfac, ord);
           } else {
-            if (c != T(0)) atomicAdd(a.flux + e, c);
+            if constexpr (kSeg) {
+              if (c != T(0) && (long long)soff + e < a.flux_size)
+                atomicAdd(a.flux + soff + e, c);
+            } else {
+              if (c != T(0)) atomicAdd(a.flux + e, c);
+            }
             // Outside the c != 0 guard: a zero-length step is a crossing.
             // The DROP rule, one test a crossing: lanes at or past the
             // bank.
@@ -425,28 +450,38 @@ __global__ void __launch_bounds__(WALK_THREADS)
   }
 }
 
-template <typename T, int kLayout, bool kScore, bool kDet>
+template <typename T, int kLayout, bool kScore, bool kDet, bool kSeg>
 static int launch_walk(const WalkArgs<T>& a, void* stream) {
   if (a.n <= 0) return static_cast<int>(cudaGetLastError());
   int resident = 0;
   const cudaError_t err = resident_blocks(
-      reinterpret_cast<const void*>(walk_kernel<T, kLayout, kScore, kDet>),
+      reinterpret_cast<const void*>(
+          walk_kernel<T, kLayout, kScore, kDet, kSeg>),
       WALK_THREADS, 0, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int needed = (a.n + WALK_THREADS - 1) / WALK_THREADS;
-  walk_kernel<T, kLayout, kScore, kDet>
+  walk_kernel<T, kLayout, kScore, kDet, kSeg>
       <<<needed < resident ? needed : resident, WALK_THREADS, 0,
          static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The atomic commit, or with `det` (the host's record description,
-// det_records.cuh det_args) the kDet instantiation.
+// det_records.cuh det_args) the kDet instantiation; with `seg` the kSeg
+// one.
+template <typename T, int kLayout, bool kScore, bool kSeg>
+static int dispatch_commit(WalkArgs<T> a, const void* det, void* stream) {
+  if (det == nullptr)
+    return launch_walk<T, kLayout, kScore, false, kSeg>(a, stream);
+  a.det = det_args<T>(static_cast<const long long*>(det));
+  return launch_walk<T, kLayout, kScore, true, kSeg>(a, stream);
+}
+
 template <typename T, int kLayout, bool kScore = false>
 static int dispatch_walk(WalkArgs<T> a, const void* det, void* stream) {
-  if (det == nullptr) return launch_walk<T, kLayout, kScore, false>(a, stream);
-  a.det = det_args<T>(static_cast<const long long*>(det));
-  return launch_walk<T, kLayout, kScore, true>(a, stream);
+  if (a.seg == nullptr)
+    return dispatch_commit<T, kLayout, kScore, false>(a, det, stream);
+  return dispatch_commit<T, kLayout, kScore, true>(a, det, stream);
 }
 
 template <typename T>
@@ -458,7 +493,8 @@ static WalkArgs<T> walk_args(const void* table, const void* table_lo,
                              void* elem_out, void* done_out, void* exited_out,
                              void* s_out, void* iters, void* next,
                              void* counts, const void* skip, int n,
-                             double tol, int max_iters, int tally) {
+                             double tol, int max_iters, int tally,
+                             const void* seg, int flux_size) {
   WalkArgs<T> a;
   a.table = static_cast<const T*>(table);
   a.table_lo = static_cast<const uint16_t*>(table_lo);
@@ -492,6 +528,8 @@ static WalkArgs<T> walk_args(const void* table, const void* table_lo,
   a.fac = nullptr;
   a.stride = a.nscores = a.kinds = a.bank_size = 0;
   a.det = DetArgs<T>{};
+  a.seg = static_cast<const int*>(seg);
+  a.flux_size = flux_size;
   return a;
 }
 
@@ -530,10 +568,12 @@ static WalkArgs<T> with_planes(WalkArgs<T> a, const void* nrm,
       const void *w, const void *s_init, void *flux, void *x_out,           \
       void *elem_out, void *done_out, void *exited_out, void *s_out,        \
       void *iters, void *next, void *counts, const void *skip, int n,       \
-      double tol, int max_iters, int tally, const void *det, void *stream
+      double tol, int max_iters, int tally, const void *seg, int flux_size, \
+      const void *det, void *stream
 #define WALK_PARTICLE_ARGS                                                  \
   x, elem, dest, fly, w, s_init, flux, x_out, elem_out, done_out,           \
-      exited_out, s_out, iters, next, counts, skip, n, tol, max_iters, tally
+      exited_out, s_out, iters, next, counts, skip, n, tol, max_iters, tally, \
+      seg, flux_size
 
 extern "C" int pumi_walk_f32(const void* table, WALK_PARTICLE_PARAMS) {
   return dispatch_walk<float, WALK_PACKED>(

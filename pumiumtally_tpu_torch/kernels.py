@@ -28,12 +28,14 @@ instantiations of W0, W2 and W4 are entries of their own, counted apart:
 ``twotier_block_walk_scored``,
 ``gather_block_walk_scored`` and ``gather_block_walk_twotier_scored``
 (each takes its scoring arguments ahead of the plain entry's). W4's
-work list of a later round is built by ``gather_work_list``. W0's and
-W4's entries take a last pointer, ``det``: null for the atomic commit,
-else the host address of the deterministic commit's record description
-(``ops/det_commit.py``), which launches the kDet instantiation in the
-same entry; ``det_commit`` (csrc/det_commit.cu, the seventh library) adds
-those records in order.
+work list of a later round is built by ``gather_work_list``. W0's, W1's,
+W2's and W4's entries take a last pointer, ``det``: null for the atomic
+commit, else the host address of the deterministic commit's record
+description (``ops/det_commit.py``), which launches the kDet
+instantiation in the same entry; ``det_commit`` (csrc/det_commit.cu, the seventh library) adds
+those records in order. W0's entries take ``seg`` and the flux's length
+before ``det``: a null ``seg`` for the plain commit, else the segmented
+commit's per-particle flux offsets (``ops/walk.py`` ``tally_seg``).
 """
 
 from __future__ import annotations
@@ -83,8 +85,12 @@ _SCORE = _W2_SCORE + [_I]
 _W4 = [_P] * 15 + [_I, _I, _I, _D, _I, _I, _P, _P]
 # W0's arguments after its tables: 16 pointers (the particles, flux, the
 # outputs, iters, the counter, counts, skip), n, tol, max_iters, tally,
+# the segmented commit's offsets and flux length, det.
+_W0 = [_P] * 16 + [_I, _D, _I, _I, _P, _I, _P, _P]
+# W1's and W2's last arguments: tol, max_iters, tally, (W2: use_shared,)
 # det.
-_W0 = [_P] * 16 + [_I, _D, _I, _I, _P, _P]
+_W1 = [_P] * 16 + [_I, _I, _I, _D, _I, _I, _P, _P]
+_W2 = [_P] * 17 + [_I, _I, _I, _D, _I, _I, _I, _P, _P]
 # W0's unpacked tables: normals, offsets, ids, and the two strides.
 _PLANES = [_P] * 3 + [_I, _I]
 # C entry points: entry -> (library, argtypes, dtypes); the entry's
@@ -96,17 +102,10 @@ _ENTRY_ARGS = {
     "walk_scored": ("walk", _SCORE + [_P] + _W0, _BOTH),
     "walk_twotier_scored": ("walk", _SCORE + [_P] * 2 + _W0, _BOTH),
     "walk_unpacked_scored": ("walk", _SCORE + _PLANES + _W0, _BOTH),
-    "block_walk": (
-        "block_walk", [_P] * 16 + [_I, _I, _I, _D, _I, _I, _P], _BOTH,
-    ),
-    "twotier_block_walk": (
-        "twotier_block_walk",
-        [_P] * 17 + [_I, _I, _I, _D, _I, _I, _I, _P], _BOTH,
-    ),
-    "twotier_block_walk_scored": (
-        "twotier_block_walk",
-        _W2_SCORE + [_P] * 17 + [_I, _I, _I, _D, _I, _I, _I, _P], _BOTH,
-    ),
+    "block_walk": ("block_walk", _W1, _BOTH),
+    "twotier_block_walk": ("twotier_block_walk", _W2, _BOTH),
+    "twotier_block_walk_scored": ("twotier_block_walk", _W2_SCORE + _W2,
+                                  _BOTH),
     "resident_walk": (
         "resident_walk", [_P] * 15 + [_I] * 4 + [_D, _I, _P], ("f32",),
     ),

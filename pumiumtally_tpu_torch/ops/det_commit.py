@@ -187,6 +187,39 @@ def walk_deterministic(launch, streams, restore=None) -> Tuple[int, ...]:
             restore()
 
 
+def walk_and_commit(where: str, launch, n: int, flux: torch.Tensor,
+                    scoring, written, ws: DetWorkspace) -> None:
+    """A tallying walk's kDet instantiation, then DC over its records:
+    ``launch(det)`` walks ``n`` particles (or list places) writing the
+    records of ``flux`` and, with ``scoring = (kinds, bank, ...)``, of
+    the bank's lanes into the streams of the workspace ``ws``
+    (``walk_deterministic``); ``written`` are the tensors the launch
+    writes in place or adds into (None entries skipped), copied first
+    and put back before a walk is made again. Then each stream is
+    committed into its target (``det_commit``)."""
+    if flux.numel() >= 2**31 or (
+            scoring is not None and scoring[1].numel() >= 2**31):
+        raise ValueError(f"{where}: the deterministic commit keys a bank "
+                         "of fewer than 2**31 entries")
+    dev, dt = flux.device, flux.dtype
+    flux_rec = ws.records(dev, dt, "flux", FIRST_RECORDS_PER_PARTICLE * n)
+    lane_rec = None
+    if scoring is not None:
+        lane_rec = ws.records(dev, dt, "lanes", FIRST_RECORDS_PER_PARTICLE
+                              * n * len(scoring[0]))
+    saved = [None if t is None else t.clone() for t in written]
+
+    def restore():
+        for t, t0 in zip(written, saved):
+            if t is not None:
+                t.copy_(t0)
+
+    m = walk_deterministic(launch, (flux_rec, lane_rec), restore)
+    det_commit(flux, flux_rec, m[0])
+    if lane_rec is not None:
+        det_commit(scoring[1], lane_rec, m[1])
+
+
 def det_commit(target: torch.Tensor, rec: DetRecords, m: int) -> None:
     """Add the first ``m`` records of ``rec`` into ``target`` IN PLACE in
     their order (module docstring); the records are left as they are.

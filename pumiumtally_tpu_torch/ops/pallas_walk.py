@@ -29,6 +29,13 @@ column match drops it. K2 sums a per-tile matmul partial, W2 adds per
 crossing (atomics on the card): only the order of the additions
 differs. ``flux`` and ``bank`` are updated IN PLACE; on the card the
 scoring walk counts as ``twotier_block_walk_scored``.
+
+``deterministic`` (tallying walks; the facades' ``CheckpointPolicy``)
+commits flux and lanes through the deterministic commit
+(ops/det_commit.py), as W1 does (ops/vmem_walk.py): W2's kDet
+instantiations write one record a contribution, keyed (block-padded row
+or lane, step, slot), in place of the partial and the atomics, and DC
+adds them in the order of the plain version's serial ``index_add_``.
 """
 
 from __future__ import annotations
@@ -43,11 +50,13 @@ from pumiumtally_tpu_torch.mesh.tetmesh import (
     WALK_TABLE_LO_WIDTH,
     WALK_TABLE_WIDTH,
 )
+from pumiumtally_tpu_torch.ops.det_commit import walk_and_commit, workspace
 from pumiumtally_tpu_torch.ops.vmem_walk import (
     check_sched_counts,
     sched_smem_layout,
 )
 from pumiumtally_tpu_torch.ops.walk import (
+    PlainRecords,
     add_lanes,
     check_scoring,
     count_mask,
@@ -124,10 +133,13 @@ def _check_layout(table_lo, table_hi, n: int, blocks: int) -> int:
 def pallas_walk_local_plain(
     table_lo, table_hi, x, lelem, dest, flying, weight, done, exited, flux,
     *, tally: bool, tol: float, max_iters: int, blocks: int = 1,
-    scoring=None,
+    scoring=None, deterministic=False,
 ):
     """W2's plain PyTorch version: every slot of every block in one
-    masked lock-step loop over the stacked tiers."""
+    masked lock-step loop over the stacked tiers. ``deterministic``:
+    flux and lanes committed as the deterministic commit's records
+    (keyed by padded row or lane, step, slot), the same values in the
+    same order as the serial ``index_add_``."""
     n = x.shape[0]
     blocks = int(blocks)
     L = _check_layout(table_lo, table_hi, n, blocks)
@@ -154,6 +166,9 @@ def pallas_walk_local_plain(
     lelem = lelem.to(torch.int32).clone()
     done = done.clone()
     exited = exited.clone()
+    recs = (PlainRecords(), PlainRecords()) if deterministic and tally \
+        else None
+    pid = torch.arange(n, device=x.device)
     iters = 0
     while iters < max_iters:
         active = ~done & (pending < 0)
@@ -170,12 +185,21 @@ def pallas_walk_local_plain(
         if tally:
             contrib = torch.where(active, (s_new - s) * eff_w,
                                   torch.zeros_like(s))
-            flux.index_add_(0, rows, contrib)
+            if recs is None:
+                flux.index_add_(0, rows, contrib)
+            else:
+                recs[0].add(rows, iters, pid, contrib)
             if scoring is not None:
                 crossed = (active & ~reached).to(contrib.dtype)
                 sidx, sval = score_pair(kinds, stride, rows, bin_off, fac,
                                         contrib, crossed)
-                add_lanes(bank, sidx[lane_ok], sval[lane_ok], bank.numel())
+                if recs is None:
+                    add_lanes(bank, sidx[lane_ok], sval[lane_ok],
+                              bank.numel())
+                else:
+                    recs[1].add(sidx, iters,
+                                pid.repeat_interleave(len(kinds)), sval,
+                                lane_ok)
         moving = active & ~reached & ~hit_boundary & ~goes_remote
         lelem = torch.where(moving, nxt, lelem)
         s = torch.where(active, s_new, s)
@@ -183,6 +207,10 @@ def pallas_walk_local_plain(
         done = done | (active & (reached | hit_boundary))
         exited = exited | (active & hit_boundary)
         iters += 1
+    if recs is not None:
+        recs[0].commit(flux)
+        if scoring is not None:
+            recs[1].commit(bank)
     # A particle that reached its destination commits dest bit-exactly;
     # everyone else commits x0 + s*d0 from the ORIGINAL x0 (K2's rule).
     at_dest = (done & ~exited)[:, None]
@@ -193,7 +221,7 @@ def pallas_walk_local_plain(
 
 def _pallas_walk_cuda(table_lo, table_hi, x, lelem, dest, flying, weight,
                       done, exited, flux, *, tally, tol, max_iters, blocks,
-                      sched_counts=None, scoring=None):
+                      sched_counts=None, scoring=None, deterministic=False):
     dev, dt = x.device, x.dtype
     n = x.shape[0]
     L = _check_layout(table_lo, table_hi, n, blocks)
@@ -232,14 +260,22 @@ def _pallas_walk_cuda(table_lo, table_hi, x, lelem, dest, flying, weight,
     pending = torch.empty((n,), dtype=torch.int32, device=dev)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     p = kernels.ptr
-    kernels.launch(
-        entry, dt, dev, *score_args, p(table_lo), p(table_hi), p(x),
-        p(lelem), p(dest), p(flying), p(weight), p(done), p(exited),
-        p(flux if tally else None), p(x_out), p(lelem_out), p(done_out),
-        p(exited_out), p(pending), p(iters), p(sched_counts), blocks, L,
-        n // blocks, float(tol), int(max_iters), int(bool(tally)),
-        int(w2_uses_shared(L, dt)),
-    )
+
+    def launch(det=None):
+        kernels.launch(
+            entry, dt, dev, *score_args, p(table_lo), p(table_hi), p(x),
+            p(lelem), p(dest), p(flying), p(weight), p(done), p(exited),
+            p(flux if tally else None), p(x_out), p(lelem_out), p(done_out),
+            p(exited_out), p(pending), p(iters), p(sched_counts), blocks, L,
+            n // blocks, float(tol), int(max_iters), int(bool(tally)),
+            int(w2_uses_shared(L, dt)), det,
+        )
+
+    if deterministic and tally:
+        walk_and_commit("pallas_walk_local", launch, n, flux, scoring,
+                        (iters, sched_counts), workspace(deterministic))
+    else:
+        launch()
     return x_out, lelem_out, done_out, exited_out, pending, flux, iters
 
 
@@ -247,6 +283,7 @@ def pallas_walk_local(
     table_lo, table_hi, x, lelem, dest, flying, weight, done, exited, flux,
     *, tally: bool, tol: float, max_iters: int, blocks: int = 1,
     sched_counts: Optional[torch.Tensor] = None, scoring=None,
+    deterministic=False,
 ):
     """Two-tier block walk: returns ``(x, lelem, done, exited, pending,
     flux, iters)``, the JAX function's tuple.
@@ -259,7 +296,9 @@ def pallas_walk_local(
     ``pallas_walk_local_plain``. ``sched_counts`` (CUDA only,
     ops/vmem_walk.py ``check_sched_counts``) collects what the kernel's
     CUDA blocks did. ``scoring``: ``(kinds, bank, bin_off, fac)``, see
-    the module docstring."""
+    the module docstring. ``deterministic``: the deterministic commit
+    (module docstring), for a tallying walk: True, or the
+    ``det_commit.DetWorkspace`` whose record streams it reuses."""
     blocks = int(blocks)
     if tally and flux is None:
         raise ValueError("a tallying walk needs a flux tensor")
@@ -268,7 +307,8 @@ def pallas_walk_local(
         return _pallas_walk_cuda(table_lo, table_hi, x, lelem, dest, flying,
                                  weight, done, exited, flux, tally=tally,
                                  tol=tol, max_iters=max_iters, blocks=blocks,
-                                 sched_counts=sched_counts, scoring=scoring)
+                                 sched_counts=sched_counts, scoring=scoring,
+                                 deterministic=deterministic)
     if x.device.type != "cpu":
         raise ValueError(
             f"pallas_walk_local runs on CUDA or CPU tensors, not {x.device}"
@@ -276,5 +316,5 @@ def pallas_walk_local(
     return pallas_walk_local_plain(
         table_lo, table_hi, x, lelem, dest, flying, weight, done, exited,
         flux, tally=tally, tol=tol, max_iters=max_iters, blocks=blocks,
-        scoring=scoring,
+        scoring=scoring, deterministic=deterministic,
     )

@@ -25,6 +25,16 @@ another block (adjacency <= -2, encoded -(glid+2)) parks the particle
 with ``pending = glid`` for migration; boundary exits clamp and finish;
 ``iters`` is the most steps any particle took (the JAX per-tile loop
 count, max-reduced). ``flux`` is updated IN PLACE.
+
+``deterministic`` (tallying walks; the facades' ``CheckpointPolicy``)
+commits flux through the deterministic commit (ops/det_commit.py): on
+the card W1's kDet instantiation writes one record a contribution, keyed
+(block-padded row, step, slot), in place of the shared-memory partial
+and its atomics, and DC adds them in the order of the plain version's
+serial ``index_add_``; the plain version builds the same records and
+commits them with ``det_commit_plain``. W1 writes new output tensors and
+leaves flux alone until DC, so a record stream that ran out of room is
+grown and the walk made again from its untouched inputs.
 """
 
 from __future__ import annotations
@@ -35,7 +45,12 @@ import torch
 
 from pumiumtally_tpu_torch import kernels
 from pumiumtally_tpu_torch.mesh.tetmesh import WALK_TABLE_WIDTH
-from pumiumtally_tpu_torch.ops.walk import advance_cols, eff_weight
+from pumiumtally_tpu_torch.ops.det_commit import walk_and_commit, workspace
+from pumiumtally_tpu_torch.ops.walk import (
+    PlainRecords,
+    advance_cols,
+    eff_weight,
+)
 
 # Dynamic shared memory one CUDA block may use on an H100 (227 KB).
 SMEM_BYTES_PER_BLOCK = 232_448
@@ -148,9 +163,13 @@ def effective_vmem_bound(bound: Optional[int], dtype: torch.dtype,
 def vmem_walk_local_plain(
     table, x, lelem, dest, flying, weight, done, exited, flux, *,
     tally: bool, tol: float, max_iters: int, blocks: int = 1,
+    deterministic=False,
 ):
     """W1's plain PyTorch version: every slot of every block in one
-    masked lock-step loop over the stacked tables."""
+    masked lock-step loop over the stacked tables. ``deterministic``:
+    flux committed as the deterministic commit's records (keyed by
+    padded row, step, slot), the same values in the same order as the
+    serial ``index_add_``."""
     n = x.shape[0]
     blocks = int(blocks)
     L = table.shape[0] // blocks
@@ -165,6 +184,8 @@ def vmem_walk_local_plain(
     done = done.clone()
     exited = exited.clone()
     pending = torch.full((n,), -1, dtype=torch.int32, device=x.device)
+    rec = PlainRecords() if deterministic and tally else None
+    pid = torch.arange(n, device=x.device)
     iters = 0
     while iters < max_iters:
         active = ~done & (pending < 0)
@@ -177,7 +198,10 @@ def vmem_walk_local_plain(
         if tally:
             contrib = torch.where(active, (s_new - s) * eff_w,
                                   torch.zeros_like(s))
-            flux.index_add_(0, rows, contrib)
+            if rec is None:
+                flux.index_add_(0, rows, contrib)
+            else:
+                rec.add(rows, iters, pid, contrib)
         moving = active & ~reached & ~hit_boundary & ~goes_remote
         lelem = torch.where(moving, nxt, lelem)
         s = torch.where(active, s_new, s)
@@ -185,6 +209,8 @@ def vmem_walk_local_plain(
         done = done | (active & (reached | hit_boundary))
         exited = exited | (active & hit_boundary)
         iters += 1
+    if rec is not None:
+        rec.commit(flux)
     # A particle that reached its destination commits dest bit-exactly;
     # everyone else (boundary leavers, paused and idle slots) commits
     # x0 + s*d0 with x0 = dest - d0, as the JAX kernel materialises it.
@@ -209,7 +235,8 @@ def check_sched_counts(where: str, counts, device: torch.device) -> None:
 
 
 def _vmem_walk_cuda(table, x, lelem, dest, flying, weight, done, exited,
-                    flux, *, tally, tol, max_iters, blocks, sched_counts):
+                    flux, *, tally, tol, max_iters, blocks, sched_counts,
+                    deterministic=False):
     dev, dt = x.device, x.dtype
     n = x.shape[0]
     L = table.shape[0] // blocks
@@ -242,20 +269,30 @@ def _vmem_walk_cuda(table, x, lelem, dest, flying, weight, done, exited,
     pending = torch.empty((n,), dtype=torch.int32, device=dev)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     p = kernels.ptr
-    kernels.launch(
-        "block_walk", dt, dev, p(table), p(x), p(lelem), p(dest), p(flying),
-        p(weight), p(done), p(exited), p(flux if tally else None), p(x_out),
-        p(lelem_out), p(done_out), p(exited_out), p(pending), p(iters),
-        p(sched_counts), blocks, L, n // blocks, float(tol), int(max_iters),
-        int(bool(tally)),
-    )
+
+    def launch(det=None):
+        kernels.launch(
+            "block_walk", dt, dev, p(table), p(x), p(lelem), p(dest),
+            p(flying), p(weight), p(done), p(exited),
+            p(flux if tally else None), p(x_out), p(lelem_out), p(done_out),
+            p(exited_out), p(pending), p(iters), p(sched_counts), blocks, L,
+            n // blocks, float(tol), int(max_iters), int(bool(tally)), det,
+        )
+
+    if deterministic and tally:
+        # New outputs and only records: iters and the counts are put back
+        # for a redo.
+        walk_and_commit("vmem_walk_local", launch, n, flux, None,
+                        (iters, sched_counts), workspace(deterministic))
+    else:
+        launch()
     return x_out, lelem_out, done_out, exited_out, pending, flux, iters
 
 
 def vmem_walk_local(
     table, x, lelem, dest, flying, weight, done, exited, flux, *,
     tally: bool, tol: float, max_iters: int, blocks: int = 1,
-    sched_counts: Optional[torch.Tensor] = None,
+    sched_counts: Optional[torch.Tensor] = None, deterministic=False,
 ):
     """Block-local walk: returns ``(x, lelem, done, exited, pending,
     flux, iters)``.
@@ -266,7 +303,9 @@ def vmem_walk_local(
     tallying). CUDA tensors launch kernel W1; CPU tensors run
     ``vmem_walk_local_plain``. ``sched_counts`` (CUDA only, see
     ``check_sched_counts``) collects what the kernel's CUDA blocks
-    did."""
+    did. ``deterministic``: the deterministic commit (module docstring),
+    for a tallying walk: True, or the ``det_commit.DetWorkspace`` whose
+    record streams it reuses."""
     blocks = int(blocks)
     if tally and flux is None:
         raise ValueError("a tallying walk needs a flux tensor")
@@ -275,7 +314,8 @@ def vmem_walk_local(
         return _vmem_walk_cuda(table, x, lelem, dest, flying, weight, done,
                                exited, flux, tally=tally, tol=tol,
                                max_iters=max_iters, blocks=blocks,
-                               sched_counts=sched_counts)
+                               sched_counts=sched_counts,
+                               deterministic=deterministic)
     if x.device.type != "cpu":
         raise ValueError(
             f"vmem_walk_local runs on CUDA or CPU tensors, not {x.device}"
@@ -283,4 +323,5 @@ def vmem_walk_local(
     return vmem_walk_local_plain(
         table, x, lelem, dest, flying, weight, done, exited, flux,
         tally=tally, tol=tol, max_iters=max_iters, blocks=blocks,
+        deterministic=deterministic,
     )

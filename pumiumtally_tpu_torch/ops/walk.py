@@ -35,11 +35,19 @@ scoring instantiation (separate launch counters ``walk_scored`` and
 ``walk_twotier_scored``); positions, elements, ``s`` and the flags are
 those of the walk without scoring, and so is the flux.
 
+``tally_seg`` (tallying walks only) is the JAX walk's segmented commit
+(the service's cross-session fusion): an int32 [n] offset a particle,
+added to its flux index, so a slab packing K sessions' particles tallies
+each into its own ``[E]`` segment of a concatenated ``[K*E]`` flux
+bank; an index at or past the bank's end (a padding row's ``K*E``) is
+dropped. On the card it is W0's kSeg instantiation, counted under the
+same entries. The scoring lanes keep ``elem*stride + bin_off``: the
+caller shifts ``bin_off``.
+
 Left out against the JAX walk: the compaction cascade (a thread that
-walks its particle to completion has no lock-step waste to bound),
-``perm_mode`` and ``tally_seg``. ``max_iters`` is a per-particle step
-budget; the JAX walk checks it every ``cond_every`` (4) steps, so it
-may take up to 3 more.
+walks its particle to completion has no lock-step waste to bound) and
+``perm_mode``. ``max_iters`` is a per-particle step budget; the JAX walk
+checks it every ``cond_every`` (4) steps, so it may take up to 3 more.
 
 ``deterministic=True`` (tallying walks) commits flux and lanes through
 the deterministic commit (ops/det_commit.py): on the card W0's kDet
@@ -83,11 +91,9 @@ from pumiumtally_tpu_torch.mesh.tetmesh import (
     TetMesh,
 )
 from pumiumtally_tpu_torch.ops.det_commit import (
-    FIRST_RECORDS_PER_PARTICLE,
-    det_commit,
     det_commit_plain,
     det_ord,
-    walk_deterministic,
+    walk_and_commit,
     workspace,
 )
 from pumiumtally_tpu_torch.scoring.scores import MAX_SCORES
@@ -367,6 +373,18 @@ def check_scoring(where: str, scoring, flux, n: int) -> int:
     return bank.numel() // flux.numel()
 
 
+def check_tally_seg(tally_seg, tally: bool, n: int) -> None:
+    """A walk's ``tally_seg``: None, or int32 [n] on a tallying walk
+    (the JAX walk's refusal otherwise)."""
+    if tally_seg is None:
+        return
+    if not tally:
+        raise ValueError("tally_seg requires a tallying walk (tally=True)")
+    if tally_seg.dtype != torch.int32 or tuple(tally_seg.shape) != (n,):
+        raise ValueError(f"tally_seg must be int32 ({n},), got "
+                         f"{tally_seg.dtype} {tuple(tally_seg.shape)}")
+
+
 def _skipped(x, elem, s_init) -> WalkResult:
     """A walk that walked nothing: every output is its input."""
     n = x.shape[0]
@@ -384,7 +402,7 @@ def _skipped(x, elem, s_init) -> WalkResult:
 def walk_plain(
     mesh: TetMesh, x, elem, dest, in_flight, weight, flux, *,
     tally: bool, tol: float, max_iters: int, s_init=None, skip=None,
-    scoring=None, deterministic=False,
+    scoring=None, deterministic=False, tally_seg=None,
 ) -> WalkResult:
     """W0's plain PyTorch version: a masked lock-step loop, one crossing
     of every unfinished particle per iteration, through the mesh's
@@ -392,8 +410,10 @@ def walk_plain(
     ``scoring``: see the module docstring; the bank is updated in
     place. ``deterministic``: the flux and lanes are committed as the
     deterministic commit's records (``PlainRecords``) instead of by
-    ``index_add_`` each iteration: the same values in the same order."""
+    ``index_add_`` each iteration: the same values in the same order.
+    ``tally_seg``: the segmented commit (module docstring)."""
     n = x.shape[0]
+    check_tally_seg(tally_seg, tally, n)
     if scoring is not None:
         stride = check_scoring("walk_plain", scoring,
                                flux if tally else None, n)
@@ -419,10 +439,19 @@ def walk_plain(
         if tally:
             contrib = torch.where(active, (s_new - s) * eff_w,
                                   torch.zeros_like(s))
-            if recs is None:
-                flux.index_add_(0, elem.long(), contrib)
+            if tally_seg is None:
+                if recs is None:
+                    flux.index_add_(0, elem.long(), contrib)
+                else:
+                    recs[0].add(elem, iters, pid, contrib)
             else:
-                recs[0].add(elem, iters, pid, contrib)
+                # The segmented commit: past the bank's end is dropped.
+                fidx = elem.long() + tally_seg.long()
+                if recs is None:
+                    add_lanes(flux, fidx, contrib, flux.numel())
+                else:
+                    recs[0].add(fidx, iters, pid, contrib,
+                                fidx < flux.numel())
             if scoring is not None:
                 crossed = (active & ~reached).to(contrib.dtype)
                 sidx, sval = score_pair(kinds, stride, elem, bin_off, fac,
@@ -476,7 +505,7 @@ def plane_strides(mesh: TetMesh, device, dtype) -> tuple:
 
 def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
                max_iters, s_init, counts, skip=None, scoring=None,
-               deterministic=False):
+               deterministic=False, tally_seg=None):
     dev, dt = x.device, x.dtype
     n, ne = x.shape[0], mesh.nelems
     table_args = None
@@ -506,10 +535,17 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
         ("in_flight", in_flight, torch.int8, (n,)),
         ("weight", weight, dt, (n,)),
         ("s_init", s_init, dt, (n,)),
-        ("flux", flux if tally else None, dt, (ne,)),
+        # A segmented commit's flux is the sessions' concatenated banks.
+        ("flux", flux if tally else None, dt,
+         (ne,) if tally_seg is None else (None,)),
         ("counts", counts, torch.int32, (1,)),
         ("skip", skip, torch.bool, ()),
+        ("tally_seg", tally_seg, torch.int32, (n,)),
     ])
+    flux_size = flux.numel() if tally else 0
+    if tally_seg is not None and flux_size >= 2**31:
+        raise ValueError("walk: a segmented flux bank of 2**31 entries or "
+                         "more does not fit the kernel's int32 indices")
     score_args = ()
     if scoring is not None:
         stride = check_scoring("walk", scoring, flux if tally else None, n)
@@ -549,49 +585,25 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
             p(flux if tally else None),
             p(x_out), p(elem_out), p(done), p(exited), p(s), p(scratch),
             p(scratch[1:]), p(counts), p(skip_i), n, float(tol),
-            int(max_iters), int(bool(tally)), det,
+            int(max_iters), int(bool(tally)), p(tally_seg), int(flux_size),
+            det,
         )
 
     if not (deterministic and tally):
         launch()
     else:
-        _walk_cuda_det(launch, n, dt, dev, flux, scoring, scratch, counts,
-                       workspace(deterministic))
+        # W0 writes new outputs; its counters are put back for a redo.
+        walk_and_commit("walk", launch, n, flux, scoring, (scratch, counts),
+                        workspace(deterministic))
     return WalkResult(x=x_out, elem=elem_out, done=done, exited=exited,
                       flux=flux, iters=scratch[0], s=s)
-
-
-def _walk_cuda_det(launch, n: int, dt, dev, flux, scoring, scratch,
-                   counts, ws) -> None:
-    """W0's kDet instantiation, then DC over its records (the streams of
-    the workspace ``ws``): the flux's, and the lanes' with scoring. A
-    stream that ran out of room is grown and the walk made again (W0
-    writes new outputs; its counters are put back first)."""
-    flux_rec = ws.records(dev, dt, "flux", FIRST_RECORDS_PER_PARTICLE * n)
-    lane_rec = None
-    if scoring is not None:
-        lane_rec = ws.records(dev, dt, "lanes",
-                              FIRST_RECORDS_PER_PARTICLE * n
-                              * len(scoring[0]))
-    counts0 = None if counts is None else counts.clone()
-
-    def again(det):
-        scratch.zero_()
-        if counts0 is not None:
-            counts.copy_(counts0)
-        launch(det)
-
-    m = walk_deterministic(again, (flux_rec, lane_rec))
-    det_commit(flux, flux_rec, m[0])
-    if lane_rec is not None:
-        det_commit(scoring[1], lane_rec, m[1])
 
 
 def walk(
     mesh: TetMesh, x, elem, dest, in_flight, weight, flux, *,
     tally: bool, tol: float, max_iters: int, s_init=None,
     table_dtype: Optional[str] = None, counts=None, skip=None, scoring=None,
-    deterministic=False,
+    deterministic=False, tally_seg=None,
 ) -> WalkResult:
     """Walk every particle from ``x`` (inside ``elem``) toward ``dest``.
 
@@ -617,7 +629,10 @@ def walk(
     bin_off, fac)``, see the module docstring. ``deterministic``: the
     deterministic commit (module docstring; W0's kDet instantiation and
     DC on the card), for a tallying walk: True, or the
-    ``det_commit.DetWorkspace`` whose record streams it reuses."""
+    ``det_commit.DetWorkspace`` whose record streams it reuses.
+    ``tally_seg``: the segmented commit (module docstring; int32 [n],
+    tallying walks only), ``flux`` then the concatenated bank."""
+    check_tally_seg(tally_seg, tally, x.shape[0])
     if tally and flux is None:
         raise ValueError("a tallying walk needs a flux tensor")
     if counts is not None and not x.is_cuda:
@@ -628,13 +643,14 @@ def walk(
         return _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux,
                           tally=tally, tol=tol, max_iters=max_iters,
                           s_init=s_init, counts=counts, skip=skip,
-                          scoring=scoring, deterministic=deterministic)
+                          scoring=scoring, deterministic=deterministic,
+                          tally_seg=tally_seg)
     if x.device.type != "cpu":
         raise ValueError(f"walk runs on CUDA or CPU tensors, not {x.device}")
     return walk_plain(mesh, x, elem, dest, in_flight, weight, flux,
                       tally=tally, tol=tol, max_iters=max_iters,
                       s_init=s_init, skip=skip, scoring=scoring,
-                      deterministic=deterministic)
+                      deterministic=deterministic, tally_seg=tally_seg)
 
 
 def walk_xpoints(mesh: TetMesh, x, elem, dest, in_flight, *, tol: float,

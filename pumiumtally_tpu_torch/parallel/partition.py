@@ -54,10 +54,10 @@ not-done counts (and, for the gather sub-split, the occupied-block
 list) before it decides what to launch, so the engine checks a round's
 overflow on the host and runs the ladder itself.
 
-With ``deterministic=True`` (the facades' ``CheckpointPolicy``) W4's
-tallying rounds commit flux and lanes through the deterministic commit
-(ops/det_commit.py), so a campaign's flux is the same bits from run to
-run on the card; W1's and W2's rounds keep their float atomics.
+With ``deterministic=True`` (the facades' ``CheckpointPolicy``, or a
+service session) the tallying rounds of W4, W1 and W2 commit flux and
+lanes through the deterministic commit (ops/det_commit.py), so a
+campaign's flux is the same bits from run to run on the card.
 
 The sentinel's straggler rung (``retry_stragglers``: the interrupted
 tallying phase resumed at multiplied step and round budgets;
@@ -102,12 +102,7 @@ from pumiumtally_tpu_torch.ops.vmem_walk import (
     effective_vmem_bound,
     vmem_walk_local,
 )
-from pumiumtally_tpu_torch.ops.det_commit import (
-    FIRST_RECORDS_PER_PARTICLE,
-    det_commit,
-    walk_deterministic,
-    workspace,
-)
+from pumiumtally_tpu_torch.ops.det_commit import walk_and_commit, workspace
 from pumiumtally_tpu_torch.ops.walk import (
     PlainRecords,
     check_scoring,
@@ -632,41 +627,15 @@ def _walk_list_cuda(table, x, lelem, dest, flying, weight, done, exited,
             )
 
         if deterministic and tally:
-            _walk_list_cuda_det(launch, cap, dt, dev, flux, scoring,
-                                (x, lelem, done, exited, pending, iters,
-                                 counts), workspace(deterministic))
+            # W4 walks the slot rows in place: they (and pending, iters,
+            # counts) are put back for a redo.
+            walk_and_commit("walk_local", launch, cap, flux, scoring,
+                            (x, lelem, done, exited, pending, iters,
+                             counts), workspace(deterministic))
         else:
             launch()
     res = (x, lelem, done, exited, pending, flux, iters)
     return res + (scoring[1],) if scoring is not None else res
-
-
-def _walk_list_cuda_det(launch, cap: int, dt, dev, flux, scoring,
-                        written, ws) -> None:
-    """W4's kDet instantiation, then DC over its records (the streams of
-    the workspace ``ws``). W4 writes the slot rows in place, so they (and
-    pending, iters, counts) are copied first: a record stream that ran
-    out of room is grown, the rows put back, and the walk made again."""
-    if flux.numel() >= 2**31 or (
-            scoring is not None and scoring[1].numel() >= 2**31):
-        raise ValueError("walk_local: the deterministic commit keys a "
-                         "bank of fewer than 2**31 entries")
-    flux_rec = ws.records(dev, dt, "flux", FIRST_RECORDS_PER_PARTICLE * cap)
-    lane_rec = None
-    if scoring is not None:
-        lane_rec = ws.records(dev, dt, "lanes", FIRST_RECORDS_PER_PARTICLE
-                              * cap * len(scoring[0]))
-    saved = [None if t is None else t.clone() for t in written]
-
-    def restore():
-        for t, t0 in zip(written, saved):
-            if t is not None:
-                t.copy_(t0)
-
-    m = walk_deterministic(launch, (flux_rec, lane_rec), restore)
-    det_commit(flux, flux_rec, m[0])
-    if lane_rec is not None:
-        det_commit(scoring[1], lane_rec, m[1])
 
 
 def walk_local_list(table, x, lelem, dest, flying, weight, done, exited,
@@ -1224,9 +1193,9 @@ class PartitionedEngine:
         docstring). ``cap_frontier``: the frontier slab's rows (clamped
         to the capacity; None: the full migrate every round, 0: the
         fallback every round). ``deterministic``: a ``DetWorkspace`` (the
-        facades' with a ``CheckpointPolicy``) or True: W4's tallying
-        rounds commit through the deterministic commit
-        (ops/det_commit.py); W1 and W2 keep their atomic commit."""
+        facades' with a ``CheckpointPolicy``) or True: the tallying
+        rounds (W4, W1 or W2) commit through the deterministic commit
+        (ops/det_commit.py)."""
         if part is not None:
             table_dtype = ("bfloat16" if part.table_hi is not None
                            else "float32")
@@ -1499,9 +1468,12 @@ class PartitionedEngine:
         if self._w1_w2:
             if self.use_pallas_walk:
                 res = pallas_walk_local(self.part.table, self.part.table_hi,
-                                        *args, **kw)
+                                        *args,
+                                        deterministic=self.deterministic,
+                                        **kw)
             else:
-                res = vmem_walk_local(self.part.table, *args, **kw)
+                res = vmem_walk_local(self.part.table, *args,
+                                      deterministic=self.deterministic, **kw)
             # These kernels sweep every block.
             disp = self.nparts
             n_act = _occupancy_counts(res[2], self.nparts)

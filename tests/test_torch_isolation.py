@@ -4,7 +4,7 @@
   with ``jax`` and ``ml_dtypes`` blocked works and loads no
   ``pumiumtally_tpu`` module;
 - no port source or ``chip_smoke.py`` imports jax, ml_dtypes or
-  pumiumtally_tpu;
+  pumiumtally_tpu, and service/ imports and starts with them blocked;
 - a facade built without ``device=`` raises when no GPU is present;
 - on the CPU every wrapper runs its plain version (both tiers, both
   facades): the kernel launch counters stay 0;
@@ -91,12 +91,48 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                 "sentinel/straggler.py", "resilience/__init__.py",
                 "resilience/faults.py", "resilience/generations.py",
                 "resilience/policy.py", "utils/checkpoint.py",
-                "ops/det_commit.py"):
+                "ops/det_commit.py", "service/__init__.py",
+                "service/scheduler.py", "service/session.py",
+                "service/staging.py", "service/fusion.py",
+                "service/server.py"):
         assert PORT / rel in files, rel
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "pumiumtally_tpu",
                             "ml_dtypes"}, f
+
+
+_SERVICE_BLOCKED = r"""
+import sys
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "ml_dtypes", "pumiumtally_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, _Block())
+from pumiumtally_tpu_torch.service import SocketFrontend, TallyService
+from pumiumtally_tpu_torch.service import fusion
+svc = TallyService()
+front = SocketFrontend(svc, device="cpu")
+front.stop()
+svc.shutdown(drain=False, timeout=30)
+print("SERVED", sorted(m for m in sys.modules
+                       if m.startswith("pumiumtally_tpu_torch.service")))
+"""
+
+
+def test_service_imports_and_starts_with_jax_blocked():
+    """service/ (the scheduler, sessions, staging, fusion, the server and
+    its socket front end) imports and starts with jax and the JAX
+    package blocked."""
+    r = subprocess.run([sys.executable, "-c", _SERVICE_BLOCKED], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "pumiumtally_tpu_torch.service.fusion" in r.stdout
+    for f in sorted((PORT / "service").glob("*.py")):
+        assert not set(_imported_roots(f)) & {"jax", "jaxlib",
+                                              "pumiumtally_tpu"}, f
 
 
 def test_facade_without_device_raises_when_no_gpu():

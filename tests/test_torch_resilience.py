@@ -472,7 +472,10 @@ def test_resume_counters_continue(tmp_path):
 # The bitwise resume contract, every facade, in process
 # ---------------------------------------------------------------------------
 
-FACADES = ("mono", "stream", "part", "stream_part")
+# "part_w1" and "part_w2": the partitioned facade's sub-split walks W1
+# (``walk_vmem_max_elems``) and W2 (``walk_kernel="pallas"`` on the
+# two-tier tables).
+FACADES = ("mono", "stream", "part", "stream_part", "part_w1", "part_w2")
 
 
 def _build_facade(facade, n=N, policy=None):
@@ -487,6 +490,15 @@ def _build_facade(facade, n=N, policy=None):
     if facade == "part":
         return PartitionedPumiTally(_mesh(), n, TallyConfig(
             capacity_factor=4.0, **cfg), device="cpu")
+    if facade == "part_w1":
+        return PartitionedPumiTally(_mesh(), n, TallyConfig(
+            capacity_factor=8.0, walk_vmem_max_elems=48, **cfg),
+            device="cpu")
+    if facade == "part_w2":
+        return PartitionedPumiTally(_mesh(), n, TallyConfig(
+            capacity_factor=8.0, walk_vmem_max_elems=48,
+            walk_table_dtype="bfloat16", walk_kernel="pallas", **cfg),
+            device="cpu")
     return StreamingPartitionedTally(_mesh(), n, chunk_size=10,
                                      config=TallyConfig(capacity_factor=6.0,
                                                         **cfg),
