@@ -9,7 +9,7 @@
     python3 chip_smoke.py --w4-times      # W4's times, any checkout
     python3 chip_smoke.py --unpacked-sentinel  # this layout's phases alone
     python3 chip_smoke.py --resilience    # phase 14 alone, with its checks
-    python3 chip_smoke.py --det-times     # DC's time by kernel, no checks
+    python3 chip_smoke.py --det-times     # DC alone by regime, any checkout
     python3 chip_smoke.py --service       # W0's segmented commit and the
                                           # service phase, with checks
 
@@ -267,7 +267,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    move's wall ms with the policy against the same campaign without
    one; ``walk`` / ``gather_block_walk`` and ``det_commit`` launched.
    The W0 registers check of 6b also holds the deterministic
-   instantiations to no float reduction at all. The block walks' kDet
+   instantiations to no float reduction at all. DC alone on seeded
+   cells (``DC_CELLS``): one hot key (which must take the over-full
+   path, float32 and float64), m below one tile, K = 1, K = TK + 1,
+   20M uniform keys over 4.6M lanes, float64, a 300M-entry bank (key
+   groups), each bitwise against ``det_commit_plain``. The block walks' kDet
    instantiations (W1, W2, W2 with scoring lanes) on round 1 of the
    sub-split's first move, float32 at 500,000 and float64 at 100,000:
    bitwise against their plain versions on the card, across two launches
@@ -363,10 +367,15 @@ arm's subprocess).
 ``--service`` runs phases 1-2 and phase 15 (W0's segmented-commit cells
 and the service), with their checks.
 
-``--det-times`` runs phases 1-2, then DC's device time by kernel
-(torch.profiler, four passes) on the box's W0 move, float32, for the
-flux's and the stride-96 spec's lane records, at the scatter's shipped
-pass size and at one pass, 24 MB and 12 MB, one JSON line an arm.
+``--det-times`` runs phases 1-2, then DC alone on the records of the
+deterministic walks (the box's W0 move, flux and stride-96 lanes; the
+lattice's flux; the service's fused 6-session bank; the box's float64
+flux): DC's ms (CUDA events, four passes) and its kernels' ms
+(torch.profiler, four passes) beside ``index_put_`` deterministic, the
+bound and the redesign's floor, the largest bucket and tile, one JSON
+line a regime. It calls only what the port had before DC's tiled
+design (``det_commit``, ``DetWorkspace``, the walks, the service's
+fusion), so a copy runs in an older checkout for an A/B.
 
 It imports nothing of JAX; it needs one CUDA device and exits non-zero
 without one.
@@ -3955,46 +3964,111 @@ def det_w4_cell(mesh, label: str, knobs: dict, scored: bool, pts, n: int,
             "ws": ws}
 
 
-def det_commit_times(x, rec, m: int, target) -> dict:
+def det_commit_times(label: str, rec, m: int, target, smi: str) -> dict:
     """DC alone on ``m`` records of stream ``rec`` into a copy of
-    ``target``: its ms (CUDA events, DET_PASSES passes), bitwise against
-    ``det_commit_plain`` on the same records, the plain version's and
-    the library yardstick's ms (``index_put_(accumulate=True)`` under
-    ``torch.use_deterministic_algorithms(True)``, nothing in the port
-    calls it), and the bound (each record read once, the target read and
-    written once)."""
+    ``target`` (``dc_regime``: bitwise against ``det_commit_plain``, its
+    ms and its kernels', ``index_put_`` deterministic, the bound), with
+    the plain version's wall ms: the kernel line's fields."""
+    from pumiumtally_tpu_torch.ops.det_commit import det_commit_plain
+
+    r = dc_regime(label, rec, m, target, smi)
+    scratch = target.clone()
+    plain_ms = wall_ms(lambda: det_commit_plain(scratch, rec.key[:m],
+                                                rec.ord[:m], rec.val[:m]))
+    return {"ms": float(np.median(r["ms"])), "ms_passes": r["ms"],
+            "plain_ms": plain_ms,
+            "library_ms": float(np.median(r["index_put_ms"])),
+            "library_passes": r["index_put_ms"], "max_abs_err": 0.0,
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+
+
+# DC alone on records made from a seed (phase 14): (label, records, keys,
+# dtype, layout). "hot": every record on one key (a tile past the stage:
+# the over-full path); "tk+1": K one past the plan's tile width, with
+# the records that plan it so (a last tile of one key); otherwise keys
+# uniform over [0, K).
+DC_CELLS = (
+    ("one hot key", 100_000, MESH_DIV ** 3 * 6, "float32", "hot"),
+    ("m below one tile", 1_000, MESH_DIV ** 3 * 6, "float32", "uniform"),
+    ("K = 1", 3_000, 1, "float32", "uniform"),
+    ("K = TK + 1", 0, 1_025, "float32", "tk+1"),
+    ("uniform keys over 4.6M lanes", 20_000_000, 4_608_000, "float32",
+     "uniform"),
+    ("float64", 2_000_000, MESH_DIV ** 3 * 6, "float64", "uniform"),
+    ("float64, one hot key", 50_000, MESH_DIV ** 3 * 6, "float64", "hot"),
+    ("300M-entry bank (key groups)", 1_000_000, 300_000_000, "float32",
+     "uniform"),
+)
+
+
+def dc_cell_records(m: int, K: int, dtype, layout: str, seed: int):
+    """A record stream of ``m`` records into ``K`` entries on the card:
+    ords ``step << 32 | pid`` with distinct pids (so a key's ords are
+    distinct), values in [-0.5, 1.5), and a standing target in [0, 1).
+    For ``tk+1``, ``m`` is chosen so that DC's plan cuts ``K - 1`` keys
+    a tile. Returns (stream, m, target)."""
     import torch
 
-    from pumiumtally_tpu_torch.ops.det_commit import (
-        det_commit,
-        det_commit_plain,
-    )
+    from pumiumtally_tpu_torch.ops import det_commit as dc
 
-    key, ord_, val = rec.key[:m], rec.ord[:m], rec.val[:m]
-    got, want = target.clone(), target.clone()
-    det_commit(got, rec, m)
-    det_commit_plain(want, key, ord_, val)
-    sync()
-    check_bitwise("det_commit vs det_commit_plain", got, want)
-    scratch = target.clone()
-    ms = [cuda_ms(lambda: det_commit(scratch, rec, m))
-          for _ in range(DET_PASSES)]
-    plain_ms = wall_ms(lambda: det_commit_plain(scratch, key, ord_, val))
-    keys = key.long()
-    prev = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        lib_ms = [cuda_ms(lambda: scratch.index_put_((keys,), val,
-                                                      accumulate=True))
-                  for _ in range(DET_PASSES)]
-    finally:
-        torch.use_deterministic_algorithms(prev)
-    k = x.element_size()
-    nbytes = m * (4 + 8 + k) + 2 * target.numel() * k
-    return {"ms": float(np.median(ms)), "ms_passes": ms,
-            "plain_ms": plain_ms, "library_ms": float(np.median(lib_ms)),
-            "library_passes": lib_ms, "max_abs_err": 0.0,
-            **bound_entry(nbytes, 0)}
+    dev = torch.device("cuda")
+    if layout == "tk+1":
+        half = dc.dc_plan(1, K, dtype.itemsize,
+                          *dc.device_smem(dev)).stage // 2
+        m = next(c for c in range(half - 64, half + 64)
+                 if dc.dc_plan(c, K, dtype.itemsize,
+                               *dc.device_smem(dev)).tk == K - 1)
+    g = torch.Generator().manual_seed(seed)
+    rec = dc.DetRecords(dev, dtype)
+    rec.reserve(m)
+    key = (torch.full((m,), K // 3, dtype=torch.int32) if layout == "hot"
+           else torch.randint(0, K, (m,), generator=g, dtype=torch.int32))
+    step = torch.randint(0, 64, (m,), generator=g, dtype=torch.int64)
+    rec.key[:m] = key.to(dev)
+    rec.ord[:m] = ((step << 32) | torch.randperm(m, generator=g)).to(dev)
+    rec.val[:m] = (torch.rand(m, generator=g, dtype=torch.float64) * 2
+                   - 0.5).to(dtype).to(dev)
+    target = torch.rand(K, generator=g, dtype=torch.float64).to(dtype)
+    return rec, m, target.to(dev)
+
+
+def phase_dc_cells() -> list:
+    """DC alone on the DC_CELLS, each bitwise against
+    ``det_commit_plain`` on the same records and standing target: the
+    plan, the largest bucket and tile, the tiles the over-full path
+    took (``DetRecords.overfull``: at least one on the hot cells, none
+    elsewhere), and DC's ms (CUDA events). Returns the cells' lines."""
+    import torch
+
+    from pumiumtally_tpu_torch.ops import det_commit as dc
+
+    out = []
+    for i, (label, m, K, dtype, layout) in enumerate(DC_CELLS):
+        dt = getattr(torch, dtype)
+        rec, m, target = dc_cell_records(m, K, dt, layout, 40 + i)
+        got, want = target.clone(), target.clone()
+        dc.det_commit(got, rec, m)
+        sync()
+        overfull = int(rec.overfull)
+        dc.det_commit_plain(want, rec.key[:m], rec.ord[:m], rec.val[:m])
+        sync()
+        check_bitwise(f"DC cell {label}", got, want)
+        stats = dc_stats(rec, m, K, dt.itemsize)
+        if layout == "tk+1" and (stats["tk"] != K - 1 or stats["tiles"] != 2):
+            raise AssertionError(f"DC cell {label}: plan {stats}")
+        if (overfull > 0) != (layout == "hot"):
+            raise AssertionError(f"DC cell {label}: {overfull} tiles took "
+                                 f"the over-full path ({stats})")
+        ms = cuda_ms(lambda: dc.det_commit(got, rec, m), reps=2)
+        line = {"dc_cell": label, "dtype": dtype, **stats,
+                "overfull": overfull, "ms": ms}
+        print(f"# DC cell {label}: bitwise vs det_commit_plain"
+              + (f"; the over-full path took {overfull} tile(s)"
+                 if overfull else "")
+              + f"; {json.dumps(line)}")
+        out.append(line)
+        del rec, got, want, target
+    return out
 
 
 def phase_det_kernels(mesh, pts) -> dict:
@@ -4039,8 +4113,9 @@ def phase_det_kernels(mesh, pts) -> dict:
             walk(*args, torch.zeros_like(flux), **kw, scoring=sc,
                  deterministic=ws)  # the records of one move
             rec = ws.records(x.device, x.dtype, "flux", 0)
-            t = det_commit_times(x, rec, cell["records"][0],
-                                 torch.zeros_like(flux))
+            t = det_commit_times(f"W0 det {label} flux", rec,
+                                 cell["records"][0], torch.zeros_like(flux),
+                                 nvidia_smi("name,power.limit"))
             print(f"# W0 det {label}: a move in turns (CUDA events, ms): "
                   + "; ".join(f"{a} {', '.join(f'{v:.4f}' for v in s)}"
                               for a, s in turns.items())
@@ -4505,14 +4580,14 @@ def drive_service(mesh, fuse: bool) -> tuple:
     return out, stats, fallbacks, sum(move_s), sizes
 
 
-def fused_launch_ms(mesh) -> dict:
-    """The mono group's fused launch alone: SERVICE_MONO sessions' state
+def fused_group(mesh) -> tuple:
+    """The mono group's fused launch on the box: SERVICE_MONO sessions of
+    SERVICE_N particles with the deterministic commit armed, their state
     in one slab, one ``move_step_continue`` with the segmented and the
-    deterministic commit (``fusion._fused_move``, CUDA events), and DC's
-    share: DC alone on that launch's records into the [K*E] bank."""
+    deterministic commit (``fusion._fused_move``). Returns (the launch,
+    the representative session, the sessions)."""
     import torch
 
-    from pumiumtally_tpu_torch.ops.det_commit import det_commit
     from pumiumtally_tpu_torch.service import fusion
 
     sessions = [t for kind, t in service_sessions(mesh) if kind == "mono"]
@@ -4534,11 +4609,29 @@ def fused_launch_ms(mesh) -> dict:
             [t.flux for t in sessions], None, None, None, dests, fly, w,
             None, spans=spans, use_committed=(True,) * len(sessions))
 
-    ms = [cuda_ms(launch) for _ in range(DET_PASSES)]
+    return launch, rep, sessions
+
+
+def fused_records(rep, sessions) -> tuple:
+    """The fused launch's flux record stream, its record count and a
+    zeroed [len(sessions) * E] bank."""
+    import torch
+
     rec = rep._deterministic.records(rep.x.device, rep.dtype, "flux", 0)
-    m = int(rec.count)
-    target = torch.zeros((len(sessions) * rep.mesh.nelems,),
-                         dtype=rep.dtype, device=rep.device)
+    bank = torch.zeros((len(sessions) * rep.mesh.nelems,), dtype=rep.dtype,
+                       device=rep.device)
+    return rec, int(rec.count), bank
+
+
+def fused_launch_ms(mesh) -> dict:
+    """The mono group's fused launch alone (``fused_group``, CUDA events)
+    and DC's share: DC alone on that launch's records into the [K*E]
+    bank."""
+    from pumiumtally_tpu_torch.ops.det_commit import det_commit
+
+    launch, rep, sessions = fused_group(mesh)
+    ms = [cuda_ms(launch) for _ in range(DET_PASSES)]
+    rec, m, target = fused_records(rep, sessions)
     dc_ms = [cuda_ms(lambda: det_commit(target, rec, m))
              for _ in range(DET_PASSES)]
     return {"ms": ms, "dc_ms": dc_ms, "records": m,
@@ -5023,6 +5116,7 @@ def main_resilience() -> int:
                      dtype=torch.float32)
     pts = make_trajectory(np.random.default_rng(0), N, CONTINUE_MOVES + 2)
     entry = phase_det_kernels(mesh, pts)
+    phase_dc_cells()
     phase_block_det(mesh, pts)
     counts = phase_resilience(mesh, smi)
     counts.update(phase_block_resilience(mesh, smi))
@@ -5032,26 +5126,127 @@ def main_resilience() -> int:
     return 0
 
 
-def main_det_times() -> int:
-    """Phases 1-2, then DC's device time by kernel (torch.profiler, four
-    passes) on the box's W0 move at N particles, float32, for the flux's
-    records and the stride-96 spec's lane records, at the scatter's
-    shipped pass size and at one pass, 24 MB and 12 MB; one JSON line an
-    arm. No checks beyond DC against ``det_commit_plain`` (bitwise)."""
+def dc_stats(rec, m: int, K: int, elem_bytes: int) -> dict:
+    """The records' shape for DC: the largest bucket (records of one
+    key) and, where the checkout's DC has a plan (``dc_plan``), the
+    plan's tile width, tiles, key-group shift and stage, and the largest
+    tile."""
     import torch
+
+    from pumiumtally_tpu_torch.ops import det_commit as dc
+
+    key = rec.key[:m].long()
+    out = {"records": m, "keys": K,
+           "largest_bucket": int(torch.bincount(key, minlength=K).max())}
+    if hasattr(dc, "dc_plan"):
+        plan = dc.dc_plan(m, K, elem_bytes, *dc.device_smem(rec.key.device))
+        out.update(tk=plan.tk, tiles=plan.tiles,
+                   group_shift=plan.group_shift, stage=plan.stage,
+                   largest_tile=int(torch.bincount(key // plan.tk).max()))
+    return out
+
+
+def dc_floor_ms(m: int, K: int, elem_bytes: int) -> float:
+    """The redesigned DC's own floor at the card's memory rate: the
+    histogram's key reads (4 bytes a record), each split's read and
+    write (the stream's key, ord and value, then the partitioned record
+    of ``rec_bytes``), the tile commit's read, the target read and
+    written."""
+    rb = 16 if elem_bytes == 4 else 24
+    nbytes = (m * (4 + (12 + elem_bytes + rb) + 2 * rb + rb)
+              + 2 * K * elem_bytes)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def dc_kernel_ms(fn) -> dict:
+    """Device ms of each of DC's kernels (and memsets) in one call of
+    ``fn``, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    by = {}
+    for e in prof.events():
+        if e.name.startswith(("dc_", "void dc_", "Memset")):
+            k = re.sub(r"^void |[(].*$", "", e.name)
+            by[k] = by.get(k, 0.0) + e.time_range.elapsed_us()
+    return {k: round(v / 1e3, 4) for k, v in by.items()}
+
+
+def dc_regime(label: str, rec, m: int, target, smi: str) -> dict:
+    """DC alone on ``m`` records of the stream ``rec`` into a copy of
+    ``target``: bitwise against ``det_commit_plain``; its ms (CUDA
+    events, DET_PASSES passes), its kernels' ms (torch.profiler,
+    DET_PASSES passes), ``index_put_(accumulate=True)`` under
+    ``torch.use_deterministic_algorithms(True)`` (nothing in the port
+    calls it), the bound (each record read once, the target read and
+    written), the redesign's floor (``dc_floor_ms``), the largest bucket
+    and tile (``dc_stats``) and the over-full tiles of the commit. One
+    JSON line; it calls only what every checkout with DC has."""
+    import torch
+
+    from pumiumtally_tpu_torch.ops import det_commit as dc
+
+    got, want = target.clone(), target.clone()
+    dc.det_commit(got, rec, m)
+    sync()
+    overfull = (int(rec.overfull) if hasattr(rec, "overfull") else None)
+    dc.det_commit_plain(want, rec.key[:m], rec.ord[:m], rec.val[:m])
+    sync()
+    check_bitwise(f"DC {label} vs det_commit_plain", got, want)
+    scratch = target.clone()
+    ms = [cuda_ms(lambda: dc.det_commit(scratch, rec, m))
+          for _ in range(DET_PASSES)]
+    kms = [dc_kernel_ms(lambda: dc.det_commit(scratch, rec, m))
+           for _ in range(DET_PASSES)]
+    keys, val = rec.key[:m].long(), rec.val[:m]
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        lib = [cuda_ms(lambda: scratch.index_put_((keys,), val,
+                                                  accumulate=True))
+               for _ in range(DET_PASSES)]
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    k = target.element_size()
+    K = target.numel()
+    out = {"dc_times": label, **dc_stats(rec, m, K, k), "overfull": overfull,
+           "ms": ms, "ms_by_kernel": kms, "index_put_ms": lib,
+           **bound_entry(m * (4 + 8 + k) + 2 * K * k, 0),
+           "floor_ms": dc_floor_ms(m, K, k), "card": smi}
+    print(json.dumps(out))
+    return out
+
+
+def main_det_times() -> int:
+    """Phases 1-2, then DC alone (``dc_regime``) on the records of the
+    port's deterministic walks: the box's W0 move at N particles with
+    the stride-96 spec (flux and lanes, float32), the lattice's W0 move
+    (flux), the service's fused group (its [SERVICE_MONO * E] bank), and
+    the box's W0 move in float64 at W0_F64_N; one JSON line a regime, no
+    checks beyond DC against ``det_commit_plain`` (bitwise). It calls
+    only what the port had before DC's tiled design, so copy it into
+    the parent's ``git archive`` for an A/B."""
+    import torch
 
     from pumiumtally_tpu_torch import build_box
     from pumiumtally_tpu_torch.experiments.block_rounds import (
         make_trajectory,
     )
-    from pumiumtally_tpu_torch.ops import det_commit as dc
+    from pumiumtally_tpu_torch.io.load import load_mesh
+    from pumiumtally_tpu_torch.ops.det_commit import DetWorkspace
     from pumiumtally_tpu_torch.ops.walk import walk
     from pumiumtally_tpu_torch.scoring import ScoringRuntime
 
-    ws = dc.DetWorkspace()
     _, smi = phase_device()
     phase_build()
+    print(f"# package {sys.modules['pumiumtally_tpu_torch'].__file__}")
+
+    def records(ws, x, name):
+        rec = ws.records(x.device, x.dtype, name, 0)
+        return rec, int(rec.count)
+
     mesh = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
                      dtype=torch.float32)
     pts = make_trajectory(np.random.default_rng(0), N, CONTINUE_MOVES + 2)
@@ -5060,41 +5255,44 @@ def main_det_times() -> int:
     spec = score_spec()
     rt = ScoringRuntime(spec, m.nelems, x.dtype, x.device)
     sbin, sfac, _ = score_lanes(rt, N, 5)
-    targets = {"flux": torch.zeros((m.nelems,), dtype=x.dtype,
-                                   device=x.device),
-               "lanes": torch.zeros((rt.bank_size,), dtype=x.dtype,
-                                    device=x.device)}
-    walk(*args, targets["flux"], **kw, deterministic=ws,
-         scoring=(spec.kinds, targets["lanes"], sbin, sfac))
-    shipped = dc.SCATTER_PASS_BYTES
-    for name, target in targets.items():
-        rec = ws.records(x.device, x.dtype, name, 0)
-        n = int(rec.count)
-        want = torch.zeros_like(target)
-        dc.det_commit_plain(want, rec.key[:n], rec.ord[:n], rec.val[:n])
-        for label, nbytes in (("shipped", shipped), ("one pass", 1 << 62),
-                              ("24 MB", 24 << 20), ("12 MB", 12 << 20)):
-            dc.SCATTER_PASS_BYTES = nbytes
-            got = torch.zeros_like(target)
-            dc.det_commit(got, rec, n)
-            sync()
-            check_bitwise(f"DC {name} ({label})", got, want)
-            passes = []
-            for _ in range(DET_PASSES):
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    dc.det_commit(got, rec, n)
-                    sync()
-                by = {}
-                for e in prof.events():
-                    if e.name.startswith(("dc_", "void dc_", "Memset")):
-                        k = re.sub(r"^void |[<(].*$", "", e.name)
-                        by[k] = by.get(k, 0.0) + e.time_range.elapsed_us()
-                passes.append({k: round(v / 1e3, 4) for k, v in by.items()})
-            print(json.dumps({"dc_times": name, "records": n,
-                              "keys": target.numel(), "scatter": label,
-                              "pass_bytes": min(nbytes, 1 << 40),
-                              "ms_by_kernel": passes, "card": smi}))
-        dc.SCATTER_PASS_BYTES = shipped
+    flux = torch.zeros((m.nelems,), dtype=x.dtype, device=x.device)
+    lanes = torch.zeros((rt.bank_size,), dtype=x.dtype, device=x.device)
+    ws = DetWorkspace()
+    walk(*args, flux, **kw, deterministic=ws,
+         scoring=(spec.kinds, lanes, sbin, sfac))
+    for name, target in (("flux", flux), ("lanes", lanes)):
+        rec, n = records(ws, x, name)
+        dc_regime(f"box W0 {name}", rec, n, torch.zeros_like(target), smi)
+    del ws, lanes
+    with tempfile.TemporaryDirectory() as d:
+        path, lat_pts = write_lattice(d)
+        lat = load_mesh(path, dtype=torch.float32)
+        args, kw = w0_inputs(lat, lat_pts, False, N)
+        ws = DetWorkspace()
+        walk(*args, torch.zeros((lat.nelems,), dtype=torch.float32,
+                                device=args[1].device), **kw,
+             deterministic=ws)
+        rec, n = records(ws, args[1], "flux")
+        dc_regime("lattice W0 flux", rec, n,
+                  torch.zeros((lat.nelems,), dtype=torch.float32,
+                              device=args[1].device), smi)
+        del ws, lat, args
+    launch, rep, sessions = fused_group(mesh)
+    launch()
+    sync()
+    rec, n, bank = fused_records(rep, sessions)
+    dc_regime(f"service fused group ({SERVICE_MONO} sessions)", rec, n,
+              bank, smi)
+    box64 = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                      dtype=torch.float64)
+    args, kw = w0_inputs(box64, pts, False, W0_F64_N)
+    ws = DetWorkspace()
+    walk(*args, torch.zeros((box64.nelems,), dtype=torch.float64,
+                            device=args[1].device), **kw, deterministic=ws)
+    rec, n = records(ws, args[1], "flux")
+    dc_regime("box W0 flux (float64)", rec, n,
+              torch.zeros((box64.nelems,), dtype=torch.float64,
+                          device=args[1].device), smi)
     print(smi)
     return 0
 
@@ -5252,6 +5450,7 @@ def main() -> int:
     # The deterministic commit against the plain versions, then the
     # resilience contract through three facades.
     det = phase_det_kernels(mesh, pts)
+    phase_dc_cells()
     blk = phase_block_det(mesh, pts)
     counts.update(phase_resilience(mesh, smi))
     counts.update(phase_block_resilience(mesh, smi))

@@ -126,8 +126,10 @@ _ENTRY_ARGS = {
     "gather_work_list": ("gather_block_walk", [_P] * 5 + [_I, _I, _P],
                          ("f32",)),
     # The deterministic commit: keys, ords, values, their count, the
-    # target, its size, the scatter's passes, then four scratch buffers.
-    "det_commit": ("det_commit", [_P] * 3 + [_I, _P, _L, _I] + [_P] * 5,
+    # target, its size, the host address of the plan, then the count
+    # matrix's scratch, the partitioned records, the over-full count and
+    # the stream.
+    "det_commit": ("det_commit", [_P] * 3 + [_I, _P, _L] + [_P] * 5,
                    _BOTH),
 }
 

@@ -31,24 +31,64 @@ a ``DetWorkspace`` that the caller passes as ``deterministic=`` (a
 facade keeps one); ``deterministic=True`` gives a call its own.
 
 ``det_commit`` launches DC for CUDA tensors and runs ``det_commit_plain``
-for CPU tensors.
+for CPU tensors. DC (csrc/det_commit.cu) partitions the records into
+tiles of consecutive keys, a tile's records contiguous, and orders and
+sums each tile in one CTA's shared memory:
+
+- ``dc_plan`` cuts the keys into tiles from the record count (already
+  on the host after the walk: no new sync), the bank's size, the dtype
+  and the device's shared memory, so that a tile's expected records fill
+  about half a CTA's stage; the tiles are grouped into windows of about
+  16 MB of records;
+- a histogram counts the records by tile and by window, then two splits
+  move them, each grouping 4,096 records at a time by a few hundred
+  digits in shared memory so that its stores coalesce: by window, then
+  within each window by tile, into the scratch that ``DetRecords``
+  reserves (two buffers of ``rec_bytes`` a record);
+- a CTA a tile sorts its records by key group, then each group by its
+  order keys (in a thread's or a warp's registers, or in shared memory),
+  and adds each group serially onto its standing values;
+- a tile past the stage (a hot element, a skewed source) is committed
+  from global memory inside DC, chosen on the device
+  (``DetRecords.overfull`` counts such tiles of the last commit).
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from pumiumtally_tpu_torch import kernels
 
-# Offsets a CUDA block of DC's scan covers (csrc/det_commit.cu DC_CHUNK).
-DC_CHUNK = 4096
-# The bucketed records a pass of DC's scatter writes at most (16 bytes a
-# record), near the H100's 50 MB L2: the best of 12, 24, 48 MB and one
-# pass on the box's flux and lanes (PERF.md, PR 13).
-SCATTER_PASS_BYTES = 48 << 20
+# csrc/det_commit.cu's constants: CUDA threads a CTA (DC_THREADS),
+# records a split stages at a time (DC_SUB), key groups of a tile (and
+# digits of a split, DC_HIST_MAX), the groups a CTA sorts together
+# (DC_BIG_MAX) and the largest a warp sorts (DC_WARP_MAX).
+DC_THREADS = 512
+DC_WARPS = DC_THREADS // 32
+DC_SUB = 4096
+DC_HIST_MAX = 2048
+DC_BIG_MAX, DC_WARP_MAX = 64, 512
+# The plan's design choices: two tile-commit CTAs an SM (one's loads
+# overlap the other's sorts), a tile's expected records half its stage
+# (room for skew before a tile goes over-full), at most DC_TILES_MAX
+# tiles (the histogram's per-tile counters in 48 KB of shared memory),
+# about CHUNKS_PER_SM histogram and coarse-split CTAs an SM, windows of
+# consecutive tiles holding about WINDOW_BYTES of records (few, so that
+# the coarse split's runs are long; small, so that the fine split's
+# concurrent pieces write into L2), or one window, with no coarse split,
+# where all the records (ONE_WINDOW_BYTES) fit the H100's 50 MB L2; and
+# the shared memory each CTA leaves to its static arrays and the
+# system's 1 KB.
+CTAS_PER_SM = 2
+DC_TILES_MAX = 12288
+CHUNKS_PER_SM = 4
+WINDOW_BYTES = 16 << 20
+ONE_WINDOW_BYTES = 40 << 20
+STATIC_SMEM = 2048
 # A record stream's first capacity, in records a particle, and its growth
 # past the count a walk asked for.
 FIRST_RECORDS_PER_PARTICLE = 16
@@ -86,17 +126,150 @@ def det_commit_plain(target: torch.Tensor, key: torch.Tensor,
         target[k[sel]] = target[k[sel]] + v[sel]
 
 
+def rec_bytes(elem_bytes: int) -> int:
+    """The bytes of one partitioned record (csrc/det_commit.cu DcRec: the
+    ord, the value, the key): 16 in float32, 24 in float64."""
+    return 16 if elem_bytes == 4 else 24
+
+
+@dataclass(frozen=True)
+class DcPlan:
+    """DC's cut of one commit (``dc_plan``): ``tk`` keys a tile,
+    ``tiles`` of them, keys grouped by ``1 << group_shift`` in a tile's
+    counting sort, ``chunks`` histogram and coarse-split CTAs of
+    ``chunk_records`` records each, a stage of ``stage`` records,
+    ``tw`` tiles a window and ``windows`` of them, the over-full path's
+    grid; the dynamic shared memory of the
+    tile commit (and the over-full path) and of the two splits; the
+    int32 scratch (the tiles' starts, the over-full list, the tiles'
+    cursors, the fine split's piece offsets, a row of window counts and
+    places a chunk)."""
+
+    tk: int
+    tiles: int
+    group_shift: int
+    chunks: int
+    chunk_records: int
+    stage: int
+    tw: int
+    windows: int
+    overfull_grid: int
+    tiles_smem: int
+    coarse_smem: int
+    fine_smem: int
+    scratch_ints: int
+
+    @property
+    def groups(self) -> int:
+        """Key groups of a full tile (its counting sort's buckets)."""
+        return ((self.tk - 1) >> self.group_shift) + 1
+
+    def host_args(self):
+        """The ``plan`` argument of DC's entry: a ctypes array of int64
+        (csrc/det_commit.cu ``det_commit``). Keep it alive over the
+        launch and pass ``ctypes.addressof`` of it."""
+        vals = (self.tk, self.tiles, self.group_shift, self.chunks,
+                self.chunk_records, self.stage, self.tw, self.windows,
+                self.overfull_grid)
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def split_smem(digits: int, elem_bytes: int) -> int:
+    """The dynamic shared memory of a split over ``digits`` digits
+    (csrc/det_commit.cu dc_split_bytes): their counts, places and
+    cursors, then DC_SUB staged records and their digits."""
+    return -(-(12 * digits + 4) // 16) * 16 + DC_SUB * (
+        rec_bytes(elem_bytes) + 4)
+
+
+def dc_plan(m: int, K: int, elem_bytes: int, smem_block: int,
+            smem_sm: int, sms: int) -> DcPlan:
+    """DC's plan for ``m`` records into ``K`` entries of ``elem_bytes``
+    each on a device with ``smem_block`` bytes of opt-in shared memory a
+    block, ``smem_sm`` an SM and ``sms`` SMs. A tile commit's stage
+    holds (key, ord, value) records in what two CTAs an SM leave after
+    the two group arrays; a tile holds ``tk`` keys, as many as fill half
+    the stage on average (past DC_WARPS, a multiple of it, so that the
+    warps sort a tile's groups in whole rounds; at least 1, at most K),
+    widened where the tiles would pass DC_TILES_MAX; a tile's counting
+    sort groups keys so that it has at most DC_HIST_MAX buckets. A
+    window holds ``tw``
+    consecutive tiles, about WINDOW_BYTES of records (at most
+    DC_HIST_MAX tiles, and at most DC_HIST_MAX windows)."""
+    if m < 1 or K < 1:
+        raise ValueError(f"dc_plan: {m} records into {K} entries")
+    hist_bytes = 8 * (DC_HIST_MAX + 1)
+    budget = min(smem_block, smem_sm // CTAS_PER_SM) - STATIC_SMEM
+    stage = min((budget - hist_bytes) // (12 + elem_bytes),
+                DC_BIG_MAX * DC_WARP_MAX)
+    tk = (stage // 2) * K // m
+    if tk > DC_WARPS:  # whole rounds of the warps' sorts of one-key groups
+        tk -= tk % DC_WARPS
+    tk = min(max(1, tk, -(-K // DC_TILES_MAX)), K)
+    tiles = -(-K // tk)
+    shift = 0
+    while ((tk - 1) >> shift) + 1 > DC_HIST_MAX:
+        shift += 1
+    rc = DC_THREADS * max(1, -(-m // (DC_THREADS * CHUNKS_PER_SM * sms)))
+    chunks = -(-m // rc)
+    window = WINDOW_BYTES // rec_bytes(elem_bytes)
+    if m * rec_bytes(elem_bytes) <= ONE_WINDOW_BYTES:
+        window = m  # one window: a single split, into L2
+    tw = max(1, min(DC_HIST_MAX, tiles, window * K // (m * tk)),
+             -(-tiles // DC_HIST_MAX))
+    windows = -(-tiles // tw)
+    plan = DcPlan(tk=tk, tiles=tiles, group_shift=shift, chunks=chunks,
+                  chunk_records=rc, stage=stage, tw=tw, windows=windows,
+                  overfull_grid=min(tiles, sms),
+                  tiles_smem=stage * (12 + elem_bytes) + hist_bytes,
+                  coarse_smem=split_smem(windows, elem_bytes),
+                  fine_smem=split_smem(tw, elem_bytes),
+                  scratch_ints=3 * tiles + windows + 2 + windows * chunks)
+    if stage < 1 or max(plan.coarse_smem, plan.fine_smem,
+                        4 * tiles) > smem_block:
+        raise ValueError(f"det_commit: a device with {smem_block} bytes of "
+                         "shared memory a block cannot hold DC's stage")
+    return plan
+
+
+_DEVICE_SMEM: Dict[int, Tuple[int, int, int]] = {}
+
+
+def device_smem(device: torch.device) -> Tuple[int, int, int]:
+    """(opt-in shared memory a block, shared memory an SM, SMs) of a
+    CUDA device, cached."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    got = _DEVICE_SMEM.get(idx)
+    if got is None:
+        p = torch.cuda.get_device_properties(idx)
+        got = _DEVICE_SMEM[idx] = (int(p.shared_memory_per_block_optin),
+                                   int(p.shared_memory_per_multiprocessor),
+                                   int(p.multi_processor_count))
+    return got
+
+
+def b_rec_words(cap: int, dtype: torch.dtype) -> int:
+    """The int64 words of a stream's partitioned records: two buffers of
+    ``cap`` records of ``rec_bytes`` each (the coarse split's and the
+    fine split's)."""
+    return 2 * cap * rec_bytes(torch.finfo(dtype).bits // 8) // 8
+
+
 class DetRecords:
     """One stream of records on the card: int32 keys, int64 order keys,
     values in the walk's dtype, and an int64 counter of the records the
-    walk asked for; plus DC's scratch of the same length (the bucketed
-    records, 16 bytes each, and a large bucket's values in order)."""
+    walk asked for; plus DC's scratch of the same length (two buffers of
+    partitioned records, ``rec_bytes`` each) and ``overfull``, an int32
+    count of the tiles the last commit of the stream took through the
+    over-full path (CUDA only)."""
 
     def __init__(self, device: torch.device, dtype: torch.dtype):
         self.device, self.dtype = device, dtype
         self.cap = 0
         self.count = torch.zeros((1,), dtype=torch.int64, device=device)
-        self.key = self.ord = self.val = self.b_rec = self.s_val = None
+        self.overfull = torch.zeros((1,), dtype=torch.int32, device=device)
+        self.key = self.ord = self.val = self.b_rec = None
 
     def reserve(self, cap: int) -> None:
         """Room for at least ``cap`` records (contents dropped)."""
@@ -107,12 +280,12 @@ class DetRecords:
             raise ValueError(f"det_commit: {cap} records do not fit the "
                              "kernels' int32 places")
         dev, dt = self.device, self.dtype
-        self.key = self.ord = self.val = self.b_rec = self.s_val = None
+        self.key = self.ord = self.val = self.b_rec = None
         self.key = torch.empty((cap,), dtype=torch.int32, device=dev)
         self.ord = torch.empty((cap,), dtype=torch.int64, device=dev)
         self.val = torch.empty((cap,), dtype=dt, device=dev)
-        self.b_rec = torch.empty((2 * cap,), dtype=torch.int64, device=dev)
-        self.s_val = torch.empty((cap,), dtype=dt, device=dev)
+        self.b_rec = torch.empty((b_rec_words(cap, dt),), dtype=torch.int64,
+                                 device=dev)
         self.cap = cap
 
     def host_args(self) -> Tuple[int, int, int, int, int]:
@@ -239,11 +412,13 @@ def det_commit(target: torch.Tensor, rec: DetRecords, m: int) -> None:
                          "does not fit the kernels' int32 keys")
     if m == 0 or K == 0:
         return
-    off = torch.empty((K + 1 + -(-(K + 1) // DC_CHUNK),), dtype=torch.int32,
-                      device=target.device)
-    passes = max(1, min(K, -(-m * 16 // SCATTER_PASS_BYTES)))
+    plan = dc_plan(int(m), int(K), target.element_size(),
+                   *device_smem(target.device))
+    scratch = torch.empty((plan.scratch_ints,), dtype=torch.int32,
+                          device=target.device)
+    args = plan.host_args()
     p = kernels.ptr
     kernels.launch("det_commit", rec.dtype, target.device, p(rec.key),
                    p(rec.ord), p(rec.val), int(m), p(target), int(K),
-                   int(passes), p(off), p(off[K + 1:]), p(rec.b_rec),
-                   p(rec.s_val))
+                   ctypes.addressof(args), p(scratch), p(rec.b_rec),
+                   p(rec.overfull))
