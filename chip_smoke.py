@@ -20,7 +20,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Build: every kernel of the port, compiled from csrc/ with nvcc for
    sm_90a (build seconds and the ptxas register/shared-memory report;
    W0's registers and spills on a line of their own, per instantiation:
-   float / double, packed / two-tier, scoring off / on).
+   float / double, packed / two-tier / ROW16 / ROW20, scoring off / on).
+   From ``cuobjdump -sass`` (required): every unpacked instantiation
+   loads its planes as 128-bit words (at least 5 in float32; 9 ROW16,
+   10 ROW20 in float64) and no narrower global load beyond the packed
+   instantiation's with the same flags (``phase_plane_loads``).
 3. W0 (csrc/walk.cu) against its plain PyTorch version ``walk_plain`` on
    the card: a 48,000-tet box, 500,000 particles on bench.py's random
    trajectory, float32, tallying. The kernel counts the particles it
@@ -71,8 +75,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    tables) against the two-tier ``walk_plain``, as phase 3; then W0 in
    float64 on the box (100,000 particles) against ``walk_plain``.
 5b. W0's unpacked entries (``walk_unpacked``, ``walk_unpacked_scored``:
-   the planes and the int32 ids in separate arrays) on the box in the
-   forced unpacked layout, float32 (500,000 particles) and float64
+   ROW16, the planes in one [E,16] buffer and the int32 ids in
+   ``face_adj``) on the box in the forced unpacked layout, float32
+   (500,000 particles) and float64
    (100,000), against ``walk_plain`` (ids, masks, iters, x and s
    bitwise, flux rtol 1e-4, lanes as 6b, every particle walked) and
    against the packed W0 on the same inputs (x, s bitwise, ids equal),
@@ -82,7 +87,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the sentinel's rung 2: the planes read in place from
    ``walk_table_hi`` at stride 5), against ``walk_plain`` on
    ``with_plane_views()`` and the packed W0 on ``with_packed_table()``,
-   float32 and float64. The same on the lattice with phase 11.
+   float32 and float64 (ROW20). The same on the lattice with phase 11.
 6. W2 (csrc/twotier_block_walk.cu) against ``pallas_walk_local_plain``
    as phase 4, in both regimes: 24 blocks of <= 2,000 elements (the bf16
    tier doubles the 1024 bound; rows may be staged in shared memory),
@@ -237,16 +242,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    (unpacked), through ``PumiTally`` at 500,000 particles: localization
    by walk, a two-phase and two continue moves, conservation at rtol
    1e-6 after each, the last move's walk against ``walk_plain`` on the
-   card; the host build's seconds and peak memory, the device table
+   card, then that walk's kernel timed (CUDA events, four passes) beside
+   its bound (the tets it crosses read once) and its SM cycles a
+   crossing; the host build's seconds and peak memory, the device table
    bytes, each move's ms.
 14. The deterministic commit (csrc/det_commit.cu, DC) and the resilience
-   layer. W0's deterministic instantiation (packed, two-tier, unpacked,
-   scoring) and W4's (one block, the gather sub-split with its round 2
-   over the work list, two-tier, scoring) on the box, float32 at 500,000
-   particles and float64 at 100,000: two launches on the same inputs
-   equal bitwise, flux and lanes; equal bitwise to the plain version on
-   the card (``walk_plain`` / ``walk_local_list_plain`` with
-   ``deterministic=True``: their records through ``det_commit_plain``),
+   layer. W0's deterministic instantiation (packed, two-tier, unpacked
+   ROW16 and ROW20, scoring) and W4's (one block, the gather sub-split
+   with its round 2 over the work list, two-tier, scoring) on the box,
+   float32 at 500,000 particles and float64 at 100,000: two launches on
+   the same inputs equal bitwise, flux and lanes; equal bitwise to the
+   plain version on the card (``walk_plain`` / ``walk_local_list_plain``
+   with ``deterministic=True``: their records through
+   ``det_commit_plain``),
    positions, ids and flags too; equal bitwise to the plain version on
    the CPU (its serial ``index_add_``, one thread) on the float64 cells
    and W0's packed float32 cell; flux conserved at rtol 1e-6; a walk
@@ -280,7 +288,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    bitwise).
 15. The service. W0's segmented commit (``walk(tally_seg=)``): 8
    sessions of 62,500 particles and a walking padding row at 8*E, on
-   the packed and two-tier tables and with scoring: the atomic form's
+   the packed and two-tier tables, with scoring, and on both unpacked
+   layouts (ROW16, ROW20): the atomic form's
    positions bitwise its plain version and flux at rtol 1e-4, the kDet
    form bitwise, each segment conserving its own sessions' track. Then
    ``TallyService`` over 10 sessions of 100,000 particles on the box
@@ -308,10 +317,18 @@ values without arithmetic and is held bitwise, NaN fills by position.
 
 ``--w0-times`` runs phases 1-2, then prints W0's times (tallying and
 not, crossings, SM cycles per crossing) on the box and the lattice, on
-both tiers, one JSON line a cell. It calls only what every checkout of
-the port has (``PumiTally``, the ``walk`` wrapper, the plain steps), so
-a copy of this file in another checkout times that checkout: an A/B of
-two trees runs each tree's copy in turn.
+both tiers, one JSON line a cell; then the unpacked cells, one JSON line
+each (``w0_unpacked_cells``): on the box and the lattice, float32 and
+float64, W0 on the packed table, on ``TetMesh.from_arrays(...,
+force_unpacked=True)`` and on the two-tier tables at
+``walk(table_dtype="float32")``, in turns (four passes), float32 also
+with the stride-96 scoring spec; and the 17,179,728-tet box's continue
+walk (``w0_large_cell``), each arm beside its bound and SM cycles per
+crossing. It calls only what every checkout of the port with the
+unpacked layout has (``PumiTally``, ``TetMesh.from_arrays``, the ``walk``
+wrapper, the plain steps), so a copy of this file in another checkout
+times that checkout: an A/B of two trees runs each tree's copy in turn
+(parent, change, change, parent).
 
 ``--w3-g1-times`` runs phases 1-2, prints the SASS summaries of W3 and
 G1, then one JSON line a cell: W3 at each L of phase 7 (kernel ms over
@@ -507,13 +524,15 @@ def check_flux(what: str, got, want) -> float:
     return err
 
 
-def count_crossings(step, x, lelem, dest, active, base, tol) -> int:
+def count_crossings(step, x, lelem, dest, active, base, tol,
+                    seen=None) -> int:
     """Crossings this input needs: a lock-step replay of the walk that
     sums, per step, the particles still walking (block-local when
     ``base`` offsets stacked tables; a block exit ends the walk).
     ``step(rows, s, d0, dest, tol)`` is one crossing of every row: the
     plain versions' ``advance_cols`` on a packed table or
-    ``advance_twotier`` on the two tiers."""
+    ``advance_twotier`` on the two tiers. ``seen`` (bool, one a row):
+    set where a particle crossed the row."""
     import torch
 
     d0 = dest - x
@@ -523,6 +542,8 @@ def count_crossings(step, x, lelem, dest, active, base, tol) -> int:
     total = 0
     while bool(active.any()):
         total += int(active.sum())
+        if seen is not None:
+            seen[(base + e)[active]] = True
         s_new, nxt, reached = step(base + e, s, d0, dest, tol_t)
         stop = reached | (nxt < 0)
         e = torch.where(active & ~stop, nxt.long(), e)
@@ -557,9 +578,9 @@ def bound_entry(nbytes: float, crossings: int,
 
 def sass_counts(name: str) -> dict:
     """For each kernel of the named library, from ``cuobjdump -sass``:
-    its global loads (``LDG``), shared loads (``LDS``), and atomic and
-    bulk-copy instructions by opcode. Empty where the toolkit has no
-    cuobjdump."""
+    its global loads (``LDG``; ``LDG.128`` the 16-byte ones among them),
+    shared loads (``LDS``), and atomic and bulk-copy instructions by
+    opcode. Empty where the toolkit has no cuobjdump."""
     from pumiumtally_tpu_torch import kernels
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -574,6 +595,8 @@ def sass_counts(name: str) -> dict:
         ops = re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)",
                          body)
         c = {"LDG": sum(op.startswith("LDG") for op in ops),
+             "LDG.128": sum(bool(re.match(r"LDG\..*128", op))
+                            for op in ops),
              "LDS": sum(op.startswith("LDS") for op in ops)}
         for op in ops:
             if op.startswith(("ATOM", "RED", "UBLKCP", "SYNCS")):
@@ -2420,8 +2443,29 @@ EDGE_ROUNDS = 2  # W2's rounds per edge case: the leads score in round 1
 # script's flags) as walk.cu and twotier_block_walk.cu built them before
 # they had any scoring code: scoring must not move them.
 # W0's kLayout template values (csrc/walk.cu WALK_PACKED, WALK_TWO_TIER,
-# WALK_UNPACKED).
-WALK_LAYOUTS = ("packed", "two-tier", "unpacked")
+# WALK_ROW16, WALK_ROW20).
+WALK_LAYOUTS = ("packed", "two-tier", "row16", "row20")
+# Registers of W0's packed and two-tier instantiations, (dtype, layout,
+# scoring, deterministic, segmented) -> ptxas's count, as walk.cu built
+# them before the unpacked layouts had compile-time widths: a layout
+# added beside them must not raise them.
+REGS_PACKED_BEFORE = {
+    (dtype, layout, score, det, seg): regs
+    for (dtype, layout), counts in {
+        ("float", "packed"): (54, 55, 64, 64, 59, 58, 69, 76),
+        ("float", "two-tier"): (44, 46, 56, 58, 48, 48, 60, 62),
+        ("double", "packed"): (89, 89, 102, 103, 95, 95, 109, 110),
+        ("double", "two-tier"): (64, 64, 77, 77, 71, 73, 84, 86),
+    }.items()
+    for (score, det, seg), regs in zip(
+        [(sc, d, sg) for sc in (False, True) for d in (False, True)
+         for sg in (False, True)], counts)
+}
+# 16-byte loads of one crossing's planes and ids, per unpacked layout and
+# dtype: ROW16 4 float4 (8 double2) and the int4 of ids, ROW20 the 80 B
+# (160 B) block.
+PLANE_VECTOR_LOADS = {("row16", "float"): 5, ("row16", "double"): 9,
+                      ("row20", "float"): 5, ("row20", "double"): 10}
 REGS_BEFORE_SCORING = {
     ("walk", "float", "packed"): 54,
     ("walk", "float", "two-tier"): 44,
@@ -2557,6 +2601,11 @@ def phase_scoring_registers() -> None:
                   f"{', deterministic commit' if det else ''}"
                   f"{', segmented commit' if seg else ''}: {r}; global "
                   f"float reductions in SASS: {vec} vector, {sca} scalar")
+            if lib == "walk" and r > REGS_PACKED_BEFORE.get(key, r):
+                raise AssertionError(
+                    f"walk<{dtype}> {variant} {key[2:]}: {r} registers, "
+                    f"{REGS_PACKED_BEFORE[key]} before the unpacked "
+                    "layouts' redesign")
             if det:
                 if vec or sca:
                     raise AssertionError(
@@ -2574,8 +2623,40 @@ def phase_scoring_registers() -> None:
                 raise AssertionError(
                     f"{lib}<{dtype}> {variant} scoring "
                     f"{'on' if score else 'off'}: {vec} vector reductions")
-        if len(regs) != (48 if lib == "walk" else 8):
+        if len(regs) != (16 * len(WALK_LAYOUTS) if lib == "walk" else 8):
             raise AssertionError(f"{lib}: ptxas reported {sorted(regs)}")
+
+
+def phase_plane_loads() -> None:
+    """Phase 2's check of W0's unpacked instantiations, from their SASS
+    (``cuobjdump``, required): each reads its planes as whole 16-byte
+    words, at least ``PLANE_VECTOR_LOADS`` 128-bit global loads, and no
+    scalar plane load is left: its narrower global loads (the particle
+    state) are no more than the packed instantiation's with the same
+    scoring, commit and segment flags."""
+    sass = {instance_key("walk", fn): ops
+            for fn, ops in sass_counts("walk").items()}
+    if not sass:
+        raise AssertionError("walk: no SASS (cuobjdump missing?)")
+    for key, ops in sorted(sass.items()):
+        dtype, variant, score, det, seg = key
+        want = PLANE_VECTOR_LOADS.get((variant, dtype))
+        if want is None:
+            continue
+        packed = sass[(dtype, "packed", score, det, seg)]
+        vec, narrow = ops["LDG.128"], ops["LDG"] - ops["LDG.128"]
+        p_narrow = packed["LDG"] - packed["LDG.128"]
+        print(f"# W0 {variant}<{dtype}> scoring {'on' if score else 'off'}"
+              f"{', deterministic commit' if det else ''}"
+              f"{', segmented commit' if seg else ''}: global loads "
+              f"{vec} x 128-bit, {narrow} narrower (packed: "
+              f"{packed['LDG.128']} x 128-bit, {p_narrow} narrower)")
+        if vec < want or narrow > p_narrow:
+            raise AssertionError(
+                f"W0 {variant}<{dtype}> {key[2:]}: {vec} 128-bit loads "
+                f"(at least {want} wanted), {narrow} narrower loads "
+                f"against the packed instantiation's {p_narrow}: a plane "
+                "is read in pieces")
 
 
 def score_lanes(runtime, n: int, seed: int):
@@ -3138,6 +3219,7 @@ def phase_scoring_facades(mesh, pts, lat_path: str, lat_box, card: str):
 LARGE_DIV = 142
 LARGE_TETS = 6 * LARGE_DIV ** 3
 LARGE_CONTINUE_MOVES = 2
+LARGE_PASSES = 4  # phase 12b's timed passes of the continue walk
 # The sentinel's cells: max_iters=2 truncates most particles of a move.
 LADDER_ITERS = 2
 LADDER_STREAM_CHUNK = 100_000
@@ -3145,28 +3227,29 @@ LADDER_QUARANTINE_N = 10_000  # the starved ladder's quarantine run
 LADDER_PASSES = 4  # audited and sentinel-off moves timed in turns
 
 
-def unpacked_of(mesh):
-    """``mesh`` in the unpacked layout, its planes the packed table's own
-    values (what ``TetMesh.from_arrays(force_unpacked=True)`` stores)."""
-    import dataclasses
+def unpacked_layout(mesh, layout: str):
+    """The mesh a cell of ``layout`` walks: "row16" the unpacked layout
+    (``with_unpacked_planes``: the packed table's own plane values, what
+    ``TetMesh.from_arrays(force_unpacked=True)`` stores), "row20" a
+    two-tier mesh's refinement tier in place (``with_plane_views``), else
+    the mesh itself."""
+    if layout == "row16":
+        return mesh.with_unpacked_planes()
+    return mesh.with_plane_views() if layout == "row20" else mesh
 
-    return dataclasses.replace(
-        mesh, walk_table=None,
-        stored_face_normals=mesh.face_normals.contiguous(),
-        stored_face_offsets=mesh.face_offsets.contiguous())
 
-
-def unpacked_row_bytes(k: int) -> int:
-    """Bytes of one tet's planes and ids in the unpacked layout: 12
-    normal components and 4 offsets in the working dtype, 4 int32 ids
-    (80 B in float32, as the packed row)."""
-    return 16 * k + 16
+def unpacked_row_bytes(k: int, row: int = 16) -> int:
+    """Bytes a crossing of the unpacked walk reads for one tet: ROW16's
+    12 normal components and 4 offsets in the working dtype and 4 int32
+    ids (80 B in float32, as the packed row), or ROW20's block of four
+    refinement rows (ids in its adj lanes)."""
+    return 16 * k + 16 if row == 16 else 20 * k
 
 
 def phase_w0_unpacked(mesh, pts, label: str = "", n: int = N,
                       views: bool = False) -> list:
     """W0's unpacked entries on ``mesh`` in the forced unpacked layout
-    (planes at strides 3 and 1) against ``walk_plain`` (ids, masks,
+    (ROW16) against ``walk_plain (ids, masks,
     iters, x and s bitwise, flux at rtol 1e-4, the kernel's walked count
     == n), flux conserved at rtol 1e-6 against the analytic track
     length, and against the packed W0 on the same inputs: x and s
@@ -3176,7 +3259,7 @@ def phase_w0_unpacked(mesh, pts, label: str = "", n: int = N,
     buffers), beside the bytes bound. ``views``: the other caller, a
     two-tier mesh walked by ``walk(..., table_dtype="float32")`` (the
     sentinel's rung 2): the planes read in place from ``walk_table_hi``
-    at strides 5 and 5, held to ``walk_plain`` on
+    (ROW20), held to ``walk_plain`` on
     ``with_plane_views()`` and to the packed W0 on
     ``with_packed_table()`` in the same way, the launches counted under
     ``walk_unpacked`` / ``walk_unpacked_scored``. Returns the two kernel
@@ -3184,15 +3267,19 @@ def phase_w0_unpacked(mesh, pts, label: str = "", n: int = N,
     import torch
 
     from pumiumtally_tpu_torch import kernels
-    from pumiumtally_tpu_torch.ops.walk import plane_strides, walk, walk_plain
+    from pumiumtally_tpu_torch.ops.walk import (
+        check_plane_layout,
+        walk,
+        walk_plain,
+    )
     from pumiumtally_tpu_torch.scoring import ScoringRuntime
 
     args, kw = w0_inputs(mesh, pts, views, n)
     m, x = args[:2]
-    um = m.with_plane_views() if views else unpacked_of(m)
-    strides = plane_strides(um, x.device, x.dtype)
-    if strides != ((5, 5) if views else (3, 1)):
-        raise AssertionError(f"W0 unpacked{label}: plane strides {strides}")
+    um = unpacked_layout(m, "row20" if views else "row16")
+    row = check_plane_layout(um, x.device, x.dtype)
+    if row != (20 if views else 16):
+        raise AssertionError(f"W0 unpacked{label}: layout ROW{row}")
     uargs = (um, *args[1:])
     # The kernel's call: the two-tier mesh asked for the float32 tier,
     # or the unpacked mesh itself.
@@ -3256,15 +3343,16 @@ def phase_w0_unpacked(mesh, pts, label: str = "", n: int = N,
                                 args[3], torch.ones_like(scoring), 0,
                                 kw["tol"])
     k = x.element_size()
-    nbytes = n * (11 * k + 11) + m.nelems * (unpacked_row_bytes(k) + 2 * k)
+    nbytes = n * (11 * k + 11) + m.nelems * (unpacked_row_bytes(k, row)
+                                             + 2 * k)
     flops = F32_FLOPS if k == 4 else F64_FLOPS
     bound = bound_entry(nbytes, crossings, FLOPS_PER_CROSSING, flops)
     bound_s = bound_entry(nbytes + bank_bytes(bank_p, k)
                           + n * (4 + spec.n_scores * k), crossings,
                           FLOPS_PER_CROSSING + spec.n_scores, flops)
     med = {a: float(np.median(v)) for a, v in turns.items()}
-    print(f"# {name}: {n} particles on {m.nelems} tets, planes at "
-          f"strides {strides}; in turns (CUDA "
+    print(f"# {name}: {n} particles on {m.nelems} tets, layout "
+          f"ROW{row}; in turns (CUDA "
           f"events, ms): " + "; ".join(
               f"{a} {', '.join(f'{v:.4f}' for v in t)}"
               for a, t in turns.items())
@@ -3299,7 +3387,8 @@ def phase_unpacked_main_path(mesh, pts, card: str) -> dict:
 
     e, tm = score_attrs(11, N, out=0.0)
     kernels.reset_launch_counts()
-    t = PumiTally(unpacked_of(mesh), N, TallyConfig(scoring=score_spec()))
+    t = PumiTally(mesh.with_unpacked_planes(), N,
+                  TallyConfig(scoring=score_spec()))
     t.CopyInitialPosition(flat(pts[0]))
     t.MoveToNextLocation(flat(pts[0]), flat(pts[1]), np.ones(N, np.int8),
                          np.ones(N), energy=e, time=tm)
@@ -3322,8 +3411,9 @@ def phase_large_mesh(card: str) -> dict:
     two-phase move and two continue moves on bench.py's trajectory,
     conservation at rtol 1e-6 after each move, one continue move checked
     against ``walk_plain`` on the card (ids, x, s bitwise, flux rtol
-    1e-4). Prints the set-up seconds, the device table bytes, the
-    moves' ms and the host's peak memory."""
+    1e-4), then its kernel timed (``large_walk_times``: CUDA events,
+    LARGE_PASSES passes, beside its bound). Prints the set-up seconds,
+    the device table bytes, the moves' ms and the host's peak memory."""
     import resource
 
     import torch
@@ -3363,19 +3453,18 @@ def phase_large_mesh(card: str) -> dict:
     rels = [check_conservation("large mesh", t.flux, expect)]
     for m in range(2, LARGE_CONTINUE_MOVES + 2):
         if m == LARGE_CONTINUE_MOVES + 1:
-            # This move's walk, held to the plain version on the card.
-            dt, dev = t.dtype, t.device
-            args = (t.mesh, t.x, t.elem,
-                    torch.as_tensor(pts[m], dtype=dt, device=dev),
-                    torch.ones((N,), dtype=torch.int8, device=dev),
-                    torch.ones((N,), dtype=dt, device=dev))
-            kw = dict(tally=True, tol=t._tol, max_iters=t._max_iters)
+            # This move's walk, held to the plain version on the card,
+            # then timed; these launches are not the main path's.
+            before = dict(kernels.launch_counts)
+            args, kw = large_continue_walk(t, pts[m])
             rk = walk(*args, torch.zeros_like(t.flux), **kw)
             rp = walk_plain(*args, torch.zeros_like(t.flux), **kw)
             for f in ("elem", "done", "exited", "iters", "x", "s"):
                 check_equal(f"large mesh {f}", getattr(rk, f),
                             getattr(rp, f))
             err = check_flux("large mesh", rk.flux, rp.flux)
+            times = large_walk_times(args, kw, LARGE_PASSES)
+            kernels.launch_counts.update(before)
         move_ms.append(wall_ms(
             lambda m=m: t.MoveToNextLocation(None, flat(pts[m]))))
         expect += float(np.linalg.norm(pts[m] - pts[m - 1], axis=1).sum())
@@ -3390,7 +3479,13 @@ def phase_large_mesh(card: str) -> dict:
           f"{', '.join(f'{v:.3f}' for v in move_ms)} (two-phase, then "
           f"continue); conservation rel err "
           f"{', '.join(f'{r:.3e}' for r in rels)}; last move's walk vs "
-          f"plain: ids, x, s bitwise, flux max abs diff {err:.3e}; host "
+          f"plain: ids, x, s bitwise, flux max abs diff {err:.3e}; its "
+          f"kernel "
+          f"{', '.join(f'{v:.4f}' for v in times['ms']['unpacked'])} ms "
+          f"(CUDA events, {LARGE_PASSES} passes), bound "
+          f"{times['bound']['unpacked']}, "
+          f"{times['sm_cycles_per_crossing']['unpacked']:.1f} SM cycles a "
+          f"crossing; host "
           f"peak RSS {peak_gb:.1f} GB; launches {counts}")
     return counts
 
@@ -3721,7 +3816,9 @@ DET_PASSES = 4
 # W0's cells: (label, mesh layout, scoring) and W4's: (label, engine
 # knobs, scoring); each runs in float32 at N and float64 at W0_F64_N.
 DET_W0_CELLS = (("packed", "packed", False), ("two-tier", "two-tier", False),
-                ("unpacked", "unpacked", False), ("scoring", "packed", True))
+                ("unpacked ROW16", "row16", False),
+                ("unpacked ROW20", "row20", False),
+                ("scoring", "packed", True))
 DET_W4_CELLS = (("one block", {}, False), ("sub-split", W4_SUBSPLIT, False),
                 ("two-tier", dict(table_dtype="bfloat16"), False),
                 ("scoring", {}, True))
@@ -3802,9 +3899,8 @@ def det_w0_cell(mesh, label: str, layout: str, scored: bool, pts, n: int,
     from pumiumtally_tpu_torch.scoring import ScoringRuntime
 
     ws = DetWorkspace()
-    args, kw = w0_inputs(mesh, pts, layout == "two-tier", n)
-    if layout == "unpacked":
-        args = (unpacked_of(args[0]), *args[1:])
+    args, kw = w0_inputs(mesh, pts, layout in ("two-tier", "row20"), n)
+    args = (unpacked_layout(args[0], layout), *args[1:])
     m, x = args[:2]
     spec = score_spec() if scored else None
     sc_in = None
@@ -4169,7 +4265,8 @@ DET_BLOCK_ENTRIES = {  # cell -> (kernel line name, source, replaces)
 # walks and must tally nowhere; (label, layout, scoring).
 SEG_K = 8
 SEG_CELLS = (("packed", "packed", False), ("two-tier", "two-tier", False),
-             ("scoring", "packed", True))
+             ("scoring", "packed", True), ("unpacked ROW16", "row16", False),
+             ("unpacked ROW20", "row20", False))
 
 
 def block_round1(mesh, pts, kind: str, n: int, spec=None) -> tuple:
@@ -4331,10 +4428,11 @@ def seg_w0_cell(mesh, label: str, layout: str, scored: bool, pts) -> dict:
     import torch
 
     from pumiumtally_tpu_torch.ops.det_commit import DetWorkspace
-    from pumiumtally_tpu_torch.ops.walk import walk, walk_plain
+    from pumiumtally_tpu_torch.ops.walk import advance_mesh, walk, walk_plain
     from pumiumtally_tpu_torch.scoring import ScoringRuntime
 
-    args, kw = w0_inputs(mesh, pts, layout == "two-tier", N)
+    args, kw = w0_inputs(mesh, pts, layout in ("two-tier", "row20"), N)
+    args = (unpacked_layout(args[0], layout), *args[1:])
     m, x, elem, dest, fly, w = args
     dev, dt = x.device, x.dtype
     E, per = m.nelems, N // SEG_K
@@ -4402,13 +4500,14 @@ def seg_w0_cell(mesh, label: str, layout: str, scored: bool, pts) -> dict:
         "atomic, one flux": lambda: run(walk, False, segmented=False),
     }, cuda_ms, passes=DET_PASSES)
     plain_ms = wall_ms(lambda: run(walk_plain, False))
-    step = (twotier_step(m.walk_table_lo, m.walk_table_hi) if m.two_tier
-            else packed_step(m.walk_table))
-    crossings = count_crossings(step, x, args[2], args[3],
+    crossings = count_crossings(functools.partial(advance_mesh, m), x,
+                                args[2], args[3],
                                 torch.ones_like(args[4], dtype=torch.bool),
                                 0, kw["tol"])
     k = x.element_size()
-    row_bytes = 32 + 4 * 5 * k if m.two_tier else 20 * k
+    row_bytes = {"two-tier": 32 + 4 * 5 * k,
+                 "row16": unpacked_row_bytes(k, 16),
+                 "row20": unpacked_row_bytes(k, 20)}.get(layout, 20 * k)
     # As phase_w0's, plus each particle's offset; the flux bank of SEG_K
     # segments read and written.
     nbytes = n * (11 * k + 15) + E * row_bytes + SEG_K * E * 2 * k
@@ -4427,8 +4526,9 @@ def seg_w0_cell(mesh, label: str, layout: str, scored: bool, pts) -> dict:
                       for arm, s in turns.items())
           + f"; plain {plain_ms:.3f} ms; {crossings} crossings; bound "
           f"{bound}")
-    entry = {"scoring": "walk_scored", "two-tier": "walk_twotier"}.get(
-        label, "walk")
+    entry = {"scoring": "walk_scored", "two-tier": "walk_twotier",
+             "row16": "walk_unpacked", "row20": "walk_unpacked"}.get(
+        layout if m.unpacked else label, "walk")
     return {"name": f"W0 {entry}, segmented commit (tally_seg)",
             "route": "cuda", "source": "pumiumtally_tpu_torch/csrc/walk.cu",
             "replaces": "pumiumtally_tpu/ops/walk.py:470",
@@ -4459,9 +4559,10 @@ def phase_block_det(mesh, pts) -> list:
 
 
 def phase_seg(mesh, pts) -> dict:
-    """W0's segmented-commit cells (``seg_w0_cell``): packed, two-tier
-    and scoring. Returns the packed cell's kernel line entry (the
-    service's fused launches are packed W0 walks)."""
+    """W0's segmented-commit cells (``seg_w0_cell``): packed, two-tier,
+    scoring and the two unpacked layouts. Returns the packed cell's
+    kernel line entry (the service's fused launches are packed W0
+    walks)."""
     cells = [seg_w0_cell(mesh, label, layout, scored, pts)
              for label, layout, scored in SEG_CELLS]
     return cells[0]
@@ -5311,6 +5412,7 @@ def main() -> int:
     t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
+    phase_plane_loads()
 
     from pumiumtally_tpu_torch import (
         PartitionedPumiTally,
@@ -5554,6 +5656,154 @@ def main() -> int:
     return 0
 
 
+# --w0-times' unpacked cells: passes of each arm, in turns, in one
+# process.
+W0_TIMES_PASSES = 4
+
+
+def w0_times_line(label: str, arms: dict, args, kw, row_bytes: dict,
+                  extra_bytes: dict, passes: int = W0_TIMES_PASSES) -> dict:
+    """Time ``arms`` (name -> one call of W0 on ``args``' particles) in
+    turns (CUDA events, ``passes`` passes), beside the crossings the
+    input needs, each arm's bound (the particles' state read and written
+    once, each tet the walk crosses read once at ``row_bytes[arm]`` with
+    its flux lane read and written, plus ``extra_bytes[arm]``) and SM
+    cycles per crossing; print it as one JSON line and return it."""
+    import torch
+
+    from pumiumtally_tpu_torch.ops.walk import advance_mesh
+
+    m, x, elem, dest, fly = args[:5]
+    turns = in_turns(arms, cuda_ms, passes=passes)
+    seen = torch.zeros((m.nelems,), dtype=torch.bool, device=x.device)
+    crossings = count_crossings(functools.partial(advance_mesh, m), x, elem,
+                                dest, torch.ones_like(fly, dtype=torch.bool),
+                                0, kw["tol"], seen)
+    rows, n, k = int(seen.sum()), x.shape[0], x.element_size()
+    flops = F32_FLOPS if k == 4 else F64_FLOPS
+    sms, hz = sm_clock()
+    line = {"cell": label, "dtype": str(x.dtype).removeprefix("torch."),
+            "tets": m.nelems, "n": n, "crossings": crossings,
+            "tets_crossed": rows, "ms": turns, "bound": {},
+            "sm_cycles_per_crossing": {}}
+    for arm, t in turns.items():
+        nbytes = (n * (11 * k + 11) + rows * (row_bytes[arm] + 2 * k)
+                  + extra_bytes.get(arm, 0))
+        line["bound"][arm] = bound_entry(nbytes, crossings,
+                                         FLOPS_PER_CROSSING, flops)
+        line["sm_cycles_per_crossing"][arm] = (
+            float(np.median(t)) * 1e-3 * sms * hz / crossings)
+    print(json.dumps(line))
+    return line
+
+
+def w0_unpacked_cells(label: str, coords, tets, pts) -> None:
+    """--w0-times' unpacked cells on one mesh, float32 (N particles) and
+    float64 (W0_F64_N): W0 on the packed table, on the unpacked layout
+    (``TetMesh.from_arrays(force_unpacked=True)``) and on the two-tier
+    tables walked at ``table_dtype="float32"`` (the refinement tier in
+    place), in turns; in float32 also the packed and unpacked scoring
+    entries with the stride-96 spec. It calls only what every checkout
+    with the unpacked layout has."""
+    import torch
+
+    from pumiumtally_tpu_torch.mesh.tetmesh import TetMesh
+    from pumiumtally_tpu_torch.ops.walk import walk
+    from pumiumtally_tpu_torch.scoring import ScoringRuntime
+
+    dev = torch.device("cuda", 0)
+    for dtype, n in ((torch.float32, N), (torch.float64, W0_F64_N)):
+        def build(**knobs):
+            return TetMesh.from_arrays(coords, tets, dtype=dtype,
+                                       **knobs).to(device=dev)
+
+        packed, row16 = build(), build(force_unpacked=True)
+        lo = build(table_dtype="bfloat16")
+        args, kw = w0_inputs(packed, pts, n=n)
+        flux = torch.zeros((packed.nelems,), dtype=dtype, device=dev)
+
+        def arm(mesh, tier=None, sc=None):
+            return lambda: walk(mesh, *args[1:], flux, **kw,
+                                table_dtype=tier, scoring=sc)
+
+        k = torch.finfo(dtype).bits // 8
+        arms = {"packed": arm(packed), "row16": arm(row16),
+                "row20": arm(lo, "float32")}
+        row_bytes = {"packed": 20 * k, "row16": 16 * k + 16,
+                     "row20": 20 * k}
+        extra = {}
+        if dtype == torch.float32:
+            spec = score_spec()
+            rt = ScoringRuntime(spec, packed.nelems, dtype, dev)
+            sbin, sfac, _ = score_lanes(rt, n, 5)
+            bank = torch.zeros((rt.bank_size,), dtype=dtype, device=dev)
+            sc = (spec.kinds, bank, sbin, sfac)
+            arm(packed, sc=sc)()
+            lanes = bank_bytes(bank, k) + n * (4 + spec.n_scores * k)
+            for a, mesh in (("packed", packed), ("row16", row16)):
+                arms[f"{a}_scored"] = arm(mesh, sc=sc)
+                row_bytes[f"{a}_scored"] = row_bytes[a]
+                extra[f"{a}_scored"] = lanes
+        w0_times_line(label, arms, args, kw, row_bytes, extra)
+
+
+def w0_large_cell(passes: int = W0_TIMES_PASSES) -> dict:
+    """--w0-times' and phase 12b's cell: W0 on the continue walk of
+    ``PumiTally`` on the 17,179,728-tet box (float32: the unpacked layout
+    with no flag), N particles after a two-phase move, timed (CUDA
+    events, ``passes`` passes) on the facade's mesh and on its planes
+    copied into two contiguous arrays; its line (``w0_times_line``)."""
+    import torch
+
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+    from pumiumtally_tpu_torch.experiments.block_rounds import (
+        make_trajectory,
+    )
+    from pumiumtally_tpu_torch.mesh.box import box_arrays
+    from pumiumtally_tpu_torch.mesh.tetmesh import TetMesh
+
+    coords, tets = box_arrays(1, 1, 1, LARGE_DIV, LARGE_DIV, LARGE_DIV)
+    t = PumiTally(TetMesh.from_arrays(coords, tets, dtype=torch.float32), N,
+                  TallyConfig(check_found_all=False))
+    del coords, tets
+    pts = make_trajectory(np.random.default_rng(0), N,
+                          LARGE_CONTINUE_MOVES + 2)
+    t.CopyInitialPosition(flat(pts[0]))
+    t.MoveToNextLocation(flat(pts[0]), flat(pts[1]), np.ones(N, np.int8),
+                         np.ones(N))
+    args, kw = large_continue_walk(t, pts[2])
+    return large_walk_times(args, kw, passes)
+
+
+def large_continue_walk(t, dest) -> tuple:
+    """The walk of ``t``'s next continue move to ``dest`` (a ``PumiTally``
+    on the large box): the ``walk`` wrapper's positional arguments (flux
+    left out) and its keywords."""
+    import torch
+
+    dt, dev, n = t.dtype, t.device, t.num_particles
+    args = (t.mesh, t.x, t.elem, torch.as_tensor(dest, dtype=dt, device=dev),
+            torch.ones((n,), dtype=torch.int8, device=dev),
+            torch.ones((n,), dtype=dt, device=dev))
+    return args, dict(tally=True, tol=t._tol, max_iters=t._max_iters)
+
+
+def large_walk_times(args, kw, passes: int) -> dict:
+    """W0 on the large box's continue walk ``args``, timed (CUDA events,
+    ``passes`` passes into a standing flux); the line of
+    ``w0_times_line``."""
+    import torch
+
+    from pumiumtally_tpu_torch.ops.walk import walk
+
+    flux = torch.zeros((args[0].nelems,), dtype=args[1].dtype,
+                       device=args[1].device)
+    k = args[1].element_size()
+    return w0_times_line("large box",
+                         {"unpacked": lambda: walk(*args, flux, **kw)},
+                         args, kw, {"unpacked": 16 * k + 16}, {}, passes)
+
+
 def main_w0_times() -> int:
     import torch
 
@@ -5580,6 +5830,19 @@ def main_w0_times() -> int:
                 times = w0_times(*w0_inputs(mesh, p, two_tier))
                 print(json.dumps({"mesh": label, "two_tier": two_tier,
                                   "tets": mesh.nelems, "n": N, **times}))
+        del lattice
+    from pumiumtally_tpu_torch.mesh.box import box_arrays
+    from pumiumtally_tpu_torch.mesh.pincell import (
+        FLAGSHIP_PINCELL,
+        lattice_arrays,
+    )
+
+    w0_unpacked_cells("box", *box_arrays(1, 1, 1, MESH_DIV, MESH_DIV,
+                                         MESH_DIV), pts)
+    coords, tets, _, _ = lattice_arrays(*LATTICE, **dict(FLAGSHIP_PINCELL,
+                                                         nz=LATTICE_NZ))
+    w0_unpacked_cells("lattice", coords, tets, lat_pts)
+    w0_large_cell()
     return 0
 
 
@@ -5999,6 +6262,7 @@ def main_unpacked_sentinel() -> int:
 
     _, smi = phase_device()
     phase_build()
+    phase_plane_loads()
     phase_scoring_registers()
     mesh = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
                      dtype=torch.float32)

@@ -3,7 +3,7 @@ that the PyTorch port implements so far.
 
 The JAX fields the port does not have yet are ``device_mesh``,
 ``migrate_collective``, ``placement`` and ``placement_hosts``
-(ROADMAP.md queue 1, item 6: multi-device).
+(ROADMAP.md queue 1, item 7: multi-device).
 A knob the port does not have is not a field, so passing it is a
 ``TypeError``. The few values the JAX package accepts but the port does
 not run yet raise ``NotImplementedError`` naming the ROADMAP.md item
@@ -21,7 +21,7 @@ import torch
 
 # The ROADMAP.md item named by the refusals of the multi-device fields
 # and values.
-ROADMAP_MULTI_DEVICE = "ROADMAP.md queue 1, item 6, 'Multi-device'"
+ROADMAP_MULTI_DEVICE = "ROADMAP.md queue 1, item 7, 'Multi-device'"
 
 
 @dataclasses.dataclass

@@ -103,7 +103,7 @@ def tetmesh_from_arrays(arrays: Dict[str, Any],
     integer adjacency, so neighbour ids stay exact in any dtype. Arrays
     holding the two-tier tables give a two-tier mesh: the bf16 tier
     bit for bit, the refinement tier in ``dtype``; arrays with neither
-    table an unpacked mesh (the planes in ``dtype``)."""
+    table an unpacked mesh (the planes in one ROW16 buffer in ``dtype``)."""
     coords = np.asarray(arrays["coords"])
     if dtype is None:
         dtype = {np.dtype(np.float32): torch.float32,

@@ -83,20 +83,23 @@
 // face's 20 B (f32) refinement row, whose adj lane names the neighbour:
 // 52 B instead of 80 B, and face_adj is never read (csrc/twotier_step.cuh).
 //
-// The unpacked variant (WALK_UNPACKED; the JAX walk's `_gather_walk_row`
-// fallback, ops/walk.py:279-290) reads a tet's four planes from two arrays
-// and its neighbours from the int32 face_adj: face f of tet e has its
-// normal at nrm[(4e + f) * nstride + c] and its offset at
-// off[(4e + f) * ostride], its neighbour at adj[4e + f] (one 16-byte int4
-// load, as W4's sidecar). Two callers share it: a mesh whose ids a float
-// lane cannot hold exactly (2^24 tets or more in float32; strides 3 and 1,
-// the stored planes) and the float32 tier of a two-tier mesh (strides 5
-// and 5, the refinement tier's planes in place: `nrm` its row base, `off`
-// the row base + 3). The same 80 B a crossing in f32 (48 B normals, 16 B
-// offsets, 16 B ids) as the packed row, from three places: more sectors.
-// The plane values are scalar loads (the strides are run-time); the
-// arithmetic is walk_step.cuh's, so positions and ids equal the packed
-// walk's on the same planes.
+// The unpacked variants (the JAX walk's `_gather_walk_row` fallback,
+// ops/walk.py:279-290) read a tet's four planes from one row of `planes`
+// at a compile-time width, as whole 16-byte words, and run walk_step.cuh's
+// arithmetic, so positions and ids equal the packed walk's on the same
+// planes. Two layouts, one a caller:
+// - WALK_ROW16: a mesh whose ids a float lane cannot hold exactly (2^24
+//   tets or more in float32, or built unpacked on request). Row e holds
+//   the packed row's first 16 lanes (12 normal components, 4 offsets):
+//   4 float4 (8 double2), then the neighbours from the int32 face_adj as
+//   one int4. 64 B at 64e plus 16 B of ids: 3 sectors in f32, as the
+//   packed row's 80 B (5 in f64, again the packed row's count).
+// - WALK_ROW20: the float32 tier of a two-tier mesh, read in place: the
+//   refinement tier's four 5-lane face rows (nx, ny, nz, off, adj) of tet
+//   e form one 80 B block at 80e, read as 5 float4 (10 double2); the
+//   offsets and the neighbours come from lanes 5f + 3 and 5f + 4 in
+//   registers (the ids are exact: a two-tier mesh stays below the float
+//   lanes' exact-id limit). 3 sectors in f32, and face_adj is not read.
 //
 // The segmented commit (kSeg; the JAX walk's `tally_seg`, ops/walk.py:470,
 // :533-556, the service's cross-session fusion): an int32 offset a
@@ -121,23 +124,22 @@
 #define WALK_REFILL 16  // idle lanes that make a warp refill
 #define WALK_RING 4     // shares whose outputs a warp stages at once
 
-// Walk layouts, the kernel's kLayout: the packed row, the two tiers, the
-// unpacked planes and ids.
+// Walk layouts, the kernel's kLayout: the packed row, the two tiers, and
+// the unpacked planes in rows of 16 lanes (ids from face_adj) or in the
+// refinement tier's blocks of 20.
 #define WALK_PACKED 0
 #define WALK_TWO_TIER 1
-#define WALK_UNPACKED 2
+#define WALK_ROW16 2
+#define WALK_ROW20 3
 
 template <typename T>
 struct WalkArgs {
   const T* table;
   const uint16_t* table_lo;
   const T* table_hi;
-  // WALK_UNPACKED: the planes and neighbour ids, and the planes' strides
-  // in elements between one face and the next.
-  const T* nrm;
-  const T* off;
+  // WALK_ROW16 / WALK_ROW20: the plane rows; WALK_ROW16's neighbour ids.
+  const T* planes;
   const int* adj;
-  int nstride, ostride;
   const T* x;
   const int* elem_in;
   const T* dest;
@@ -178,19 +180,28 @@ __device__ __forceinline__ T crossing(const WalkArgs<T>& a, int e, T s,
     return twotier_step(a.table_lo + (size_t)e * WALK_TABLE_LO_WIDTH,
                         a.table_hi, e, s, dx, dy, dz, px, py, pz, a.tol, next,
                         reached);
-  } else if constexpr (kLayout == WALK_UNPACKED) {
-    // The 16 plane values in the packed row's order, then walk_step's
-    // arithmetic; the neighbour from the int4 of ids.
-    T r[WALK_TABLE_ADJ];
-    const T* n = a.nrm + (size_t)e * 4 * a.nstride;
-    const T* o = a.off + (size_t)e * 4 * a.ostride;
+  } else if constexpr (kLayout == WALK_ROW20) {
+    // The block's lanes into the packed row's register order, then the
+    // packed step (its neighbour from the adj lanes).
+    T q[4 * WALK_PLANE_WIDTH];
+    walk_load_lanes<4 * WALK_PLANE_WIDTH>(
+        a.planes + (size_t)e * 4 * WALK_PLANE_WIDTH, q);
+    T r[WALK_TABLE_WIDTH];
 #pragma unroll
     for (int f = 0; f < 4; ++f) {
-      r[3 * f] = n[f * a.nstride];
-      r[3 * f + 1] = n[f * a.nstride + 1];
-      r[3 * f + 2] = n[f * a.nstride + 2];
-      r[WALK_TABLE_OFFSETS + f] = o[f * a.ostride];
+      r[3 * f] = q[WALK_PLANE_WIDTH * f];
+      r[3 * f + 1] = q[WALK_PLANE_WIDTH * f + 1];
+      r[3 * f + 2] = q[WALK_PLANE_WIDTH * f + 2];
+      r[WALK_TABLE_OFFSETS + f] = q[WALK_PLANE_WIDTH * f + 3];
+      r[WALK_TABLE_ADJ + f] = q[WALK_PLANE_WIDTH * f + 4];
     }
+    return walk_step(r, s, dx, dy, dz, px, py, pz, a.tol, next, reached);
+  } else if constexpr (kLayout == WALK_ROW16) {
+    // The packed row's first 16 lanes, then walk_step's arithmetic; the
+    // neighbour from the int4 of ids.
+    T r[WALK_TABLE_ADJ];
+    walk_load_lanes<WALK_TABLE_ADJ>(a.planes + (size_t)e * WALK_TABLE_ADJ,
+                                    r);
     const int4 ids = *reinterpret_cast<const int4*>(a.adj + (size_t)e * 4);
     int f;
     const T s_exit = walk_exit(r, s, dx, dy, dz, px, py, pz, a.tol, &f);
@@ -499,10 +510,8 @@ static WalkArgs<T> walk_args(const void* table, const void* table_lo,
   a.table = static_cast<const T*>(table);
   a.table_lo = static_cast<const uint16_t*>(table_lo);
   a.table_hi = static_cast<const T*>(table_hi);
-  a.nrm = nullptr;
-  a.off = nullptr;
+  a.planes = nullptr;
   a.adj = nullptr;
-  a.nstride = a.ostride = 0;
   a.x = static_cast<const T*>(x);
   a.elem_in = static_cast<const int*>(elem);
   a.dest = static_cast<const T*>(dest);
@@ -551,15 +560,21 @@ static WalkArgs<T> with_scoring(WalkArgs<T> a, void* bank,
 
 // The unpacked arguments of a walk_unpacked entry, set on `a`.
 template <typename T>
-static WalkArgs<T> with_planes(WalkArgs<T> a, const void* nrm,
-                               const void* off, const void* adj, int nstride,
-                               int ostride) {
-  a.nrm = static_cast<const T*>(nrm);
-  a.off = static_cast<const T*>(off);
+static WalkArgs<T> with_planes(WalkArgs<T> a, const void* planes,
+                               const void* adj) {
+  a.planes = static_cast<const T*>(planes);
   a.adj = static_cast<const int*>(adj);
-  a.nstride = nstride;
-  a.ostride = ostride;
   return a;
+}
+
+// An unpacked entry's launch: `row` names the layout, 16 (WALK_ROW16) or
+// 20 (WALK_ROW20); any other width is refused.
+template <typename T, bool kScore>
+static int dispatch_planes(const WalkArgs<T>& a, int row, const void* det,
+                           void* stream) {
+  if (row == 16) return dispatch_walk<T, WALK_ROW16, kScore>(a, det, stream);
+  if (row == 20) return dispatch_walk<T, WALK_ROW20, kScore>(a, det, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The particle arguments every entry takes after its tables.
@@ -650,47 +665,47 @@ extern "C" int pumi_walk_twotier_scored_f64(WALK_SCORE_PARAMS,
       det, stream);
 }
 
-// The unpacked entries: planes through their strides, int32 neighbour ids.
-#define WALK_PLANE_PARAMS                                                 \
-  const void *nrm, const void *off, const void *adj, int nstride, int ostride
-#define WALK_PLANE_ARGS nrm, off, adj, nstride, ostride
+// The unpacked entries: the plane rows, the int32 neighbour ids (read by
+// WALK_ROW16), the row's width.
+#define WALK_PLANE_PARAMS const void *planes, const void *adj, int row
+#define WALK_PLANE_ARGS planes, adj
 
 extern "C" int pumi_walk_unpacked_f32(WALK_PLANE_PARAMS,
                                       WALK_PARTICLE_PARAMS) {
-  return dispatch_walk<float, WALK_UNPACKED>(
+  return dispatch_planes<float, false>(
       with_planes(walk_args<float>(nullptr, nullptr, nullptr,
                                    WALK_PARTICLE_ARGS),
                   WALK_PLANE_ARGS),
-      det, stream);
+      row, det, stream);
 }
 
 extern "C" int pumi_walk_unpacked_f64(WALK_PLANE_PARAMS,
                                       WALK_PARTICLE_PARAMS) {
-  return dispatch_walk<double, WALK_UNPACKED>(
+  return dispatch_planes<double, false>(
       with_planes(walk_args<double>(nullptr, nullptr, nullptr,
                                     WALK_PARTICLE_ARGS),
                   WALK_PLANE_ARGS),
-      det, stream);
+      row, det, stream);
 }
 
 extern "C" int pumi_walk_unpacked_scored_f32(WALK_SCORE_PARAMS,
                                              WALK_PLANE_PARAMS,
                                              WALK_PARTICLE_PARAMS) {
-  return dispatch_walk<float, WALK_UNPACKED, true>(
+  return dispatch_planes<float, true>(
       with_scoring(with_planes(walk_args<float>(nullptr, nullptr, nullptr,
                                                 WALK_PARTICLE_ARGS),
                                WALK_PLANE_ARGS),
                    WALK_SCORE_ARGS),
-      det, stream);
+      row, det, stream);
 }
 
 extern "C" int pumi_walk_unpacked_scored_f64(WALK_SCORE_PARAMS,
                                              WALK_PLANE_PARAMS,
                                              WALK_PARTICLE_PARAMS) {
-  return dispatch_walk<double, WALK_UNPACKED, true>(
+  return dispatch_planes<double, true>(
       with_scoring(with_planes(walk_args<double>(nullptr, nullptr, nullptr,
                                                  WALK_PARTICLE_ARGS),
                                WALK_PLANE_ARGS),
                    WALK_SCORE_ARGS),
-      det, stream);
+      row, det, stream);
 }

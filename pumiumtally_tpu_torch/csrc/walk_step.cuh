@@ -68,31 +68,43 @@ __device__ __forceinline__ T walk_exit(const T* row, T s, T dx, T dy, T dz,
   return s_exit;
 }
 
-// One packed row into registers with 16-byte loads (5 x float4 in f32,
-// 10 x double2 in f64); rows are 80 / 160 B and 16 B aligned, in global
-// memory (W0) or shared memory (W1).
-__device__ __forceinline__ void walk_load_row(const float* row,
-                                              float r[WALK_TABLE_WIDTH]) {
-  const float4* p = reinterpret_cast<const float4*>(row);
+// N consecutive lanes into registers with 16-byte loads (N / 4 float4
+// in f32, N / 2 double2 in f64); `p` is 16 B aligned, in global memory
+// (W0) or shared memory (W1).
+template <int N>
+__device__ __forceinline__ void walk_load_lanes(const float* p,
+                                                float (&r)[N]) {
+  static_assert(N % 4 == 0, "whole float4 words");
+  const float4* q = reinterpret_cast<const float4*>(p);
 #pragma unroll
-  for (int q = 0; q < 5; ++q) {
-    const float4 v = p[q];
-    r[4 * q] = v.x;
-    r[4 * q + 1] = v.y;
-    r[4 * q + 2] = v.z;
-    r[4 * q + 3] = v.w;
+  for (int k = 0; k < N / 4; ++k) {
+    const float4 v = q[k];
+    r[4 * k] = v.x;
+    r[4 * k + 1] = v.y;
+    r[4 * k + 2] = v.z;
+    r[4 * k + 3] = v.w;
   }
 }
 
-__device__ __forceinline__ void walk_load_row(const double* row,
-                                              double r[WALK_TABLE_WIDTH]) {
-  const double2* p = reinterpret_cast<const double2*>(row);
+template <int N>
+__device__ __forceinline__ void walk_load_lanes(const double* p,
+                                                double (&r)[N]) {
+  static_assert(N % 2 == 0, "whole double2 words");
+  const double2* q = reinterpret_cast<const double2*>(p);
 #pragma unroll
-  for (int q = 0; q < 10; ++q) {
-    const double2 v = p[q];
-    r[2 * q] = v.x;
-    r[2 * q + 1] = v.y;
+  for (int k = 0; k < N / 2; ++k) {
+    const double2 v = q[k];
+    r[2 * k] = v.x;
+    r[2 * k + 1] = v.y;
   }
+}
+
+// One packed row into registers with 16-byte loads (5 x float4 in f32,
+// 10 x double2 in f64); rows are 80 / 160 B and 16 B aligned.
+template <typename T>
+__device__ __forceinline__ void walk_load_row(const T* row,
+                                              T (&r)[WALK_TABLE_WIDTH]) {
+  walk_load_lanes<WALK_TABLE_WIDTH>(row, r);
 }
 
 // Advance one crossing from ray coordinate s inside the tet whose packed

@@ -91,8 +91,9 @@ _W0 = [_P] * 16 + [_I, _D, _I, _I, _P, _I, _P, _P]
 # det.
 _W1 = [_P] * 16 + [_I, _I, _I, _D, _I, _I, _P, _P]
 _W2 = [_P] * 17 + [_I, _I, _I, _D, _I, _I, _I, _P, _P]
-# W0's unpacked tables: normals, offsets, ids, and the two strides.
-_PLANES = [_P] * 3 + [_I, _I]
+# W0's unpacked tables: the plane rows, the ids, and the rows' width (16
+# or 20, the layout).
+_PLANES = [_P] * 2 + [_I]
 # C entry points: entry -> (library, argtypes, dtypes); the entry's
 # dtypes share its argtypes (``pumi_<entry>_f32`` / ``pumi_<entry>_f64``).
 _ENTRY_ARGS = {

@@ -22,13 +22,20 @@ moved to the device as flat tensors:
   neighbour). The adj lane holds ids as floats, under the same exact-id
   ceiling as the packed table.
 - or the unpacked layout, where no table carries the ids: the face
-  planes in ``stored_face_normals[E,4,3]`` and ``stored_face_offsets[E,4]``
-  beside the int32 ``face_adj``. ``from_arrays`` builds it for a mesh of
+  planes beside the int32 ``face_adj``, in one of two row layouts that
+  W0 reads as whole 16-byte words at compile-time widths (csrc/walk.cu).
+  ROW16 (``PLANE_ROW16``): one [E,16] buffer in the working dtype whose
+  row holds the packed row's first 16 lanes (12 normal components, 4
+  offsets); ``stored_face_normals`` is its [E,4,3] view with strides
+  (16,3,1) and ``stored_face_offsets`` its [E,4] view with strides
+  (16,1) at +12. ``from_arrays`` builds it for a mesh of
   ``exact_id_limit`` tets or more (2^24 in float32) or when asked
-  (``force_unpacked``); ``with_plane_views`` gives a two-tier mesh the
-  same layout over its refinement tier's planes, as strided views, for
-  the float32 tier's walk. W0 reads the three arrays through their
-  strides (csrc/walk.cu).
+  (``force_unpacked``), and ``from_numpy``, ``to`` and
+  ``with_unpacked_planes`` keep or make it. ROW20 (``PLANE_ROW20``):
+  ``with_plane_views`` gives a two-tier mesh the views of its
+  refinement tier in place (strides (20,5,1) and (20,5) at +3), for the
+  float32 tier's walk; the kernel takes the neighbours from the tier's
+  adj lanes.
 """
 
 from __future__ import annotations
@@ -56,6 +63,11 @@ WALK_TABLE_LO_NORMALS = slice(0, 12)  # bf16, 4 faces x 3 components
 WALK_TABLE_LO_OFFSETS = slice(12, 16)  # bf16, 4 face-plane offsets
 WALK_TABLE_LO_WIDTH = 16
 WALK_PLANE_WIDTH = 5  # refinement row: (nx, ny, nz, off, adj) of ONE face
+
+# The unpacked layout's row widths (``plane_layout``): a tet's planes in
+# one row of the ROW16 buffer, or the refinement tier's four face rows.
+PLANE_ROW16 = 16
+PLANE_ROW20 = 4 * WALK_PLANE_WIDTH
 
 
 def exact_id_limit(dtype: torch.dtype) -> int:
@@ -99,6 +111,46 @@ def pack_plane_table(normals: torch.Tensor, offsets: torch.Tensor,
     ], dim=1)
     assert row.shape[1] == WALK_PLANE_WIDTH
     return row.to(dtype)
+
+
+def row16_views(rows: torch.Tensor) -> dict:
+    """``stored_face_normals`` [E,4,3] (strides (16,3,1)) and
+    ``stored_face_offsets`` [E,4] (strides (16,1), at +12): the views of
+    a contiguous ROW16 buffer that a TetMesh stores."""
+    ne = rows.shape[0]
+    return dict(stored_face_normals=rows[:, WALK_TABLE_NORMALS].view(ne, 4, 3),
+                stored_face_offsets=rows[:, WALK_TABLE_OFFSETS])
+
+
+# Each unpacked row layout: (row width, the normals' strides, the
+# offsets' strides, the offsets' place in the row).
+_PLANE_LAYOUTS = (
+    (PLANE_ROW16, (16, 3, 1), (16, 1), 12),
+    (PLANE_ROW20, (20, 5, 1), (20, 5), 3),
+)
+
+
+def plane_layout(normals: torch.Tensor,
+                 offsets: torch.Tensor) -> Optional[int]:
+    """The row width W0 reads the planes at: ``PLANE_ROW16`` for the
+    views of a ROW16 buffer, ``PLANE_ROW20`` for a refinement tier's in
+    place (``with_plane_views``), None for any other layout or a row
+    base off a 16-byte boundary (the kernel reads whole 16-byte words).
+    Shapes and dtype are the caller's to check."""
+    storage = normals.untyped_storage()
+    if (storage.data_ptr() != offsets.untyped_storage().data_ptr()
+            or normals.data_ptr() % 16):
+        return None
+    base = normals.storage_offset()
+    for row, nrm_strides, off_strides, at in _PLANE_LAYOUTS:
+        # The storage holds every row whole (ROW20's last adj lane too).
+        end = (base + row * normals.shape[0]) * normals.element_size()
+        if (normals.stride() == nrm_strides
+                and offsets.stride() == off_strides
+                and offsets.storage_offset() == base + at
+                and storage.nbytes() >= end):
+            return row
+    return None
 
 
 def _check_two_tier_ids(ne: int, dtype: torch.dtype) -> None:
@@ -187,8 +239,8 @@ class TetMesh:
     walk_table: Optional[torch.Tensor]  # [E,20] float: normals|offsets|adj
     walk_table_lo: Optional[torch.Tensor] = None  # [E,16] bf16
     walk_table_hi: Optional[torch.Tensor] = None  # [E*4,5] float
-    # The unpacked layout's planes (None otherwise): may be strided
-    # views (``with_plane_views``).
+    # The unpacked layout's planes (None otherwise): views of a ROW16
+    # buffer, or of the refinement tier (``with_plane_views``).
     stored_face_normals: Optional[torch.Tensor] = None  # [E,4,3] float
     stored_face_offsets: Optional[torch.Tensor] = None  # [E,4] float
 
@@ -281,8 +333,8 @@ class TetMesh:
         """Move host arrays to ``device``: floats in ``dtype`` (the
         table from its float64 form, so ids stay exact), ids int32.
         ``face_normals`` and ``face_offsets`` (with ``walk_table`` None)
-        give the unpacked layout; neither leaves the tables to the
-        caller."""
+        give the unpacked layout, in one ROW16 buffer; neither leaves the
+        tables to the caller."""
         def f(a):
             return None if a is None else torch.tensor(
                 np.asarray(a), dtype=dtype, device=device)
@@ -290,11 +342,15 @@ class TetMesh:
         def i(a):
             return torch.tensor(np.asarray(a, dtype=np.int32), device=device)
 
+        planes = {}
+        if face_normals is not None:
+            ne = np.shape(face_offsets)[0]
+            planes = row16_views(f(np.concatenate(
+                [np.asarray(face_normals).reshape(ne, 12),
+                 np.asarray(face_offsets)], axis=1)))
         return cls(
             coords=f(coords), tet2vert=i(tet2vert), face_adj=i(face_adj),
-            volumes=f(volumes), walk_table=f(walk_table),
-            stored_face_normals=f(face_normals),
-            stored_face_offsets=f(face_offsets),
+            volumes=f(volumes), walk_table=f(walk_table), **planes,
         )
 
     def with_lowp_tables(self) -> "TetMesh":
@@ -327,6 +383,31 @@ class TetMesh:
         return dataclasses.replace(self, walk_table=table.to(self.dtype),
                                    walk_table_lo=None, walk_table_hi=None)
 
+    def _has_row16(self) -> bool:
+        return self.unpacked and plane_layout(
+            self.face_normals, self.face_offsets) == PLANE_ROW16
+
+    def row16(self) -> torch.Tensor:
+        """The planes as [E,PLANE_ROW16] rows of normals|offsets (the
+        packed row's first 16 lanes): a ROW16 mesh's own buffer (no
+        copy), else assembled from the planes of its layout."""
+        if self._has_row16():
+            return self.face_normals.as_strided(
+                (self.nelems, PLANE_ROW16), (PLANE_ROW16, 1))
+        return torch.cat([self.face_normals.reshape(-1, 12),
+                          self.face_offsets], dim=1)
+
+    def with_unpacked_planes(self) -> "TetMesh":
+        """This mesh in the unpacked layout with its planes in one ROW16
+        buffer, copied from the packed table, the two-tier refinement
+        tier or planes held in any other layout (the walk's ids then come
+        from ``face_adj``). A ROW16 mesh is returned as it is."""
+        if self._has_row16():
+            return self
+        return dataclasses.replace(
+            self, walk_table=None, walk_table_lo=None, walk_table_hi=None,
+            **row16_views(self.row16()))
+
     def with_plane_views(self) -> "TetMesh":
         """A two-tier mesh in the unpacked layout over its refinement
         tier: ``stored_face_normals`` / ``stored_face_offsets`` are
@@ -350,7 +431,9 @@ class TetMesh:
         exact within the checked limit); an unpacked mesh stays unpacked
         (its planes convert directly, its ids are integers), and so
         does a packed one with more tets than ``dtype``'s float lanes
-        hold ids for."""
+        hold ids for. The unpacked planes land in one ROW16 buffer (a
+        ROW16 buffer already in ``dtype`` on ``device`` is kept, no
+        copy)."""
         dtype = self.dtype if dtype is None else dtype
         device = self.device if device is None else device
         common = dict(
@@ -373,12 +456,8 @@ class TetMesh:
                                                     dtype=dtype),
             )
         if self.unpacked or self.nelems >= exact_id_limit(dtype):
-            return TetMesh(
-                **common, walk_table=None,
-                stored_face_normals=self.face_normals.to(device=device,
-                                                         dtype=dtype),
-                stored_face_offsets=self.face_offsets.to(device=device,
-                                                         dtype=dtype))
+            return TetMesh(**common, walk_table=None, **row16_views(
+                self.row16().to(device=device, dtype=dtype)))
         table = self.walk_table.to(torch.float64, copy=True)
         table[:, WALK_TABLE_ADJ] = self.face_adj.double()
         return TetMesh(**common,

@@ -21,10 +21,12 @@ below bf16 precision may pick the adjacent face), and conserving.
 An unpacked mesh (``TetMesh.unpacked``: past the float lanes' exact ids,
 or a two-tier mesh walked at the float32 tier through
 ``with_plane_views``) walks the JAX ``_gather_walk_row`` fallback: the
-same crossing on the planes read from two arrays and the neighbour from
-the int32 ``face_adj`` (W0's unpacked instantiation, launch counters
-``walk_unpacked`` and ``walk_unpacked_scored``), bitwise the packed
-walk's on the same planes.
+same crossing on the planes read as one row of a ROW16 buffer (the
+neighbour from the int32 ``face_adj``) or of the refinement tier in
+place (ROW20, the neighbour from its adj lanes), W0's unpacked
+instantiations (launch counters ``walk_unpacked`` and
+``walk_unpacked_scored``; ``check_plane_layout`` refuses any other
+layout on the card), bitwise the packed walk's on the same planes.
 
 ``scoring=(kinds, bank, bin_off, fac)`` (tallying walks only) is the JAX
 walk's scoring hook: at every crossing each score adds into lane
@@ -89,6 +91,7 @@ from pumiumtally_tpu_torch.mesh.tetmesh import (
     WALK_TABLE_OFFSETS,
     WALK_TABLE_WIDTH,
     TetMesh,
+    plane_layout,
 )
 from pumiumtally_tpu_torch.ops.det_commit import (
     det_commit_plain,
@@ -480,13 +483,14 @@ def walk_plain(
     )
 
 
-def plane_strides(mesh: TetMesh, device, dtype) -> tuple:
-    """The unpacked planes' strides as W0 reads them: (elements from one
-    face's normal to the next's, the same for the offsets). Raises unless
-    the normals are [E,4,3] and the offsets [E,4] in ``dtype`` on
-    ``device``, each face's three components adjacent and each tet's
-    four faces evenly spaced (the stored arrays: 3 and 1; the two-tier
-    mesh's refinement tier through ``with_plane_views``: 5 and 5)."""
+def check_plane_layout(mesh: TetMesh, device, dtype) -> int:
+    """The unpacked planes' row width as W0 reads them: 16 for a ROW16
+    buffer (``TetMesh.with_unpacked_planes``), 20 for a two-tier mesh's
+    refinement tier in place (``with_plane_views``). Raises unless the
+    normals are [E,4,3] and the offsets [E,4] in ``dtype`` on
+    ``device``, in one of those layouts, their row base on a 16-byte
+    boundary (the kernel reads whole 16-byte words): no other layout
+    walks on the card."""
     nrm, off = mesh.face_normals, mesh.face_offsets
     ne = mesh.nelems
     for name, t, shape in (("face_normals", nrm, (ne, 4, 3)),
@@ -495,12 +499,16 @@ def plane_strides(mesh: TetMesh, device, dtype) -> tuple:
             raise ValueError(f"walk: {name} must be {dtype} {shape} on "
                              f"{device}, got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
-    ns, os_ = nrm.stride(1), off.stride(1)
-    if (nrm.stride(2), nrm.stride(0), off.stride(0)) != (1, 4 * ns, 4 * os_):
+    row = plane_layout(nrm, off)
+    if row is None:
         raise ValueError(
-            f"walk: the planes' strides {nrm.stride()} / {off.stride()} "
-            "are not a layout the unpacked walk reads")
-    return ns, os_
+            f"walk: the planes' strides {nrm.stride()} / {off.stride()}, "
+            f"{nrm.data_ptr() % 16} B past a 16-byte boundary, are not a "
+            "layout the unpacked walk reads: give the mesh its planes in "
+            "one ROW16 buffer with TetMesh.with_unpacked_planes() (or "
+            "TetMesh.to()), or walk a two-tier mesh's refinement tier in "
+            "place through TetMesh.with_plane_views()")
+    return row
 
 
 def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
@@ -520,10 +528,9 @@ def _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux, *, tally, tol,
     elif mesh.unpacked:
         entry = "walk_unpacked"
         tables = [("face_adj", mesh.face_adj, torch.int32, (ne, 4))]
+        row = check_plane_layout(mesh, dev, dt)
         table_args = (kernels.ptr(mesh.face_normals),
-                      kernels.ptr(mesh.face_offsets),
-                      kernels.ptr(mesh.face_adj),
-                      *plane_strides(mesh, dev, dt))
+                      kernels.ptr(mesh.face_adj), row)
     else:
         entry = "walk"
         tables = [("walk_table", mesh.walk_table, dt,
