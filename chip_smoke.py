@@ -12,6 +12,7 @@
     python3 chip_smoke.py --det-times     # DC alone by regime, any checkout
     python3 chip_smoke.py --service       # W0's segmented commit and the
                                           # service phase, with checks
+    python3 chip_smoke.py --native        # phase 16 alone, with checks
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -302,7 +303,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    127.0.0.1 under ``tools/loadgen.py`` (32 clients of 10,000
    particles): every client served, two clients' fluxes bitwise their
    solo replays.
-16. One JSON line with each kernel's launches, times, bound and error
+16. The C ABI and the CLI: the port's ``libpumiumtally_c.so`` and its
+   hosts built (``native/build.py``); the 48,000-tet box written as
+   ``.msh`` by the CLI's ``box`` verb; the library loaded into this
+   interpreter through ctypes and each engine (mono, streaming at
+   250,000 a chunk, partitioned, streaming_partitioned) driven through
+   it with the default device and dtype: 500,000 particles, three
+   two-phase moves and one continue, conservation at rtol 1e-6, each
+   engine's kernel launched (W0; W4 for the partitioned ones), its
+   facade on cuda; mono also against a ``PumiTally`` built here on the
+   same calls (positions and ids bitwise, flux rtol 1e-4). Then the
+   hosts as subprocesses with no PUMIUMTALLY_ switch but the dtype:
+   ``test_host`` on the 6-tet cube in float64 (the reference's oracle
+   at 1e-8; ``--corrupt`` must fail). Then 500,000 x 6 two-phase moves
+   on one protocol in three arms, two passes in turns: ``bench_host``
+   (a C host), the same loop through ctypes in this process, and the
+   Python facade; for the last two the host ms of each call beside the
+   ms inside ``PumiTally.MoveToNextLocation``.
+   The CLI's ``aot-check`` (every kernel and the C ABI compiled again,
+   beside the in-process runs) must report ``[OK]``.
+17. One JSON line with each kernel's launches, times, bound and error
    (W0, W2 and W4's instantiations as entries of their own, DC on the
    packed float32 W0 cell's flux records, the block walks' kDet forms,
    W0's segmented commit), then the card's name and power limit, then
@@ -384,6 +404,9 @@ arm's subprocess).
 ``--service`` runs phases 1-2 and phase 15 (W0's segmented-commit cells
 and the service), with their checks.
 
+``--native`` runs phases 1-2 and phase 16 (the C ABI and the CLI), with
+their checks.
+
 ``--det-times`` runs phases 1-2, then DC alone on the records of the
 deterministic walks (the box's W0 move, flux and stride-96 lanes; the
 lattice's flux; the service's fused 6-session bank; the box's float64
@@ -400,6 +423,7 @@ without one.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -5406,6 +5430,389 @@ def main_resilience_campaign() -> int:
     return 0
 
 
+# Phase 16: the C ABI and the CLI. Particles and moves of the in-process
+# ABI runs (three two-phase moves, then one continue) and of bench_host
+# (6 timed two-phase moves after a warm-up, bench.py's shape); the
+# streaming engine's chunk.
+NATIVE_N = 500_000
+NATIVE_TWO_PHASE_MOVES = 3
+NATIVE_CHUNK = 250_000
+NATIVE_BENCH_MOVES = 6
+# The arms timed on bench_host's protocol: the C host (an embedded
+# interpreter), the same loop through ctypes in this process, the Python
+# facade here and in a process of its own (``--python-two-phase``).
+NATIVE_ARMS = ("bench_host", "ctypes", "python", "python, own process")
+# The engines driven through the ABI and the kernel each must launch.
+NATIVE_ENGINES = {"mono": "walk", "streaming": "walk",
+                  "partitioned": "gather_block_walk",
+                  "streaming_partitioned": "gather_block_walk"}
+_NATIVE_SIGS = {
+    "pumiumtally_create": ("p", ["s", "i32"]),
+    "pumiumtally_copy_initial_position": ("i", ["p", "d", "i32"]),
+    "pumiumtally_move_to_next_location": (
+        "i", ["p", "d", "d", "i8", "d", "i32"]),
+    "pumiumtally_move_continue": ("i", ["p", "d", "i8", "d", "i32"]),
+    "pumiumtally_get_flux": ("i64", ["p", "d", "i64"]),
+    "pumiumtally_get_positions": ("i64", ["p", "d", "i64"]),
+    "pumiumtally_get_elem_ids": ("i64", ["p", "i32p", "i64"]),
+    "pumiumtally_destroy": (None, ["p"]),
+}
+
+
+def native_library(path: str):
+    """The port's C ABI library loaded into this interpreter (ctypes'
+    default RTLD_LOCAL), its entry points typed."""
+    import ctypes
+
+    t = {"p": ctypes.c_void_p, "s": ctypes.c_char_p, "i": ctypes.c_int,
+         "i32": ctypes.c_int32, "i64": ctypes.c_int64,
+         "d": ctypes.POINTER(ctypes.c_double),
+         "i8": ctypes.POINTER(ctypes.c_int8),
+         "i32p": ctypes.POINTER(ctypes.c_int32), None: None}
+    lib = ctypes.CDLL(path)
+    for name, (res, args) in _NATIVE_SIGS.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = t[res], [t[a] for a in args]
+    return lib
+
+
+def dp(a: np.ndarray):
+    """A float64 array's data as the C ABI's ``double*``."""
+    import ctypes
+
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+
+def native_drive(lib, msh: str, moves: list) -> tuple:
+    """Create through the ABI, source, two-phase moves, one continue;
+    returns (flux, positions, ids) read back through the accessors."""
+    import ctypes
+
+    n = moves[0].shape[0]
+    h = lib.pumiumtally_create(msh.encode(), n)
+    if not h:
+        raise AssertionError("pumiumtally_create returned NULL")
+    try:
+        bufs = [flat(p) for p in moves]
+        if lib.pumiumtally_copy_initial_position(h, dp(bufs[0]), 3 * n):
+            raise AssertionError("copy_initial_position failed")
+        flying = np.empty(n, np.int8)
+        weights = np.ones(n)
+        for m in range(1, NATIVE_TWO_PHASE_MOVES + 1):
+            flying[:] = 1
+            if lib.pumiumtally_move_to_next_location(
+                    h, dp(bufs[m - 1]), dp(bufs[m]),
+                    flying.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+                    dp(weights), 3 * n):
+                raise AssertionError(f"move {m} failed")
+            if flying.any():
+                raise AssertionError("flying[] not zeroed across the ABI")
+        if lib.pumiumtally_move_continue(
+                h, dp(bufs[-1]), ctypes.POINTER(ctypes.c_int8)(),
+                ctypes.POINTER(ctypes.c_double)(), 3 * n):
+            raise AssertionError("move_continue failed")
+        ne = lib.pumiumtally_get_flux(h, None, 0)
+        flux, pos = np.zeros(ne), np.zeros(3 * n)
+        ids = np.zeros(n, np.int32)
+        if (lib.pumiumtally_get_flux(h, dp(flux), ne) != ne
+                or lib.pumiumtally_get_positions(h, dp(pos), 3 * n) != 3 * n
+                or lib.pumiumtally_get_elem_ids(
+                    h, ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                    n) != n):
+            raise AssertionError("an accessor returned a wrong count")
+    finally:
+        lib.pumiumtally_destroy(h)
+    return flux, pos.reshape(n, 3), ids
+
+
+def timed_two_phase(drive, fetch, n: int, moves: int) -> tuple:
+    """bench_host's timing: a warm-up move and a flux fetch, then
+    ``moves`` moves and a fetch. Returns (moves/s, host ms of each timed
+    call)."""
+    drive(1)
+    fetch()
+    calls = []
+    t0 = time.perf_counter()
+    for m in range(2, moves + 2):
+        t1 = time.perf_counter()
+        drive(m)
+        calls.append((time.perf_counter() - t1) * 1e3)
+    fetch()
+    return n * moves / (time.perf_counter() - t0), calls
+
+
+def abi_two_phase_rate(lib, msh: str, n: int, moves: int) -> tuple:
+    """bench_host's loop through the C ABI from this interpreter
+    (ctypes): the boundary's cost without a second process."""
+    import ctypes
+
+    gen = trajectory_moves(1, n)
+    pts = [flat(next(gen)) for _ in range(moves + 2)]
+    flux = np.zeros(MESH_DIV ** 3 * 6)
+    h = lib.pumiumtally_create(msh.encode(), n)
+    if not h:
+        raise AssertionError("pumiumtally_create returned NULL")
+    flying, weights = np.empty(n, np.int8), np.ones(n)
+    fly = flying.ctypes.data_as(ctypes.POINTER(ctypes.c_int8))
+
+    def drive(m):
+        flying[:] = 1
+        if lib.pumiumtally_move_to_next_location(
+                h, dp(pts[m - 1]), dp(pts[m]), fly, dp(weights), 3 * n):
+            raise AssertionError(f"move {m} failed")
+
+    try:
+        lib.pumiumtally_copy_initial_position(h, dp(pts[0]), 3 * n)
+        return timed_two_phase(
+            drive, lambda: lib.pumiumtally_get_flux(h, dp(flux), flux.size),
+            n, moves)
+    finally:
+        lib.pumiumtally_destroy(h)
+
+
+def native_env(**extra) -> dict:
+    """This process's environment without any PUMIUMTALLY_ switch (the
+    default engine, device and dtype), plus ``extra``."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PUMIUMTALLY_")}
+    env.update(extra)
+    return env
+
+
+@contextlib.contextmanager
+def timed_moves(inner: list):
+    """Append the host ms of every ``PumiTally.MoveToNextLocation`` call
+    to ``inner`` while the block runs."""
+    from pumiumtally_tpu_torch import PumiTally
+
+    move = PumiTally.MoveToNextLocation
+
+    def timed_move(self, *args, **kw):
+        t1 = time.perf_counter()
+        try:
+            return move(self, *args, **kw)
+        finally:
+            inner.append((time.perf_counter() - t1) * 1e3)
+
+    PumiTally.MoveToNextLocation = timed_move
+    try:
+        yield inner
+    finally:
+        PumiTally.MoveToNextLocation = move
+
+
+def main_python_two_phase() -> int:
+    """Phase 16's arm "python, own process": ``python_two_phase_rate``
+    in a fresh process (arguments: mesh, particles, moves); prints
+    [moves/s, host ms a call, ms inside the facade] as one JSON line."""
+    i = sys.argv.index("--python-two-phase")
+    msh, n, moves = sys.argv[i + 1], int(sys.argv[i + 2]), int(sys.argv[i + 3])
+    inner = []
+    with timed_moves(inner):
+        rate, calls = python_two_phase_rate(msh, n, moves)
+    print(json.dumps([rate, calls, inner[-moves:]]))
+    return 0
+
+
+def python_two_phase_rate(msh: str, n: int, moves: int) -> tuple:
+    """The Python facade on bench_host's protocol (origins echo the
+    previous destinations, flying reset each move), on the same
+    trajectory shape."""
+    from pumiumtally_tpu_torch import PumiTally
+
+    gen = trajectory_moves(1, n)
+    pts = [next(gen) for _ in range(moves + 2)]
+    t = PumiTally(msh, n)
+    t.CopyInitialPosition(flat(pts[0]))
+    flying, weights = np.empty(n, np.int8), np.ones(n)
+
+    def drive(m):
+        flying[:] = 1
+        t.MoveToNextLocation(flat(pts[m - 1]), flat(pts[m]), flying,
+                             weights)
+
+    return timed_two_phase(drive, lambda: t.flux.sum().item(), n, moves)
+
+
+def phase_native(card: str) -> dict:
+    """Phase 16: the port's C ABI and CLI on the card. Returns the
+    launch counts of each engine driven through the ABI."""
+    import torch
+
+    from pumiumtally_tpu_torch import PumiTally, kernels
+    from pumiumtally_tpu_torch import cli as port_cli
+    from pumiumtally_tpu_torch.api import native
+    from pumiumtally_tpu_torch.native import build
+
+    # aot-check compiles every source again into directories of its own;
+    # it runs beside the rest of the phase.
+    aot = subprocess.Popen(
+        [sys.executable, "-m", "pumiumtally_tpu_torch.cli", "aot-check"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": os.path.dirname(
+            os.path.abspath(__file__))})
+    seconds = build.build_native()
+    print(f"# C ABI: built {build.LIBRARY} and {', '.join(build.HOSTS)} in "
+          f"{seconds:.2f} s ({build.native_dir().name})")
+    lib = native_library(str(build.library_path()))
+    counts = {}
+    with tempfile.TemporaryDirectory() as d:
+        msh, cube = os.path.join(d, "box.msh"), os.path.join(d, "cube.msh")
+        port_cli.main(["box", msh, "--nx", str(MESH_DIV), "--ny",
+                       str(MESH_DIV), "--nz", str(MESH_DIV)])
+        port_cli.main(["box", cube, "--nx", "1", "--ny", "1", "--nz", "1"])
+        gen = trajectory_moves(16, NATIVE_N)
+        moves = [next(gen) for _ in range(NATIVE_TWO_PHASE_MOVES + 2)]
+        expect = sum(float(np.linalg.norm(moves[m] - moves[m - 1],
+                                          axis=1).sum())
+                     for m in range(1, len(moves)))
+        made = []
+        create = native.native_create
+
+        def recording_create(*args):
+            made.append(create(*args))
+            return made[-1]
+
+        native.native_create = recording_create
+        saved = {k: os.environ.pop(k) for k in list(os.environ)
+                 if k.startswith("PUMIUMTALLY_")}
+        try:
+            for engine, entry in NATIVE_ENGINES.items():
+                os.environ["PUMIUMTALLY_ENGINE"] = engine
+                os.environ["PUMIUMTALLY_CHUNK_SIZE"] = str(NATIVE_CHUNK)
+                made.clear()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                flux, pos, ids = native_drive(lib, msh, moves)
+                dt = time.perf_counter() - t0
+                counts[f"native_{engine}"] = c = dict(kernels.launch_counts)
+                (t,) = made
+                if t.device.type != "cuda":
+                    raise AssertionError(f"ABI {engine}: the facade runs on "
+                                         f"{t.device}")
+                if c[entry] == 0:
+                    raise AssertionError(f"ABI {engine}: kernel {entry} "
+                                         f"never launched: {c}")
+                rel = check_conservation(f"ABI {engine}",
+                                         torch.from_numpy(flux), expect)
+                print(f"# C ABI {engine} ({type(t).__name__} on {t.device}, "
+                      f"{t.dtype}): {NATIVE_TWO_PHASE_MOVES} two-phase moves "
+                      f"+ 1 continue of {NATIVE_N} particles on "
+                      f"{t.mesh.nelems} tets in {dt:.2f} s with its build; "
+                      f"conservation rel err {rel:.3e}; launches "
+                      f"{ {k: v for k, v in c.items() if v} }")
+                del t
+                made.clear()
+                if engine != "mono":
+                    continue
+                # The same calls on a PumiTally built directly, in this
+                # process: positions and ids bitwise, flux to rtol 1e-4.
+                t = PumiTally(msh, NATIVE_N)
+                t.CopyInitialPosition(flat(moves[0]))
+                for m in range(1, NATIVE_TWO_PHASE_MOVES + 1):
+                    t.MoveToNextLocation(flat(moves[m - 1]), flat(moves[m]),
+                                         np.ones(NATIVE_N, np.int8),
+                                         np.ones(NATIVE_N))
+                t.MoveToNextLocation(None, flat(moves[-1]))
+                # float32 through the ABI's doubles and back is exact.
+                same_bits("ABI mono positions",
+                          torch.from_numpy(pos.astype(np.float32)),
+                          torch.from_numpy(t.positions))
+                check_equal("ABI mono ids", torch.from_numpy(ids),
+                            torch.from_numpy(t.elem_ids))
+                err = check_flux("ABI mono flux", torch.from_numpy(flux),
+                                 t.flux.double().cpu())
+                print(f"# C ABI mono vs PumiTally in this process: positions "
+                      f"and ids equal, flux max abs diff {err:.3e}")
+                del t
+        finally:
+            native.native_create = create
+            for k in [k for k in os.environ if k.startswith("PUMIUMTALLY_")]:
+                del os.environ[k]
+            os.environ.update(saved)
+        # Embedded: the hosts start their own interpreter, with the
+        # default engine and device (no PUMIUMTALLY_ switch but the
+        # dtype): a missing GPU would make them fail, never fall back.
+        host = str(build.native_dir() / "test_host")
+        env = native_env(PUMIUMTALLY_DTYPE="float64")
+        r = subprocess.run([host, cube], capture_output=True, text=True,
+                           env=env, timeout=600)
+        if r.returncode != 0 or "test_host OK" not in r.stdout:
+            raise AssertionError(f"test_host failed:\n{r.stdout}\n{r.stderr}")
+        if "on cuda" not in r.stderr:
+            raise AssertionError(f"test_host: no facade on cuda:\n{r.stderr}")
+        bad = subprocess.run([host, cube, "--corrupt"], capture_output=True,
+                             text=True, env=env, timeout=600)
+        if bad.returncode == 0 or "MISMATCH" not in bad.stderr:
+            raise AssertionError("test_host --corrupt did not fail:\n"
+                                 f"{bad.stdout}\n{bad.stderr}")
+        print(f"# C ABI embedded: test_host (float64, 1e-8 oracle) "
+              f"{r.stdout.strip()!r}; {r.stderr.strip().splitlines()[0]}; "
+              f"--corrupt exits {bad.returncode} with MISMATCH")
+        # The rates are taken with no compile beside them, three arms in
+        # turns (C host, ctypes, Python, then the reverse order).
+        out, _ = aot.communicate(timeout=1200)
+        rates = {arm: [] for arm in NATIVE_ARMS}
+        calls = {arm: [] for arm in NATIVE_ARMS[1:]}  # host ms a call
+        insides = {arm: [] for arm in NATIVE_ARMS[1:]}  # ms inside the facade
+        bench = [str(build.native_dir() / "bench_host"), msh, str(NATIVE_N),
+                 str(NATIVE_BENCH_MOVES)]
+        fresh = [sys.executable, os.path.abspath(__file__),
+                 "--python-two-phase", msh, str(NATIVE_N),
+                 str(NATIVE_BENCH_MOVES)]
+        for arm in NATIVE_ARMS + NATIVE_ARMS[::-1]:
+            if arm in ("bench_host", "python, own process"):
+                r = subprocess.run(bench if arm == "bench_host" else fresh,
+                                   capture_output=True, text=True,
+                                   env=native_env(), timeout=900)
+                m = re.search(r"native_two_phase_moves_per_sec=(\d+)",
+                              r.stdout)
+                if r.returncode != 0 or (arm == "bench_host" and m is None):
+                    raise AssertionError(f"{arm} failed:\n{r.stdout}\n"
+                                         f"{r.stderr}")
+                if m is not None:
+                    rates[arm].append(float(m[1]))
+                    continue
+                rate, ms, inner = json.loads(r.stdout.splitlines()[-1])
+            else:
+                inner = []
+                with timed_moves(inner):
+                    rate, ms = (abi_two_phase_rate(lib, msh, NATIVE_N,
+                                                   NATIVE_BENCH_MOVES)
+                                if arm == "ctypes" else python_two_phase_rate(
+                                    msh, NATIVE_N, NATIVE_BENCH_MOVES))
+            rates[arm].append(rate)
+            calls[arm] += ms
+            insides[arm] += inner[-NATIVE_BENCH_MOVES:]
+        print(f"# C ABI two-phase moves/s on {card}, "
+              f"{NATIVE_BENCH_MOVES} moves of {NATIVE_N} particles on "
+              f"{MESH_DIV ** 3 * 6} tets (float32), two passes in turns: "
+              + "; ".join(f"{arm} {' '.join(f'{v:.0f}' for v in vals)} "
+                          f"({' '.join(f'{NATIVE_N / v * 1e3:.3f}' for v in vals)}"
+                          " ms a move)" for arm, vals in rates.items()))
+        for arm in calls:
+            print(f"# C ABI {arm}: host ms a timed call, median "
+                  f"{np.median(calls[arm]):.3f} (range "
+                  f"{min(calls[arm]):.3f}-{max(calls[arm]):.3f}); inside "
+                  f"MoveToNextLocation median {np.median(insides[arm]):.3f} "
+                  f"(range {min(insides[arm]):.3f}-{max(insides[arm]):.3f})")
+    print("# CLI aot-check:\n#   " + "\n#   ".join(out.strip().splitlines()))
+    if aot.returncode != 0 or "[FAILED]" in out or out.count("[OK]") != 2:
+        raise AssertionError(f"aot-check did not report [OK]:\n{out}")
+    return counts
+
+
+def main_native() -> int:
+    """Phases 1-2 and phase 16 (the C ABI and the CLI) alone, with their
+    checks."""
+    _, smi = phase_device()
+    phase_build()
+    phase_plane_loads()
+    phase_native(smi)
+    print(smi)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5561,6 +5968,8 @@ def main() -> int:
     seg = phase_seg(mesh, pts)
     svc_counts, _ = phase_service(mesh, smi)
     counts.update(svc_counts)
+    # The C ABI (in this process and from C hosts) and the CLI.
+    counts.update(phase_native(smi))
     needs = {"mono": "walk", "part": "block_walk", "mono_bf16": "walk_twotier",
              "part_bf16": "twotier_block_walk", "lat": "walk",
              "lat_bf16": "walk_twotier", "stream": "walk",
@@ -5589,7 +5998,8 @@ def main() -> int:
              "resilience_PartitionedPumiTally W2": "twotier_block_walk",
              "resilience_PartitionedPumiTally W2 scoring":
                  "twotier_block_walk_scored",
-             "service": "walk", "loadgen": "walk"}
+             "service": "walk", "loadgen": "walk",
+             **{f"native_{k}": v for k, v in NATIVE_ENGINES.items()}}
     # W4's list build: the bf16 reroute's full-migrate rounds; the
     # unpacked main path's localization.
     for key, entry in (*needs.items(),
@@ -6292,6 +6702,8 @@ if __name__ == "__main__":
              "--resilience": main_resilience,
              "--det-times": main_det_times,
              "--service": main_service,
+             "--native": main_native,
+             "--python-two-phase": main_python_two_phase,
              "--resilience-campaign": main_resilience_campaign}
     sys.exit(next((fn for flag, fn in modes.items()
                    if flag in sys.argv[1:]), main)())

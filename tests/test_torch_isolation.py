@@ -94,7 +94,9 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                 "ops/det_commit.py", "service/__init__.py",
                 "service/scheduler.py", "service/session.py",
                 "service/staging.py", "service/fusion.py",
-                "service/server.py"):
+                "service/server.py", "api/native.py", "native/build.py",
+                "native/__init__.py", "cli.py", "utils/autotune.py",
+                "utils/postprocess.py"):
         assert PORT / rel in files, rel
     for f in files:
         roots = set(_imported_roots(f))
