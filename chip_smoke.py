@@ -13,6 +13,7 @@
     python3 chip_smoke.py --service       # W0's segmented commit and the
                                           # service phase, with checks
     python3 chip_smoke.py --native        # phase 16 alone, with checks
+    python3 chip_smoke.py --multi-device  # phase 17 alone, with checks
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -322,7 +323,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    ms inside ``PumiTally.MoveToNextLocation``.
    The CLI's ``aot-check`` (every kernel and the C ABI compiled again,
    beside the in-process runs) must report ``[OK]``.
-17. One JSON line with each kernel's launches, times, bound and error
+17. Multi-device (``phase_multi_device``): (a) ``PumiTally`` and
+   ``StreamingTally`` on a mesh of 4 logical shards of cuda:0 against
+   the one-device facades (positions and ids bitwise, flux rtol 1e-5,
+   conservation, W0 launched 4 times a walk; two runs bitwise under a
+   ``CheckpointPolicy``); (b) ``PartitionedPumiTally`` on the 4 shards
+   (W4 by default, W1, W2) against one device (positions bitwise, ids
+   only at face ties, conservation, every shard launching its walk, a
+   ``PhaseProfile``d move), each captured migration round bitwise the
+   one-device migrate by both in-process paths (timed in turns), and
+   the collective's engine path bitwise the row copies, two runs
+   bitwise, under DC; (c) ``StreamingPartitionedTally``
+   with ``device_groups=2`` at 2,000,000 particles in chunks of 500,000
+   (cut from 10M: brute-force point location); (d) two processes of 2
+   shards over gloo, bitwise the one-process run, with the backend and
+   the host copies a migration printed. ms a move at 4 shards and at 1.
+18. One JSON line with each kernel's launches, times, bound and error
    (W0, W2 and W4's instantiations as entries of their own, DC on the
    packed float32 W0 cell's flux records, the block walks' kDet forms,
    W0's segmented commit), then the card's name and power limit, then
@@ -406,6 +422,10 @@ and the service), with their checks.
 
 ``--native`` runs phases 1-2 and phase 16 (the C ABI and the CLI), with
 their checks.
+
+``--multi-device`` runs phases 1-2 and phase 17 (multi-device), with
+their checks; ``--multi-device-rank R PORT OUT`` is one rank of its
+two-process job.
 
 ``--det-times`` runs phases 1-2, then DC alone on the records of the
 deterministic walks (the box's W0 move, flux and stride-96 lanes; the
@@ -5802,6 +5822,628 @@ def phase_native(card: str) -> dict:
     return counts
 
 
+# Phase 17: multi-device. One card holds MULTI_SHARDS logical shards of
+# a device mesh on cuda:0 (each shard its own tensors, each launching the
+# kernels), the card's counterpart of the JAX suite's virtual devices;
+# then two processes of two shards each, joined over gloo. Host-bound
+# numbers of one card, not a scaling result.
+MULTI_SHARDS = 4
+# StreamingPartitionedTally with device_groups=2: cut from STREAM_N to
+# 2M particles because its point location is brute force (PERF.md §7).
+MULTI_STREAM_N = 2_000_000
+MULTI_STREAM_CHUNK = 500_000
+MULTI_STREAM_GROUPS = 2
+# The two-process job's particles (each process builds its partition and
+# locates its points; every migration round crosses gloo twice a hop).
+MULTI_2P_N = 200_000
+MULTI_FLUX_RTOL = 1e-5  # sharded vs one device: the sum order differs
+MULTI_TIE_TOL = 1e-5  # a differing id's point lies in both elements
+MULTI_PART_ARMS = (
+    # (label, knobs, the block walk's entry)
+    ("W4", {}, "gather_block_walk"),
+    ("W1", dict(walk_vmem_max_elems=VMEM_BOUND,
+                capacity_factor=CAPACITY_FACTOR), "block_walk"),
+    ("W2", dict(walk_vmem_max_elems=VMEM_BOUND, walk_kernel="pallas",
+                capacity_factor=CAPACITY_FACTOR, **BF16),
+     "twotier_block_walk"),
+)
+
+
+def shard_mesh(k: int):
+    """A mesh of ``k`` logical shards on cuda:0."""
+    import torch
+
+    from pumiumtally_tpu_torch.parallel import make_device_mesh
+
+    return make_device_mesh(k, devices=[torch.device("cuda", 0)] * k)
+
+
+def multi_drive(t, pts, n: int, moves: int = CONTINUE_MOVES) -> list:
+    """CopyInitialPosition, one two-phase move, then ``moves`` continue
+    moves of n particles; returns each continue move's wall ms."""
+    t.CopyInitialPosition(flat(pts[0][:n]))
+    t.MoveToNextLocation(flat(pts[0][:n]), flat(pts[1][:n]),
+                         np.ones(n, np.int8), np.ones(n))
+    return [wall_ms(lambda m=m: t.MoveToNextLocation(None, flat(pts[m][:n])))
+            for m in range(2, moves + 2)]
+
+
+def multi_expect(pts, n: int, moves: int = CONTINUE_MOVES) -> float:
+    return sum(float(np.linalg.norm(pts[m][:n] - pts[m - 1][:n],
+                                    axis=1).sum())
+               for m in range(1, moves + 2))
+
+
+def check_ties(what: str, mesh, pos, ids_a, ids_b, tol: float) -> int:
+    """Ids may differ only where the point lies in both elements (a face
+    tie); returns how many differ."""
+    bad = np.flatnonzero(ids_a != ids_b)
+    if bad.size and not (contains(mesh, pos[bad], ids_a[bad], tol).all()
+                         and contains(mesh, pos[bad], ids_b[bad], tol).all()):
+        raise AssertionError(f"{what}: {bad.size} ids differ and not all "
+                             "are face ties")
+    return int(bad.size)
+
+
+def check_arrays(what: str, got, want) -> None:
+    """Two host arrays bitwise equal."""
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{what}: {int((got != want).sum())} values "
+                             "differ")
+
+
+def check_same_run(what: str, a, b) -> None:
+    """Positions, ids and flux bitwise."""
+    if not (np.array_equal(a.positions, b.positions)
+            and np.array_equal(a.elem_ids, b.elem_ids)
+            and bool((a.flux == b.flux).all())):
+        raise AssertionError(f"{what}: not bitwise the same run")
+
+
+def shard_launches(what: str, eng, entry: str) -> list:
+    """Each shard's launches of ``entry``; every shard must have one."""
+    per = [d.get(entry, 0) for d in eng.shard_launches]
+    if min(per) == 0:
+        raise AssertionError(f"{what}: a shard never launched {entry}: "
+                             f"{per}")
+    return per
+
+
+def profile_engine_move(eng, dests) -> dict:
+    """One continue move of ``eng`` under a ``PhaseProfile``: its fenced
+    walk, migration, occupancy and bookkeeping ms, rounds and fronts."""
+    import torch
+
+    from pumiumtally_tpu_torch.parallel.partition import PhaseProfile
+
+    prof = PhaseProfile()
+    d = torch.as_tensor(dests, dtype=torch.float32, device=eng.device)
+    ones = torch.ones((d.shape[0],), dtype=torch.float32, device=eng.device)
+    wall = wall_ms(lambda: eng.move(None, d, ones.to(torch.int8), ones,
+                                    profile=prof))
+    keep = ("walk_ms", "migrate_ms", "occupancy_ms", "bookkeeping_ms",
+            "rounds", "frontier_max")
+    return {"wall_ms": round(wall, 3),
+            **{k: round(v, 3) if isinstance(v, float) else v
+               for k, v in prof.as_dict().items() if k in keep}}
+
+
+MIGRATE_REPS = 5  # calls of each migration an arm of the A B B A turns
+
+
+def capture_migration(eng, dests) -> tuple:
+    """The shards' state at the first in-loop migration of one more
+    continue move of ``eng`` (cloned), and that round's front."""
+    import torch
+
+    got = []
+    orig = eng._migrate_round
+
+    def grab(cap_frontier, sts, n_p):
+        if not got:
+            got.append(([{k: v.clone() for k, v in s.items()} for s in sts],
+                        n_p))
+        return orig(cap_frontier, sts, n_p)
+
+    eng._migrate_round = grab
+    try:
+        d = torch.as_tensor(dests, dtype=torch.float32, device=eng.device)
+        ones = torch.ones((d.shape[0],), dtype=torch.float32,
+                          device=eng.device)
+        eng.move(None, d, ones.to(torch.int8), ones)
+    finally:
+        del eng._migrate_round
+    if not got:
+        raise AssertionError("the continue move migrated no round")
+    return got[0]
+
+
+def same_states(what: str, a: list, b: list) -> None:
+    """Two lists of shard states bitwise equal, row for row."""
+    for s, (x, y) in enumerate(zip(a, b)):
+        for k in x:
+            if not torch_equal(x[k], y[k]):
+                raise AssertionError(f"{what}: shard {s} row {k} differs")
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def migrate_times(label: str, eng, dests) -> dict:
+    """The two in-process migrations over the shards on one captured
+    round (``capture_migration``): ``migrate_shards`` (shard-pair row
+    copies) and the collective ring (``make_collective_migrate``), on
+    the same shards, MIGRATE_REPS calls each in turns A B B A; both held
+    bitwise against each other and, assembled, against the one-device
+    ``migrate`` on the assembled state. The frontier pair
+    (``frontier_migrate_shards``, ``make_collective_frontier_migrate``)
+    likewise, with the smallest power of two that holds the front as the
+    slab. Returns the median ms of each."""
+    import torch
+
+    from pumiumtally_tpu_torch.parallel.distributed import (
+        make_collective_frontier_migrate,
+        make_collective_migrate,
+    )
+    from pumiumtally_tpu_torch.parallel.partition import (
+        _frontier_migrate_impl,
+        frontier_migrate_shards,
+        migrate,
+        migrate_shards,
+    )
+
+    sts, n_p = capture_migration(eng, dests)
+    L, P, cb = eng.part.L, eng.nparts, eng.cap_per_block
+    cf = 1 << max(int(n_p) - 1, 0).bit_length()
+    kw = dict(part_L=L, nparts=P, cap_per_block=cb, comm=eng.comm)
+    arms = {
+        "full/shards": lambda: migrate_shards(L, P, cb, sts),
+        "full/collective": lambda f=make_collective_migrate(
+            eng.device_mesh, **kw): f(sts),
+        "frontier/shards": lambda: frontier_migrate_shards(L, P, cb, cf,
+                                                           sts),
+        "frontier/collective": lambda f=make_collective_frontier_migrate(
+            eng.device_mesh, cap_frontier=cf, **kw): f(sts),
+    }
+    whole = {k: torch.cat([s[k] for s in sts]) for k in sts[0]}
+    n_loc = sts[0]["pid"].shape[0]
+
+    def split(st):
+        return [{k: v[i * n_loc:(i + 1) * n_loc] for k, v in st.items()}
+                for i in range(len(sts))]
+
+    one_full, ovf = migrate(L, P, cb, whole)
+    one_front = _frontier_migrate_impl(L, P, cb, cf, whole)
+    if ovf or one_front[1]:
+        raise AssertionError(f"{label}: the captured round overflows")
+    for kind, want in (("full", split(one_full)),
+                       ("frontier", split(one_front[0]))):
+        for how in ("shards", "collective"):
+            res = arms[f"{kind}/{how}"]()
+            if res[1]:
+                raise AssertionError(f"{label}: {kind}/{how} overflows")
+            same_states(f"{label}: {kind}/{how} vs one-device migrate",
+                        res[0], want)
+    times = {k: [] for k in arms}
+    for kind in ("full", "frontier"):
+        a, b = f"{kind}/shards", f"{kind}/collective"
+        for arm in (a, b, b, a):
+            for _ in range(MIGRATE_REPS):
+                times[arm].append(wall_ms(arms[arm]))
+    med = {k: round(float(np.median(v)), 3) for k, v in times.items()}
+    print(f"# {label} migration on {len(sts)} shards, one captured round "
+          f"(front {n_p} rows, slab {cf}): both bitwise the one-device "
+          f"migrate; median ms of {2 * MIGRATE_REPS} calls each, in turns "
+          f"A B B A: {json.dumps(med)}")
+    return med
+
+
+def phase_multi_sharded(mesh, pts, card: str) -> dict:
+    """(a) ``PumiTally`` and ``StreamingTally`` sharded over
+    MULTI_SHARDS logical shards against the one-device facades on the
+    same calls: positions and ids bitwise, flux rtol 1e-5, conservation,
+    W0 launched once a shard a walk; under a ``CheckpointPolicy`` two
+    runs bitwise (DC)."""
+    import torch
+
+    from pumiumtally_tpu_torch import (
+        CheckpointPolicy,
+        PumiTally,
+        StreamingTally,
+        TallyConfig,
+        kernels,
+    )
+
+    counts = {}
+    dm = shard_mesh(MULTI_SHARDS)
+    expect = multi_expect(pts, N)
+    for key, make, walks in (
+            ("multi_mono", lambda c: PumiTally(mesh, N, c), 1),
+            ("multi_stream", lambda c: StreamingTally(mesh, N, N // 2, c),
+             2)):
+        runs, ms = {}, {}
+        for k, dmk in ((1, None), (MULTI_SHARDS, dm)):
+            kernels.reset_launch_counts()
+            t = make(TallyConfig(device_mesh=dmk))
+            ms[k] = multi_drive(t, pts, N)
+            if k > 1:
+                counts[key] = dict(kernels.launch_counts)
+                kernels.reset_launch_counts()
+                t.MoveToNextLocation(None, flat(pts[CONTINUE_MOVES + 2]))
+                if kernels.launch_counts["walk"] != MULTI_SHARDS * walks:
+                    raise AssertionError(
+                        f"{key}: a continue move launched W0 "
+                        f"{kernels.launch_counts['walk']} times, want "
+                        f"{MULTI_SHARDS * walks}")
+                t2 = runs[1]
+                t2.MoveToNextLocation(None, flat(pts[CONTINUE_MOVES + 2]))
+            runs[k] = t
+        one, four = runs[1], runs[MULTI_SHARDS]
+        check_arrays(f"{key} positions", four.positions, one.positions)
+        check_arrays(f"{key} ids", four.elem_ids, one.elem_ids)
+        err = float(((four.flux.double() - one.flux.double()).abs().max()
+                     / one.flux.double().abs().max()))
+        if err > MULTI_FLUX_RTOL:
+            raise AssertionError(f"{key}: flux off by {err:.3e}")
+        rel = check_conservation(key, four.flux, multi_expect(
+            pts, N, CONTINUE_MOVES + 1))
+        print(f"# {key}: {type(four).__name__} on {MULTI_SHARDS} shards of "
+              f"cuda:0 vs one device on {card}: positions and ids bitwise, "
+              f"flux max rel {err:.3e}, conservation rel err {rel:.3e}; W0 "
+              f"{MULTI_SHARDS * walks} launches a walk; ms a continue move "
+              f"at {MULTI_SHARDS} shards "
+              f"{', '.join(f'{v:.3f}' for v in ms[MULTI_SHARDS])}, at 1 "
+              f"{', '.join(f'{v:.3f}' for v in ms[1])}")
+        del runs, one, four, t
+    del expect
+    # The deterministic commit over the shards: two runs, the same bits.
+    with tempfile.TemporaryDirectory() as d:
+        runs = []
+        for r in range(2):
+            kernels.reset_launch_counts()
+            t = PumiTally(mesh, N, TallyConfig(
+                device_mesh=dm, checkpoint=CheckpointPolicy(
+                    dir=f"{d}/{r}", handle_signals=False)))
+            multi_drive(t, pts, N)
+            counts[f"multi_mono_det{r}"] = dict(kernels.launch_counts)
+            runs.append(t)
+        check_same_run("sharded PumiTally under a CheckpointPolicy", *runs)
+    print(f"# multi_mono under a CheckpointPolicy: two {MULTI_SHARDS}-shard "
+          f"runs bitwise; DC launches "
+          f"{counts['multi_mono_det0']['det_commit']}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_multi_partitioned(mesh, pts, card: str) -> dict:
+    """(b) ``PartitionedPumiTally`` over MULTI_SHARDS logical devices in
+    three forms (W4 by default, W1, W2) against the one-device engine:
+    positions bitwise, ids differing only at face ties, conservation,
+    every shard launching its block walk; then, under a
+    ``CheckpointPolicy`` (DC), the collective's engine path bitwise the
+    row copies and two runs bitwise."""
+    import torch
+
+    from pumiumtally_tpu_torch import (
+        CheckpointPolicy,
+        PartitionedPumiTally,
+        TallyConfig,
+        kernels,
+    )
+
+    counts = {}
+    dm = shard_mesh(MULTI_SHARDS)
+    expect = multi_expect(pts, N)
+    for label, knobs, entry in MULTI_PART_ARMS:
+        runs, ms = {}, {}
+        for k, dmk in ((1, None), (MULTI_SHARDS, dm)):
+            kernels.reset_launch_counts()
+            t = PartitionedPumiTally(mesh, N, TallyConfig(
+                device_mesh=dmk, check_found_all=False, **knobs))
+            ms[k] = multi_drive(t, pts, N)
+            if k > 1:
+                counts[f"multi_part_{label}"] = dict(kernels.launch_counts)
+            check_conservation(f"partitioned {label} ({k} shards)", t.flux,
+                               expect)
+            runs[k] = t
+        one, four = runs[1], runs[MULTI_SHARDS]
+        check_arrays(f"partitioned {label} positions", four.positions,
+                    one.positions)
+        ties = check_ties(f"partitioned {label}", mesh, four.positions,
+                          four.elem_ids, one.elem_ids, MULTI_TIE_TOL)
+        eng = four.engine
+        per = shard_launches(f"partitioned {label}", eng, entry)
+        prof = profile_engine_move(eng, pts[CONTINUE_MOVES + 2])
+        migrate_times(f"multi_part_{label}", eng, pts[CONTINUE_MOVES + 1])
+        print(f"# multi_part_{label}: PartitionedPumiTally on "
+              f"{MULTI_SHARDS} shards of cuda:0 ({eng.nparts} blocks, "
+              f"{eng.blocks_per_chip} a shard) vs one device "
+              f"({one.engine.nparts} blocks) on {card}: positions bitwise, "
+              f"{ties} ids differ at face ties, conservation held; "
+              f"{entry} launches per shard {per}; ms a continue move at "
+              f"{MULTI_SHARDS} shards "
+              f"{', '.join(f'{v:.3f}' for v in ms[MULTI_SHARDS])}, at 1 "
+              f"{', '.join(f'{v:.3f}' for v in ms[1])}; PhaseProfile of one "
+              f"more continue move at {MULTI_SHARDS} shards "
+              f"{json.dumps(prof)}, at 1 "
+              f"{json.dumps(profile_engine_move(one.engine, pts[CONTINUE_MOVES + 2]))}")
+        del runs, one, four, eng, t
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        runs, ms = [], []
+        # In turns: row copies, collective, collective, row copies. One
+        # process keeps the row copies whatever migrate_collective says;
+        # the collective's engine path (its path across processes) is
+        # run here by asking the engine for it.
+        for r, coll in enumerate((False, True, True, False)):
+            kernels.reset_launch_counts()
+            t = PartitionedPumiTally(mesh, N, TallyConfig(
+                device_mesh=dm, migrate_collective=coll,
+                check_found_all=False, checkpoint=CheckpointPolicy(
+                    dir=f"{d}/{r}", handle_signals=False)))
+            if t.engine._collective_migrate is not None:
+                raise AssertionError("one process armed the collective")
+            if coll:
+                t.engine._ring_in_process = True
+                t.engine._build_collective_fns()
+            ms.append(multi_drive(t, pts, N))
+            counts[f"multi_part_det{r}"] = dict(kernels.launch_counts)
+            per = shard_launches("partitioned DC", t.engine, "det_commit")
+            runs.append(t)
+        check_same_run("partitioned: collective vs row copies under DC",
+                       runs[0], runs[1])
+        check_same_run("partitioned: two collective runs under DC",
+                       runs[1], runs[2])
+        check_same_run("partitioned: two row-copy runs under DC",
+                       runs[0], runs[3])
+    print(f"# multi_part under a CheckpointPolicy: the collective's engine "
+          f"path bitwise the row copies, two runs of each bitwise; "
+          f"migrate_collective=True keeps the row copies in one process; "
+          f"DC launches per shard {per}, W4 per shard "
+          f"{[d.get('gather_block_walk', 0) for d in runs[2].engine.shard_launches]}; "
+          f"ms a continue move in turns (row copies, collective, "
+          f"collective, row copies): "
+          f"{'; '.join(', '.join(f'{v:.3f}' for v in m) for m in ms)}")
+    del runs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_multi_groups(mesh, card: str) -> dict:
+    """(c) ``StreamingPartitionedTally`` with device_groups=2 on the
+    MULTI_SHARDS-shard mesh: MULTI_STREAM_N particles in chunks of
+    MULTI_STREAM_CHUNK, round-robin over two groups of shards, against
+    the one-device facade: positions bitwise, ids at face ties,
+    conservation, every chunk engine's shards launching W4."""
+    import torch
+
+    from pumiumtally_tpu_torch import (
+        StreamingPartitionedTally,
+        TallyConfig,
+        kernels,
+    )
+    from pumiumtally_tpu_torch.experiments.block_rounds import (
+        make_trajectory,
+    )
+
+    n = MULTI_STREAM_N
+    pts = make_trajectory(np.random.default_rng(5), n, 3)
+    counts, runs, ms = {}, {}, {}
+    for k, cfg in ((1, TallyConfig(check_found_all=False)),
+                   (MULTI_SHARDS, TallyConfig(
+                       device_mesh=shard_mesh(MULTI_SHARDS),
+                       device_groups=MULTI_STREAM_GROUPS,
+                       check_found_all=False))):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        t = StreamingPartitionedTally(mesh, n, MULTI_STREAM_CHUNK, cfg)
+        ms[k] = multi_drive(t, pts, n, moves=1)
+        ms[k].append((time.perf_counter() - t0) * 1e3)
+        if k > 1:
+            counts["multi_groups"] = dict(kernels.launch_counts)
+        check_conservation(f"device groups ({k})", t.flux,
+                           multi_expect(pts, n, 1))
+        runs[k] = t
+    one, grp = runs[1], runs[MULTI_SHARDS]
+    check_arrays("device groups positions", grp.positions, one.positions)
+    ties = check_ties("device groups", mesh, grp.positions, grp.elem_ids,
+                      one.elem_ids, MULTI_TIE_TOL)
+    groups = {id(e.device_mesh) for e in grp.engines}
+    per = [shard_launches("device groups", e, "gather_block_walk")
+           for e in grp.engines]
+    print(f"# multi_groups: StreamingPartitionedTally, {n} particles in "
+          f"{grp.nchunks} chunks over {MULTI_STREAM_GROUPS} groups of "
+          f"{MULTI_SHARDS // MULTI_STREAM_GROUPS} shards ({len(groups)} "
+          f"distinct groups) on {card}: positions bitwise vs one device, "
+          f"{ties} ids at face ties, conservation held; W4 launches per "
+          f"chunk engine per shard {per}; ms the continue move (then the "
+          f"whole drive) at {MULTI_SHARDS} shards "
+          f"{', '.join(f'{v:.1f}' for v in ms[MULTI_SHARDS])}, at 1 "
+          f"{', '.join(f'{v:.1f}' for v in ms[1])}")
+    del runs, one, grp
+    torch.cuda.empty_cache()
+    return counts
+
+
+def multi_2p_tally(dm, ckpt_dir: str):
+    """Phase 17 (d)'s facade: the partitioned engine over ``dm`` with the
+    collective migration, under a CheckpointPolicy (DC)."""
+    import torch
+
+    from pumiumtally_tpu_torch import (
+        CheckpointPolicy,
+        PartitionedPumiTally,
+        TallyConfig,
+        build_box,
+    )
+
+    mesh = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                     dtype=torch.float32)
+    return PartitionedPumiTally(mesh, MULTI_2P_N, TallyConfig(
+        device_mesh=dm, migrate_collective=True, check_found_all=False,
+        capacity_factor=CAPACITY_FACTOR,
+        checkpoint=CheckpointPolicy(dir=ckpt_dir, handle_signals=False)))
+
+
+def multi_2p_campaign(t) -> dict:
+    from pumiumtally_tpu_torch.experiments.block_rounds import (
+        make_trajectory,
+    )
+
+    pts = make_trajectory(np.random.default_rng(0), N, CONTINUE_MOVES + 2)
+    multi_drive(t, pts, MULTI_2P_N, moves=2)
+    return {"flux": t.flux.cpu().numpy(), "positions": t.positions,
+            "elem_ids": t.elem_ids}
+
+
+def main_multi_device_rank() -> int:
+    """One rank of phase 17 (d): ``--multi-device-rank R PORT OUT``; two
+    logical shards on cuda:0, joined to the other rank over gloo."""
+    import torch
+
+    from pumiumtally_tpu_torch.parallel.distributed import init_distributed
+
+    i = sys.argv.index("--multi-device-rank")
+    rank, port, out = int(sys.argv[i + 1]), int(sys.argv[i + 2]), \
+        sys.argv[i + 3]
+    dm = init_distributed(f"127.0.0.1:{port}", 2, rank,
+                          local_devices=[torch.device("cuda", 0)] * 2)
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as d:
+        t = multi_2p_tally(dm, d)
+        eng = t.engine
+        calls = [0]
+        for attr in ("_collective_migrate", "_collective_frontier"):
+            fn = getattr(eng, attr)
+            if fn is not None:
+                def counted(s, fn=fn):
+                    calls[0] += 1
+                    return fn(s)
+                setattr(eng, attr, counted)
+        t0 = time.perf_counter()
+        res = multi_2p_campaign(t)
+        dt = time.perf_counter() - t0
+        comm = eng.comm
+        print(json.dumps({"rank": rank, "backend": dist.get_backend(),
+                          "mesh": [str(x) for x in dm.devices],
+                          "ranks": list(dm.ranks),
+                          "migrations": calls[0],
+                          "host_copies": comm.host_copies,
+                          "host_bytes": comm.host_bytes,
+                          "host_copies_a_migration":
+                              comm.host_copies / max(calls[0], 1),
+                          "seconds": dt,
+                          "launches": eng.shard_launches}), flush=True)
+    if rank == 0:
+        np.savez(out, **res)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_multi_two_process(card: str) -> None:
+    """(d) Two processes, two logical shards of cuda:0 each, over gloo:
+    the partitioned facade with the collective migration under a
+    CheckpointPolicy is bitwise the one-process MULTI_SHARDS-shard run;
+    the backend and the host copies a migration round made are
+    printed."""
+    import socket
+
+    with tempfile.TemporaryDirectory() as d:
+        ref = multi_2p_campaign(multi_2p_tally(shard_mesh(MULTI_SHARDS),
+                                               f"{d}/ref"))
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        out = f"{d}/rank0.npz"
+        env = dict(os.environ, PUMIUMTALLY_COORD_TIMEOUT="120")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--multi-device-rank", str(r), str(port), out],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"two-process rank {r} exited "
+                                     f"{p.returncode}:\n{log[-3000:]}")
+        got = np.load(out)
+        for k, v in ref.items():
+            if not np.array_equal(got[k], v):
+                raise AssertionError(f"two processes: {k} differs from the "
+                                     "one-process run")
+    for log in logs:
+        for line in log.splitlines():
+            if line.startswith("{"):
+                print(f"# two-process rank line: {line}")
+    print(f"# multi two-process: 2 ranks x 2 shards of cuda:0 over gloo "
+          f"on {card}, {MULTI_2P_N} particles: flux, positions and ids "
+          f"bitwise the one-process {MULTI_SHARDS}-shard run")
+
+
+def phase_multi_device(mesh, pts, card: str) -> dict:
+    """Phase 17: (a)-(d); returns the main-path runs' launch counts."""
+    t0 = time.perf_counter()
+    counts = phase_multi_sharded(mesh, pts, card)
+    counts.update(phase_multi_partitioned(mesh, pts, card))
+    counts.update(phase_multi_groups(mesh, card))
+    phase_multi_two_process(card)
+    launches = {e: sum(c.get(e, 0) for c in counts.values())
+                for e in ("walk", "block_walk", "twotier_block_walk",
+                          "gather_block_walk", "det_commit")}
+    print(f"# multi-device launches (W0 walk, W1 block_walk, W2 "
+          f"twotier_block_walk, W4 gather_block_walk, DC det_commit): "
+          f"{json.dumps(launches)}; phase 17 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+MULTI_NEEDS = {"multi_mono": "walk", "multi_stream": "walk",
+               "multi_mono_det0": "det_commit", "multi_mono_det1": "det_commit",
+               "multi_part_W4": "gather_block_walk",
+               "multi_part_W1": "block_walk",
+               "multi_part_W2": "twotier_block_walk",
+               "multi_part_det0": "det_commit",
+               "multi_part_det1": "det_commit",
+               "multi_part_det2": "det_commit",
+               "multi_part_det3": "det_commit",
+               "multi_groups": "gather_block_walk"}
+
+
+def main_multi_device() -> int:
+    """Phases 1-2 and phase 17 (multi-device) alone, with their checks."""
+    import torch
+
+    from pumiumtally_tpu_torch import build_box
+    from pumiumtally_tpu_torch.experiments.block_rounds import (
+        make_trajectory,
+    )
+
+    _, smi = phase_device()
+    phase_build()
+    mesh = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                     dtype=torch.float32)
+    pts = make_trajectory(np.random.default_rng(0), N, CONTINUE_MOVES + 3)
+    counts = phase_multi_device(mesh, pts, smi)
+    for key, entry in MULTI_NEEDS.items():
+        if counts[key][entry] == 0:
+            raise AssertionError(f"{key}: kernel {entry} never launched: "
+                                 f"{counts[key]}")
+    print(smi)
+    return 0
+
+
 def main_native() -> int:
     """Phases 1-2 and phase 16 (the C ABI and the CLI) alone, with their
     checks."""
@@ -5970,6 +6612,8 @@ def main() -> int:
     counts.update(svc_counts)
     # The C ABI (in this process and from C hosts) and the CLI.
     counts.update(phase_native(smi))
+    # Multi-device: logical shards of cuda:0, then two processes.
+    counts.update(phase_multi_device(mesh, pts, smi))
     needs = {"mono": "walk", "part": "block_walk", "mono_bf16": "walk_twotier",
              "part_bf16": "twotier_block_walk", "lat": "walk",
              "lat_bf16": "walk_twotier", "stream": "walk",
@@ -5999,7 +6643,8 @@ def main() -> int:
              "resilience_PartitionedPumiTally W2 scoring":
                  "twotier_block_walk_scored",
              "service": "walk", "loadgen": "walk",
-             **{f"native_{k}": v for k, v in NATIVE_ENGINES.items()}}
+             **{f"native_{k}": v for k, v in NATIVE_ENGINES.items()},
+             **MULTI_NEEDS}
     # W4's list build: the bf16 reroute's full-migrate rounds; the
     # unpacked main path's localization.
     for key, entry in (*needs.items(),
@@ -6703,6 +7348,8 @@ if __name__ == "__main__":
              "--det-times": main_det_times,
              "--service": main_service,
              "--native": main_native,
+             "--multi-device": main_multi_device,
+             "--multi-device-rank": main_multi_device_rank,
              "--python-two-phase": main_python_two_phase,
              "--resilience-campaign": main_resilience_campaign}
     sys.exit(next((fn for flag, fn in modes.items()

@@ -14,7 +14,10 @@ statistics (``TriggerSpec`` for convergence triggers) and
 graceful drain, ``checkpoint_now()`` and ``resume_latest()`` (the
 checkpoint format is the JAX package's, read and written by both).
 ``TallyService`` (service/) serves many client sessions on one device,
-fusing compatible sessions' moves into one launch. The
+fusing compatible sessions' moves into one launch.
+``TallyConfig(device_mesh=make_device_mesh(...))`` (parallel/) shards
+the particles, or the partitioned engine's blocks, over several devices
+or logical shards of one, and ``init_distributed`` over processes. The
 device work runs in hand-written CUDA kernels (``csrc/``, built by
 ``kernels.py`` at first use); every kernel's plain PyTorch version runs
 when the caller asks for ``device="cpu"``. The package imports torch

@@ -17,8 +17,11 @@ device and the precision through the environment:
                                   the GPU was asked for and no CUDA
                                   device is available; default: refuse
                                   with an error
-    PUMIUMTALLY_DEVICES           1 or unset: the port runs on one
-                                  device; more is refused (multi-device)
+    PUMIUMTALLY_DEVICES           N: a device mesh of N shards (the
+                                  first N CUDA devices; with
+                                  PUMIUMTALLY_DEVICE=cpu, N CPU shards);
+                                  the partitioned engines take every
+                                  CUDA device when it is unset
     PUMIUMTALLY_CHUNK_SIZE        streaming chunk size (default 1e6)
     PUMIUMTALLY_CAPACITY_FACTOR   partitioned slot over-provisioning
     PUMIUMTALLY_VMEM_MAX_ELEMS    partitioned engines: the block length
@@ -39,8 +42,8 @@ device and the precision through the environment:
                                   is itself a per-move sync)
     PUMIUMTALLY_CHECK_FOUND_ALL   1 (default) | 0: per-move "Not all
                                   particles are found" check
-    PUMIUMTALLY_DEVICE_GROUPS     streaming_partitioned only: 1; more
-                                  groups need several devices
+    PUMIUMTALLY_DEVICE_GROUPS     streaming_partitioned only: disjoint
+                                  device groups of the mesh
 
 The switches, their checks and their messages are the JAX package's
 (pumiumtally_tpu/api/native.py); ``PUMIUMTALLY_DEVICE`` and
@@ -55,7 +58,6 @@ import os
 import numpy as np
 import torch
 
-from pumiumtally_tpu_torch.config import ROADMAP_MULTI_DEVICE
 from pumiumtally_tpu_torch.utils.logging import get_logger
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -185,13 +187,20 @@ def native_create(mesh_filename: str, num_particles: int):
                 "PUMIUMTALLY_DEVICE_GROUPS applies only to "
                 f"PUMIUMTALLY_ENGINE=streaming_partitioned, not {engine!r}"
             )
-        kwargs["device_groups"] = int(groups)  # > 1: the config refuses
+        kwargs["device_groups"] = int(groups)
     ndev = os.environ.get("PUMIUMTALLY_DEVICES", "").strip()
-    if ndev and int(ndev) != 1:
-        raise NotImplementedError(
-            f"PUMIUMTALLY_DEVICES={ndev} needs several devices, which "
-            f"the port does not run yet: {ROADMAP_MULTI_DEVICE}"
-        )
+    partitioned = engine in ("partitioned", "streaming_partitioned")
+    if ndev or (partitioned and device.type == "cuda"):
+        # The JAX package's rule (api/native.py:248-256): a mesh when
+        # asked for, and over every device for the partitioned engines.
+        # CPU shards only where the CPU was asked for.
+        from pumiumtally_tpu_torch.parallel.device import make_device_mesh
+
+        asked_cpu = os.environ.get("PUMIUMTALLY_DEVICE", "").strip() \
+            .lower() == "cpu"
+        kwargs["device_mesh"] = make_device_mesh(
+            int(ndev) if ndev else None,
+            devices=[device] * int(ndev) if asked_cpu else None)
     cfg = TallyConfig(**kwargs)
     chunk = int(os.environ.get("PUMIUMTALLY_CHUNK_SIZE", "1000000"))
     if engine == "mono":

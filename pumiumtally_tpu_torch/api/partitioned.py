@@ -1,6 +1,10 @@
-"""Partitioned-mesh facade on one device (port of
-``pumiumtally_tpu/api/partitioned.py``): the three-call protocol over
-element blocks + particle migration (parallel/partition.py). With a
+"""Partitioned-mesh facade (port of ``pumiumtally_tpu/api/partitioned.py``):
+the three-call protocol over element blocks + particle migration
+(parallel/partition.py), on one device or, with
+``TallyConfig(device_mesh=...)``, with the blocks spread over the mesh's
+shards (``migrate_collective``, ``placement`` and ``placement_hosts`` as
+in the JAX package). Without a mesh it warns, as the JAX facade does,
+when more than one CUDA device is visible. With a
 default ``TallyConfig`` one block holds the whole mesh and the gather
 block walk W4 (``walk_local``) walks it; ``walk_vmem_max_elems``
 sub-splits the mesh, walked by W1 (ops/vmem_walk.py) where every block
@@ -31,12 +35,13 @@ refused, as in the JAX package. With a ``CheckpointPolicy`` the engine
 walks W4 with the deterministic commit, and an exhausted overflow
 ladder writes an ``overflow_safety`` generation before the poisoned
 refusal (``on_poisoned``, api/partitioned.py:119-127 of the JAX
-package). Left out: multi-device meshes.
+package).
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Any, Optional, Union
 
 import numpy as np
@@ -113,6 +118,17 @@ class PartitionedPumiTally(PumiTally):
         t0 = time.perf_counter()
         mesh = self._init_common(mesh, num_particles, config, device,
                                  lowp_mesh=False)
+        cfg = self.config
+        if (cfg.device_mesh is None and self.device.type == "cuda"
+                and torch.cuda.device_count() > 1):
+            # A forgotten device_mesh leaves the other cards idle.
+            warnings.warn(
+                f"PartitionedPumiTally: no device_mesh configured; "
+                f"running on 1 of the {torch.cuda.device_count()} "
+                "available cuda devices. Pass "
+                "TallyConfig(device_mesh=make_device_mesh(n)) to use them.",
+                stacklevel=2,
+            )
         self.engine = PartitionedEngine(
             mesh,
             self.num_particles,
@@ -127,6 +143,10 @@ class PartitionedPumiTally(PumiTally):
             scoring=self.config.scoring,
             cap_frontier=self.config.cap_frontier,
             deterministic=self._deterministic,
+            device_mesh=cfg.device_mesh,
+            migrate_collective=cfg.migrate_collective,
+            placement=cfg.placement,
+            placement_hosts=cfg.placement_hosts,
         )
         # After the engine: the DROP sentinel is its padded bank's size.
         self._arm_scoring(bank_size=self.engine.score_padded.numel()
@@ -173,8 +193,8 @@ class PartitionedPumiTally(PumiTally):
         if not out.endswith(".pvtu"):
             return super().WriteTallyResults(filename)
         t0 = time.perf_counter()
-        # One device owns every block: a single piece.
-        owner = np.zeros_like(self.engine.part.owner)
+        # One piece a shard: its blocks' elements.
+        owner = self.engine.part.owner // self.engine.blocks_per_chip
         write_pvtu(
             out,
             self.mesh.coords.cpu().numpy(),
@@ -186,7 +206,7 @@ class PartitionedPumiTally(PumiTally):
                 "owner": owner.astype(np.float64),
             }, *self._optional_cell_data()),
             field_data=self._vtk_field_data(),
-            nparts=1,
+            nparts=self.engine.ndev,
         )
         self.tally_times.vtk_file_write_time += time.perf_counter() - t0
         self.tally_times.print_times()

@@ -65,8 +65,15 @@ under the solo staging's padding rules (``FusedStreamStage``), and
 launches and runs the solo move's post-dispatch sequence.
 ``StreamingPartitionedTally`` never fuses.
 
-Left out against the JAX package (ROADMAP.md): sharded chunks and
-``device_groups`` (one device here). The JAX
+With ``TallyConfig(device_mesh=...)`` every chunk of ``StreamingTally``
+is sharded over the mesh as ``PumiTally``'s particles are (the chunk size
+pads to a multiple of the mesh); ``StreamingPartitionedTally`` splits
+the mesh into ``device_groups`` disjoint groups, the chunk engines going
+round-robin across them over one shared partition (shaped there by
+``placement``); a group on another device than the facade's walks on a
+CUDA stream of its own. A sentinel with ``device_groups > 1``, a group
+count that does not divide the mesh or exceeds the chunk count are
+refused, as in the JAX package. The JAX
 partitioned chunks defer their overflow check to a batch sync point
 (``_recover_deferred_overflow``); the port's engine checks each round on
 the host and recovers inside the chunk's own call, so the JAX
@@ -76,6 +83,7 @@ phase B walked) cannot arise.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Any, List, Optional, Union
@@ -99,6 +107,7 @@ from pumiumtally_tpu_torch.api.tally import (
 )
 from pumiumtally_tpu_torch.mesh.tetmesh import TetMesh
 from pumiumtally_tpu_torch.ops.geometry import locate_by_planes
+from pumiumtally_tpu_torch.parallel.sharded import ShardLayout
 from pumiumtally_tpu_torch.api.partitioned import engine_straggler_rung
 from pumiumtally_tpu_torch.parallel.partition import (
     PartitionedEngine,
@@ -147,10 +156,17 @@ class StreamingTally(PumiTally):
         mesh = self._init_common(mesh, num_particles, config, device,
                                  lowp_mesh=self._replicated_mesh_walk)
         self.chunk_size = int(min(chunk_size, self.num_particles))
+        dm = self.config.device_mesh
+        if dm is not None:
+            # Chunks shard evenly over the mesh; pad slots never fly.
+            self.chunk_size = ShardLayout.padded(self.chunk_size, dm)
         self.nchunks = -(-self.num_particles // self.chunk_size)
         self._staging = HostStaging(self.device, copy_stream=True)
         self._snapshot_keep: Optional[np.ndarray] = None
         self._narrow_scratch: Optional[np.ndarray] = None
+        if dm is not None and self._replicated_mesh_walk:
+            self._cap = self.chunk_size
+            self._shard_over(dm, self.chunk_size, mesh)
         self._alloc_chunks(mesh)
         self._arm_chunk_scoring()
         self._sync()
@@ -470,6 +486,15 @@ class StreamingTally(PumiTally):
         """Localize chunk k to staged [chunk,3] destinations; returns
         whether it all converged, as a device scalar."""
         x, elem = self._x[k], self._elem[k]
+        if self._shards is not None:
+            self._x[k], self._elem[k], dones, _ = self._sharded_localize(
+                x, elem, dest)
+            if self._sentinel is None:
+                return self._shards.all(dones)
+            self._x[k], self._elem[k], done = self._sentinel_post_localize(
+                self._x[k], self._elem[k], dest, self._shards.gather(dones),
+                self._flux[k])
+            return done.all()
         if self.config.localization == "locate":
             x, elem = adopt_located(x, elem, dest, locate_by_planes(
                 self.mesh.face_normals, self.mesh.face_offsets, dest,
@@ -488,6 +513,18 @@ class StreamingTally(PumiTally):
         the chunk's own flux and bank; returns whether every particle
         finished, as a device scalar."""
         bank = None if self._scoring is None else self._score[k]
+        if self._shards is not None:
+            sh = self._shards
+            x, elem, flux, bank, dones, ss = self._sharded_move(
+                sh, self._shard_meshes, self._x[k], self._elem[k], orig,
+                dest, fly, w, self._flux[k], bank, sbin, sfac)
+            self._x[k], self._elem[k], self._flux[k] = x, elem, flux
+            if self._scoring is not None:
+                self._score[k] = bank
+            if self._sentinel is not None:
+                self._move_done[k] = sh.gather(dones)
+                self._move_s[k] = sh.gather(ss)
+            return sh.all(dones)
         kw = dict(tol=self._tol, max_iters=self._max_iters,
                   scoring=self._score_ops(bank, sbin, sfac),
                   deterministic=self._deterministic)
@@ -511,7 +548,8 @@ class StreamingTally(PumiTally):
         a chunk index). The kind leads, so monolithic and streaming heads
         never mix; ``StreamingPartitionedTally`` and xpoint recorders
         never fuse."""
-        if type(self) is not StreamingTally or self.config.record_xpoints:
+        if (type(self) is not StreamingTally or self.config.record_xpoints
+                or self._shards is not None):
             return None
         return (("stream",) + self._fusion_statics()
                 + (self.num_particles, self.chunk_size))
@@ -634,24 +672,89 @@ class StreamingTally(PumiTally):
 
 
 class StreamingPartitionedTally(StreamingTally):
-    """Streaming chunks through the PARTITIONED engine on one device: the
-    mesh in blocks AND the batch too large for one slot array. Each chunk
+    """Streaming chunks through the PARTITIONED engine: the mesh in blocks
+    AND the batch too large for one slot array. Each chunk
     owns a ``PartitionedEngine`` sized to its real particles; all share
     one partition (built once), and their owned flux is summed on read.
     Knobs as ``PartitionedPumiTally``'s: by default one block and W4;
     ``walk_vmem_max_elems`` sub-splits for W1 (or W4 with
     ``walk_block_kernel="gather"``); ``walk_table_dtype="bfloat16",
     walk_kernel="pallas"`` runs W2. ``cap_frontier`` reaches every
-    chunk engine."""
+    chunk engine. With a ``device_mesh`` the chunk engines spread their
+    blocks over ``device_groups`` disjoint groups of its shards, chunk k
+    on group k mod G."""
 
     _replicated_mesh_walk = False  # the engines build their own tables
 
+    def __init__(self, mesh: Union[TetMesh, str], num_particles: int,
+                 chunk_size: int = 1_000_000,
+                 config: Optional[TallyConfig] = None, device: Any = None):
+        if (config is not None and config.sentinel is not None
+                and int(config.device_groups) > 1):
+            # The audit concatenates caller-order views across chunk
+            # engines, which disjoint device groups keep apart.
+            raise ValueError(
+                "TallyConfig.sentinel with device_groups > 1 is not "
+                "supported: the audit needs one device set across "
+                "chunk engines"
+            )
+        super().__init__(mesh, num_particles, chunk_size, config, device)
+
+    def _group_meshes(self) -> list:
+        """The device groups (JAX streaming.py:870-890): the mesh split
+        into ``device_groups`` disjoint sub-meshes, chunks going
+        round-robin across them; [None] without a mesh (one device)."""
+        ngroups = int(self.config.device_groups)
+        dm = self.config.device_mesh
+        ndev = 1 if dm is None else dm.size
+        if ndev % ngroups:
+            raise ValueError(
+                f"device_groups={ngroups} does not divide the "
+                f"{ndev}-device mesh"
+            )
+        if ngroups > self.nchunks:
+            raise ValueError(
+                f"device_groups={ngroups} exceeds the {self.nchunks} "
+                "chunk(s) of this batch; lower it or shrink chunk_size"
+            )
+        if dm is None:
+            return [None]
+        from pumiumtally_tpu_torch.parallel.device import DeviceMesh
+
+        per = ndev // ngroups
+        return [DeviceMesh(dm.devices[g * per:(g + 1) * per], dm.axis_names,
+                           dm.ranks[g * per:(g + 1) * per], dm.rank)
+                for g in range(ngroups)]
+
     def _alloc_chunks(self, mesh: TetMesh) -> None:
+        from pumiumtally_tpu_torch.parallel.distributed import (
+            derive_host_counts,
+        )
+
         cfg = self.config
+        groups = self._group_meshes()
+        per = 1 if groups[0] is None else groups[0].size
         kw = dict(vmem_walk_max_elems=cfg.walk_vmem_max_elems,
                   block_kernel=cfg.resolved_walk_kernel(),
                   table_dtype=cfg.resolved_table_dtype())
-        part = engine_partition(mesh, **kw)
+        # One partition for every group, shaped here by the placement
+        # (its host counts per group mesh).
+        host_chips = cfg.placement_hosts
+        if host_chips is None:
+            host_chips = ((per,) if groups[0] is None
+                          else derive_host_counts(groups[0]))
+        part = engine_partition(mesh, **kw, ndev=per,
+                                placement=cfg.placement,
+                                host_chips=host_chips)
+        # Groups on devices other than the facade's walk on a stream of
+        # their own; groups sharing the facade's device share its.
+        home = self.device
+        if home.type == "cuda" and home.index is None:
+            home = torch.device("cuda", torch.cuda.current_device())
+        self._home = home
+        self._group_streams = [
+            torch.cuda.Stream(g.home) if g is not None and g.home != home
+            and g.home.type == "cuda" else None for g in groups]
         self.engines = []
         for k in range(self.nchunks):
             lo, hi = self._chunk_bounds(k)
@@ -663,10 +766,36 @@ class StreamingPartitionedTally(StreamingTally):
                 # every chunk (_after_chunk_dispatch).
                 check_found_all=False, part=part, scoring=cfg.scoring,
                 cap_frontier=cfg.cap_frontier,
-                deterministic=self._deterministic, **kw,
+                deterministic=self._deterministic,
+                device_mesh=groups[k % len(groups)],
+                migrate_collective=cfg.migrate_collective,
+                placement=cfg.placement,
+                placement_hosts=cfg.placement_hosts,
+                **kw,
             ))
             self._wire_engine_hooks(self.engines[-1])
         self._dispatched_localize = False
+
+    @contextlib.contextmanager
+    def _group_stream(self, k: int):
+        """Run chunk ``k``'s engine on its group's stream, when it has
+        one. The side stream first waits for the group device's current
+        stream (where the engine's tables and state were made) and the
+        facade's (the chunk's inputs); on exit both wait for it, so
+        every later read, and every reuse of a block the allocator
+        freed, comes after the chunk's work."""
+        side = self._group_streams[k % len(self._group_streams)]
+        if side is None:
+            yield
+            return
+        outer = (torch.cuda.current_stream(side.device),
+                 torch.cuda.current_stream(self._home))
+        for s in outer:
+            side.wait_stream(s)
+        with torch.cuda.stream(side):
+            yield
+        for s in outer:
+            s.wait_stream(side)
 
     def _engine_poisoned(self) -> bool:
         return any(e.poisoned for e in self.engines)
@@ -683,14 +812,16 @@ class StreamingPartitionedTally(StreamingTally):
     def _chunk_localize(self, k: int, dest: torch.Tensor):
         self._dispatched_localize = True
         eng = self.engines[k]
-        return eng.localize(dest[: eng.n])  # engines hold only real slots
+        with self._group_stream(k):
+            return eng.localize(dest[: eng.n])  # engines hold real slots
 
     def _chunk_move(self, k: int, orig, dest, fly, w, sbin=None, sfac=None):
         n = self.engines[k].n
-        return self.engines[k].move(
-            None if orig is None else orig[:n], dest[:n], fly[:n], w[:n],
-            None if sbin is None else sbin[:n],
-            None if sfac is None else sfac[:n])
+        with self._group_stream(k):
+            return self.engines[k].move(
+                None if orig is None else orig[:n], dest[:n], fly[:n],
+                w[:n], None if sbin is None else sbin[:n],
+                None if sfac is None else sfac[:n])
 
     def _chunk_phase_b_start(self, k: int, orig):
         n = self.engines[k].n
@@ -758,9 +889,9 @@ class StreamingPartitionedTally(StreamingTally):
 
     @property
     def flux(self) -> torch.Tensor:
-        total = self.engines[0].flux_original().clone()
+        total = self.engines[0].flux_original().to(self.device, copy=True)
         for e in self.engines[1:]:
-            total += e.flux_original()
+            total += e.flux_original().to(self.device)
         return total
 
     @property
@@ -768,9 +899,9 @@ class StreamingPartitionedTally(StreamingTally):
         """The scoring lanes summed over the chunk engines' canonical
         views."""
         self._require_scoring()
-        total = self.engines[0].score_original()
+        total = self.engines[0].score_original().to(self.device, copy=True)
         for e in self.engines[1:]:
-            total += e.score_original()
+            total += e.score_original().to(self.device)
         return total
 
     @property

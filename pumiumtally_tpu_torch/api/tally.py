@@ -83,6 +83,15 @@ facade's): once a partitioned engine's overflow-recovery ladder is
 exhausted, every protocol call refuses with ``EnginePoisonedError``,
 checked before anything else.
 
+With ``TallyConfig(device_mesh=...)`` (a ``parallel.DeviceMesh``) the
+capacity pads to a multiple of the mesh size (padded slots never fly)
+and localization and both moves run sharded (parallel/sharded.py): each
+shard walks its slice on its own device against its copy of the mesh,
+and the flux (and bank) deltas are summed in fixed shard order.
+``flux``, ``positions``, ``elem_ids`` and the bank are whole, in caller
+order. Sharded facades never fuse; ``intersection_points`` refuses a
+mesh, as in the JAX package.
+
 The service-fusion surface (service/fusion.py, the JAX facade's
 api/tally.py:1368-1470): ``_fusion_key`` names the moves that may share
 one fused launch, ``_fused_move_stage`` stages a service op's move on
@@ -120,6 +129,14 @@ from pumiumtally_tpu_torch.mesh.tetmesh import TetMesh
 from pumiumtally_tpu_torch.ops.det_commit import DetWorkspace
 from pumiumtally_tpu_torch.ops.geometry import locate_by_planes
 from pumiumtally_tpu_torch.ops.walk import walk, walk_xpoints
+from pumiumtally_tpu_torch.parallel.sharded import (
+    ShardLayout,
+    replicate_mesh,
+    sharded_locate,
+    sharded_localize_step,
+    sharded_move_step,
+    sharded_move_step_continue,
+)
 from pumiumtally_tpu_torch.resilience import AutosaveRunner, resume_latest
 from pumiumtally_tpu_torch.scoring.binding import (
     ScoringRuntime,
@@ -400,11 +417,18 @@ class PumiTally:
                  config: Optional[TallyConfig] = None, device: Any = None):
         t0 = time.perf_counter()
         mesh = self._init_common(mesh, num_particles, config, device)
+        # The internal capacity: padded up to a multiple of the device
+        # mesh so the particles shard evenly.
+        dm = self.config.device_mesh
+        self._cap = self.num_particles
+        if dm is not None:
+            self._cap = ShardLayout.padded(self.num_particles, dm)
+            self._shard_over(dm, self._cap, mesh)
         # Seed every particle at the centroid of element 0, as the
         # reference does: localization then happens by walking.
         c0 = mesh.coords[mesh.tet2vert[0].long()].mean(dim=0)
-        self.x = c0.expand(self.num_particles, 3).contiguous()
-        self.elem = torch.zeros((self.num_particles,), dtype=torch.int32,
+        self.x = c0.expand(self._cap, 3).contiguous()
+        self.elem = torch.zeros((self._cap,), dtype=torch.int32,
                                 device=self.device)
         self.flux = torch.zeros((mesh.nelems,), dtype=self.dtype,
                                 device=self.device)
@@ -421,7 +445,18 @@ class PumiTally:
         two-tier tables when the configured tier is bf16 (the
         partitioned facade builds its own block tables instead)."""
         self.config = config or TallyConfig()
+        dm = self.config.device_mesh
+        if dm is not None and device is None:
+            device = dm.home
         self.device = resolve_device(device)
+        if dm is not None and dm.home.type != self.device.type:
+            raise ValueError(
+                f"the device mesh's home device {dm.home} and the facade's "
+                f"device {self.device} differ")
+        # Particles sharded over a device mesh (``_shard_over``); None:
+        # one device.
+        self._shards = None
+        self._shard_meshes = None
         if isinstance(mesh, str):
             # A mesh file is built in the config's dtype (float32 when
             # it sets none, the JAX package's default off x64 mode).
@@ -483,6 +518,31 @@ class PumiTally:
             self._resilience = AutosaveRunner(self.config.checkpoint)
             self._deterministic = DetWorkspace()
         return self.mesh
+
+    def _shard_over(self, device_mesh, cap: int, mesh: TetMesh) -> None:
+        """Shard ``cap`` particle slots over ``device_mesh``, with the
+        mesh tables copied once to each distinct device."""
+        self._shards = ShardLayout(device_mesh, cap)
+        self._shard_meshes = replicate_mesh(mesh, self._shards)
+
+    def _pad_particles(self, a: Optional[torch.Tensor], tail,
+                       cap: Optional[int] = None):
+        """A staged [n,...] array padded to the capacity ``cap`` (the
+        facade's by default) with ``tail``'s rows past n (a tensor of the
+        capacity's rows, or a fill value)."""
+        cap = self._cap if cap is None else cap
+        if a is None or a.shape[0] == cap:
+            return a
+        if not isinstance(tail, torch.Tensor):
+            tail = torch.full((cap,) + tuple(a.shape[1:]), tail,
+                              dtype=a.dtype, device=a.device)
+        return torch.cat([a, tail[a.shape[0]:cap].to(a.device)])
+
+    def _adopt_positions(self, x: torch.Tensor, elem: torch.Tensor) -> None:
+        """Commit caller-order [n] positions and elements (a restore):
+        padded slots keep theirs."""
+        self.x = self._pad_particles(x, self.x)
+        self.elem = self._pad_particles(elem, self.elem)
 
     def _facade_mesh(self, mesh: TetMesh, lowp_mesh: bool) -> TetMesh:
         """The caller's mesh in the working dtype on the device, with the
@@ -1007,6 +1067,8 @@ class PumiTally:
     def _dispatch_localize(self, dest: torch.Tensor):
         """Non-tallying localization; returns (found_all, n_exited),
         device scalars that are fetched only when they are read."""
+        if self._shards is not None:
+            return self._dispatch_localize_sharded(dest)
         x, elem = self.x, self.elem
         if self.config.localization == "locate":
             # Half-space point location first: located particles enter
@@ -1022,6 +1084,34 @@ class PumiTally:
         self.x, self.elem, done = self._sentinel_post_localize(
             self.x, self.elem, dest, done, self.flux)
         return done.all(), exited.sum()
+
+    def _dispatch_localize_sharded(self, dest: torch.Tensor):
+        """``_dispatch_localize`` with the particles sharded."""
+        dest = self._pad_particles(dest, self.x)
+        self.x, self.elem, dones, exited = self._sharded_localize(
+            self.x, self.elem, dest)
+        sh = self._shards
+        if self._sentinel is None:
+            return sh.all(dones), exited.sum()
+        self.x, self.elem, done = self._sentinel_post_localize(
+            self.x, self.elem, dest, sh.gather(dones), self.flux)
+        return done.all(), exited.sum()
+
+    def _sharded_localize(self, x, elem, dest):
+        """The non-tallying localization of [cap] arrays over the shards:
+        each shard walks (or first locates) its slice on its own device.
+        Returns the whole (x, elem), the per-shard done flags and the
+        whole exited flags."""
+        sh, meshes = self._shards, self._shard_meshes
+        x, elem, dl = sh.split(x), sh.split(elem), sh.split(dest)
+        if self.config.localization == "locate":
+            e0 = sharded_locate(sh, meshes, dl, tol=self._tol)
+            for i in sh.local:
+                x[i], elem[i] = adopt_located(x[i], elem[i], dl[i], e0[i])
+        xs, es, dones, exited = sharded_localize_step(
+            sh, meshes, x, elem, dl, tol=self._tol,
+            max_iters=self._max_iters)
+        return sh.gather(xs), sh.gather(es), dones, sh.gather(exited)
 
     def MoveToNextLocation(self, particle_origin, particle_destinations,
                            flying=None, weights=None,
@@ -1086,6 +1176,9 @@ class PumiTally:
         mode; sbin/sfac: the scoring operands, None with scoring off).
         Returns whether every particle finished, as a device scalar
         fetched only when read."""
+        if self._shards is not None:
+            return self._dispatch_move_sharded(origins, dests, fly, w, sbin,
+                                               sfac)
         kw = dict(tol=self._tol, max_iters=self._max_iters,
                   scoring=self._score_ops(self._score_bank, sbin, sfac),
                   deterministic=self._deterministic)
@@ -1105,6 +1198,54 @@ class PumiTally:
         return self._sentinel_post_move(
             x_prev if origins is None else origins, dests, fly, w, done,
             s_b, sbin, sfac)
+
+    def _sharded_move(self, sh, meshes, x, elem, origins, dests, fly, w,
+                      flux, bank, sbin, sfac):
+        """One tallied move of [cap] arrays over the shards of ``sh``;
+        returns the whole (x, elem, flux, bank) and the per-shard
+        (done, s)."""
+        split = sh.split
+        scoring = None
+        if self._scoring is not None:
+            scoring = (self._scoring.spec.kinds, bank, split(sbin),
+                       split(sfac))
+        kw = dict(tol=self._tol, max_iters=self._max_iters, scoring=scoring,
+                  deterministic=self._deterministic)
+        if origins is None:
+            res = sharded_move_step_continue(
+                sh, meshes, split(x), split(elem), split(dests), split(fly),
+                split(w), flux, **kw)
+        else:
+            res = sharded_move_step(
+                sh, meshes, split(x), split(elem), split(origins),
+                split(dests), split(fly), split(w), flux, **kw)
+        xs, es, dones, ss, flux, bank = res
+        return sh.gather(xs), sh.gather(es), flux, bank, dones, ss
+
+    def _dispatch_move_sharded(self, origins, dests, fly, w, sbin, sfac):
+        """``_dispatch_move`` over the device mesh: the staged arrays
+        padded to the capacity (padded slots never fly, dest = x), each
+        shard's slice walked on its own device, the deltas summed in
+        shard order (parallel/sharded.py)."""
+        sh = self._shards
+        pad = self._pad_particles
+        dests = pad(dests, self.x)
+        fly = pad(fly, 0)
+        w = pad(w, 0.0)
+        origins = pad(origins, self.x)
+        if sbin is not None:
+            sbin, sfac = pad(sbin, 0), pad(sfac, 0.0)
+        x_prev = self.x
+        self.x, self.elem, self.flux, bank, dones, ss = self._sharded_move(
+            sh, self._shard_meshes, self.x, self.elem, origins, dests, fly,
+            w, self.flux, self._score_bank, sbin, sfac)
+        if self._scoring is not None:
+            self._score_bank = bank
+        if self._sentinel is None:
+            return sh.all(dones)
+        return self._sentinel_post_move(
+            x_prev if origins is None else origins, dests, fly, w,
+            sh.gather(dones), sh.gather(ss), sbin, sfac)
 
     # -- the service's cross-session fusion (service/fusion.py) ----------
     def _arm_deterministic(self) -> None:
@@ -1128,9 +1269,10 @@ class PumiTally:
         when they never share a fused launch (the JAX facade's): the
         same mesh object, dtype, device, tolerance, step budget, table
         tier, commit and the scoring spec's static key. Subclasses other
-        than ``StreamingTally`` (partitioned: engine-owned state) and
-        xpoint recorders never fuse."""
-        if type(self) is not PumiTally or self.config.record_xpoints:
+        than ``StreamingTally`` (partitioned: engine-owned state),
+        sharded facades and xpoint recorders never fuse."""
+        if (type(self) is not PumiTally or self.config.record_xpoints
+                or self._shards is not None):
             return None
         return ("mono",) + self._fusion_statics()
 
@@ -1296,6 +1438,15 @@ class PumiTally:
                 f"intersection_points() is implemented for the "
                 f"monolithic/sharded PumiTally facade only, not "
                 f"{type(self).__name__}"
+            )
+        if self.config.device_mesh is not None:
+            # The JAX facade's refusal: the replay would mix the sharded
+            # stash with a monolithic walk.
+            raise NotImplementedError(
+                "intersection_points() replay does not support a "
+                "device_mesh yet: the sharded replay path is untested. "
+                "Drop device_mesh (or record_xpoints) to use this "
+                "debug surface"
             )
         if self._xpoint_stash is None:
             return self.positions  # no move yet: the start points

@@ -1,15 +1,7 @@
-"""Engine knobs: the subset of ``pumiumtally_tpu.config.TallyConfig``
-that the PyTorch port implements so far.
-
-The JAX fields the port does not have yet are ``device_mesh``,
-``migrate_collective``, ``placement`` and ``placement_hosts``
-(ROADMAP.md queue 1, item 7: multi-device).
-A knob the port does not have is not a field, so passing it is a
-``TypeError``. The few values the JAX package accepts but the port does
-not run yet raise ``NotImplementedError`` naming the ROADMAP.md item
-that brings them (by title: the items are renumbered now and then).
-Validation and resolution otherwise follow the JAX package's
-``TallyConfig`` (config.py:576-660, :728-746).
+"""Engine knobs: every field of ``pumiumtally_tpu.config.TallyConfig``,
+validated and resolved as the JAX package does (config.py:343-365,
+:576-705, :728-746). A knob neither package has is not a field, so
+passing it is a ``TypeError``.
 """
 
 from __future__ import annotations
@@ -18,11 +10,6 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
-
-# The ROADMAP.md item named by the refusals of the multi-device fields
-# and values.
-ROADMAP_MULTI_DEVICE = "ROADMAP.md queue 1, item 7, 'Multi-device'"
-
 
 @dataclasses.dataclass
 class TallyConfig:
@@ -119,8 +106,25 @@ class TallyConfig:
         walk each particle to completion and have no cascade. They are
         accepted so that a JAX configuration crosses over
         (``convert.tally_config``).
-      device_groups: the JAX partitioned streaming facade's disjoint
-        device groups; the port runs on one device, so only 1.
+      device_mesh: a ``parallel.DeviceMesh`` (``make_device_mesh``):
+        ``PumiTally`` and ``StreamingTally`` shard the particles over it
+        (the mesh tables copied to each device, flux reduced across the
+        shards in fixed shard order); the partitioned facades spread
+        their element blocks over it. None: one device.
+      migrate_collective: the JAX package's choice of the in-loop
+        migration (its collective instead of its scatter; bitwise the
+        same), accepted and validated. The port's engine picks by the
+        mesh: row copies within one process (the faster on the card,
+        PERF.md), the collective (an all_gather of the counting-rank
+        keys and a ring of packed slabs, parallel/distributed.py)
+        across processes.
+      placement: partitioned engines: "linear" (flat RCB ownership) or
+        "pod_rcb" (hosts first, then each host's devices).
+      placement_hosts: per-host device counts in mesh order (a virtual
+        host layout); None derives them from the mesh's processes.
+      device_groups: ``StreamingPartitionedTally``: the mesh splits into
+        this many disjoint groups, the chunks going round-robin across
+        them.
     """
 
     dtype: Any = None
@@ -151,6 +155,10 @@ class TallyConfig:
     walk_min_window: Optional[int] = None
     walk_partition_method: Optional[str] = None
     device_groups: int = 1
+    device_mesh: Optional[Any] = None
+    migrate_collective: bool = False
+    placement: str = "linear"
+    placement_hosts: Optional[tuple] = None
 
     def __post_init__(self) -> None:
         if self.localization not in ("walk", "locate"):
@@ -161,12 +169,6 @@ class TallyConfig:
         if int(self.device_groups) < 1:
             raise ValueError(
                 f"device_groups must be >= 1, got {self.device_groups!r}"
-            )
-        if int(self.device_groups) > 1:
-            raise NotImplementedError(
-                f"device_groups={self.device_groups} needs several "
-                f"devices, which the port does not run yet: "
-                f"{ROADMAP_MULTI_DEVICE}"
             )
         if self.walk_perm_mode is not None and self.walk_perm_mode not in (
             "auto", "arrays", "packed", "indirect", "sorted"
@@ -239,6 +241,33 @@ class TallyConfig:
                 f"cap_frontier must be >= 0 (0 = forced full-capacity "
                 f"fallback) or None, got {self.cap_frontier!r}"
             )
+        if self.placement not in ("linear", "pod_rcb"):
+            raise ValueError(
+                f"placement must be 'linear' or 'pod_rcb', "
+                f"got {self.placement!r}"
+            )
+        if self.placement_hosts is not None:
+            hosts = tuple(self.placement_hosts)
+            if not hosts or any(
+                not isinstance(h, int) or h < 1 for h in hosts
+            ):
+                raise ValueError(
+                    "placement_hosts must be a non-empty tuple of "
+                    f"positive per-host chip counts, "
+                    f"got {self.placement_hosts!r}"
+                )
+        if self.device_mesh is not None:
+            from pumiumtally_tpu_torch.parallel.device import (
+                DeviceMesh,
+                mesh_axis,
+            )
+
+            if not isinstance(self.device_mesh, DeviceMesh):
+                raise ValueError(
+                    "device_mesh must be a parallel.DeviceMesh "
+                    f"(make_device_mesh), got {self.device_mesh!r}"
+                )
+            mesh_axis(self.device_mesh)  # must be 1-D
         if self.batch_stats_trigger is not None:
             from pumiumtally_tpu_torch.stats.triggers import TriggerSpec
 

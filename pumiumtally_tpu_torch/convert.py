@@ -41,7 +41,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from pumiumtally_tpu_torch.config import ROADMAP_MULTI_DEVICE, TallyConfig
+from pumiumtally_tpu_torch.config import TallyConfig
 from pumiumtally_tpu_torch.mesh.tetmesh import (
     WALK_TABLE_ADJ,
     WALK_TABLE_NORMALS,
@@ -207,8 +207,8 @@ def facade_state(tally) -> Dict[str, np.ndarray]:
         if getattr(engine, "score_padded", None) is not None:
             out["score_padded"] = host(engine.score_padded)
     else:
-        out = {"x": host(tally.x), "elem": host(tally.elem),
-               "flux": host(tally.flux)}
+        out = {"x": np.asarray(tally.positions),
+               "elem": np.asarray(tally.elem_ids), "flux": host(tally.flux)}
         if getattr(tally, "_score_bank", None) is not None:
             out["score_bank"] = host(tally._score_bank)
     for attr, prefix in (("_stats", "stats"), ("_score_stats", "sstats")):
@@ -229,15 +229,15 @@ def load_facade_state(tally, arrays: Dict[str, np.ndarray]) -> None:
 
     engine = getattr(tally, "engine", None)
     if engine is not None:
-        for k, v in engine.state.items():
-            engine.state[k] = t(arrays[k], v.dtype).reshape(v.shape)
+        engine.state = {k: t(arrays[k], v.dtype).reshape(v.shape)
+                        for k, v in engine.state.items()}
         engine.flux_padded = t(arrays["flux_padded"], tally.dtype)
         if engine.score_padded is not None:
             engine.score_padded = t(arrays["score_padded"], tally.dtype)
         engine.n_lost = int(np.sum(arrays["lost"]))
     else:
-        tally.x = t(arrays["x"], tally.dtype).reshape(-1, 3)
-        tally.elem = t(arrays["elem"], torch.int32)
+        tally._adopt_positions(t(arrays["x"], tally.dtype).reshape(-1, 3),
+                               t(arrays["elem"], torch.int32))
         tally.flux = t(arrays["flux"], tally.dtype)
         if tally._score_bank is not None:
             tally._score_bank = t(arrays["score_bank"], tally.dtype)
@@ -251,12 +251,15 @@ def load_facade_state(tally, arrays: Dict[str, np.ndarray]) -> None:
     tally.is_initialized = True
 
 
-def tally_config(cfg) -> TallyConfig:
+def tally_config(cfg, device: Any = "cpu") -> TallyConfig:
     """The port's ``TallyConfig`` with every field that ``cfg`` (a JAX
     package ``TallyConfig``, read duck-typed) shares with it; the port's
     own validation runs on the values. A field the port does not have
     is refused with ``NotImplementedError`` unless ``cfg`` leaves it at
-    its default. The working dtype crosses by name (float32/float64)."""
+    its default. The working dtype crosses by name (float32/float64).
+    A ``device_mesh`` (a ``jax.sharding.Mesh``, read through
+    ``.devices.size`` and ``.axis_names``) becomes a port
+    ``DeviceMesh`` of as many shards, every one on ``device``."""
     port = {f.name for f in dataclasses.fields(TallyConfig)}
     kw = {}
     for f in dataclasses.fields(cfg):
@@ -269,11 +272,20 @@ def tally_config(cfg) -> TallyConfig:
         if value is not default and value != default:
             raise NotImplementedError(
                 f"TallyConfig.{f.name}={value!r} has no counterpart in the "
-                f"port yet: {ROADMAP_MULTI_DEVICE}"
+                "port"
             )
     if kw.get("dtype") is not None:
         kw["dtype"] = {"float32": torch.float32, "float64": torch.float64,
                        "bfloat16": torch.bfloat16}[np.dtype(kw["dtype"]).name]
+    if kw.get("device_mesh") is not None:
+        from pumiumtally_tpu_torch.parallel.device import DeviceMesh
+
+        jm = kw["device_mesh"]
+        kw["device_mesh"] = DeviceMesh(
+            (torch.device(device),) * int(jm.devices.size),
+            tuple(jm.axis_names))
+    if kw.get("placement_hosts") is not None:
+        kw["placement_hosts"] = tuple(kw["placement_hosts"])
     if kw.get("scoring") is not None:
         kw["scoring"] = scoring_spec(kw["scoring"])
     if kw.get("sentinel") is not None:

@@ -84,17 +84,17 @@ def _flat(a: np.ndarray) -> np.ndarray:
 
 
 def record_move(t, origins, dests) -> list:
-    """Run one move of the partitioned facade ``t`` (``origins`` None: a
-    continue move) and return the engine state each tallied round
-    walked from."""
+    """Run one move of the one-device partitioned facade ``t``
+    (``origins`` None: a continue move) and return the engine state each
+    tallied round walked from."""
     eng = t.engine
     rounds = []
     walk_round = eng._round
 
-    def spy(st, tally, *rest, **kw):
+    def spy(sts, tally, *rest, **kw):
         if tally:
-            rounds.append(dict(st))
-        return walk_round(st, tally, *rest, **kw)
+            rounds.append(dict(sts[0]))
+        return walk_round(sts, tally, *rest, **kw)
 
     eng._round = spy
     try:

@@ -1,10 +1,11 @@
-"""Partitioned mesh on ONE device: element blocks + particle migration
-(port of the single-device subset of
-``pumiumtally_tpu/parallel/partition.py``).
+"""Partitioned mesh: element blocks + particle migration, on one device
+or across a ``DeviceMesh`` (port of ``pumiumtally_tpu/parallel/partition.py``).
 
 - **Ownership**: recursive coordinate bisection (RCB) of element
   centroids into ``nparts`` balanced blocks, the JAX package's exact
-  code, so block ids and the renumbering match it element for element.
+  code, so block ids and the renumbering match it element for element;
+  ``placement="pod_rcb"`` bisects across hosts first
+  (``pod_rcb_partition``).
 - **Block tables**: elements renumbered so each block is contiguous and
   padded to a common length L; the packed walk table is rebuilt with
   LOCAL adjacency: a local id, -1 for the domain boundary, or
@@ -15,39 +16,54 @@
   the blocks carry the two-tier tables instead: ``table`` is the bf16
   select tier and ``table_hi`` the per-face refinement tier, whose adj
   lane holds the local encoding (never a sidecar).
-- **Walk**: each round runs a block walk that pauses a particle at a
-  block face with ``pending = glid``: W1 (ops/vmem_walk.py) where every
-  block fits ``walk_vmem_max_elems`` on the packed tables, W2
-  (ops/pallas_walk.py, ``walk_kernel="pallas"``) on the two-tier tables,
-  and otherwise the gather block walk (kernel W4,
-  csrc/gather_block_walk.cu): one block of the whole mesh when no bound
-  is set (the default configuration), or the gather sub-split. The
-  engine walks in place only the not-done slots (``walk_local_list``):
-  a later round over a work list that the migrate hands it, so a round
-  costs its front, not its blocks' capacity; ``walk_local`` keeps the
-  JAX function's contract. The occupied-block list (kept per block from
+- **Devices**: with a ``device_mesh`` of ``ndev`` shards there are
+  ``ndev * blocks_per_chip`` blocks; shard d owns slots
+  ``[d*cap_per_chip, (d+1)*cap_per_chip)`` and holds only its blocks'
+  rows of the tables, the flux, the bank and the sidecar, on its own
+  device (logical shards on one device hold views of one copy). Without
+  a mesh the engine is one shard on the mesh's device.
+- **Walk**: each round runs, on each shard, a block walk that pauses a
+  particle at a block face with ``pending = glid``: W1
+  (ops/vmem_walk.py) where every block fits ``walk_vmem_max_elems`` on
+  the packed tables, W2 (ops/pallas_walk.py, ``walk_kernel="pallas"``)
+  on the two-tier tables, and otherwise the gather block walk (kernel
+  W4, csrc/gather_block_walk.cu): one block a shard when no bound is
+  set (the default configuration), or the gather sub-split. The engine
+  walks in place only the not-done slots (``walk_local_list``): a later
+  round over a work list that the migrate hands it, so a round costs
+  its front, not its blocks' capacity; ``walk_local`` keeps the JAX
+  function's contract. The occupied-block list (kept per block from
   round to round) counts the blocks dispatched.
 - **Migration**: paused particles move to their target block's slot
   range by a stable rank per target (``migrate``), or, with
   ``cap_frontier``, only the paused rows move through a slab of that
   many slots (``_frontier_migrate_impl``: stayers keep their slots); a
-  front larger than the slab falls back to the full migrate. A round
-  whose targets overflow a block's slots keeps the old state
-  (overflow-safe commit) and the recovery ladder takes over
-  (``PartitionedEngine._recover_overflow``): a full-migrate retry, a
-  capacity escalation sized by demand, the terminal escalation, then
-  the engine is poisoned.
+  front larger than the slab falls back to the full migrate. Across
+  the shards of one process the rows are explicit copies from one
+  shard's tensor to another's (``migrate_shards``,
+  ``frontier_migrate_shards``); a mesh that spans processes migrates
+  through the collective of parallel/distributed.py (the gathered keys
+  and a ring of packed slabs, bitwise the same), its only path there.
+  The engine picks by the mesh, not by ``migrate_collective``: within
+  one process the row copies are the faster of the two on the card
+  (PERF.md, PR 18), so the JAX package's knob is accepted and changes
+  nothing. A round whose targets overflow a block's
+  slots keeps the old state (overflow-safe commit) and the recovery
+  ladder takes over (``PartitionedEngine._recover_overflow``): a
+  full-migrate retry, a capacity escalation sized by demand, the
+  terminal escalation, then the engine is poisoned.
 
 Localization is point location against the block tables (the
-full-precision refinement tier when two-tier), as in the JAX engine.
-Scoring (``scoring=`` a ``ScoringSpec``): the engine owns a padded lane
-bank ``score_padded [nparts*L*B*S]`` beside ``flux_padded``, and two
-state rows per slot, the bin offset ``sbin`` and the factor row
-``sfac``, staged each move through ``move(sbin_n=, sfac_n=)`` and
-migrated with their particles. Tallying rounds thread the bank through
-W2's or W4's scoring lanes (the float32 tables score through W4, as
-the JAX engine scores them through ``walk_local``); localization and
-phase A never score.
+full-precision refinement tier when two-tier), as in the JAX engine:
+each shard locates against its own blocks and the lowest claiming glid
+wins across shards. Scoring (``scoring=`` a ``ScoringSpec``): the
+engine owns a padded lane bank ``score_padded [nparts*L*B*S]`` beside
+``flux_padded``, and two state rows per slot, the bin offset ``sbin``
+and the factor row ``sfac``, staged each move through ``move(sbin_n=,
+sfac_n=)`` and migrated with their particles. Tallying rounds thread
+the bank through W2's or W4's scoring lanes (the float32 tables score
+through W4, as the JAX engine scores them through ``walk_local``);
+localization and phase A never score.
 
 The round loop runs on the host: it reads each round's paused and
 not-done counts (and, for the gather sub-split, the occupied-block
@@ -64,10 +80,9 @@ tallying phase resumed at multiplied step and round budgets;
 ``declare_lost_stragglers``; ``caller_order_view`` for the audit) is the
 JAX engine's.
 
-Left out against the JAX engine (ROADMAP.md): multi-device meshes and
-collectives (``migrate_collective``, ``placement="pod_rcb"``) and the
-compaction cascade (each particle walks to completion or to a pause;
-TallyConfig's cascade knobs are accepted and inert).
+Left out against the JAX engine (ROADMAP.md): the compaction cascade
+(each particle walks to completion or to a pause; TallyConfig's cascade
+knobs are accepted and inert).
 """
 
 from __future__ import annotations
@@ -103,6 +118,11 @@ from pumiumtally_tpu_torch.ops.vmem_walk import (
     vmem_walk_local,
 )
 from pumiumtally_tpu_torch.ops.det_commit import walk_and_commit, workspace
+from pumiumtally_tpu_torch.parallel.device import mesh_axis
+from pumiumtally_tpu_torch.parallel.distributed import (
+    ShardComm,
+    derive_host_counts,
+)
 from pumiumtally_tpu_torch.ops.walk import (
     PlainRecords,
     check_scoring,
@@ -135,6 +155,9 @@ _A0 = WALK_TABLE_ADJ.start
 # Host-side partition build
 # ---------------------------------------------------------------------------
 
+PLACEMENTS = ("linear", "pod_rcb")
+
+
 def rcb_partition(centroids: np.ndarray, nparts: int) -> np.ndarray:
     """owner[E] via recursive coordinate bisection of element centroids:
     split along the longest axis into parts sized in proportion to the
@@ -159,6 +182,54 @@ def rcb_partition(centroids: np.ndarray, nparts: int) -> np.ndarray:
     return owner
 
 
+def pod_rcb_partition(centroids: np.ndarray, nparts: int,
+                      host_parts) -> np.ndarray:
+    """owner[E] via HIERARCHICAL recursive coordinate bisection: across
+    the hosts first (``host_parts``: each host's part count, in device
+    order), each cut sized in proportion to the parts on either side,
+    then flat RCB within each host's region, so cross-host adjacency is
+    confined to where the host geometry cuts the mesh. The split
+    arithmetic is ``rcb_partition``'s; where every host boundary aligns
+    with the flat recursion (two equal hosts) the two are equal."""
+    host_parts = [int(h) for h in host_parts]
+    if any(h < 1 for h in host_parts) or sum(host_parts) != nparts:
+        raise ValueError(
+            f"host_parts {host_parts} must be positive and sum to the "
+            f"{nparts}-part partition"
+        )
+    ne = centroids.shape[0]
+    owner = np.zeros(ne, dtype=np.int32)
+
+    def split(idx: np.ndarray, nl: int, nr: int):
+        c = centroids[idx]
+        axis = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+        order = np.argsort(c[:, axis], kind="stable")
+        at = int(round(len(idx) * nl / (nl + nr)))
+        return idx[order[:at]], idx[order[at:]]
+
+    def rec_parts(idx: np.ndarray, first_part: int, np_h: int) -> None:
+        if np_h == 1:
+            owner[idx] = first_part
+            return
+        nl = np_h // 2
+        li, ri = split(idx, nl, np_h - nl)
+        rec_parts(li, first_part, nl)
+        rec_parts(ri, first_part + nl, np_h - nl)
+
+    def rec_hosts(idx: np.ndarray, hosts, first_part: int) -> None:
+        if len(hosts) == 1:
+            rec_parts(idx, first_part, hosts[0])
+            return
+        nh = len(hosts) // 2
+        left, right = hosts[:nh], hosts[nh:]
+        li, ri = split(idx, sum(left), sum(right))
+        rec_hosts(li, left, first_part)
+        rec_hosts(ri, right, first_part + sum(left))
+
+    rec_hosts(np.arange(ne), host_parts, 0)
+    return owner
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshPartition:
     """Block tables + id maps. ``ndev`` is the part count (the JAX
@@ -180,6 +251,9 @@ class MeshPartition:
     # [ndev*L, 4] int32 local-encoded adjacency when the padded ids do
     # not fit the float dtype (or forced); None otherwise.
     adj_int: Optional[torch.Tensor] = None
+    # Directed cross-part face census [K, 3] (part a, part b, faces a
+    # exposes to b): the input of the cross-host byte model.
+    remote_faces: Optional[np.ndarray] = None
 
     def flux_to_original(self, flux_padded: torch.Tensor) -> torch.Tensor:
         """Reorder an owned [ndev*L] flux into original element order."""
@@ -240,12 +314,20 @@ def block_elems_bound(
 def build_partition(mesh: TetMesh, ndev: int,
                     dtype: Optional[torch.dtype] = None,
                     force_split_adj: bool = False,
-                    table_dtype: str = "float32") -> MeshPartition:
+                    table_dtype: str = "float32",
+                    placement: str = "linear",
+                    hosts=None) -> MeshPartition:
     """Partition ``mesh`` into ``ndev`` contiguous padded element blocks
     on the mesh's device. ``table_dtype="bfloat16"`` builds the two-tier
     block tables. ``force_split_adj`` stores the adjacency in the int32
     sidecar even where the float dtype holds the ids exactly (the
-    automatic choice past that range)."""
+    automatic choice past that range). ``placement``: "linear" (flat
+    RCB) or "pod_rcb" (``pod_rcb_partition`` over ``hosts``, the
+    per-host part counts in device order)."""
+    if placement not in PLACEMENTS:
+        raise ValueError(
+            f"placement must be one of {PLACEMENTS}, got {placement!r}"
+        )
     dtype = mesh.dtype if dtype is None else dtype
     two_tier = table_dtype == "bfloat16"
     if two_tier and force_split_adj:
@@ -261,7 +343,16 @@ def build_partition(mesh: TetMesh, ndev: int,
     normals = mesh.face_normals.double().cpu().numpy()
     offsets = mesh.face_offsets.double().cpu().numpy()
     ne = tet2vert.shape[0]
-    owner = rcb_partition(coords[tet2vert].mean(axis=1), ndev)
+    centroids = coords[tet2vert].mean(axis=1)
+    if placement == "pod_rcb":
+        if hosts is None:
+            raise ValueError(
+                "placement='pod_rcb' needs hosts= (per-host part "
+                "counts in device order)"
+            )
+        owner = pod_rcb_partition(centroids, ndev, hosts)
+    else:
+        owner = rcb_partition(centroids, ndev)
     counts = np.bincount(owner, minlength=ndev)
     L = int(counts.max())
     # Remote faces encode -(glid+2) with glid < ndev*L: that magnitude
@@ -289,6 +380,12 @@ def build_partition(mesh: TetMesh, ndev: int,
     nb = face_adj
     nb_owner = np.where(nb >= 0, owner[np.clip(nb, 0, ne - 1)], -1)
     nb_glid = np.where(nb >= 0, glid_of_orig[np.clip(nb, 0, ne - 1)], -1)
+    # Directed cross-part face census: how many element faces part a
+    # exposes to part b.
+    cross = (nb >= 0) & (nb_owner != owner[:, None])
+    pair_key = owner[:, None].astype(np.int64) * ndev + nb_owner
+    pair, nfaces = np.unique(pair_key[cross], return_counts=True)
+    remote_faces = np.stack([pair // ndev, pair % ndev, nfaces], axis=1)
     same = nb_owner == owner[:, None]
     local_adj = np.where(
         nb < 0,
@@ -330,6 +427,7 @@ def build_partition(mesh: TetMesh, ndev: int,
                                      device=device),
         orig_of_glid=torch.as_tensor(orig_of_glid, device=device),
         table=table, table_hi=table_hi, adj_int=adj_int,
+        remote_faces=remote_faces,
     )
 
 
@@ -865,13 +963,8 @@ def migrate(part_L: int, nparts: int, cap_per_block: int,
     OLD state is returned unchanged, so the caller recovers from intact
     state."""
     cap = state["pid"].shape[0]
-    dev = state["pid"].device
-    slot_part = torch.arange(cap, device=dev) // cap_per_block
-    pending = state["pending"].long()
-    alive = state["alive"]
-    target = torch.where(pending >= 0, pending // part_L, slot_part)
     # Dead slots rank after every real group and are dropped.
-    key = torch.where(alive, target, torch.full_like(target, nparts))
+    key = _shard_keys(part_L, nparts, cap_per_block, 0, state)
     rank = counting_ranks(key, nparts + 1).long()
     live = key < nparts
     if bool((live & (rank >= cap_per_block)).any()):
@@ -881,15 +974,7 @@ def migrate(part_L: int, nparts: int, cap_per_block: int,
     new_state = _default_state(cap, state)
     for k, v in state.items():
         new_state[k][dest_slot] = v[src]
-    # Migrated particles resume inside their new block's local mesh.
-    arrived = new_state["pending"] >= 0
-    new_state["lelem"] = torch.where(
-        arrived, new_state["pending"] % part_L, new_state["lelem"]
-    ).to(torch.int32)
-    new_state["pending"] = torch.where(
-        arrived, torch.full_like(new_state["pending"], -1),
-        new_state["pending"],
-    )
+    _arrive(new_state, part_L)
     return new_state, False
 
 
@@ -899,36 +984,39 @@ def _occupancy_counts(done: torch.Tensor, nparts: int) -> torch.Tensor:
     return (~done).view(nparts, -1).sum(dim=1, dtype=torch.int32)
 
 
-def _frontier_migrate_impl(part_L: int, nparts: int, cap_per_block: int,
-                           cap_frontier: int,
-                           state: Dict[str, torch.Tensor]):
-    """Frontier-slab migration (the JAX function's placement, row for
-    row): the pending rows are compacted, in slot order, into a slab of
-    ``cap_frontier`` rows, and only they move. Stayer-fixed placement:
-    non-pending slots keep their slots, departing slots reset to the
-    dead-slot defaults, and arrivals take their target block's free
-    slots in ascending slot order, arrivals ordered by source slot.
-    The overflow condition is ``migrate``'s: a block overflows iff its
-    stayers and arrivals exceed its slots. The caller guarantees that
-    the front fits the slab (``_migrate_round``).
+@dataclasses.dataclass
+class _FrontierPlan:
+    """The frontier migrate's bookkeeping over the [cap] lanes: the slab
+    (its global source slots, the valid prefix, the rows' pending glids
+    and destination slots, ``cap`` where not valid), the overflow, the
+    [nparts] departure/arrival counts and the next round's work list."""
 
-    Returns ``(state, overflow, departures, arrivals, work)``: the
-    [nparts] int32 counts feeding ``_update_occupancy``, and the next
-    round's work list ``(work, n_work)`` (``walk_local_list``): the
-    arrivals' slots, in slab order, then the stayers that are not done
-    (slots a walk stopped at ``max_iters``), in slot order; its length
-    stays on the device. On overflow the OLD state comes back unchanged,
-    with no list."""
-    cap = state["pid"].shape[0]
-    dev = state["pid"].device
-    pending = state["pending"].long()
-    alive = state["alive"]
+    src: torch.Tensor
+    valid: torch.Tensor
+    pend_slab: torch.Tensor
+    dest_slab: Optional[torch.Tensor]
+    overflow: bool
+    dep: torch.Tensor
+    arr: torch.Tensor
+    work: Optional[torch.Tensor]
+    n_work: Optional[torch.Tensor]
+
+
+def _frontier_plan(part_L: int, nparts: int, cap_per_block: int,
+                   cap_frontier: int, pending: torch.Tensor,
+                   alive: torch.Tensor, done: torch.Tensor) -> _FrontierPlan:
+    """``_frontier_migrate_impl``'s placement from the [cap] pending,
+    alive and done lanes alone (the collective replays it on every shard
+    from the gathered lanes)."""
+    cap = pending.shape[0]
+    dev = pending.device
+    pending = pending.long()
     moving = pending >= 0
     iota = torch.arange(cap, device=dev)
     slot_part = iota // cap_per_block
     # Stable slab compaction: pending rows front-packed in slot order,
     # then the not-done stayers (the work list's tail), then the rest.
-    order = torch.where(moving, 0, torch.where(state["done"], 2, 1))
+    order = torch.where(moving, 0, torch.where(done, 2, 1))
     perm, counts, _ = partition_perm(order, 3)
     src = perm[:cap_frontier]
     valid = torch.arange(src.shape[0], device=dev) < counts[0]
@@ -953,20 +1041,53 @@ def _frontier_migrate_impl(part_L: int, nparts: int, cap_per_block: int,
                          minlength=nparts + 1)[:nparts].to(torch.int32)
     arr = torch.bincount(key, minlength=nparts + 1)[:nparts].to(torch.int32)
     if overflow:
-        return state, True, dep, arr, None
-    dest = free_list[tgt * cap_per_block
-                     + torch.clamp(rank, max=cap_per_block - 1)][valid]
+        return _FrontierPlan(src, valid, pend_slab, None, True, dep, arr,
+                             None, None)
+    dest_slab = torch.where(
+        valid, free_list[tgt * cap_per_block
+                         + torch.clamp(rank, max=cap_per_block - 1)],
+        torch.full_like(src, cap))
     work = perm.to(torch.int32)
-    work[: dest.shape[0]] = dest
+    n_move = int(valid.sum())
+    work[:n_move] = dest_slab[:n_move].to(torch.int32)
     n_work = (counts[:1] + counts[1:2]).to(torch.int32)
-    src_v = src[valid]
+    return _FrontierPlan(src, valid, pend_slab, dest_slab, False, dep, arr,
+                         work, n_work)
+
+
+def _frontier_migrate_impl(part_L: int, nparts: int, cap_per_block: int,
+                           cap_frontier: int,
+                           state: Dict[str, torch.Tensor]):
+    """Frontier-slab migration (the JAX function's placement, row for
+    row): the pending rows are compacted, in slot order, into a slab of
+    ``cap_frontier`` rows, and only they move. Stayer-fixed placement:
+    non-pending slots keep their slots, departing slots reset to the
+    dead-slot defaults, and arrivals take their target block's free
+    slots in ascending slot order, arrivals ordered by source slot.
+    The overflow condition is ``migrate``'s: a block overflows iff its
+    stayers and arrivals exceed its slots. The caller guarantees that
+    the front fits the slab (``_migrate_round``).
+
+    Returns ``(state, overflow, departures, arrivals, work)``: the
+    [nparts] int32 counts feeding ``_update_occupancy``, and the next
+    round's work list ``(work, n_work)`` (``walk_local_list``): the
+    arrivals' slots, in slab order, then the stayers that are not done
+    (slots a walk stopped at ``max_iters``), in slot order; its length
+    stays on the device. On overflow the OLD state comes back unchanged,
+    with no list."""
+    p = _frontier_plan(part_L, nparts, cap_per_block, cap_frontier,
+                       state["pending"], state["alive"], state["done"])
+    if p.overflow:
+        return state, True, p.dep, p.arr, None
+    dest = p.dest_slab[p.valid]
+    src_v = p.src[p.valid]
     defaults = _default_state(int(src_v.shape[0]), state)
     new_state = {}
     for k, v in state.items():
         rows = v[src_v]
         if k == "lelem":
             # Arrivals resume inside their new block's local mesh.
-            rows = (pend_slab[valid] % part_L).to(v.dtype)
+            rows = (p.pend_slab[p.valid] % part_L).to(v.dtype)
         elif k == "pending":
             rows = torch.full_like(rows, -1)
         # Clear before place: an arrival may take a vacated slot.
@@ -974,7 +1095,181 @@ def _frontier_migrate_impl(part_L: int, nparts: int, cap_per_block: int,
         nv[src_v] = defaults[k]
         nv[dest] = rows
         new_state[k] = nv
-    return new_state, False, dep, arr, (work, n_work)
+    return new_state, False, p.dep, p.arr, (p.work, p.n_work)
+
+
+# ---------------------------------------------------------------------------
+# Migration across the shards of a device mesh
+# ---------------------------------------------------------------------------
+
+def _pack_state(state: Dict[str, torch.Tensor]):
+    """The state as one float matrix (the working-dtype rows) and one
+    int32 matrix (every other row, widened), the rows a migration
+    collective ships; ``layout`` unpacks them (``_unpack_state``)."""
+    fl, il, layout = [], [], []
+    fcols = icols = 0
+    for k, v in state.items():
+        tail = tuple(v.shape[1:])
+        ncols = int(np.prod(tail)) if tail else 1
+        rows = v.reshape(v.shape[0], ncols)
+        if torch.is_floating_point(v):
+            layout.append((k, "f", fcols, ncols, v.dtype, tail))
+            fl.append(rows)
+            fcols += ncols
+        else:
+            layout.append((k, "i", icols, ncols, v.dtype, tail))
+            il.append(rows.to(torch.int32))
+            icols += ncols
+    return torch.cat(fl, dim=1), torch.cat(il, dim=1), layout
+
+
+def _unpack_state(fpack: torch.Tensor, ipack: torch.Tensor, layout):
+    """``_pack_state``'s inverse: every row in its own dtype and shape
+    (bit for bit: the int32 widening is exact)."""
+    out = {}
+    for k, kind, start, ncols, dtype, tail in layout:
+        src = fpack if kind == "f" else ipack
+        out[k] = src[:, start:start + ncols].to(dtype).reshape(
+            (src.shape[0],) + tail).contiguous()
+    return out
+
+
+def split_state(state: Dict[str, torch.Tensor], devices) -> list:
+    """A [cap] state dict as ``len(devices)`` shard dicts of consecutive
+    slots, each on its device (own copies)."""
+    ndev = len(devices)
+    out = []
+    for i, d in enumerate(devices):
+        out.append({k: torch.chunk(v, ndev)[i].to(d, copy=True)
+                    for k, v in state.items()})
+    return out
+
+
+def assemble_state(shards: list, device) -> Dict[str, torch.Tensor]:
+    """The shard dicts of one process as one [cap] state on ``device``."""
+    return {k: torch.cat([s[k].to(device) for s in shards])
+            for k in shards[0]}
+
+
+def _shard_work(work: torch.Tensor, n_work: torch.Tensor, base: int,
+                n_loc: int):
+    """One shard's part of a global work list: the entries in its slot
+    range, in the list's order, as local ``(ids, n_work)``."""
+    w = work[: int(n_work)].long()
+    ids = (w[(w >= base) & (w < base + n_loc)] - base).to(torch.int32)
+    return ids, torch.tensor([ids.numel()], dtype=torch.int32,
+                             device=ids.device)
+
+
+def _shard_keys(part_L: int, nparts: int, cap_per_block: int, base: int,
+                st: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """A shard's counting-rank keys: each live slot's target block
+    (``nparts``: a dead slot)."""
+    n = st["pid"].shape[0]
+    slot_part = (base + torch.arange(n, device=st["pid"].device)) \
+        // cap_per_block
+    pending = st["pending"].long()
+    target = torch.where(pending >= 0, pending // part_L, slot_part)
+    return torch.where(st["alive"], target, torch.full_like(target, nparts))
+
+
+def _arrive(st: Dict[str, torch.Tensor], part_L: int) -> None:
+    """Migrated particles resume inside their new block's local mesh."""
+    arrived = st["pending"] >= 0
+    st["lelem"] = torch.where(arrived, st["pending"] % part_L,
+                              st["lelem"]).to(torch.int32)
+    st["pending"] = torch.where(arrived, torch.full_like(st["pending"], -1),
+                                st["pending"])
+
+
+def migrate_shards(part_L: int, nparts: int, cap_per_block: int,
+                   shards: list):
+    """``migrate`` over the shards of one process: the keys gathered on
+    the first shard's device, the global stable ranks, then each moving
+    row copied from its shard's tensor into its destination shard's (one
+    copy a key and shard pair). Returns ``(shards, overflow)``, the old
+    shards on overflow."""
+    ndev = len(shards)
+    n_loc = shards[0]["pid"].shape[0]
+    cap = ndev * n_loc
+    home = shards[0]["pid"].device
+    keys = torch.cat([_shard_keys(part_L, nparts, cap_per_block, i * n_loc,
+                                  st).to(home)
+                      for i, st in enumerate(shards)])
+    rank = counting_ranks(keys, nparts + 1).long()
+    live = keys < nparts
+    if bool((live & (rank >= cap_per_block)).any()):
+        return shards, True
+    dest = torch.where(live, keys * cap_per_block + rank,
+                       torch.full_like(keys, cap))
+    out = [_default_state(n_loc, st) for st in shards]
+    for s, st in enumerate(shards):
+        d_s = dest[s * n_loc:(s + 1) * n_loc]
+        t_s = d_s // n_loc
+        for t in range(ndev):
+            sel = (t_s == t).nonzero().squeeze(1)
+            if sel.numel() == 0:
+                continue
+            dev_t = out[t]["pid"].device
+            dst = (d_s[sel] - t * n_loc).to(dev_t)
+            src = sel.to(st["pid"].device)
+            for k, v in st.items():
+                out[t][k][dst] = v[src].to(dev_t)
+    for st in out:
+        _arrive(st, part_L)
+    return out, False
+
+
+def frontier_migrate_shards(part_L: int, nparts: int, cap_per_block: int,
+                            cap_frontier: int, shards: list):
+    """``_frontier_migrate_impl`` over the shards of one process: the
+    plan from the lanes gathered on the first shard's device, each
+    shard's departures cleared, then each arrival copied from its source
+    shard's tensor into its destination shard's. Returns ``(shards,
+    overflow, departures, arrivals, works)``, ``works`` each shard's next
+    work list (``_shard_work``)."""
+    ndev = len(shards)
+    n_loc = shards[0]["pid"].shape[0]
+    home = shards[0]["pid"].device
+    lanes = {k: torch.cat([st[k].to(home) for st in shards])
+             for k in ("pending", "alive", "done")}
+    p = _frontier_plan(part_L, nparts, cap_per_block, cap_frontier,
+                       lanes["pending"], lanes["alive"], lanes["done"])
+    if p.overflow:
+        return shards, True, p.dep, p.arr, None
+    src = p.src[p.valid]
+    dest = p.dest_slab[p.valid]
+    lelem_new = p.pend_slab[p.valid] % part_L
+    out = []
+    for t, st in enumerate(shards):
+        dev_t = st["pid"].device
+        base = t * n_loc
+        gone = src[(src >= base) & (src < base + n_loc)] - base
+        defaults = _default_state(int(gone.numel()), st)
+        gone = gone.to(dev_t)
+        nv = {}
+        for k, v in st.items():
+            nv[k] = v.clone()
+            nv[k][gone] = defaults[k]
+        into = (dest >= base) & (dest < base + n_loc)
+        for s, ss in enumerate(shards):
+            sb = s * n_loc
+            m = into & (src >= sb) & (src < sb + n_loc)
+            if not bool(m.any()):
+                continue
+            dst = (dest[m] - base).to(dev_t)
+            rows_src = (src[m] - sb).to(ss["pid"].device)
+            for k, v in ss.items():
+                rows = v[rows_src]
+                if k == "lelem":
+                    rows = lelem_new[m].to(v.dtype)
+                elif k == "pending":
+                    rows = torch.full_like(rows, -1)
+                nv[k][dst] = rows.to(dev_t)
+        out.append(nv)
+    works = [_shard_work(p.work.to(st["pid"].device), p.n_work, i * n_loc,
+                         n_loc) for i, st in enumerate(shards)]
+    return out, False, p.dep, p.arr, works
 
 
 def _migrate_round(part_L: int, nparts: int, cap_per_block: int,
@@ -1134,19 +1429,32 @@ def engine_block_bound(mesh: TetMesh, vmem_walk_max_elems: Optional[int],
 
 def engine_partition(mesh: TetMesh, vmem_walk_max_elems: Optional[int],
                      block_kernel: str, table_dtype: str,
-                     scoring: bool = False) -> MeshPartition:
-    """The partition an engine with these knobs builds for itself; the
-    partitioned streaming facade builds it once for all its chunk
-    engines (``PartitionedEngine(part=...)``)."""
+                     scoring: bool = False, ndev: int = 1,
+                     placement: str = "linear",
+                     host_chips=None) -> MeshPartition:
+    """The partition an engine with these knobs builds for itself over
+    ``ndev`` shards; the partitioned streaming facade builds it once for
+    all its chunk engines (``PartitionedEngine(part=...)``).
+    ``host_chips``: the per-host shard counts "pod_rcb" places over."""
     _, bound = engine_block_bound(mesh, vmem_walk_max_elems, block_kernel,
                                   table_dtype, scoring)
-    return build_partition(mesh, derive_blocks_per_chip(
-        mesh.nelems, 1, block_elems_bound(bound, table_dtype)
-    ), table_dtype=table_dtype)
+    bpc = derive_blocks_per_chip(mesh.nelems, ndev,
+                                 block_elems_bound(bound, table_dtype))
+    hosts = None
+    if placement != "linear":
+        hosts = [int(h) * bpc for h in (host_chips or (ndev,))]
+    return build_partition(mesh, ndev * bpc, table_dtype=table_dtype,
+                           placement=placement, hosts=hosts)
+
+
+def _sync_devices(devices) -> None:
+    for d in dict.fromkeys(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 @contextlib.contextmanager
-def _section(prof: Optional[PhaseProfile], field: str, device):
+def _section(prof: Optional[PhaseProfile], field: str, devices):
     """Accumulate fenced wall seconds into ``prof.<field>``; nothing
     without a profile."""
     if prof is None:
@@ -1156,16 +1464,35 @@ def _section(prof: Optional[PhaseProfile], field: str, device):
     try:
         yield
     finally:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        _sync_devices(devices)
         setattr(prof, field, getattr(prof, field) + time.perf_counter() - t0)
 
 
+@dataclasses.dataclass
+class _ShardTables:
+    """One shard's rows of the partition, on its device."""
+
+    table: torch.Tensor
+    table_hi: Optional[torch.Tensor]
+    adj_int: Optional[torch.Tensor]
+    valid: torch.Tensor
+
+
+def _on(t: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
+    """``t`` on ``device``: itself (a view) where it already is there."""
+    if t is None or t.device == device:
+        return t
+    return t.to(device)
+
+
 class PartitionedEngine:
-    """Owns the partitioned particle state on one device and drives
-    walk/migrate rounds. ``cap = nparts * cap_per_block`` slots; block b
-    owns slots [b*cap_per_block, (b+1)*cap_per_block); ``pid`` tracks
-    each slot's caller-visible particle index (-1 = dead slot)."""
+    """Owns the partitioned particle state and drives walk/migrate
+    rounds. ``cap = nparts * cap_per_block`` slots; block b owns slots
+    [b*cap_per_block, (b+1)*cap_per_block); shard d of the device mesh
+    (one shard on the mesh's device without one) owns its
+    ``blocks_per_chip`` blocks, slots [d*cap_per_chip, (d+1)*cap_per_chip);
+    ``pid`` tracks each slot's caller-visible particle index (-1 = dead
+    slot)."""
 
     def __init__(
         self,
@@ -1184,6 +1511,10 @@ class PartitionedEngine:
         scoring=None,
         cap_frontier: Optional[int] = None,
         deterministic=None,
+        device_mesh=None,
+        migrate_collective: bool = False,
+        placement: str = "linear",
+        placement_hosts=None,
     ):
         """``block_kernel`` and ``vmem_walk_max_elems`` as in
         ``engine_block_bound``. ``part``: a prebuilt partition (shared
@@ -1195,20 +1526,57 @@ class PartitionedEngine:
         fallback every round). ``deterministic``: a ``DetWorkspace`` (the
         facades' with a ``CheckpointPolicy``) or True: the tallying
         rounds (W4, W1 or W2) commit through the deterministic commit
-        (ops/det_commit.py)."""
+        (ops/det_commit.py). ``device_mesh``: a ``DeviceMesh`` whose
+        shards each own ``blocks_per_chip`` blocks (JAX :1264-1352);
+        ``migrate_collective``: the JAX package's knob, kept for its
+        configurations; the migration path follows the mesh (module
+        doc); ``placement`` / ``placement_hosts``:
+        the ownership strategy ("linear" or "pod_rcb") and the per-host
+        shard counts (default: the mesh's process boundaries)."""
+        if device_mesh is not None:
+            mesh_axis(device_mesh)  # fail fast: must be 1-D
+        self.device_mesh = device_mesh
+        self.ndev = 1 if device_mesh is None else device_mesh.size
         if part is not None:
             table_dtype = ("bfloat16" if part.table_hi is not None
                            else "float32")
         block_kernel, bound = engine_block_bound(
             mesh, vmem_walk_max_elems, block_kernel, table_dtype,
             scoring is not None)
+        if placement not in PLACEMENTS:
+            raise ValueError(
+                f"placement must be one of {PLACEMENTS}, "
+                f"got {placement!r}"
+            )
+        self.placement = placement
+        if placement_hosts is not None:
+            self.host_chips = tuple(int(h) for h in placement_hosts)
+            if (any(h < 1 for h in self.host_chips)
+                    or sum(self.host_chips) != self.ndev):
+                raise ValueError(
+                    f"placement_hosts {self.host_chips} must be "
+                    f"positive chip counts summing to the "
+                    f"{self.ndev}-device mesh"
+                )
+        elif device_mesh is not None:
+            self.host_chips = derive_host_counts(device_mesh)
+        else:
+            self.host_chips = (1,)
         if part is None:
-            part = build_partition(mesh, derive_blocks_per_chip(
-                mesh.nelems, 1, block_elems_bound(bound, table_dtype)
-            ), table_dtype=table_dtype)
+            part = engine_partition(mesh, vmem_walk_max_elems, block_kernel,
+                                    table_dtype, scoring is not None,
+                                    ndev=self.ndev, placement=placement,
+                                    host_chips=self.host_chips)
+        if part.ndev % self.ndev:
+            raise ValueError(
+                f"partition has {part.ndev} parts, not a multiple of the "
+                f"{self.ndev}-device mesh"
+            )
         self.part = part
         self.two_tier = part.table_hi is not None
         self.nparts = part.ndev
+        self.blocks_per_chip = self.nparts // self.ndev
+        bpc = self.blocks_per_chip
         self.block_kernel = block_kernel
         self.use_vmem_walk = (
             block_kernel == "vmem"  # bf16/scoring never resolve to vmem
@@ -1225,7 +1593,7 @@ class PartitionedEngine:
                 "force_split_adj or use walk_kernel='gather'"
             )
         self.use_pallas_walk = block_kernel == "pallas"
-        if self.nparts > 1 and not (
+        if bpc > 1 and not (
             self.use_vmem_walk or self.use_pallas_walk
         ) and block_kernel != "gather":
             raise ValueError(
@@ -1246,12 +1614,13 @@ class PartitionedEngine:
         self.n = int(num_particles)
         self.device = mesh.device
         cap_b = int(-(-self.n // self.nparts) * capacity_factor + 1)
-        if self.nparts > 1 and block_kernel in ("vmem", "pallas"):
+        if bpc > 1 and block_kernel in ("vmem", "pallas"):
             # The JAX engine rounds the per-block capacity of W1's and
             # W2's counterparts up to whole particle tiles (not the
             # gather sub-split's); kept so the slot layouts agree.
             cap_b = -(-cap_b // W_TILE_DEFAULT) * W_TILE_DEFAULT
         self.cap_per_block = cap_b
+        self.cap_per_chip = bpc * cap_b
         self.cap = self.nparts * cap_b
         # A slab of cap rows is the full-capacity frontier migrate.
         self.cap_frontier = (None if cap_frontier is None
@@ -1278,49 +1647,135 @@ class PartitionedEngine:
         self.last_fallback_rounds = 0
         self._last_frontier_sum = 0
         self.n_lost = 0
-        dtype, dev = mesh.dtype, mesh.device
-        self.flux_padded = torch.zeros((self.nparts * self.part.L,),
-                                       dtype=dtype, device=dev)
-        # The owned scoring bank, in the padded-glid layout of
-        # flux_padded; None with scoring off.
-        self.score_padded = None if scoring is None else torch.zeros(
-            (self.nparts * self.part.L * self.score_stride,), dtype=dtype,
-            device=dev)
+        # The shards: their devices, this process's shard indices, and
+        # each local shard's tables, flux, bank and slot state (None in
+        # another process's places).
+        if device_mesh is None:
+            self.devices, self.local = (mesh.device,), (0,)
+        else:
+            self.devices, self.local = device_mesh.devices, device_mesh.local
+        self.comm = None if device_mesh is None else ShardComm(device_mesh)
+        # Kernel launches each shard's walks made, by entry
+        # (``kernels.launch_counts`` differenced around each call).
+        self.shard_launches = [dict() for _ in range(self.ndev)]
+        dtype = mesh.dtype
         self._valid = self.part.orig_of_glid >= 0
-        pid = torch.full((self.cap,), -1, dtype=torch.int32, device=dev)
-        pid[: self.n] = torch.arange(self.n, dtype=torch.int32, device=dev)
-        alive = pid >= 0
-        self.state = {
-            "x": torch.zeros((self.cap, 3), dtype=dtype, device=dev),
-            "lelem": torch.zeros((self.cap,), dtype=torch.int32, device=dev),
-            "pending": torch.full((self.cap,), -1, dtype=torch.int32,
-                                  device=dev),
-            "pid": pid,
-            "alive": alive,
-            "done": ~alive,
-            "exited": torch.zeros((self.cap,), dtype=torch.bool, device=dev),
-            # Source point in no element: excluded from every walk.
-            "lost": torch.zeros((self.cap,), dtype=torch.bool, device=dev),
-            "dest": torch.zeros((self.cap, 3), dtype=dtype, device=dev),
-            "fly": torch.zeros((self.cap,), dtype=torch.int8, device=dev),
-            "w": torch.zeros((self.cap,), dtype=dtype, device=dev),
-        }
-        if scoring is not None:
-            # Per-slot scoring rows migrate with their particles;
-            # scoring-off engines never carry these keys.
-            self.state["sbin"] = torch.zeros((self.cap,), dtype=torch.int32,
-                                             device=dev)
-            self.state["sfac"] = torch.zeros((self.cap, scoring.n_scores),
-                                             dtype=dtype, device=dev)
+        rows = bpc * part.L
+        n_loc = self.cap_per_chip
+        self._tables: List[Optional[_ShardTables]] = [None] * self.ndev
+        self._flux: List[Optional[torch.Tensor]] = [None] * self.ndev
+        self._bank: List[Optional[torch.Tensor]] = [None] * self.ndev
+        self._st: List[Optional[Dict[str, torch.Tensor]]] = [None] * self.ndev
+        for i in self.local:
+            d = self.devices[i]
+            sl = slice(i * rows, (i + 1) * rows)
+            self._tables[i] = _ShardTables(
+                table=_on(part.table[sl], d),
+                table_hi=(None if part.table_hi is None else
+                          _on(part.table_hi[4 * i * rows:4 * (i + 1) * rows],
+                              d)),
+                adj_int=None if part.adj_int is None else _on(
+                    part.adj_int[sl], d),
+                valid=_on(self._valid[sl], d))
+            self._flux[i] = torch.zeros((rows,), dtype=dtype, device=d)
+            # The owned scoring bank, in the padded-glid layout of the
+            # flux; None with scoring off.
+            if scoring is not None:
+                self._bank[i] = torch.zeros((rows * self.score_stride,),
+                                            dtype=dtype, device=d)
+            slot = i * n_loc + torch.arange(n_loc, device=d)
+            pid = torch.where(slot < self.n, slot,
+                              torch.full_like(slot, -1)).to(torch.int32)
+            alive = pid >= 0
+            st = {
+                "x": torch.zeros((n_loc, 3), dtype=dtype, device=d),
+                "lelem": torch.zeros((n_loc,), dtype=torch.int32, device=d),
+                "pending": torch.full((n_loc,), -1, dtype=torch.int32,
+                                      device=d),
+                "pid": pid,
+                "alive": alive,
+                "done": ~alive,
+                "exited": torch.zeros((n_loc,), dtype=torch.bool, device=d),
+                # Source point in no element: excluded from every walk.
+                "lost": torch.zeros((n_loc,), dtype=torch.bool, device=d),
+                "dest": torch.zeros((n_loc, 3), dtype=dtype, device=d),
+                "fly": torch.zeros((n_loc,), dtype=torch.int8, device=d),
+                "w": torch.zeros((n_loc,), dtype=dtype, device=d),
+            }
+            if scoring is not None:
+                # Per-slot scoring rows migrate with their particles;
+                # scoring-off engines never carry these keys.
+                st["sbin"] = torch.zeros((n_loc,), dtype=torch.int32,
+                                         device=d)
+                st["sfac"] = torch.zeros((n_loc, scoring.n_scores),
+                                         dtype=dtype, device=d)
+            self._st[i] = st
+        self.migrate_collective = bool(migrate_collective)
+        self._build_collective_fns()
 
+    # -- the shards ------------------------------------------------------
     @property
     def _w1_w2(self) -> bool:
         """Whether the rounds run W1 or W2 (else W4)."""
         return self.use_vmem_walk or self.use_pallas_walk
 
     @property
-    def blocks_per_chip(self) -> int:
-        return self.nparts
+    def _multi(self) -> bool:
+        return self.ndev > 1
+
+    def _gather(self, parts: List[Optional[torch.Tensor]]) -> torch.Tensor:
+        """The shards' tensors as one on the home device (mesh order)."""
+        if not self._multi:
+            return parts[0]
+        return torch.cat(self.comm.all_gather(
+            {i: parts[i] for i in self.local}))
+
+    def _split(self, whole: torch.Tensor) -> list:
+        out = [None] * self.ndev
+        for i in self.local:
+            out[i] = torch.chunk(whole, self.ndev)[i].to(self.devices[i],
+                                                         copy=True)
+        return out
+
+    @property
+    def state(self) -> Dict[str, torch.Tensor]:
+        """The [cap] slot state (assembled from the shards on the home
+        device; with one shard, its own dict)."""
+        if not self._multi:
+            return self._st[0]
+        first = self._st[self.local[0]]
+        return {k: self._gather([None if s is None else s[k]
+                                 for s in self._st]) for k in first}
+
+    @state.setter
+    def state(self, st: Dict[str, torch.Tensor]) -> None:
+        if not self._multi:
+            self._st[0] = st
+            return
+        parts = {k: self._split(v) for k, v in st.items()}
+        self._st = [None if i not in self.local else
+                    {k: parts[k][i] for k in st} for i in range(self.ndev)]
+
+    @property
+    def flux_padded(self) -> torch.Tensor:
+        """The owned [nparts*L] flux (assembled across shards)."""
+        return self._gather(self._flux)
+
+    @flux_padded.setter
+    def flux_padded(self, v: torch.Tensor) -> None:
+        self._flux = [v] if not self._multi else self._split(v)
+
+    @property
+    def score_padded(self) -> Optional[torch.Tensor]:
+        """The owned scoring bank in the padded-glid layout of the flux
+        (assembled across shards); None with scoring off."""
+        if self.scoring is None:
+            return None
+        return self._gather(self._bank)
+
+    @score_padded.setter
+    def score_padded(self, v: torch.Tensor) -> None:
+        self._bank = [v] if not self._multi else self._split(v)
 
     @property
     def last_frontier_mean(self) -> float:
@@ -1331,19 +1786,68 @@ class PartitionedEngine:
             return 0.0
         return self._last_frontier_sum / migrations
 
+    # The collective within one process: off, as the engine runs; set
+    # on an instance (then ``_build_collective_fns()``) to hold the
+    # collective's engine path against the row copies without a second
+    # process (tests, chip_smoke.py).
+    _ring_in_process = False
+
+    def _build_collective_fns(self) -> None:
+        """(Re)build the collective migrations from the CURRENT capacity
+        geometry (at construction and after a capacity escalation: they
+        bake ``cap_per_block`` and ``cap_frontier``), for a mesh that
+        spans processes: it has no other migration."""
+        self._collective_migrate = self._collective_frontier = None
+        if not self._multi or not (self.device_mesh.multi_process
+                                   or self._ring_in_process):
+            return
+        from pumiumtally_tpu_torch.parallel.distributed import (
+            make_collective_frontier_migrate,
+            make_collective_migrate,
+        )
+
+        kw = dict(part_L=self.part.L, nparts=self.nparts,
+                  cap_per_block=self.cap_per_block, comm=self.comm)
+        self._collective_migrate = make_collective_migrate(
+            self.device_mesh, **kw)
+        # cap_frontier 0 (forced fallback) and None migrate at full
+        # capacity every round: no slab collective.
+        if self.cap_frontier:
+            self._collective_frontier = make_collective_frontier_migrate(
+                self.device_mesh, cap_frontier=self.cap_frontier, **kw)
+
+    def modeled_cross_host_bytes(self) -> int:
+        """Modeled per-migration-round CROSS-HOST bytes of this engine's
+        placement under its host layout (deterministic, nothing runs;
+        ``distributed.modeled_cross_host_migration_bytes``); 0 on one
+        host and on partitions without a face census."""
+        if self.part.remote_faces is None or len(self.host_chips) < 2:
+            return 0
+        from pumiumtally_tpu_torch.parallel.distributed import (
+            modeled_cross_host_migration_bytes,
+            state_pack_columns,
+        )
+
+        fcols, icols = state_pack_columns(self._st[self.local[0]])
+        return modeled_cross_host_migration_bytes(
+            self.part.remote_faces, self.blocks_per_chip, self.host_chips,
+            fcols, icols)
+
     # -- staged input routing -------------------------------------------
-    def _by_pid(self, arr_n: torch.Tensor, fill) -> torch.Tensor:
-        """Route a caller-order [n,...] array to current slots via pid."""
-        pid = self.state["pid"]
-        v = arr_n[pid.long().clamp(0, self.n - 1)]
+    def _by_pid(self, arr_n: torch.Tensor, fill,
+                st: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """Route a caller-order [n,...] array to a shard's slots via pid
+        (``st``: the shard's state; None: a one-shard engine's)."""
+        pid = (self._st[0] if st is None else st)["pid"]
+        v = arr_n.to(pid.device)[pid.long().clamp(0, self.n - 1)]
         mask = pid >= 0
         fill = torch.as_tensor(fill, dtype=v.dtype, device=v.device)
         return torch.where(mask[:, None] if v.dim() == 2 else mask, v, fill)
 
     def _migrate(self, st):
-        """A full migrate outside the round loop (localization, revival,
-        tools): raises the JAX message on overflow, with the engine's
-        state left at the intact snapshot."""
+        """A full migrate of a one-shard engine's [cap] state outside the
+        round loop (tools): raises the JAX message on overflow, with the
+        engine's state left at the intact snapshot."""
         st, overflow = migrate(self.part.L, self.nparts, self.cap_per_block,
                                st)
         if overflow:
@@ -1351,33 +1855,64 @@ class PartitionedEngine:
             raise RuntimeError(OVERFLOW_MESSAGE)
         return st
 
+    def _full_migrate(self, sts: list, in_loop: bool):
+        """The full migrate over the shards: one shard's ``migrate``; the
+        collective across processes (in the round loop when run in one
+        process); else ``migrate_shards``. Returns ``(shards,
+        overflow)``, the old shards on overflow."""
+        if not self._multi:
+            st, ovf = migrate(self.part.L, self.nparts, self.cap_per_block,
+                              sts[0])
+            return [st], ovf
+        if self._collective_migrate is not None and (
+                in_loop or self.device_mesh.multi_process):
+            return self._collective_migrate(sts)
+        return migrate_shards(self.part.L, self.nparts, self.cap_per_block,
+                              sts)
+
     # -- localization ----------------------------------------------------
     def _locate_points(self, pts_n: torch.Tensor) -> torch.Tensor:
-        """[n] padded glid per point (``nparts*L`` = in no element)."""
-        rows = self.nparts * self.part.L
+        """[n] padded glid per point (``nparts*L`` = in no element):
+        each shard locates against its own blocks' rows, and the lowest
+        claiming glid wins across shards."""
+        none = self.nparts * self.part.L
+        rows = self.blocks_per_chip * self.part.L
         c = min(2048, max(8, (1 << 23) // max(rows, 1)), self.n)
-        if self.two_tier:
-            chunk, table = _locate_chunk_hi, self.part.table_hi
-        else:
-            chunk, table = _locate_chunk, self.part.table
-        le = torch.cat([
-            chunk(table, self._valid, pts_n[i:i + c], self.tol)
-            for i in range(0, self.n, c)
-        ])
-        return torch.where(le >= 0, le, torch.full_like(le, rows))
+        chunk = _locate_chunk_hi if self.two_tier else _locate_chunk
+        claims = []
+        for i in self.local:
+            tb = self._tables[i]
+            table = tb.table_hi if self.two_tier else tb.table
+            pts = pts_n.to(table.device)
+            le = torch.cat([
+                chunk(table, tb.valid, pts[j:j + c], self.tol)
+                for j in range(0, self.n, c)
+            ])
+            claims.append(torch.where(le >= 0, i * rows + le,
+                                      torch.full_like(le, none))
+                          .to(self.device))
+        glid = claims[0] if len(claims) == 1 else \
+            torch.stack(claims).min(dim=0).values
+        return glid if self.comm is None else self.comm.min_ints(glid)
 
     def _finalize_localize(self) -> None:
         """Every particle's localization phase is finished."""
-        self.state["done"] = torch.ones_like(self.state["done"])
-        self.state["pending"] = torch.full_like(self.state["pending"], -1)
+        for st in self._local_states():
+            st["done"] = torch.ones_like(st["done"])
+            st["pending"] = torch.full_like(st["pending"], -1)
 
-    def _place_located(self, st) -> None:
+    def _local_states(self) -> list:
+        return [self._st[i] for i in self.local]
+
+    def _sum_int(self, v: int) -> int:
+        return v if self.comm is None else self.comm.sum_int(v)
+
+    def _place_located(self, sts: list) -> None:
         """Migrate located (or revived) particles to their blocks: the
         full migrate (the front is the whole population). An overflow
         escalates the capacity once, by demand, over the intact snapshot
         and retries; a second overflow poisons the engine."""
-        self.state, overflow = migrate(self.part.L, self.nparts,
-                                       self.cap_per_block, st)
+        self._st, overflow = self._full_migrate(sts, in_loop=False)
         if overflow:
             self._recover_localize_overflow()
 
@@ -1388,17 +1923,20 @@ class PartitionedEngine:
         element id -1). Returns whether every point was found."""
         glid = self._locate_points(dest_n)
         found = glid < self.nparts * self.part.L
-        st = dict(self.state)
-        st["x"] = self._by_pid(dest_n, 0.0)
-        pend = self._by_pid(torch.where(found, glid, -1), -1)
-        st["pending"] = torch.where(st["alive"], pend, st["pending"]).to(
-            torch.int32
-        )
-        st["lost"] = st["alive"] & (st["pending"] < 0)
-        st["done"] = ~st["alive"]
-        st["exited"] = torch.zeros_like(st["exited"])
+        pend_n = torch.where(found, glid, -1)
+        sts = list(self._st)
+        for i in self.local:
+            st = dict(self._st[i])
+            st["x"] = self._by_pid(dest_n, 0.0, st)
+            pend = self._by_pid(pend_n, -1, st)
+            st["pending"] = torch.where(st["alive"], pend,
+                                        st["pending"]).to(torch.int32)
+            st["lost"] = st["alive"] & (st["pending"] < 0)
+            st["done"] = ~st["alive"]
+            st["exited"] = torch.zeros_like(st["exited"])
+            sts[i] = st
         self.n_lost = int((~found).sum())
-        self._place_located(st)
+        self._place_located(sts)
         self._finalize_localize()
         if self.check_found_all and self.n_lost:
             print(
@@ -1413,8 +1951,7 @@ class PartitionedEngine:
         the intact snapshot shows, retry the placement, poison on a
         second failure."""
         self._escalate_capacity(self._needed_capacity_growth())
-        self.state, overflow = migrate(self.part.L, self.nparts,
-                                       self.cap_per_block, self.state)
+        self._st, overflow = self._full_migrate(self._st, in_loop=False)
         if overflow:
             self._poison()
         self._note_recovery(escalated=True)
@@ -1423,84 +1960,132 @@ class PartitionedEngine:
         """Re-locate lost particles whose resampled origin lies inside
         the mesh; they rejoin transport from that origin."""
         glid = self._locate_points(origins_n)
-        st = dict(self.state)
-        pend = self._by_pid(
-            torch.where(glid < self.nparts * self.part.L, glid, -1), -1
-        )
-        revive = st["lost"] & (pend >= 0)
-        st["x"] = torch.where(revive[:, None], self._by_pid(origins_n, 0.0),
-                              st["x"])
-        st["pending"] = torch.where(revive, pend, -1).to(torch.int32)
-        st["lost"] = st["lost"] & ~revive
-        self._place_located(st)
-        self.state["pending"] = torch.full_like(self.state["pending"], -1)
-        self.n_lost = int(self.state["lost"].sum())
+        pend_n = torch.where(glid < self.nparts * self.part.L, glid, -1)
+        sts = list(self._st)
+        for i in self.local:
+            st = dict(self._st[i])
+            pend = self._by_pid(pend_n, -1, st)
+            revive = st["lost"] & (pend >= 0)
+            st["x"] = torch.where(revive[:, None],
+                                  self._by_pid(origins_n, 0.0, st), st["x"])
+            st["pending"] = torch.where(revive, pend, -1).to(torch.int32)
+            st["lost"] = st["lost"] & ~revive
+            sts[i] = st
+        self._place_located(sts)
+        n_lost = 0
+        for st in self._local_states():
+            st["pending"] = torch.full_like(st["pending"], -1)
+            n_lost += int(st["lost"].sum())
+        self.n_lost = self._sum_int(n_lost)
 
     # -- phases ----------------------------------------------------------
-    def _writable(self, st):
-        """``st`` with its own copies of the rows W4 writes in place
-        (``WALKED_ROWS``) where they are the committed state's: a phase's
-        first round works on copies, and later rounds on the migrate's
-        new rows. W1 and W2 write new tensors."""
+    def _writable(self, st, i: int = 0):
+        """Shard ``i``'s ``st`` with its own copies of the rows W4 writes
+        in place (``WALKED_ROWS``) where they are the committed state's:
+        a phase's first round works on copies, and later rounds on the
+        migrate's new rows. W1 and W2 write new tensors."""
         if self._w1_w2:
             return st
         return dict(st, **{k: st[k].clone() for k in WALKED_ROWS
-                           if st[k] is self.state[k]})
+                           if st[k] is self._st[i][k]})
 
-    def _round(self, st, tally: bool, n_act: torch.Tensor, work=None,
-               max_iters: Optional[int] = None):
-        """One walk round: W2, W1 or W4 (one block, or the occupied
-        blocks of the gather sub-split; in place, over ``work``, the
-        migrate's work list, None: every not-done slot), at the engine's
-        step budget unless ``max_iters`` says otherwise. Returns the new
-        state, the per-block not-done counts, the paused and not-done
-        totals and the block dispatches."""
+    def _walk_shard(self, i: int, st, tally: bool, n_act, work,
+                    max_iters: int):
+        """One shard's walk of a round (W2, W1 or W4); returns the
+        kernel's tuple, the shard's per-block not-done counts and its
+        block dispatches."""
+        tb = self._tables[i]
+        bpc = self.blocks_per_chip
         args = (st["x"], st["lelem"], st["dest"], st["fly"], st["w"],
-                st["done"], st["exited"],
-                self.flux_padded if tally else None)
-        kw = dict(tally=tally, tol=self.tol,
-                  max_iters=self.max_iters if max_iters is None
-                  else max_iters, blocks=self.nparts)
+                st["done"], st["exited"], self._flux[i] if tally else None)
+        kw = dict(tally=tally, tol=self.tol, max_iters=max_iters,
+                  blocks=bpc)
         if tally and self.scoring is not None:
             # Tallying rounds only: phase A and localization never score.
-            kw["scoring"] = (self.scoring.kinds, self.score_padded,
+            kw["scoring"] = (self.scoring.kinds, self._bank[i],
                              st["sbin"], st["sfac"])
         if self._w1_w2:
             if self.use_pallas_walk:
-                res = pallas_walk_local(self.part.table, self.part.table_hi,
-                                        *args,
+                res = pallas_walk_local(tb.table, tb.table_hi, *args,
                                         deterministic=self.deterministic,
                                         **kw)
             else:
-                res = vmem_walk_local(self.part.table, *args,
+                res = vmem_walk_local(tb.table, *args,
                                       deterministic=self.deterministic, **kw)
             # These kernels sweep every block.
-            disp = self.nparts
-            n_act = _occupancy_counts(res[2], self.nparts)
+            return res, _occupancy_counts(res[2], bpc), bpc
+        ids = None
+        if bpc > 1:
+            # The occupied-block list: blocks holding a not-done slot.
+            ids = (n_act > 0).nonzero().squeeze(1).to(torch.int32)
+        # The not-done slots lie in exactly those blocks.
+        res = walk_local_list(tb.table, *args, work, adj_int=tb.adj_int,
+                              table_hi=tb.table_hi,
+                              deterministic=self.deterministic, **kw)
+        if ids is None:
+            return res, _occupancy_counts(res[2], 1), 1
+        # Walked blocks recount themselves; the others hold 0.
+        n_act = n_act.clone()
+        n_act[ids.long()] = _occupancy_counts(res[2], bpc)[ids.long()]
+        return res, n_act, int(ids.numel())
+
+    def _round(self, sts: list, tally: bool, n_act: list, works=None,
+               max_iters: Optional[int] = None):
+        """One walk round over every local shard (each shard's work list
+        from ``works``, None: every not-done slot), at the engine's step
+        budget unless ``max_iters`` says otherwise. Returns the new
+        shards, their per-block not-done counts, the paused and not-done
+        totals and the block dispatches."""
+        max_iters = self.max_iters if max_iters is None else max_iters
+        out, acts, counts = list(sts), list(n_act), []
+        disp = 0
+        for i in self.local:
+            before = dict(kernels.launch_counts)
+            res, acts[i], d = self._walk_shard(
+                i, sts[i], tally, n_act[i],
+                None if works is None else works[i], max_iters)
+            for k, v in kernels.launch_counts.items():
+                if v != before[k]:
+                    self.shard_launches[i][k] = (
+                        self.shard_launches[i].get(k, 0) + v - before[k])
+            disp += d
+            x, lelem, done, exited, pending = res[:5]
+            out[i] = dict(sts[i], x=x, lelem=lelem, done=done, exited=exited,
+                          pending=pending)
+            counts.append(torch.stack([(pending >= 0).sum(),
+                                       (~done).sum()]).to(self.device))
+        tot = counts[0] if len(counts) == 1 else torch.stack(counts).sum(0)
+        if self.comm is not None and self.device_mesh.multi_process:
+            tot = self.comm.sum_ints(tot)
+            disp = self.comm.sum_int(disp)
+        n_p, n_nd = tot.tolist()
+        return out, acts, n_p, n_nd, disp
+
+    def _migrate_round(self, cap_frontier: Optional[int], sts: list,
+                       n_p: int):
+        """One in-loop migration round over the shards (the module's
+        ``_migrate_round`` on one shard): the frontier slab when the
+        front fits, else the full migrate. Returns ``(shards, overflow,
+        departures, arrivals, fellback, works)``."""
+        if not self._multi:
+            st, ovf, dep, arr, fb, work = _migrate_round(
+                self.part.L, self.nparts, self.cap_per_block, cap_frontier,
+                sts[0], n_p)
+            return [st], ovf, dep, arr, fb, [work]
+        if cap_frontier is None or n_p > cap_frontier:
+            st2, ovf = self._full_migrate(sts, in_loop=True)
+            z = torch.zeros((self.nparts,), dtype=torch.int32,
+                            device=self.device)
+            works = None if ovf else [
+                None if s is None else work_list(s["done"]) for s in st2]
+            return st2, ovf, z, z, True, works
+        if self._collective_frontier is not None:
+            st2, ovf, dep, arr, works = self._collective_frontier(sts)
         else:
-            ids = None
-            if self.nparts > 1:
-                # The occupied-block list: blocks holding a not-done slot.
-                ids = (n_act > 0).nonzero().squeeze(1).to(torch.int32)
-            # The not-done slots lie in exactly those blocks.
-            res = walk_local_list(self.part.table, *args, work,
-                                  adj_int=self.part.adj_int,
-                                  table_hi=self.part.table_hi,
-                                  deterministic=self.deterministic, **kw)
-            if ids is None:
-                disp = 1
-                n_act = _occupancy_counts(res[2], 1)
-            else:
-                # Walked blocks recount themselves; the others hold 0.
-                disp = int(ids.numel())
-                n_act = n_act.clone()
-                n_act[ids.long()] = _occupancy_counts(
-                    res[2], self.nparts)[ids.long()]
-        x, lelem, done, exited, pending = res[:5]
-        n_p, n_nd = torch.stack([(pending >= 0).sum(),
-                                 (~done).sum()]).tolist()
-        return (dict(st, x=x, lelem=lelem, done=done, exited=exited,
-                     pending=pending), n_act, n_p, n_nd, disp)
+            st2, ovf, dep, arr, works = frontier_migrate_shards(
+                self.part.L, self.nparts, self.cap_per_block, cap_frontier,
+                sts)
+        return st2, ovf, dep, arr, False, works
 
     def _phase_loop(self, tally: bool, resume: bool = False,
                     force_full_migrate: bool = False,
@@ -1516,28 +2101,34 @@ class PartitionedEngine:
         overflow: the intact pre-migrate snapshot) and returns
         ``(found_all, overflow, rounds, dispatches, fronts,
         fallbacks)``."""
-        dev = self.device
+        devs = [self.devices[i] for i in self.local]
+        bpc = self.blocks_per_chip
         max_iters = self.max_iters * int(iters_mult)
         max_rounds = self.max_rounds * int(rounds_mult)
         cap_frontier = None if force_full_migrate else self.cap_frontier
         if prof is not None:
             prof.cap_frontier = self.cap_frontier
-        with _section(prof, "bookkeeping_s", dev):
-            st = dict(self.state)
-            if not resume:
-                st["done"] = ~st["alive"] | (st["fly"] == 0)
-                # Per-walk flag: a particle that left the domain last
-                # move but flies again must not carry a stale True.
-                st["exited"] = torch.zeros_like(st["exited"])
-                # Non-flying particles hold position: dest <- x.
-                st["dest"] = torch.where((st["fly"] == 1)[:, None],
-                                         st["dest"], st["x"])
-        with _section(prof, "occupancy_s", dev):
-            n_act = _occupancy_counts(st["done"], self.nparts)
-        with _section(prof, "walk_s", dev):
-            st, n_act, n_p, n_nd, disp = self._round(self._writable(st),
-                                                     tally, n_act,
-                                                     max_iters=max_iters)
+        with _section(prof, "bookkeeping_s", devs):
+            sts = list(self._st)
+            for i in self.local:
+                st = dict(self._st[i])
+                if not resume:
+                    st["done"] = ~st["alive"] | (st["fly"] == 0)
+                    # Per-walk flag: a particle that left the domain last
+                    # move but flies again must not carry a stale True.
+                    st["exited"] = torch.zeros_like(st["exited"])
+                    # Non-flying particles hold position: dest <- x.
+                    st["dest"] = torch.where((st["fly"] == 1)[:, None],
+                                             st["dest"], st["x"])
+                sts[i] = st
+        with _section(prof, "occupancy_s", devs):
+            n_act = [None if s is None else _occupancy_counts(s["done"], bpc)
+                     for s in sts]
+        with _section(prof, "walk_s", devs):
+            sts = [None if st is None else self._writable(st, i)
+                   for i, st in enumerate(sts)]
+            sts, n_act, n_p, n_nd, disp = self._round(
+                sts, tally, n_act, max_iters=max_iters)
         rounds, disp_total, fronts, fallbacks = 1, disp, [], 0
         overflow = False
         if prof is not None:
@@ -1547,10 +2138,9 @@ class PartitionedEngine:
             fronts.append(n_p)
             if prof is not None:
                 prof.frontier_sizes.append(n_p)
-            with _section(prof, "migrate_s", dev):
-                st2, overflow, dep, arr, fb, work = _migrate_round(
-                    self.part.L, self.nparts, self.cap_per_block,
-                    cap_frontier, st, n_p)
+            with _section(prof, "migrate_s", devs):
+                st2, overflow, dep, arr, fb, works = self._migrate_round(
+                    cap_frontier, sts, n_p)
             if cap_frontier is not None and fb:
                 fallbacks += 1
                 if prof is not None:
@@ -1559,18 +2149,22 @@ class PartitionedEngine:
             if overflow:
                 # st2 is the intact snapshot: nothing walks from it.
                 break
-            with _section(prof, "occupancy_s", dev):
-                n_act = _update_occupancy(self.nparts, cap_frontier, st2,
-                                          n_act, dep, arr, fb)
-            with _section(prof, "walk_s", dev):
-                st, n_act, n_p, n_nd, disp = self._round(
-                    st2, tally, n_act, work, max_iters=max_iters)
+            with _section(prof, "occupancy_s", devs):
+                for i in self.local:
+                    b = slice(i * bpc, (i + 1) * bpc)
+                    d = self.devices[i]
+                    n_act[i] = _update_occupancy(
+                        bpc, cap_frontier, st2[i], n_act[i],
+                        dep[b].to(d), arr[b].to(d), fb)
+            with _section(prof, "walk_s", devs):
+                sts, n_act, n_p, n_nd, disp = self._round(
+                    st2, tally, n_act, works, max_iters=max_iters)
             disp_total += disp
             if prof is not None:
                 prof.rounds += 1
                 prof.dispatches += disp
-        with _section(prof, "bookkeeping_s", dev):
-            self.state = st
+        with _section(prof, "bookkeeping_s", devs):
+            self._st = sts
         found = n_nd == 0 and n_p == 0 and not overflow
         return found, overflow, rounds, disp_total, fronts, fallbacks
 
@@ -1655,8 +2249,9 @@ class PartitionedEngine:
         """The escalation factor the committed snapshot asks for: the
         worst block's stayers plus pending arrivals, with 10% room, at
         least 2x."""
-        pending = self.state["pending"].cpu().numpy()
-        alive = self.state["alive"].cpu().numpy()
+        state = self.state
+        pending = state["pending"].cpu().numpy()
+        alive = state["alive"].cpu().numpy()
         slot_part = np.arange(self.cap) // self.cap_per_block
         target = np.where(pending >= 0, pending // self.part.L, slot_part)
         counts = np.bincount(target[alive], minlength=self.nparts)
@@ -1664,20 +2259,25 @@ class PartitionedEngine:
         return max(2.0, 1.1 * needed / max(self.cap_per_block, 1))
 
     def _escalate_capacity(self, factor: float = 2.0) -> None:
-        """Grow every block's slot capacity (``_grow_state``: a
-        relabeling, particle state bitwise kept); the flux, the bank and
-        the partition are untouched."""
+        """Grow every block's slot capacity (``_grow_state``, shard by
+        shard: a relabeling, particle state bitwise kept); the flux, the
+        bank and the partition are untouched."""
         old_cb = self.cap_per_block
         new_cb = int(old_cb * float(factor)) + 1
-        if self.nparts > 1 and self.block_kernel in ("vmem", "pallas"):
+        if self.blocks_per_chip > 1 and self.block_kernel in ("vmem",
+                                                              "pallas"):
             new_cb = -(-new_cb // W_TILE_DEFAULT) * W_TILE_DEFAULT
         self.capacity_factor *= float(factor)
         self.capacity_escalations += 1
-        self.state = _grow_state(self.state, old_cb, new_cb, self.nparts)
+        self._st = [None if st is None else
+                    _grow_state(st, old_cb, new_cb, self.blocks_per_chip)
+                    for st in self._st]
         self.cap_per_block = new_cb
+        self.cap_per_chip = self.blocks_per_chip * new_cb
         self.cap = self.nparts * new_cb
         if self.cap_frontier is not None:
             self.cap_frontier = min(self.cap_frontier, self.cap)
+        self._build_collective_fns()
 
     def move(self, origins_n: Optional[torch.Tensor], dests_n: torch.Tensor,
              fly_n: torch.Tensor, w_n: torch.Tensor,
@@ -1698,30 +2298,30 @@ class PartitionedEngine:
             )
         if origins_n is not None and self.n_lost:
             self._revive_lost(origins_n)
-        st = self.state
-        st["fly"] = self._by_pid(fly_n, 0).to(torch.int8)
-        # Lost particles never fly: an undefined start element must not
-        # produce tallies.
-        st["fly"] = torch.where(st["lost"], torch.zeros_like(st["fly"]),
-                                st["fly"])
-        st["w"] = self._by_pid(w_n, 0.0)
-        if self.scoring is not None:
-            # Dead slots never cross, so their fill never scores.
-            st["sbin"] = self._by_pid(sbin_n.to(torch.int32), 0)
-            st["sfac"] = self._by_pid(sfac_n, 0.0)
+        for st in self._local_states():
+            st["fly"] = self._by_pid(fly_n, 0, st).to(torch.int8)
+            # Lost particles never fly: an undefined start element must
+            # not produce tallies.
+            st["fly"] = torch.where(st["lost"], torch.zeros_like(st["fly"]),
+                                    st["fly"])
+            st["w"] = self._by_pid(w_n, 0.0, st)
+            if self.scoring is not None:
+                # Dead slots never cross, so their fill never scores.
+                st["sbin"] = self._by_pid(sbin_n.to(torch.int32), 0, st)
+                st["sfac"] = self._by_pid(sfac_n, 0.0, st)
         ok_a = True
         if origins_n is not None:
             # Phase A: relocate to origins, weights zeroed (cpp:105).
-            st["dest"] = self._by_pid(origins_n, 0.0)
-            st["w"] = torch.zeros_like(st["w"])
-            self.state = st
+            for st in self._local_states():
+                st["dest"] = self._by_pid(origins_n, 0.0, st)
+                st["w"] = torch.zeros_like(st["w"])
             ok_a = self._run_phase(tally=False, profile=profile)
-            st = self.state
             # Re-route the real weights by pid: phase-A migrations may
             # have moved every slot.
-            st["w"] = self._by_pid(w_n, 0.0)
-        st["dest"] = self._by_pid(dests_n, 0.0)
-        self.state = st
+            for st in self._local_states():
+                st["w"] = self._by_pid(w_n, 0.0, st)
+        for st in self._local_states():
+            st["dest"] = self._by_pid(dests_n, 0.0, st)
         ok_b = self._run_phase(tally=True, profile=profile)
         return ok_a and ok_b
 
@@ -1749,46 +2349,51 @@ class PartitionedEngine:
         ``lost`` (excluded from transport, counted by the facade's
         ``lost_particles``, revived by a re-located source like a
         localization loss). Returns how many (a host fetch)."""
-        st = dict(self.state)
-        strag = st["alive"] & ~st["done"] & ~st["lost"]
-        n = int(strag.sum())
+        strags = {i: st["alive"] & ~st["done"] & ~st["lost"]
+                  for i, st in zip(self.local, self._local_states())}
+        n = self._sum_int(sum(int(v.sum()) for v in strags.values()))
         if n == 0:
             return 0
-        st["lost"] = st["lost"] | strag
-        st["fly"] = torch.where(strag, torch.zeros_like(st["fly"]),
-                                st["fly"])
-        st["done"] = st["done"] | strag
-        st["pending"] = torch.where(strag, -1, st["pending"]).to(torch.int32)
-        self.state = st
-        self.n_lost = int(st["lost"].sum())
+        for i, strag in strags.items():
+            st = dict(self._st[i])
+            st["lost"] = st["lost"] | strag
+            st["fly"] = torch.where(strag, torch.zeros_like(st["fly"]),
+                                    st["fly"])
+            st["done"] = st["done"] | strag
+            st["pending"] = torch.where(strag, -1,
+                                        st["pending"]).to(torch.int32)
+            self._st[i] = st
+        self.n_lost = self._sum_int(
+            sum(int(st["lost"].sum()) for st in self._local_states()))
         return n
 
     def caller_order_view(self, keys=("x", "lelem", "done")) -> dict:
         """Caller-order device rows of the slot state ([n], particle
         order; the sentinel audit and quarantine read them). ``elem_orig``
         is each particle's original element id, -1 for a lost one."""
-        o = self._order()
+        state = self.state
+        o = self._order(state)
         out = {}
         for k in keys:
             if k == "elem_orig":
                 slot = torch.arange(self.cap, device=self.device)
                 glid = (slot // self.cap_per_block) * self.part.L \
-                    + self.state["lelem"].long()
-                out[k] = torch.where(self.state["lost"][o], -1,
+                    + state["lelem"].long()
+                out[k] = torch.where(state["lost"][o], -1,
                                      self.part.orig_of_glid[glid[o]])
             else:
-                out[k] = self.state[k][o]
+                out[k] = state[k][o]
         return out
 
     # -- outputs ---------------------------------------------------------
-    def _order(self) -> torch.Tensor:
+    def _order(self, state=None) -> torch.Tensor:
         """Slot order returning caller-visible particle order."""
-        pid = self.state["pid"].long()
+        pid = (self.state if state is None else state)["pid"].long()
         key = torch.where(pid >= 0, pid, torch.full_like(pid, self.cap + 1))
         return torch.sort(key, stable=True).indices[: self.n]
 
     def positions(self) -> np.ndarray:
-        return self.state["x"][self._order()].cpu().numpy()
+        return self.caller_order_view(("x",))["x"].cpu().numpy()
 
     def elem_ids(self) -> np.ndarray:
         """Original element id per particle; -1 for lost particles."""

@@ -114,11 +114,9 @@ def collect_tally_state(tally) -> dict:
     (what ``save_tally_state`` serializes; the generation store seals
     the same dict)."""
     kind = _engine_kind(tally)
-    if kind == "monolithic":
-        x, elem = _host(tally.x), _host(tally.elem)
-    else:
-        # Caller order; the engines re-derive their layout.
-        x, elem = tally.positions, tally.elem_ids
+    # Caller order (a sharded facade's padded slots are not state); the
+    # engines re-derive their layout.
+    x, elem = np.asarray(tally.positions), np.asarray(tally.elem_ids)
     stats = getattr(tally, "_stats", None)
     extra = {} if stats is None else _stats_arrays(stats, "stats")
     scoring = getattr(tally, "_scoring", None)
@@ -310,8 +308,8 @@ def _apply_tally_state_inner(tally, z: dict) -> None:
     if (saved_kind == "monolithic" and kind == "monolithic"
             and int(z["capacity"]) == n):
         tally.flux = _tensor(z["flux"], dt, dev)
-        tally.x = _tensor(z["x"], dt, dev).reshape(n, 3)
-        tally.elem = _tensor(z["elem"], torch.int32, dev)
+        tally._adopt_positions(_tensor(z["x"], dt, dev).reshape(n, 3),
+                               _tensor(z["elem"], torch.int32, dev))
         _restore_counters(tally, z)
         _restore_stats(tally, z)
         _restore_scoring(tally, kind, z, layout_done=False)
@@ -533,8 +531,8 @@ def _restore_canonical(tally, kind, x, elem, flux) -> None:
             "checkpoint contains lost particles (element id -1); "
             "restore it into a partitioned engine")
     if kind == "monolithic":
-        tally.x = _tensor(x, dt, dev)
-        tally.elem = _tensor(elem, torch.int32, dev)
+        tally._adopt_positions(_tensor(x, dt, dev),
+                               _tensor(elem, torch.int32, dev))
         tally.flux = _tensor(flux, dt, dev)
     elif kind == "streaming":
         # The last chunk pads by repeating its last row (x and elem).
@@ -605,9 +603,9 @@ def _restore_partitioned_engine(eng, x, elem, flux) -> None:
                                       eng.cap_per_block, eng.state)
         if overflow:
             raise RuntimeError(OVERFLOW_MESSAGE)
-    eng.state["done"] = torch.ones((eng.cap,), dtype=torch.bool, device=dev)
-    eng.state["pending"] = torch.full((eng.cap,), -1, dtype=torch.int32,
-                                      device=dev)
+    eng.state = dict(
+        eng.state, done=torch.ones((eng.cap,), dtype=torch.bool, device=dev),
+        pending=torch.full((eng.cap,), -1, dtype=torch.int32, device=dev))
     eng.n_lost = int(lost.sum())
     if flux is not None:
         fpad = np.zeros((eng.nparts * eng.part.L,), np.float64)

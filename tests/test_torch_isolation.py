@@ -5,9 +5,11 @@
   ``pumiumtally_tpu`` module;
 - no port source or ``chip_smoke.py`` imports jax, ml_dtypes or
   pumiumtally_tpu, and service/ imports and starts with them blocked;
-- a facade built without ``device=`` raises when no GPU is present;
+- a facade built without ``device=`` raises when no GPU is present, and
+  so does ``make_device_mesh()`` without ``devices=``;
 - on the CPU every wrapper runs its plain version (both tiers, both
-  facades): the kernel launch counters stay 0;
+  facades, and the facades over a mesh of CPU shards): the kernel
+  launch counters stay 0;
 - the CUDA-side argument checks and the build refuse what they cannot
   take, and ``chip_smoke.py`` exits non-zero without a GPU."""
 
@@ -56,6 +58,8 @@ import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "ml_dtypes", "pumiumtally_tpu"))
 print("LOADED", bad)
+print("PARALLEL", sorted(m for m in sys.modules
+                         if m.startswith("pumiumtally_tpu_torch.parallel.")))
 """
 
 
@@ -65,6 +69,8 @@ def test_imports_with_jax_blocked_load_nothing_of_jax():
                        env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert r.returncode == 0, r.stderr[-2000:]
     assert "LOADED []" in r.stdout
+    for m in ("device", "sharded", "partition", "distributed"):
+        assert f"'pumiumtally_tpu_torch.parallel.{m}'" in r.stdout, m
 
 
 def _imported_roots(path: Path):
@@ -150,6 +156,13 @@ def test_facade_without_device_raises_when_no_gpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StreamingPartitionedTally(mesh, 4, chunk_size=2,
                                   config=TallyConfig(walk_vmem_max_elems=2))
+    # A device mesh never falls back to the CPU either.
+    from pumiumtally_tpu_torch.parallel import make_device_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_device_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_device_mesh(2)
 
 
 def test_cpu_runs_plain_versions_and_counts_no_launch(tmp_path):
@@ -200,6 +213,30 @@ def test_cpu_runs_plain_versions_and_counts_no_launch(tmp_path):
                   checkpoint=CheckpointPolicy(dir=str(tmp_path / "p"),
                                               handle_signals=False)),
                   device="cpu")):
+        t.CopyInitialPosition(pts.reshape(-1).copy())
+        t.MoveToNextLocation(None, (1.0 - pts).reshape(-1).copy())
+        np.testing.assert_allclose(
+            t.flux.sum().item(),
+            np.linalg.norm(1.0 - 2 * pts, axis=1).sum(), rtol=1e-10,
+        )
+    # The facades over a mesh of four CPU shards, the collective too.
+    from pumiumtally_tpu_torch.parallel import make_device_mesh
+
+    dm = make_device_mesh(4, devices=[torch.device("cpu")] * 4)
+    ring = PartitionedPumiTally(mesh, 50, TallyConfig(
+        device_mesh=dm, migrate_collective=True), device="cpu")
+    ring.engine._ring_in_process = True
+    ring.engine._build_collective_fns()
+    for t in (PumiTally(mesh, 50, TallyConfig(device_mesh=dm), device="cpu"),
+              StreamingTally(mesh, 50, chunk_size=20,
+                             config=TallyConfig(device_mesh=dm),
+                             device="cpu"),
+              ring,
+              StreamingPartitionedTally(mesh, 50, chunk_size=20,
+                                        config=TallyConfig(
+                                            device_mesh=dm,
+                                            device_groups=2),
+                                        device="cpu")):
         t.CopyInitialPosition(pts.reshape(-1).copy())
         t.MoveToNextLocation(None, (1.0 - pts).reshape(-1).copy())
         np.testing.assert_allclose(

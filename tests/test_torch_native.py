@@ -9,7 +9,9 @@ loop with fenced and unfenced dispatch. Element ids must be equal and
 flux within rtol 1e-10. The port's pure-C oracle host runs as a
 subprocess (an embedded interpreter of its own), and the environment
 switches of ``api/native.py`` are checked one by one: engine routing,
-the multi-device refusals, the device policy (no GPU here: the default
+the device meshes of ``PUMIUMTALLY_DEVICES`` / ``PUMIUMTALLY_DEVICE_GROUPS``
+(CPU shards where the CPU is asked for, held against the JAX factory's
+meshes), the device policy (no GPU here: the default
 refuses, ``PUMIUMTALLY_ALLOW_CPU_FALLBACK=1`` runs and warns) and
 ``PUMIUMTALLY_DTYPE``.
 """
@@ -24,7 +26,6 @@ import numpy as np
 import pytest
 import torch
 
-from pumiumtally_tpu_torch.config import ROADMAP_MULTI_DEVICE
 from pumiumtally_tpu_torch.io.gmsh import write_gmsh
 from pumiumtally_tpu_torch.mesh.box import box_arrays
 
@@ -387,24 +388,47 @@ def test_native_env_knobs_reach_the_config(box_msh, monkeypatch):
         native_create(box_msh, 4)
 
 
-@pytest.mark.parametrize("var,engine", [
-    ("PUMIUMTALLY_DEVICES", "mono"),
-    ("PUMIUMTALLY_DEVICES", "partitioned"),
-    ("PUMIUMTALLY_DEVICE_GROUPS", "streaming_partitioned"),
+@pytest.mark.parametrize("env,engine", [
+    ({"PUMIUMTALLY_DEVICES": "2"}, "mono"),
+    ({"PUMIUMTALLY_DEVICES": "2"}, "partitioned"),
+    ({"PUMIUMTALLY_DEVICES": "4", "PUMIUMTALLY_DEVICE_GROUPS": "2",
+      "PUMIUMTALLY_CHUNK_SIZE": "8"}, "streaming_partitioned"),
 ])
-def test_native_refuses_several_devices(box_msh, monkeypatch, var, engine):
-    """The port runs on one device: PUMIUMTALLY_DEVICES=2 and
-    PUMIUMTALLY_DEVICE_GROUPS=2 are refused naming the ROADMAP item; the
-    value 1 is accepted."""
+def test_native_refuses_several_devices(box_msh, monkeypatch, env, engine):
+    """PUMIUMTALLY_DEVICES and PUMIUMTALLY_DEVICE_GROUPS build a device
+    mesh as the JAX factory does: on PUMIUMTALLY_DEVICE=cpu a mesh of CPU
+    shards, whose moves equal the JAX factory's engine on its virtual
+    devices (ids and positions exact, flux rtol 1e-10). Where the GPU is
+    asked for and there is none, the mesh is refused, never built on the
+    CPU."""
+    from pumiumtally_tpu.api.native import native_create as jax_create
     from pumiumtally_tpu_torch.api.native import native_create
 
     monkeypatch.setenv("PUMIUMTALLY_ENGINE", engine)
-    monkeypatch.setenv(var, "2")
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        native_create(box_msh, 8)
-    assert "Multi-device" in ROADMAP_MULTI_DEVICE
-    monkeypatch.setenv(var, "1")
-    assert native_create(box_msh, 8).num_particles == 8
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    n = 16
+    port, ref = native_create(box_msh, n), jax_create(box_msh, n)
+    ndev = int(env["PUMIUMTALLY_DEVICES"])
+    assert port.config.device_mesh.size == ndev
+    assert port.config.device_mesh.devices == (torch.device("cpu"),) * ndev
+    assert port.config.device_groups == ref.config.device_groups
+    rng = np.random.default_rng(6)
+    pts = [rng.uniform(0.05, 0.95, (n, 3)).reshape(-1) for _ in range(3)]
+    for t in (port, ref):
+        t.CopyInitialPosition(pts[0].copy())
+        t.MoveToNextLocation(pts[0].copy(), pts[1].copy(),
+                             np.ones(n, np.int8), np.ones(n))
+        t.MoveToNextLocation(None, pts[2].copy())
+    np.testing.assert_array_equal(port.elem_ids, np.asarray(ref.elem_ids))
+    np.testing.assert_array_equal(port.positions, np.asarray(ref.positions))
+    np.testing.assert_allclose(port.flux.numpy(), np.asarray(ref.flux),
+                               rtol=1e-10, atol=1e-14)
+    if not torch.cuda.is_available():
+        monkeypatch.setenv("PUMIUMTALLY_DEVICE", "cuda")
+        monkeypatch.setenv("PUMIUMTALLY_ALLOW_CPU_FALLBACK", "1")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            native_create(box_msh, n)
 
 
 def test_native_dtype_switch(box_msh, monkeypatch):

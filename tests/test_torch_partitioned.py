@@ -206,7 +206,7 @@ def test_capacity_overflow_raises_over_intact_state():
 
 def test_config_subset_and_refusals():
     with pytest.raises(TypeError):
-        TallyConfig(migrate_collective=True)  # a knob the port lacks
+        TallyConfig(no_such_knob=True)  # a knob neither package has
     gather = TallyConfig(walk_block_kernel="gather", cap_frontier=64)
     assert gather.resolved_walk_kernel() == "gather"
     assert gather.cap_frontier == 64

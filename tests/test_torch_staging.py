@@ -368,9 +368,9 @@ def test_cascade_knobs_cross_over_and_refuse_as_jax_does():
         t.MoveToNextLocation(_flat(src), _flat(d1))
         out.append(_state(t))
     _assert_bitwise(*out)
-    # A knob the port lacks is refused; cap_frontier crosses.
-    with pytest.raises(NotImplementedError, match="no counterpart"):
-        convert.tally_config(JaxTallyConfig(migrate_collective=True))
+    # The multi-device knobs and cap_frontier cross.
+    assert convert.tally_config(
+        JaxTallyConfig(migrate_collective=True)).migrate_collective
     assert convert.tally_config(
         JaxTallyConfig(cap_frontier=4)).cap_frontier == 4
     for k, v in (("walk_cond_every", 0), ("walk_perm_mode", "bogus"),
@@ -383,8 +383,7 @@ def test_cascade_knobs_cross_over_and_refuse_as_jax_does():
                 cls(**{k: v})
             msgs.append(str(e.value))
         assert msgs[0] == msgs[1], k
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        TallyConfig(device_groups=2)
+    assert TallyConfig(device_groups=2).device_groups == 2
 
 
 @pytest.mark.parametrize("s_init", [False, True])

@@ -291,10 +291,49 @@ def test_streaming_partitioned_lost_warning(capsys):
 
 
 def test_device_groups_above_one_raise():
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        TallyConfig(device_groups=2)
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        StreamingPartitionedTally(
-            _MESH, 8, chunk_size=4,
-            config=TallyConfig(device_groups=2, walk_vmem_max_elems=100),
-            device="cpu")
+    """The JAX package's device-group refusals: a group count that does
+    not divide the mesh (no mesh: one device), one past the chunk count,
+    and a sentinel with groups."""
+    from pumiumtally_tpu_torch.parallel import make_device_mesh
+    from pumiumtally_tpu_torch.sentinel import SentinelPolicy
+
+    cpu4 = make_device_mesh(4, devices=[torch.device("cpu")] * 4)
+    assert TallyConfig(device_groups=2).device_groups == 2
+    for cfg, n, match in (
+            (TallyConfig(device_groups=2), 8, "does not divide the 1-device"),
+            (TallyConfig(device_groups=3, device_mesh=cpu4), 8,
+             "does not divide the 4-device"),
+            (TallyConfig(device_groups=4, device_mesh=cpu4), 8,
+             "exceeds the 2 chunk"),
+            (TallyConfig(device_groups=2, device_mesh=cpu4,
+                         sentinel=SentinelPolicy()), 8, "sentinel")):
+        with pytest.raises(ValueError, match=match):
+            StreamingPartitionedTally(_MESH, n, chunk_size=4, config=cfg,
+                                      device="cpu")
+
+
+def test_device_groups_two_matches_jax():
+    """``TallyConfig(device_groups=2)`` on ``StreamingPartitionedTally``
+    over four CPU shards against the JAX facade on four virtual devices:
+    ids and positions exact, flux rtol 1e-10."""
+    from pumiumtally_tpu import StreamingPartitionedTally as JaxSPT
+    from pumiumtally_tpu import TallyConfig as JaxTallyConfig
+    from pumiumtally_tpu.parallel import make_device_mesh as jax_mesh
+    from pumiumtally_tpu_torch.parallel import make_device_mesh
+
+    n = 60
+    rng = np.random.default_rng(12)
+    src, d1 = (rng.uniform(0.05, 0.95, (n, 3)) for _ in range(2))
+    ref = JaxSPT(_JMESH, n, 30, JaxTallyConfig(device_mesh=jax_mesh(4),
+                                                device_groups=2))
+    port = StreamingPartitionedTally(_MESH, n, 30, TallyConfig(
+        device_mesh=make_device_mesh(4, devices=[torch.device("cpu")] * 4),
+        device_groups=2), device="cpu")
+    for t in (ref, port):
+        t.CopyInitialPosition(_flat(src))
+        t.MoveToNextLocation(_flat(src), _flat(d1), np.ones(n, np.int8),
+                             np.ones(n))
+    np.testing.assert_array_equal(port.elem_ids, np.asarray(ref.elem_ids))
+    np.testing.assert_array_equal(port.positions, np.asarray(ref.positions))
+    np.testing.assert_allclose(port.flux.numpy(), np.asarray(ref.flux),
+                               rtol=1e-10, atol=1e-14)
