@@ -14,6 +14,18 @@
                                           # service phase, with checks
     python3 chip_smoke.py --native        # phase 16 alone, with checks
     python3 chip_smoke.py --multi-device  # phase 17 alone, with checks
+    python3 chip_smoke.py --edges         # phase 18 alone, with checks
+
+Without a CUDA device every mode exits non-zero before it does anything
+else. Every mode runs inside the chip lock (utils/chiplock.py: by
+default a file in the temporary directory, or the one that
+PUMIUMTALLY_CHIP_LOCK names, as the JAX package's tools read it),
+waiting at most CHIP_LOCK_WAIT_S for another holder and exiting
+non-zero, naming the lock, when it stays busy; its child processes
+inherit the window. The full run and ``--edges`` run under
+``utils.profiling.build_guard`` (each library built at most
+config.BUILD_BUDGET times) and print a ``# builds`` line: no library may
+be built after phase 2, and in the full run each is loaded once.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -338,7 +350,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    (cut from 10M: brute-force point location); (d) two processes of 2
    shards over gloo, bitwise the one-process run, with the backend and
    the host copies a migration printed. ms a move at 4 shards and at 1.
-18. One JSON line with each kernel's launches, times, bound and error
+18. The edges (``phase_edges``): (a) (run right after phase 2, before
+   any other profiler window) one continue move of ``PumiTally``
+   on the box at 500,000 particles under ``utils.profiling.trace``: the
+   Chrome trace it writes names W0's kernel among its device events,
+   and ``phase_timer``'s fenced reading of the move is no less than its
+   device time from CUDA events (W0's start less its launch printed);
+   late, after phase 17, two more traced moves and one padded with
+   TRACE_PAD_MS of host time at each end of its window, read and
+   reported, never failed on: such a late window can keep no device
+   event (ROADMAP queue 3); (b) the three examples through their
+   ``main`` at their default sizes: openmc_style_driver in every mode
+   and protocol and part mode at ``--vmem-bound 200`` (W0, W4 and W1
+   launched; float64 conservation at 1e-6), multi_client_service (both
+   sessions bitwise their serial runs), multichip_checkpointed_run (4
+   logical shards of cuda:0: the checkpoint and one piece a shard).
+19. One JSON line with each kernel's launches, times, bound and error
    (W0, W2 and W4's instantiations as entries of their own, DC on the
    packed float32 W0 cell's flux records, the block walks' kDet forms,
    W0's segmented commit), then the card's name and power limit, then
@@ -426,6 +453,9 @@ their checks.
 ``--multi-device`` runs phases 1-2 and phase 17 (multi-device), with
 their checks; ``--multi-device-rank R PORT OUT`` is one rank of its
 two-process job.
+
+``--edges`` runs phases 1-2 and phase 18 (utils/profiling.py and the
+examples), with their checks, under ``build_guard``.
 
 ``--det-times`` runs phases 1-2, then DC alone on the records of the
 deterministic walks (the box's W0 move, flux and stride-96 lanes; the
@@ -678,10 +708,14 @@ def phase_device() -> tuple:
     return name, smi
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Builds every library; returns the builds it made, a library (0
+    where a cached build matched)."""
     from pumiumtally_tpu_torch import kernels
 
+    before = dict(kernels.build_counts)
     seconds = kernels.build()
+    built = {n: kernels.build_counts[n] - before[n] for n in kernels.SOURCES}
     print(f"# build: {seconds:.2f} s for {sorted(kernels.SOURCES)}")
     for name in kernels.SOURCES:
         for line in kernels.build_log(name).splitlines():
@@ -707,6 +741,7 @@ def phase_build() -> None:
             regs = re.search(r"Used (\d+) registers", line)[1]
             print(f"# W0 {kernel}: {regs} registers; {spills}")
             kernel = None
+    return built
 
 
 def w0_inputs(mesh, pts, two_tier: bool = False, n: int = N) -> tuple:
@@ -4737,7 +4772,7 @@ def fused_group(mesh) -> tuple:
 
     sessions = [t for kind, t in service_sessions(mesh) if kind == "mono"]
     for i, t in enumerate(sessions):
-        t._arm_deterministic()
+        t.arm_deterministic()
         t.CopyInitialPosition(flat(service_work(i)[0][0]))
     rep = sessions[0]
     dests = torch.cat([torch.as_tensor(service_work(i)[0][1],
@@ -4831,7 +4866,7 @@ def phase_service(mesh, card: str) -> tuple:
                 raise AssertionError(f"service session {i} ({a['kind']}): "
                                      f"{k} fused differs from unfused")
     for i, (kind, t) in enumerate(service_sessions(mesh)):
-        t._arm_deterministic()
+        t.arm_deterministic()
         for work in service_work(i):
             t.CopyInitialPosition(flat(work[0]))
             for d in work[1:]:
@@ -4904,7 +4939,7 @@ def phase_loadgen(card: str) -> dict:
     mesh = build_box(*box, dtype=torch.float32)
     for row in rep["parity"]:
         t = PumiTally(mesh, LOADGEN_N, TallyConfig(check_found_all=False))
-        t._arm_deterministic()
+        t.arm_deterministic()
         for src, dests in loadgen.client_campaign(0, row["client"],
                                                   LOADGEN_N, 1, 2):
             t.CopyInitialPosition(src)
@@ -5590,11 +5625,17 @@ def abi_two_phase_rate(lib, msh: str, n: int, moves: int) -> tuple:
         lib.pumiumtally_destroy(h)
 
 
+def is_switch(key: str) -> bool:
+    """A PUMIUMTALLY_ engine switch: any such variable but the chip
+    lock's, which children inherit."""
+    return key.startswith("PUMIUMTALLY_") and key not in CHIP_LOCK_VARS
+
+
 def native_env(**extra) -> dict:
     """This process's environment without any PUMIUMTALLY_ switch (the
-    default engine, device and dtype), plus ``extra``."""
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith("PUMIUMTALLY_")}
+    default engine, device and dtype), plus ``extra``; the chip lock's
+    variables stay (the child works inside this run's window)."""
+    env = {k: v for k, v in os.environ.items() if not is_switch(k)}
     env.update(extra)
     return env
 
@@ -5695,7 +5736,7 @@ def phase_native(card: str) -> dict:
 
         native.native_create = recording_create
         saved = {k: os.environ.pop(k) for k in list(os.environ)
-                 if k.startswith("PUMIUMTALLY_")}
+                 if is_switch(k)}
         try:
             for engine, entry in NATIVE_ENGINES.items():
                 os.environ["PUMIUMTALLY_ENGINE"] = engine
@@ -5747,7 +5788,7 @@ def phase_native(card: str) -> dict:
                 del t
         finally:
             native.native_create = create
-            for k in [k for k in os.environ if k.startswith("PUMIUMTALLY_")]:
+            for k in [k for k in os.environ if is_switch(k)]:
                 del os.environ[k]
             os.environ.update(saved)
         # Embedded: the hosts start their own interpreter, with the
@@ -6421,6 +6462,337 @@ MULTI_NEEDS = {"multi_mono": "walk", "multi_stream": "walk",
                "multi_groups": "gather_block_walk"}
 
 
+# Phase 18: the edges (utils/profiling.py, the examples, each example at
+# its own default size) and the kernels each run must launch.
+# Traced moves before a missed W0 kernel fails, and the host time at each
+# end of the late padded window (a window can lose its kernels once
+# CUPTI's device clock parts from the host's: ROADMAP queue 3).
+TRACE_ATTEMPTS = 5
+TRACE_PAD_MS = 200.0
+OPENMC_RUNS = (("mono", "fast", None), ("mono", "reference", None),
+               ("stream", "fast", None), ("stream", "reference", None),
+               ("part", "fast", None), ("part", "reference", None),
+               ("part", "fast", 200))
+EDGES_NEEDS = (("edges_trace", "walk"), ("openmc_mono_fast", "walk"),
+               ("openmc_mono_reference", "walk"),
+               ("openmc_stream_fast", "walk"),
+               ("openmc_stream_reference", "walk"),
+               ("openmc_part_fast", "gather_block_walk"),
+               ("openmc_part_reference", "gather_block_walk"),
+               ("openmc_part_fast_vmem200", "block_walk"),
+               ("example_multi_client", "walk"),
+               ("example_multi_client", "det_commit"),
+               ("example_multichip", "gather_block_walk"))
+# The chip lock (utils/chiplock.py): its variables, and how long a run
+# waits for another holder before it gives up.
+CHIP_LOCK_VARS = ("PUMIUMTALLY_CHIP_LOCK", "PUMIUMTALLY_CHIP_LOCK_HELD")
+CHIP_LOCK_WAIT_S = 120
+
+
+def traced_move(t, dst, pad_ms: float = 0.0) -> dict:
+    """One continue move of ``t`` to ``dst`` under
+    ``utils.profiling.trace`` into a temporary directory, ``pad_ms`` of
+    host time inside the window at each end, timed by ``phase_timer``
+    fenced on the flux and by CUDA events recorded around the move. The
+    window's device kernels, W0's among them, and W0's start less its
+    ``cudaLaunchKernel``'s (us; None where the trace kept no W0)."""
+    import glob
+    import types
+
+    import torch
+
+    from pumiumtally_tpu_torch import kernels
+    from pumiumtally_tpu_torch.utils import phase_timer, trace
+
+    sink = types.SimpleNamespace(move_s=0.0)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    sync()
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d):
+            time.sleep(pad_ms / 1e3)
+            with phase_timer(sink, "move_s", fence=t.flux):
+                start.record()
+                t.MoveToNextLocation(None, flat(dst))
+                end.record()
+            time.sleep(pad_ms / 1e3)
+        counts = dict(kernels.launch_counts)
+        files = glob.glob(os.path.join(d, "*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"trace({d}) wrote {files}")
+        size = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") == "kernel"]
+    w0 = [e for e in device if "walk_kernel<" in e.get("name", "")]
+    launch = {e["args"].get("correlation"): e["ts"] for e in events
+              if e.get("cat") == "cuda_runtime"
+              and "LaunchKernel" in e.get("name", "")}
+    lag = (w0[0]["ts"] - launch[w0[0]["args"]["correlation"]]
+           if w0 and w0[0]["args"].get("correlation") in launch else None)
+    return {"counts": counts, "size": size, "events": events,
+            "device": device, "w0": w0, "lag_us": lag,
+            "fenced_ms": sink.move_s * 1e3,
+            "event_ms": start.elapsed_time(end)}
+
+
+class TracedMoves:
+    """A ``PumiTally`` on ``mesh`` at N particles, placed at ``pts[0]``
+    and moved to ``pts[1]``, whose ``next`` traces a continue move to
+    the trajectory's next point (``traced_move``) and holds the flux to
+    the track length so far."""
+
+    def __init__(self, mesh, pts):
+        from pumiumtally_tpu_torch import PumiTally, TallyConfig
+
+        self.pts, self.prev = pts, 1
+        self.t = PumiTally(mesh, N, TallyConfig(check_found_all=False))
+        self.t.CopyInitialPosition(flat(pts[0]))
+        self.t.MoveToNextLocation(None, flat(pts[1]))
+        self.expect = float(np.linalg.norm(pts[1] - pts[0], axis=1).sum())
+
+    def next(self, pad_ms: float = 0.0) -> dict:
+        m = 1 + (self.prev % (len(self.pts) - 1))
+        w = traced_move(self.t, self.pts[m], pad_ms)
+        self.expect += float(np.linalg.norm(
+            self.pts[m] - self.pts[self.prev], axis=1).sum())
+        check_conservation("traced move", self.t.flux, self.expect)
+        self.prev = m
+        return w
+
+
+def phase_trace(mesh, pts, card: str) -> dict:
+    """Phase 18a: one continue move of ``PumiTally`` on the box at N
+    particles under ``utils.profiling.trace`` (``traced_move``). The
+    Chrome trace must exist and name W0's kernel (``walk_kernel<...>``)
+    among its device events (a window that missed it is traced again,
+    at most TRACE_ATTEMPTS moves), and the fenced reading must be no
+    less than the events' device time; W0's start less its launch in
+    that window is printed. Returns the launch counts of the traced
+    move. The full run takes it first, before any other torch.profiler
+    window of the process: that window starts CUPTI, whose device
+    timestamps part from the host's within a minute, and later windows
+    can lose some or all of their kernels (ROADMAP queue 3;
+    ``phase_trace_late`` reports it)."""
+    t0 = time.perf_counter()
+    moves = TracedMoves(mesh, pts)
+    for attempt in range(TRACE_ATTEMPTS):
+        w = moves.next()
+        if w["w0"]:
+            break
+        print(f"# profiler retry: the traced move's window held "
+              f"{len(w['device'])} device events and no W0 kernel")
+    else:
+        raise AssertionError(f"trace: {TRACE_ATTEMPTS} traced moves, no W0 "
+                             "kernel among the device events")
+    if w["fenced_ms"] < w["event_ms"]:
+        raise AssertionError(f"phase_timer read {w['fenced_ms']:.3f} ms, "
+                             f"less than the move's {w['event_ms']:.3f} ms "
+                             "on the device")
+    w0 = w["w0"]
+    print(f"# trace: a continue move of the box at {N} particles under "
+          f"trace(): one Chrome trace of {w['size']} bytes, "
+          f"{len(w['events'])} events, {len(w['device'])} device kernels, "
+          f"W0 {w0[0]['name'].split('(')[0]!r} x{len(w0)}, "
+          f"{sum(e['dur'] for e in w0) / 1e3:.3f} ms, its start "
+          f"{w['lag_us']} us after its launch; phase_timer (fenced on the "
+          f"flux) {w['fenced_ms']:.3f} ms >= CUDA events "
+          f"{w['event_ms']:.3f} ms; {time.perf_counter() - t0:.1f} s; "
+          f"{card}")
+    return w["counts"]
+
+
+def phase_trace_late(mesh, pts, t_start: float, card: str) -> None:
+    """After phase 17, late in the process: two traced continue moves as
+    ``phase_trace`` takes them, then one with TRACE_PAD_MS of host time
+    at each end of the window. Reports what each window kept (W0 or not)
+    and, from the padded one, W0's start less its launch, to set beside
+    phase_trace's early reading: a late window that keeps no device
+    event is a known fault (ROADMAP queue 3), so this phase reads it and
+    fails on nothing but a wrong move."""
+    moves = TracedMoves(mesh, pts)
+    readings = [(label, moves.next(pad)) for label, pad in (
+        ("plain window 1", 0.0), ("plain window 2", 0.0),
+        (f"padded window ({TRACE_PAD_MS:.0f} ms a side)", TRACE_PAD_MS))]
+    print(f"# trace late (process age "
+          f"{time.perf_counter() - t_start:.0f} s): " + "; ".join(
+              f"{label}: {len(w['device'])} device kernels, W0 "
+              f"{'kept' if w['w0'] else 'missing'}"
+              + (f", its start {w['lag_us']} us after its launch"
+                 if w["lag_us"] is not None else "")
+              for label, w in readings) + f"; {card}")
+
+
+def run_example(main, argv: list) -> tuple:
+    """An example's ``main(argv)`` with the launch counts set to 0 just
+    before it; (its standard output, the counts just after)."""
+    import io
+
+    from pumiumtally_tpu_torch import kernels
+
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    counts = dict(kernels.launch_counts)
+    return out.getvalue(), counts, time.perf_counter() - t0
+
+
+def phase_examples(card: str) -> dict:
+    """Phase 18b: the three examples on the card at their default sizes,
+    through their ``main`` (each into a directory of its own): every
+    openmc_style_driver mode and protocol (float64 conservation at 1e-6,
+    its VTK file; in the reference protocol every echoing move deduped)
+    and part mode at ``--vmem-bound 200`` (W1); multi_client_service's
+    two sessions bitwise their serial runs; multichip_checkpointed_run's
+    checkpoint and its .pvtu with one piece a shard. Returns each run's
+    launch counts."""
+    import torch
+
+    from pumiumtally_tpu_torch.examples import (
+        multi_client_service,
+        multichip_checkpointed_run,
+        openmc_style_driver,
+    )
+
+    counts, secs = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        for mode, protocol, bound in OPENMC_RUNS:
+            key = f"openmc_{mode}_{protocol}" + (f"_vmem{bound}" if bound
+                                                 else "")
+            out_dir = os.path.join(d, key)
+            os.mkdir(out_dir)
+            argv = ["--mode", mode, "--protocol", protocol, "--out-dir",
+                    out_dir] + (["--vmem-bound", str(bound)] if bound else [])
+            text, counts[key], secs[key] = run_example(
+                openmc_style_driver.main, argv)
+            rel = float(re.search(r"rel err = (\S+)", text)[1])
+            name = "fluxresult.pvtu" if mode == "part" else "fluxresult.vtk"
+            if not os.path.exists(os.path.join(out_dir, name)):
+                raise AssertionError(f"{key}: no {name}")
+            moves = openmc_style_driver.BATCHES \
+                * openmc_style_driver.STEPS_PER_BATCH
+            dedup = (openmc_style_driver.BATCHES
+                     * (openmc_style_driver.STEPS_PER_BATCH - 1))
+            if protocol == "reference" and (
+                    f"origin uploads deduped: {dedup} of {moves} moves"
+                    not in text):
+                raise AssertionError(f"{key}: {text}")
+            label = f"--mode {mode} --protocol {protocol}" + (
+                f" --vmem-bound {bound}" if bound else "")
+            print(f"# example openmc_style_driver {label}: rel err "
+                  f"{rel:.2e}, {sorted(os.listdir(out_dir))}, "
+                  f"{secs[key]:.2f} s")
+        text, counts["example_multi_client"], secs["multi"] = run_example(
+            multi_client_service.main, [])
+        if text.count("bitwise vs serial run: True") != 2 or \
+                "zero cross-talk" not in text:
+            raise AssertionError(f"multi_client_service:\n{text}")
+        print("# example multi_client_service: "
+              + "; ".join(ln for ln in text.splitlines()
+                          if ln.startswith("session "))
+              + f"; {secs['multi']:.2f} s")
+        out_dir = os.path.join(d, "multichip")
+        os.mkdir(out_dir)
+        text, counts["example_multichip"], secs["multichip"] = run_example(
+            multichip_checkpointed_run.main, ["--out-dir", out_dir])
+        files = sorted(os.listdir(out_dir))
+        shards = len(multichip_checkpointed_run.shard_devices(
+            torch.device("cuda")))
+        pieces = [f for f in files if f.endswith(".vtu")]
+        if "campaign.npz" not in files or "flux_result.pvtu" not in files \
+                or len(pieces) != shards:
+            raise AssertionError(f"multichip_checkpointed_run: {files}")
+        print(f"# example multichip_checkpointed_run ({shards} shards): "
+              f"{files}; {text.splitlines()[0]}; "
+              f"{secs['multichip']:.2f} s")
+    launches = {k: {e: c for e, c in v.items() if c} for k, v in
+                counts.items()}
+    print(f"# examples' launches: {json.dumps(launches)}; {card}")
+    return counts
+
+
+def phase_edges(mesh, pts, card: str, traced=None) -> dict:
+    """Phase 18: the trace and timer of utils/profiling.py (``traced``:
+    the launch counts of ``phase_trace`` where the run took it already),
+    then the examples; each run must have launched its kernels
+    (EDGES_NEEDS). Returns their runs' launch counts."""
+    t0 = time.perf_counter()
+    counts = {"edges_trace": (phase_trace(mesh, pts, card) if traced is None
+                              else traced)}
+    counts.update(phase_examples(card))
+    for key, entry in EDGES_NEEDS:
+        if counts[key][entry] == 0:
+            raise AssertionError(f"{key}: kernel {entry} never launched on "
+                                 f"its main path: {counts[key]}")
+    print(f"# phase 18: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def report_builds(report, built: dict, every_library: bool) -> None:
+    """The ``# builds`` line of a run under ``build_guard`` (``report``;
+    the guard itself holds each library to one build): the builds and
+    loads it counted. Fails where a library was built after
+    ``phase_build`` (``built``: what phase_build built; a cached build
+    there lets a later one pass the guard) and, where the run launches
+    every library (``every_library``), unless each was loaded."""
+    from pumiumtally_tpu_torch import kernels
+
+    late = {k: v - built.get(k, 0) for k, v in report.builds.items()
+            if v > built.get(k, 0)}
+    print("# builds: " + json.dumps({
+        "builds": report.builds, "after_phase_build": late,
+        "loads": report.loads}))
+    if late:
+        raise AssertionError(f"libraries built after phase_build: {late}")
+    if every_library and report.loads != {n: 1 for n in kernels.SOURCES}:
+        raise AssertionError(f"library loads {report.loads}, expected each "
+                             "of kernels.SOURCES once")
+
+
+def main_edges() -> int:
+    """Phases 1-2 and phase 18 (utils/profiling.py and the examples)
+    alone, with their checks, under ``build_guard``."""
+    import torch
+
+    from pumiumtally_tpu_torch import build_box
+    from pumiumtally_tpu_torch.experiments.block_rounds import (
+        make_trajectory,
+    )
+    from pumiumtally_tpu_torch.utils.profiling import build_guard
+
+    t_start = time.perf_counter()
+    with build_guard() as builds:
+        _, smi = phase_device()
+        built = phase_build()
+        mesh = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
+                         dtype=torch.float32)
+        pts = make_trajectory(np.random.default_rng(0), N,
+                              CONTINUE_MOVES + 2)
+        phase_edges(mesh, pts, smi)
+    report_builds(builds, built, every_library=False)
+    print(f"# total: {time.perf_counter() - t_start:.1f} s")
+    print(smi)
+    return 0
+
+
+@contextlib.contextmanager
+def device_window():
+    """The chip lock (utils/chiplock.py) for this run, waiting at most
+    CHIP_LOCK_WAIT_S for another holder; a run whose lock stays busy
+    exits non-zero, naming the lock. A child of a run inherits its
+    window (PUMIUMTALLY_CHIP_LOCK_HELD)."""
+    from pumiumtally_tpu_torch.utils import chiplock
+
+    with chiplock.chip_lock(timeout_s=CHIP_LOCK_WAIT_S) as held:
+        if not held:
+            raise SystemExit(f"chip_smoke: the chip lock "
+                             f"{chiplock.LOCK_PATH} stayed busy for "
+                             f"{CHIP_LOCK_WAIT_S} s")
+        yield
+
+
 def main_multi_device() -> int:
     """Phases 1-2 and phase 17 (multi-device) alone, with their checks."""
     import torch
@@ -6455,12 +6827,15 @@ def main_native() -> int:
     return 0
 
 
-def main() -> int:
+def full_run() -> tuple:
+    """Phases 1-18 and their checks; returns the card's name, its
+    nvidia-smi line, the kernels' JSON line, the run's start and what
+    phase_build built."""
     import torch
 
     t_start = time.perf_counter()
     name, smi = phase_device()
-    phase_build()
+    built = phase_build()
     phase_plane_loads()
 
     from pumiumtally_tpu_torch import (
@@ -6479,6 +6854,7 @@ def main() -> int:
     mesh = build_box(1, 1, 1, MESH_DIV, MESH_DIV, MESH_DIV,
                      dtype=torch.float32)
     pts = make_trajectory(np.random.default_rng(0), N, CONTINUE_MOVES + 2)
+    traced = phase_trace(mesh, pts, smi)  # phase 18a: see phase_trace
     w0 = phase_w0(mesh, pts)
     phase_w0_skip(mesh, pts)
     w1, regimes_w1 = phase_block_walk("W1", mesh, pts, VMEM_BOUND)
@@ -6614,6 +6990,9 @@ def main() -> int:
     counts.update(phase_native(smi))
     # Multi-device: logical shards of cuda:0, then two processes.
     counts.update(phase_multi_device(mesh, pts, smi))
+    phase_trace_late(mesh, pts, t_start, smi)
+    # The edges: utils/profiling.py's trace and timer, the examples.
+    counts.update(phase_edges(mesh, pts, smi, traced))
     needs = {"mono": "walk", "part": "block_walk", "mono_bf16": "walk_twotier",
              "part_bf16": "twotier_block_walk", "lat": "walk",
              "lat_bf16": "walk_twotier", "stream": "walk",
@@ -6699,10 +7078,25 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in (w0, w1, w0t, w2, sw0, sw0t, sw2,
-                                            *wu_lines, *w4_lines, w4_list,
-                                            det, *blk, seg, w3, *g1)]}))
+    line = json.dumps({"kernels": [{k: e[k] for k in keys}
+                                   for e in (w0, w1, w0t, w2, sw0, sw0t, sw2,
+                                             *wu_lines, *w4_lines, w4_list,
+                                             det, *blk, seg, w3, *g1)]})
+    return name, smi, line, t_start, built
+
+
+def main() -> int:
+    """The full run under ``build_guard`` (each library built at most
+    once): no library built after phase_build, each loaded; then the
+    kernels' line, the card and the result line."""
+    import torch
+
+    from pumiumtally_tpu_torch.utils.profiling import build_guard
+
+    with build_guard() as builds:
+        name, smi, line, t_start, built = full_run()
+    report_builds(builds, built, every_library=True)
+    print(line)
     print(f"# total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -7351,6 +7745,12 @@ if __name__ == "__main__":
              "--multi-device": main_multi_device,
              "--multi-device-rank": main_multi_device_rank,
              "--python-two-phase": main_python_two_phase,
-             "--resilience-campaign": main_resilience_campaign}
-    sys.exit(next((fn for flag, fn in modes.items()
-                   if flag in sys.argv[1:]), main)())
+             "--resilience-campaign": main_resilience_campaign,
+             "--edges": main_edges}
+    import torch
+
+    if not torch.cuda.is_available():  # before the lock: no card, no window
+        raise SystemExit("chip_smoke: no CUDA device is available")
+    with device_window():
+        sys.exit(next((fn for flag, fn in modes.items()
+                       if flag in sys.argv[1:]), main)())

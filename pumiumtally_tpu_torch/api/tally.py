@@ -97,7 +97,7 @@ api/tally.py:1368-1470): ``_fusion_key`` names the moves that may share
 one fused launch, ``_fused_move_stage`` stages a service op's move on
 the host without touching the facade's state, ``_fused_move_commit``
 adopts its slice of the shared launch and runs the solo move's post-walk
-sequence; ``_arm_deterministic`` switches the deterministic commit on
+sequence; ``arm_deterministic`` switches the deterministic commit on
 (every service session walks with it, so each equals its solo run bit
 for bit on the card). Facades built from one caller ``TetMesh`` in the
 same dtype, device and tier share one converted mesh (``shared_mesh``),
@@ -1248,12 +1248,14 @@ class PumiTally:
             sh.gather(dones), sh.gather(ss), sbin, sfac)
 
     # -- the service's cross-session fusion (service/fusion.py) ----------
-    def _arm_deterministic(self) -> None:
+    def arm_deterministic(self) -> None:
         """Commit every tallying walk of this facade (its engines' too)
         through the deterministic commit from now on: what the service
         arms on each session, so that a session equals its solo run bit
-        for bit on the card, fused or not. Values do not change: the
-        plain versions' flux is the same either way."""
+        for bit on the card, fused or not, and what a caller arms to run
+        a facade bitwise equal to such a session (or to another run).
+        Values do not change: the plain versions' flux is the same
+        either way."""
         if self._deterministic is None:
             self._deterministic = DetWorkspace()
         for eng in self._engines():

@@ -343,3 +343,13 @@ class TallyConfig:
         if self.max_iters is not None:
             return int(self.max_iters)
         return 64 + int(nelems)
+
+
+# Kernel build tripwire budget (``utils/profiling.build_guard``), the
+# counterpart of the JAX package's ``RETRACE_BUDGETS``: the most nvcc
+# builds of any one CUDA library of ``kernels.SOURCES`` in a guarded
+# block. Each library is one source compiled once, never when its cached
+# build matches the sources; a second build means the cache key moved
+# under a running process, and a rebuild on the card costs tens of
+# seconds.
+BUILD_BUDGET = 1

@@ -36,6 +36,13 @@ instantiation in the same entry; ``det_commit`` (csrc/det_commit.cu, the seventh
 those records in order. W0's entries take ``seg`` and the flux's length
 before ``det``: a null ``seg`` for the plain commit, else the segmented
 commit's per-particle flux offsets (``ops/walk.py`` ``tally_seg``).
+
+Build and load counters (read by ``utils/profiling.build_guard``):
+``build_counts[library]`` adds one where nvcc really compiled the library
+(a cached build counts nothing) and ``load_counts[library]`` where ctypes
+really loaded it. ``_lib`` keeps each loaded library for the life of the
+process (under ``_lock``), so a load count passes 1 only where that cache
+was emptied; it shows which libraries a run used, and has no budget.
 """
 
 from __future__ import annotations
@@ -135,6 +142,8 @@ _ENTRY_ARGS = {
 }
 
 launch_counts: Dict[str, int] = {entry: 0 for entry in _ENTRY_ARGS}
+build_counts: Dict[str, int] = {name: 0 for name in SOURCES}
+load_counts: Dict[str, int] = {name: 0 for name in SOURCES}
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -189,6 +198,7 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> float:
             failures.append(f"{SOURCES[n]}:\n{out}")
         else:
             os.replace(tmp, path)
+            build_counts[n] += 1
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return time.perf_counter() - t0
@@ -208,6 +218,7 @@ def _lib(name: str) -> ctypes.CDLL:
             if not path.exists():
                 build([name])
             lib = ctypes.CDLL(str(path))
+            load_counts[name] += 1
             for entry, (lib_name, argtypes, dtypes) in _ENTRY_ARGS.items():
                 if lib_name != name:
                     continue

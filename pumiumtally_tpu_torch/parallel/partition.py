@@ -89,7 +89,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 import warnings
 from typing import Dict, List, Optional
 
@@ -132,6 +131,7 @@ from pumiumtally_tpu_torch.ops.walk import (
     score_pair,
     select_faces_lo,
 )
+from pumiumtally_tpu_torch.utils.profiling import phase_timer
 
 OVERFLOW_MESSAGE = (
     "partitioned-mode chip capacity exceeded during particle "
@@ -1447,25 +1447,12 @@ def engine_partition(mesh: TetMesh, vmem_walk_max_elems: Optional[int],
                            placement=placement, hosts=hosts)
 
 
-def _sync_devices(devices) -> None:
-    for d in dict.fromkeys(devices):
-        if d.type == "cuda":
-            torch.cuda.synchronize(d)
-
-
-@contextlib.contextmanager
 def _section(prof: Optional[PhaseProfile], field: str, devices):
-    """Accumulate fenced wall seconds into ``prof.<field>``; nothing
-    without a profile."""
+    """``phase_timer`` into ``prof.<field>``, fenced on the engine's
+    ``devices``; nothing without a profile."""
     if prof is None:
-        yield
-        return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        _sync_devices(devices)
-        setattr(prof, field, getattr(prof, field) + time.perf_counter() - t0)
+        return contextlib.nullcontext()
+    return phase_timer(prof, field, fence=devices)
 
 
 @dataclasses.dataclass

@@ -309,7 +309,7 @@ class TallyService:
             # Every session walks with the deterministic commit: on the
             # card the atomic one would not keep a session bitwise its
             # solo run (nor two solo runs bitwise each other).
-            arm = getattr(tally, "_arm_deterministic", None)
+            arm = getattr(tally, "arm_deterministic", None)
             if arm is not None:
                 arm()
             sess = TallySession(sid, tally, priority=Priority(priority),

@@ -143,7 +143,7 @@ def _fused_vs_solo(build, *, with_energy=False, with_origins=False,
     for i, seed in enumerate(seeds):
         sid = f"s{i}"
         solo = build(i)
-        solo._arm_deterministic()  # as the service arms its sessions
+        solo.arm_deterministic()  # as the service arms its sessions
         _drive_direct(solo, _campaign(seed), with_energy, with_origins)
         np.testing.assert_array_equal(out[sid]["flux"], solo.flux.numpy(),
                                       err_msg=sid)

@@ -6,7 +6,8 @@
 - no port source or ``chip_smoke.py`` imports jax, ml_dtypes or
   pumiumtally_tpu, and service/ imports and starts with them blocked;
 - a facade built without ``device=`` raises when no GPU is present, and
-  so does ``make_device_mesh()`` without ``devices=``;
+  so do ``make_device_mesh()`` without ``devices=`` and the examples
+  without ``--device cpu``;
 - on the CPU every wrapper runs its plain version (both tiers, both
   facades, and the facades over a mesh of CPU shards): the kernel
   launch counters stay 0;
@@ -60,6 +61,9 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in
 print("LOADED", bad)
 print("PARALLEL", sorted(m for m in sys.modules
                          if m.startswith("pumiumtally_tpu_torch.parallel.")))
+print("EDGES", sorted(m for m in sys.modules
+                      if m.startswith(("pumiumtally_tpu_torch.utils.",
+                                       "pumiumtally_tpu_torch.examples."))))
 """
 
 
@@ -71,6 +75,10 @@ def test_imports_with_jax_blocked_load_nothing_of_jax():
     assert "LOADED []" in r.stdout
     for m in ("device", "sharded", "partition", "distributed"):
         assert f"'pumiumtally_tpu_torch.parallel.{m}'" in r.stdout, m
+    for m in ("utils.profiling", "utils.chiplock",
+              "examples.openmc_style_driver", "examples.multi_client_service",
+              "examples.multichip_checkpointed_run"):
+        assert f"'pumiumtally_tpu_torch.{m}'" in r.stdout, m
 
 
 def _imported_roots(path: Path):
@@ -102,7 +110,11 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                 "service/staging.py", "service/fusion.py",
                 "service/server.py", "api/native.py", "native/build.py",
                 "native/__init__.py", "cli.py", "utils/autotune.py",
-                "utils/postprocess.py"):
+                "utils/postprocess.py", "utils/profiling.py",
+                "utils/chiplock.py", "utils/__init__.py",
+                "examples/__init__.py", "examples/openmc_style_driver.py",
+                "examples/multi_client_service.py",
+                "examples/multichip_checkpointed_run.py"):
         assert PORT / rel in files, rel
     for f in files:
         roots = set(_imported_roots(f))
@@ -163,6 +175,24 @@ def test_facade_without_device_raises_when_no_gpu():
         make_device_mesh()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_device_mesh(2)
+
+
+@pytest.mark.parametrize("example", ["openmc_style_driver",
+                                     "multi_client_service",
+                                     "multichip_checkpointed_run"])
+def test_examples_refuse_to_run_without_a_gpu(example, tmp_path):
+    """An example runs on the card unless ``--device cpu`` is given: with
+    no GPU it raises before it walks, and never falls back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    import importlib
+
+    mod = importlib.import_module(f"pumiumtally_tpu_torch.examples.{example}")
+    argv = ["--out-dir", str(tmp_path)] if example != \
+        "multi_client_service" else []
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)
+    assert os.listdir(tmp_path) == []
 
 
 def test_cpu_runs_plain_versions_and_counts_no_launch(tmp_path):
@@ -326,4 +356,16 @@ def test_chip_smoke_fails_without_a_gpu():
     r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_chip_smoke_edges_fails_without_a_gpu():
+    """``--edges`` (phase 18 alone) refuses before it takes the chip
+    lock."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, "chip_smoke.py", "--edges"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
     assert '"ok": true' not in r.stdout

@@ -178,7 +178,7 @@ def test_loadgen_against_the_port_frontend_is_bitwise_vs_solo():
     for row in report["parity"]:
         solo = PumiTally(mesh, N, TallyConfig(check_found_all=False),
                          device="cpu")
-        solo._arm_deterministic()  # as the service arms its sessions
+        solo.arm_deterministic()  # as the service arms its sessions
         for src, dests in loadgen.client_campaign(3, row["client"], N, 2,
                                                   2):
             solo.CopyInitialPosition(src)
