@@ -55,6 +55,7 @@ from pumiumtally_tpu_torch.sentinel.quarantine import (
     append_quarantine,
     build_records,
 )
+from pumiumtally_tpu_torch.utils.profiling import span
 
 
 def sentinel_post_move_engine(tally, engine, x0, dests, fly, w, ok, move,
@@ -188,28 +189,29 @@ class PartitionedPumiTally(PumiTally):
         binary piece per device plus the index file (the reference's
         rank-aware ``vtk::write_parallel``, PumiTallyImpl.cpp:415). Any
         other extension goes to the legacy writer."""
-        self._check_poisoned()  # the .pvtu branch bypasses super()
         out = filename or self.config.output_filename
         if not out.endswith(".pvtu"):
             return super().WriteTallyResults(filename)
-        t0 = time.perf_counter()
-        # One piece a shard: its blocks' elements.
-        owner = self.engine.part.owner // self.engine.blocks_per_chip
-        write_pvtu(
-            out,
-            self.mesh.coords.cpu().numpy(),
-            self.mesh.tet2vert.cpu().numpy(),
-            owner,
-            cell_data=merge_cell_data({
-                "flux": self.normalized_flux().cpu().numpy(),
-                "volume": self.mesh.volumes.cpu().numpy(),
-                "owner": owner.astype(np.float64),
-            }, *self._optional_cell_data()),
-            field_data=self._vtk_field_data(),
-            nparts=self.engine.ndev,
-        )
-        self.tally_times.vtk_file_write_time += time.perf_counter() - t0
-        self.tally_times.print_times()
+        with span("ptt.write"):
+            self._check_poisoned()  # the .pvtu branch bypasses super()
+            t0 = time.perf_counter()
+            # One piece a shard: its blocks' elements.
+            owner = self.engine.part.owner // self.engine.blocks_per_chip
+            write_pvtu(
+                out,
+                self.mesh.coords.cpu().numpy(),
+                self.mesh.tet2vert.cpu().numpy(),
+                owner,
+                cell_data=merge_cell_data({
+                    "flux": self.normalized_flux().cpu().numpy(),
+                    "volume": self.mesh.volumes.cpu().numpy(),
+                    "owner": owner.astype(np.float64),
+                }, *self._optional_cell_data()),
+                field_data=self._vtk_field_data(),
+                nparts=self.engine.ndev,
+            )
+            self.tally_times.vtk_file_write_time += time.perf_counter() - t0
+            self.tally_times.print_times()
 
     # -- state views (caller-visible order) -------------------------------
     @property

@@ -103,6 +103,7 @@ from pumiumtally_tpu_torch.api.tally import (
     host_scalar_field,
     move_step,
     move_step_continue,
+    read_on_host,
     zero_flying_side_effect,
 )
 from pumiumtally_tpu_torch.mesh.tetmesh import TetMesh
@@ -113,6 +114,7 @@ from pumiumtally_tpu_torch.parallel.partition import (
     PartitionedEngine,
     engine_partition,
 )
+from pumiumtally_tpu_torch.utils.profiling import span
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -304,144 +306,151 @@ class StreamingTally(PumiTally):
     # -- the three-call protocol -----------------------------------------
     def CopyInitialPosition(self, init_particle_positions,
                             size: Optional[int] = None):
-        self._check_poisoned()
-        t0 = time.perf_counter()
-        self._stats_roll_batch()  # each sourcing opens a new batch
-        self._resilience_roll_batch()  # autosave/drain at batch close
-        self._lost_total += self._current_lost()
-        self._last_dests_host = None  # localization rewrites the state
-        self._last_dests_dev = None
-        self._echo_misses = 0  # a new batch re-arms the echo detector
-        host = host_positions(init_particle_positions, size,
-                              self.num_particles)
-        if self.config.validate_inputs:
-            check_finite(host, "positions")
-        dones = self._pipeline(
-            lambda k: [self._positions_spec(host, k, "x", "positions")],
-            lambda k, st: self._chunk_localize(k, st["x"]),
-        )
-        self._after_chunk_dispatch()
-        if self.config.check_found_all and not all(bool(d) for d in dones):
-            print("ERROR: Not all particles are found. May need more loops "
-                  "in search")
-        self.is_initialized = True
-        self._fence()
-        self.tally_times.initialization_time += time.perf_counter() - t0
+        with span("ptt.copy_initial"):
+            self._check_poisoned()
+            t0 = time.perf_counter()
+            self._stats_roll_batch()  # each sourcing opens a new batch
+            self._resilience_roll_batch()  # autosave/drain at batch close
+            self._lost_total += self._current_lost()
+            self._last_dests_host = None  # localization rewrites the state
+            self._last_dests_dev = None
+            self._echo_misses = 0  # a new batch re-arms the echo detector
+            host = host_positions(init_particle_positions, size,
+                                  self.num_particles)
+            if self.config.validate_inputs:
+                check_finite(host, "positions")
+            dones = self._pipeline(
+                lambda k: [self._positions_spec(host, k, "x", "positions")],
+                lambda k, st: self._chunk_localize(k, st["x"]),
+            )
+            self._after_chunk_dispatch()
+            if self.config.check_found_all and not all(
+                    read_on_host(d) for d in dones):
+                print("ERROR: Not all particles are found. May need more "
+                      "loops in search")
+            self.is_initialized = True
+            self._fence()
+            self.tally_times.initialization_time += time.perf_counter() - t0
 
     def MoveToNextLocation(self, particle_origin, particle_destinations,
                            flying=None, weights=None,
                            size: Optional[int] = None, energy=None,
                            time=None):
-        self._check_poisoned()
-        if not self.is_initialized:
-            raise RuntimeError(
-                "CopyInitialPosition must be called before MoveToNextLocation"
-            )
-        t0 = _perf_counter()
-        n = self.num_particles
-        # The scoring attributes are checked before anything is staged.
-        self._score_args_check(energy, time)
-        e_h = None if energy is None else host_scalar_field(energy, n,
-                                                            "energy")
-        t_h = None if time is None else host_scalar_field(time, n, "time")
-        dests_h = host_positions(particle_destinations, size, n)
-        origins_h = (None if particle_origin is None
-                     else host_positions(particle_origin, size, n))
-        if self.config.validate_inputs:
-            check_finite(dests_h, "destinations")
-            if origins_h is not None:
-                check_finite(origins_h, "origins")
-        # Origin-echo dedup, chunk-wise: the previous move's per-chunk
-        # device destinations stand in for the caller's origins.
-        echo = self._origins_echo_raw(origins_h)
-        echo_chunks = self._last_dests_dev if echo else None
-        fly_h = None
-        if flying is not None:
-            fly_h = np.asarray(flying).reshape(-1)
-            if fly_h.size < n:
-                raise ValueError(
-                    f"flying buffer has {fly_h.size} values, need {n}")
-        w_h = (None if weights is None
-               else host_scalar_field(weights, n, "weights"))
-        if self.config.validate_inputs:
-            for buf, what in ((w_h, "weights"), (e_h, "energy"),
-                              (t_h, "time")):
-                if buf is not None:
-                    check_finite(buf, what)
-        self._prevalidate_narrow(dests_h, None if echo else origins_h, w_h,
-                                 e_h, t_h)
-        retain = origins_h is not None and self._retain_echo_snapshots()
-        snapshot = None
-        if retain:
-            # Refilled chunk by chunk below; dropped first, so a move
-            # that fails halfway leaves no half-written snapshot behind.
-            snapshot = self._snapshot_keep
-            if snapshot is None or snapshot.dtype != _NP_DTYPE[self.dtype]:
-                snapshot = np.empty((n, 3), _NP_DTYPE[self.dtype])
-            self._last_dests_host = self._last_dests_dev = None
-        staged_origins = origins_h is not None and not echo
-        # The sentinel's per-chunk record of the move (None: off).
-        stash = [] if self._sentinel is not None else None
-        if stash is not None:
-            self._move_done, self._move_s = {}, {}
-
-        def specs_of(k):
-            specs = [self._positions_spec(dests_h, k, "dest",
-                                          snapshot=snapshot)]
-            if staged_origins:
-                specs.append(self._positions_spec(origins_h, k, "orig"))
-            if fly_h is not None:
-                specs.append(self._vec_spec(fly_h, k, "fly", torch.int8, 0))
-            if w_h is not None:
-                specs.append(self._vec_spec(w_h, k, "w", self.dtype, 0.0))
-            for buf, name in ((e_h, "energy"), (t_h, "time")):
-                if buf is not None:
-                    specs.append(self._vec_spec(buf, k, name, self.dtype,
-                                                0.0))
-            return specs
-
-        dest_chunks: List[torch.Tensor] = []
-
-        def dispatch(k, st):
-            dest_chunks.append(st["dest"])
-            if fly_h is None:
-                fly = self._chunk_ones("fly", k)
-            else:
-                fly = st["fly"]  # pad slots staged as 0: never fly
-            w = self._chunk_ones("w", k) if w_h is None else st["w"]
-            if origins_h is None:
-                orig = None
-            elif echo:
-                orig = echo_chunks[k]
-            else:
-                orig = st["orig"]
-            sbin = sfac = None
-            if self._scoring is not None:
-                # On the compute stream, after it waited for the upload.
-                sbin, sfac = self._scoring.resolve(
-                    st.get("energy"), st.get("time"), self.chunk_size)
+        with span("ptt.move"):
+            self._check_poisoned()
+            if not self.is_initialized:
+                raise RuntimeError(
+                    "CopyInitialPosition must be called before "
+                    "MoveToNextLocation"
+                )
+            t0 = _perf_counter()
+            n = self.num_particles
+            # The scoring attributes are checked before anything is staged.
+            self._score_args_check(energy, time)
+            e_h = None if energy is None else host_scalar_field(energy, n,
+                                                                "energy")
+            t_h = None if time is None else host_scalar_field(time, n, "time")
+            dests_h = host_positions(particle_destinations, size, n)
+            origins_h = (None if particle_origin is None
+                         else host_positions(particle_origin, size, n))
+            if self.config.validate_inputs:
+                check_finite(dests_h, "destinations")
+                if origins_h is not None:
+                    check_finite(origins_h, "origins")
+            # Origin-echo dedup, chunk-wise: the previous move's per-chunk
+            # device destinations stand in for the caller's origins.
+            echo = self._origins_echo_raw(origins_h)
+            echo_chunks = self._last_dests_dev if echo else None
+            fly_h = None
+            if flying is not None:
+                fly_h = np.asarray(flying).reshape(-1)
+                if fly_h.size < n:
+                    raise ValueError(
+                        f"flying buffer has {fly_h.size} values, need {n}")
+            w_h = (None if weights is None
+                   else host_scalar_field(weights, n, "weights"))
+            if self.config.validate_inputs:
+                for buf, what in ((w_h, "weights"), (e_h, "energy"),
+                                  (t_h, "time")):
+                    if buf is not None:
+                        check_finite(buf, what)
+            self._prevalidate_narrow(dests_h, None if echo else origins_h, w_h,
+                                     e_h, t_h)
+            retain = origins_h is not None and self._retain_echo_snapshots()
+            snapshot = None
+            if retain:
+                # Refilled chunk by chunk below; dropped first, so a move
+                # that fails halfway leaves no half-written snapshot behind.
+                snapshot = self._snapshot_keep
+                if snapshot is None or snapshot.dtype != _NP_DTYPE[self.dtype]:
+                    snapshot = np.empty((n, 3), _NP_DTYPE[self.dtype])
+                self._last_dests_host = self._last_dests_dev = None
+            staged_origins = origins_h is not None and not echo
+            # The sentinel's per-chunk record of the move (None: off).
+            stash = [] if self._sentinel is not None else None
             if stash is not None:
-                stash.append((k, self._chunk_phase_b_start(k, orig),
-                              st["dest"], fly, w, sbin, sfac))
-            return self._chunk_move(k, orig, st["dest"], fly, w, sbin, sfac)
+                self._move_done, self._move_s = {}, {}
 
-        oks = self._pipeline(specs_of, dispatch)
-        zero_flying_side_effect(flying, n)
-        if retain:
-            self._snapshot_keep = snapshot
-            self._last_dests_host = snapshot
-            self._last_dests_dev = dest_chunks
-        self.iter_count += 1
-        self._stats_note_move()
-        self._after_chunk_dispatch()
-        if stash is not None:
-            oks = self._sentinel_chunks_post_move(stash, oks)
-        if self.config.check_found_all and not all(bool(o) for o in oks):
-            print("ERROR: Not all particles are found. May need more loops "
-                  "in search")
-        self._fence()
-        self.tally_times.total_time_to_tally += _perf_counter() - t0
-        self._resilience_note_move()  # drain/timer-cadence safe point
+            def specs_of(k):
+                specs = [self._positions_spec(dests_h, k, "dest",
+                                              snapshot=snapshot)]
+                if staged_origins:
+                    specs.append(self._positions_spec(origins_h, k, "orig"))
+                if fly_h is not None:
+                    specs.append(self._vec_spec(fly_h, k, "fly", torch.int8,
+                                                0))
+                if w_h is not None:
+                    specs.append(self._vec_spec(w_h, k, "w", self.dtype, 0.0))
+                for buf, name in ((e_h, "energy"), (t_h, "time")):
+                    if buf is not None:
+                        specs.append(self._vec_spec(buf, k, name, self.dtype,
+                                                    0.0))
+                return specs
+
+            dest_chunks: List[torch.Tensor] = []
+
+            def dispatch(k, st):
+                dest_chunks.append(st["dest"])
+                if fly_h is None:
+                    fly = self._chunk_ones("fly", k)
+                else:
+                    fly = st["fly"]  # pad slots staged as 0: never fly
+                w = self._chunk_ones("w", k) if w_h is None else st["w"]
+                if origins_h is None:
+                    orig = None
+                elif echo:
+                    orig = echo_chunks[k]
+                else:
+                    orig = st["orig"]
+                sbin = sfac = None
+                if self._scoring is not None:
+                    # On the compute stream, after it waited for the upload.
+                    sbin, sfac = self._scoring.resolve(
+                        st.get("energy"), st.get("time"), self.chunk_size)
+                if stash is not None:
+                    stash.append((k, self._chunk_phase_b_start(k, orig),
+                                  st["dest"], fly, w, sbin, sfac))
+                return self._chunk_move(k, orig, st["dest"], fly, w, sbin,
+                                        sfac)
+
+            oks = self._pipeline(specs_of, dispatch)
+            zero_flying_side_effect(flying, n)
+            if retain:
+                self._snapshot_keep = snapshot
+                self._last_dests_host = snapshot
+                self._last_dests_dev = dest_chunks
+            self.iter_count += 1
+            self._stats_note_move()
+            self._after_chunk_dispatch()
+            if stash is not None:
+                oks = self._sentinel_chunks_post_move(stash, oks)
+            if self.config.check_found_all and not all(
+                    read_on_host(o) for o in oks):
+                print("ERROR: Not all particles are found. May need more "
+                      "loops in search")
+            self._fence()
+            self.tally_times.total_time_to_tally += _perf_counter() - t0
+            self._resilience_note_move()  # drain/timer-cadence safe point
 
     def _after_chunk_dispatch(self) -> None:
         """Hook: per-call checks after every chunk dispatched

@@ -43,6 +43,9 @@ Build and load counters (read by ``utils/profiling.build_guard``):
 really loaded it. ``_lib`` keeps each loaded library for the life of the
 process (under ``_lock``), so a load count passes 1 only where that cache
 was emptied; it shows which libraries a run used, and has no budget.
+On the profiler's timeline an nvcc run is a ``ptt.build`` span and a
+ctypes load a ``ptt.load`` one, so a build or a late load inside a
+traced window names its own stretch.
 """
 
 from __future__ import annotations
@@ -180,25 +183,30 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> float:
     todo = {n: p for n, p in todo.items() if not p.exists()}
     if not todo:
         return 0.0
+    # Imported here: utils.profiling imports this module.
+    from pumiumtally_tpu_torch.utils.profiling import span
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = {}
-    for n, path in todo.items():
-        tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
-        procs[n] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        ), tmp, path)
     failures = []
-    for n, (proc, tmp, path) in procs.items():
-        out, _ = proc.communicate()
-        path.with_suffix(".log").write_text(out)
-        if proc.returncode != 0:
-            failures.append(f"{SOURCES[n]}:\n{out}")
-        else:
-            os.replace(tmp, path)
-            build_counts[n] += 1
+    with span("ptt.build"):
+        for n, path in todo.items():
+            tmp = path.with_suffix(f".tmp{os.getpid()}.so")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+            procs[n] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            ), tmp, path)
+        for n, (proc, tmp, path) in procs.items():
+            out, _ = proc.communicate()
+            path.with_suffix(".log").write_text(out)
+            if proc.returncode != 0:
+                failures.append(f"{SOURCES[n]}:\n{out}")
+            else:
+                os.replace(tmp, path)
+                build_counts[n] += 1
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return time.perf_counter() - t0
@@ -217,7 +225,10 @@ def _lib(name: str) -> ctypes.CDLL:
             path = _library_path(name)
             if not path.exists():
                 build([name])
-            lib = ctypes.CDLL(str(path))
+            from pumiumtally_tpu_torch.utils.profiling import span
+
+            with span("ptt.load"):
+                lib = ctypes.CDLL(str(path))
             load_counts[name] += 1
             for entry, (lib_name, argtypes, dtypes) in _ENTRY_ARGS.items():
                 if lib_name != name:

@@ -100,6 +100,7 @@ from pumiumtally_tpu_torch.ops.det_commit import (
     workspace,
 )
 from pumiumtally_tpu_torch.scoring.scores import MAX_SCORES
+from pumiumtally_tpu_torch.utils.profiling import span
 
 _LN0 = WALK_TABLE_LO_NORMALS.start
 _LO0 = WALK_TABLE_LO_OFFSETS.start
@@ -638,26 +639,32 @@ def walk(
     DC on the card), for a tallying walk: True, or the
     ``det_commit.DetWorkspace`` whose record streams it reuses.
     ``tally_seg``: the segmented commit (module docstring; int32 [n],
-    tallying walks only), ``flux`` then the concatenated bank."""
-    check_tally_seg(tally_seg, tally, x.shape[0])
-    if tally and flux is None:
-        raise ValueError("a tallying walk needs a flux tensor")
-    if counts is not None and not x.is_cuda:
-        raise ValueError("walk: counts are counted by the CUDA kernel; the "
-                         "plain version has no schedule")
-    mesh = mesh_for_tier(mesh, table_dtype)
-    if x.is_cuda:
-        return _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux,
+    tallying walks only), ``flux`` then the concatenated bank.
+
+    On the profiler's timeline the call is a ``ptt.walk`` span: the
+    wrapper's host work through the launch's return (on the CPU, the
+    whole plain walk)."""
+    with span("ptt.walk"):
+        check_tally_seg(tally_seg, tally, x.shape[0])
+        if tally and flux is None:
+            raise ValueError("a tallying walk needs a flux tensor")
+        if counts is not None and not x.is_cuda:
+            raise ValueError("walk: counts are counted by the CUDA kernel; "
+                             "the plain version has no schedule")
+        mesh = mesh_for_tier(mesh, table_dtype)
+        if x.is_cuda:
+            return _walk_cuda(mesh, x, elem, dest, in_flight, weight, flux,
+                              tally=tally, tol=tol, max_iters=max_iters,
+                              s_init=s_init, counts=counts, skip=skip,
+                              scoring=scoring, deterministic=deterministic,
+                              tally_seg=tally_seg)
+        if x.device.type != "cpu":
+            raise ValueError(
+                f"walk runs on CUDA or CPU tensors, not {x.device}")
+        return walk_plain(mesh, x, elem, dest, in_flight, weight, flux,
                           tally=tally, tol=tol, max_iters=max_iters,
-                          s_init=s_init, counts=counts, skip=skip,
-                          scoring=scoring, deterministic=deterministic,
-                          tally_seg=tally_seg)
-    if x.device.type != "cpu":
-        raise ValueError(f"walk runs on CUDA or CPU tensors, not {x.device}")
-    return walk_plain(mesh, x, elem, dest, in_flight, weight, flux,
-                      tally=tally, tol=tol, max_iters=max_iters,
-                      s_init=s_init, skip=skip, scoring=scoring,
-                      deterministic=deterministic, tally_seg=tally_seg)
+                          s_init=s_init, skip=skip, scoring=scoring,
+                          deterministic=deterministic, tally_seg=tally_seg)
 
 
 def walk_xpoints(mesh: TetMesh, x, elem, dest, in_flight, *, tol: float,

@@ -26,6 +26,32 @@ three functions, so the counting points are fixed and no call site has
 to adopt a wrapper, and nothing else compiles at run time. A rebuild in
 the middle of a run costs tens of seconds on the card, which is what
 the guard catches.
+
+``span(name)`` names a stretch of the program's host work on the
+profiler's timeline: a ``torch.profiler.record_function`` range while a
+profiler is on (an operator's ``trace(log_dir)``, or any other
+``torch.profiler.profile`` window), one shared ``nullcontext`` when none
+is, decided by a single flag check, so the spans stay in the hot path at
+a fraction of a microsecond each. The facades open them at each layer
+boundary of the three-call protocol, nested on the calling thread under
+the call's own span:
+
+- ``ptt.copy_initial``, ``ptt.move``, ``ptt.close_batch``, ``ptt.write``:
+  a whole protocol call, entry to the fence's return;
+- ``ptt.stage.fill`` / ``ptt.stage.upload``: ``HostStaging.fill``'s
+  working-dtype cast into the pinned buffers with its finite checks,
+  and ``upload``'s device tensors and non-blocking copies;
+- ``ptt.echo``: the origin-echo compare, where origins are passed;
+- ``ptt.walk``: ``ops.walk.walk``'s host work through the launch;
+- ``ptt.sync``: each wait of the host on the device inside a call (a
+  staging slot's event, the found-all and exited reads, the fence);
+- ``ptt.build`` / ``ptt.load``: ``kernels.build``'s nvcc run and
+  ``kernels._lib``'s ctypes load;
+- ``ptt.<field>``: each ``phase_timer`` section (the partitioned
+  engine's ``PhaseProfile``: ``ptt.walk_s``, ``ptt.migrate_s``, ...).
+
+Everything else a call does is its span's self time. The names are
+fixed: the benchmark's readers key on them.
 """
 
 from __future__ import annotations
@@ -40,6 +66,17 @@ import torch
 
 from pumiumtally_tpu_torch import kernels
 from pumiumtally_tpu_torch.config import BUILD_BUDGET
+
+_OFF = contextlib.nullcontext()
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context manager naming the block ``name`` on the profiler's
+    timeline while a profiler is on, else a shared no-op."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def _cuda_devices(fence) -> list:
@@ -68,7 +105,8 @@ def phase_timer(sink, field: str, fence=None) -> Iterator[None]:
     """
     t0 = time.perf_counter()
     try:
-        yield
+        with span("ptt." + field):
+            yield
     finally:
         if fence is not None:
             for d in _cuda_devices(fence):

@@ -267,3 +267,36 @@ def test_profiled_move_sections_go_through_phase_timer(monkeypatch):
     assert len(calls) == n_calls  # no profile: no timer
     assert torch.equal(t_prof.flux, t_plain.flux)
     np.testing.assert_array_equal(t_prof.positions, t_plain.positions)
+
+
+def _annotations(prof, tmp_path) -> list:
+    """The ``user_annotation`` names of a profiler window's Chrome trace,
+    in order."""
+    path = tmp_path / "spans.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return [e["name"] for e in sorted(events, key=lambda e: e.get("ts", 0))
+            if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+
+
+def test_phase_timer_opens_its_span(tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    sink = types.SimpleNamespace(walk_s=0.0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with phase_timer(sink, "walk_s", fence=torch.zeros(1)):
+            torch.ones(8).sum()
+    assert _annotations(prof, tmp_path) == ["ptt.walk_s"]
+    assert sink.walk_s > 0
+
+
+def test_build_and_load_spans_leave_the_counters_alone(fake_toolchain,
+                                                       tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with build_guard() as rep:
+            kernels._lib("walk")  # built, then loaded
+            kernels._lib("walk")  # loaded already: no span
+    assert _annotations(prof, tmp_path) == ["ptt.build", "ptt.load"]
+    assert rep.builds == {"walk": 1} and rep.loads == {"walk": 1}
