@@ -1,8 +1,16 @@
 """Host -> device staging of the caller's buffers, for every facade.
 
-A staged array is written once on the host, by ``np.copyto`` into its
-destination: the working-dtype cast and the copy are one pass, and no
-intermediate copy is made. The destination depends on the device:
+A staged float array is written once on the host, by ``cast`` into its
+destination: one pass of the hand-written fill (``native/host_fill.cpp``)
+casts the caller's float64 values to the working dtype, tests every
+written value for Inf/NaN and, given the previous snapshot (the
+weights), whether the values are unchanged. No intermediate copy is
+made. Arrays of ``host_fill.inline_below()`` elements or more are split
+in cache-sized chunks over a small pool of host threads (as many as the
+process's CPU affinity allows, capped); smaller ones, such as the C
+ABI's few particles, run on the calling thread. ``threaded_fills`` and
+``inline_fills`` count the casts that took each path. The destination
+depends on the device:
 
 - CUDA: a page-locked host buffer per (slot, name), allocated once and
   reused, uploaded with a non-blocking copy into a freshly allocated
@@ -21,22 +29,38 @@ Pinned memory and streams exist only for CUDA; there is no fall back
 from one device to the other.
 
 On the profiler's timeline (``utils.profiling.span``) a slot's wait is a
-``ptt.sync`` span, the cast and checks a ``ptt.stage.fill`` one and the
-upload a ``ptt.stage.upload`` one.
+``ptt.sync`` span, the casts, checks and the weights' compare a
+``ptt.stage.fill`` one and the upload a ``ptt.stage.upload`` one.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Hashable, List, Sequence, Tuple
+from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from pumiumtally_tpu_torch.native import host_fill
 from pumiumtally_tpu_torch.utils.profiling import span
 
 # (name, shape, dtype, fill): ``fill(dst)`` writes the values into the
 # host array ``dst`` (and may raise, before anything is uploaded).
 Spec = Tuple[str, tuple, torch.dtype, Callable[[np.ndarray], None]]
+
+
+def check_finite(a: np.ndarray, what: str, offset: int = 0) -> None:
+    """Raise on NaN/Inf in a staged host array (after the working-dtype
+    cast, so an f64 value that overflows f32 is caught too): one
+    non-finite value would poison the whole accumulated flux."""
+    if not np.isfinite(a).all():
+        flat = np.asarray(a).reshape(-1)
+        bad = np.flatnonzero(~np.isfinite(flat))
+        raise ValueError(
+            f"{what} contains {bad.size} non-finite value(s); first at "
+            f"flat index {offset + bad[0]} ({flat[bad[0]]!r}). Fix the "
+            "host buffer, or set TallyConfig(validate_inputs=False) to "
+            "stage unchecked"
+        )
 
 
 class HostStaging:
@@ -51,6 +75,25 @@ class HostStaging:
         self._events: Dict[Hashable, torch.cuda.Event] = {}
         self._filled: Dict[Hashable, list] = {}
         self._host: Dict[Hashable, List[np.ndarray]] = {}
+        self.threaded_fills = 0  # casts split over the pool's threads
+        self.inline_fills = 0  # casts run on the calling thread alone
+
+    def cast(self, dst: np.ndarray, src: np.ndarray,
+             what: Optional[str] = None,
+             prev: Optional[np.ndarray] = None) -> bool:
+        """Write the float64 ``src`` into ``dst`` in ``dst``'s dtype, as
+        ``np.copyto(..., casting="unsafe")`` does, in one pass (a spec's
+        fill). With ``what``, raise ``check_finite``'s error on a
+        non-finite written value. Returns whether ``dst`` equals
+        ``prev`` (``np.array_equal``; False without one)."""
+        finite, equal, threaded = host_fill.fill(dst, src, prev)
+        if threaded:
+            self.threaded_fills += 1
+        else:
+            self.inline_fills += 1
+        if what is not None and not finite:
+            check_finite(dst, what)
+        return equal
 
     def fill(self, slot: Hashable, specs: Sequence[Spec]) -> List[np.ndarray]:
         """Write each spec's values into the slot's host buffers and

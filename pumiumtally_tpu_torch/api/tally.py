@@ -116,7 +116,10 @@ from typing import Any, Callable, Optional, Union
 import numpy as np
 import torch
 
-from pumiumtally_tpu_torch.api.staging import HostStaging
+from pumiumtally_tpu_torch.api.staging import (  # noqa: F401 (re-export)
+    HostStaging,
+    check_finite,
+)
 from pumiumtally_tpu_torch.config import TallyConfig
 from pumiumtally_tpu_torch.io.load import load_mesh
 from pumiumtally_tpu_torch.io.vtk import (
@@ -265,21 +268,6 @@ def host_scalar_field(buf, n: int, what: str) -> np.ndarray:
     if a.shape[0] < n:
         raise ValueError(f"{what} buffer has {a.shape[0]} values, need {n}")
     return a[:n]
-
-
-def check_finite(a: np.ndarray, what: str, offset: int = 0) -> None:
-    """Raise on NaN/Inf in a staged host array (after the working-dtype
-    cast, so an f64 value that overflows f32 is caught too): one
-    non-finite value would poison the whole accumulated flux."""
-    if not np.isfinite(a).all():
-        flat = np.asarray(a).reshape(-1)
-        bad = np.flatnonzero(~np.isfinite(flat))
-        raise ValueError(
-            f"{what} contains {bad.size} non-finite value(s); first at "
-            f"flat index {offset + bad[0]} ({flat[bad[0]]!r}). Fix the "
-            "host buffer, or set TallyConfig(validate_inputs=False) to "
-            "stage unchecked"
-        )
 
 
 def read_on_host(t, kind=bool):
@@ -742,9 +730,8 @@ class PumiTally:
         n = self.num_particles
 
         def fill(dst: np.ndarray) -> None:
-            np.copyto(dst, a.reshape(n, 3), casting="unsafe")
-            if what is not None and self.config.validate_inputs:
-                check_finite(dst, what)
+            self._staging.cast(dst, a, what if self.config.validate_inputs
+                               else None)
 
         return (name, (n, 3), self.dtype, fill)
 
@@ -836,16 +823,18 @@ class PumiTally:
         if weights is None:
             return self._cached_ones("w")
         w_raw = host_scalar_field(weights, n, "weights")
+        prev = self._last_weights_host if self.config.auto_continue else None
+        unchanged = False
 
         def fill(dst: np.ndarray) -> None:
-            np.copyto(dst, w_raw, casting="unsafe")
-            if self.config.validate_inputs:
-                check_finite(dst, "weights")
+            nonlocal unchanged
+            # The weights' compare rides the cast's pass.
+            unchanged = self._staging.cast(
+                dst, w_raw,
+                "weights" if self.config.validate_inputs else None, prev)
 
         (w_host,) = self._staging.fill("w", [("w", (n,), self.dtype, fill)])
-        if (self.config.auto_continue
-                and self._last_weights_host is not None
-                and np.array_equal(w_host, self._last_weights_host)):
+        if unchanged:
             # Unchanged weights: the device tensor already holds them.
             return self._last_weights_dev
         (w,) = self._staging.upload("w")
@@ -1014,9 +1003,8 @@ class PumiTally:
         a = host_scalar_field(buf, self.num_particles, what)
 
         def fill(dst: np.ndarray) -> None:
-            np.copyto(dst, a, casting="unsafe")
-            if self.config.validate_inputs:
-                check_finite(dst, what)
+            self._staging.cast(dst, a, what if self.config.validate_inputs
+                               else None)
 
         return self._staging.stage(what, [(what, (self.num_particles,),
                                            self.dtype, fill)])[0]

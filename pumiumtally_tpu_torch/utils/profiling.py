@@ -39,14 +39,16 @@ the call's own span:
 - ``ptt.copy_initial``, ``ptt.move``, ``ptt.close_batch``, ``ptt.write``:
   a whole protocol call, entry to the fence's return;
 - ``ptt.stage.fill`` / ``ptt.stage.upload``: ``HostStaging.fill``'s
-  working-dtype cast into the pinned buffers with its finite checks,
-  and ``upload``'s device tensors and non-blocking copies;
+  working-dtype cast into the pinned buffers with its finite checks and
+  the weights' compare (one pass of ``native/host_fill.cpp``), and
+  ``upload``'s device tensors and non-blocking copies;
 - ``ptt.echo``: the origin-echo compare, where origins are passed;
 - ``ptt.walk``: ``ops.walk.walk``'s host work through the launch;
 - ``ptt.sync``: each wait of the host on the device inside a call (a
   staging slot's event, the found-all and exited reads, the fence);
-- ``ptt.build`` / ``ptt.load``: ``kernels.build``'s nvcc run and
-  ``kernels._lib``'s ctypes load;
+- ``ptt.build`` / ``ptt.load``: ``kernels.build``'s nvcc run (and
+  ``native.host_fill.build``'s compile) and ``kernels._lib``'s ctypes
+  load;
 - ``ptt.<field>``: each ``phase_timer`` section (the partitioned
   engine's ``PhaseProfile``: ``ptt.walk_s``, ``ptt.migrate_s``, ...).
 

@@ -414,3 +414,254 @@ def test_walk_skip_returns_its_inputs(s_init):
     r2 = walk_plain(_MESH, x, elem, dest, fly, w, f2, **kw)
     assert torch.equal(r1.x, r2.x) and torch.equal(f1, f2)
     assert bool(f1.any())
+
+
+# -- the staging fill (native/host_fill.cpp) --------------------------------
+
+def _fill_case(case: str, n: int, dtype) -> tuple:
+    """A float64 source of ``n`` values with the case's edge values in
+    the first chunk, the middle and the ragged tail, and the snapshot
+    ``prev`` the fill compares with."""
+    rng = np.random.default_rng(len(case) * 7919 + n)
+    src = rng.standard_normal(n) * 10.0
+    at = sorted({0, n // 2, n - 1})
+    edge = {
+        "finite": [0.0, -0.0, 1e-40, -3e-42, 3.4028234e38, -1e-310],
+        "overflow": [3.5e38, -1e39, 1e300],
+        "nan": [np.nan],
+        "inf": [np.inf],
+        "-inf": [-np.inf],
+        "zeros": [-0.0, 0.0],
+        "changed": [1.0],
+        "nan_prev": [np.nan],
+    }[case]
+    for i, j in enumerate(at):
+        src[j] = edge[i % len(edge)]
+    prev = np.empty(n, dtype)
+    with np.errstate(over="ignore"):
+        np.copyto(prev, src, casting="unsafe")
+    if case == "zeros":
+        # -0.0 against 0.0 and 0.0 against -0.0: equal, as array_equal.
+        prev[at] = np.where(np.signbit(prev[at]), 0.0, -0.0)
+    elif case == "changed":
+        prev[at[-1]] = np.nextafter(prev[at[-1]], dtype(np.inf))
+    return src, prev
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("length", ["below", "at", "ragged"])
+@pytest.mark.parametrize("case", ["finite", "overflow", "nan", "inf", "-inf",
+                                  "zeros", "changed", "nan_prev"])
+def test_host_fill_matches_numpy_bit_for_bit(dtype, length, case):
+    """The fused fill writes numpy's unsafe cast bit for bit (subnormals
+    kept, overflow to inf) and its flags are ``np.isfinite(...).all()``
+    and ``np.array_equal(...)``: below the inline threshold, at it, and
+    past it with a ragged last chunk."""
+    from pumiumtally_tpu_torch.native import host_fill
+
+    t = host_fill.inline_below()
+    n = {"below": t - 1, "at": t, "ragged": 3 * t + 1234}[length]
+    src, prev = _fill_case(case, n, dtype)
+    want = np.empty(n, dtype)
+    with np.errstate(over="ignore"):
+        np.copyto(want, src, casting="unsafe")
+    got = np.full(n, 7.0, dtype)
+    finite, equal, threaded = host_fill.fill(got, src, prev)
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+    assert finite == bool(np.isfinite(want).all())
+    assert equal == np.array_equal(want, prev)
+    assert threaded == (length != "below" and host_fill.threads() > 1)
+    # Without a snapshot: the same values, and never "equal".
+    got[:] = 0
+    assert host_fill.fill(got, src)[:2] == (finite, False)
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+
+
+def test_host_fill_threads_share_the_pool():
+    """Python threads filling at once through the one pool (more threads
+    than cores, a short switch interval): each gets its own values and
+    its own flags."""
+    import sys
+    import threading
+
+    from pumiumtally_tpu_torch.native import host_fill
+
+    n = 2 * host_fill.inline_below() + 3
+    errors = []
+
+    def worker(k):
+        try:
+            src = np.arange(n, dtype=np.float64) * (k + 1) + 0.5
+            if k % 3 == 0:
+                src[k] = np.inf
+            want = src.astype(np.float32)
+            for _ in range(20):
+                got = np.empty(n, np.float32)
+                finite, equal, _ = host_fill.fill(got, src, want)
+                if not (np.array_equal(got, want) and finite == (k % 3 != 0)
+                        and equal):
+                    errors.append(k)
+        except Exception as e:  # reported below with the worker's index
+            errors.append((k, repr(e)))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        workers = [threading.Thread(target=worker, args=(k,))
+                   for k in range(16)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=60)
+        assert not any(w.is_alive() for w in workers)
+    finally:
+        sys.setswitchinterval(old)
+    assert errors == []
+
+
+_BIG = 70_000  # particles: positions and [n] attributes past the threshold
+
+
+def _big_facade(**kw):
+    return PumiTally(_MESH, _BIG, TallyConfig(**kw), device="cpu")
+
+
+def _numpy_refusal(a, what, dtype=np.float64):
+    """check_finite's message for ``a`` staged the way numpy cast it."""
+    dst = np.empty(a.shape, dtype)
+    np.copyto(dst, a, casting="unsafe")
+    with pytest.raises(ValueError) as e:
+        check_finite(dst, what)
+    return str(e.value)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("buffer", ["positions", "destinations", "weights",
+                                    "energy"])
+def test_large_nonfinite_refused_as_before(buffer, dtype):
+    """Past the threshold (the threaded fill) a NaN refuses with
+    check_finite's message word for word; unvalidated it is staged."""
+    from pumiumtally_tpu_torch.native import host_fill
+
+    assert 3 * _BIG > _BIG >= host_fill.inline_below()
+    n = _BIG
+    rng = np.random.default_rng(23)
+    src, d1 = (rng.uniform(0.05, 0.95, 3 * n) for _ in range(2))
+    w = rng.uniform(0.5, 2.0, n)
+    bad = {"positions": src, "destinations": d1, "weights": w,
+           "energy": np.ones(n)}[buffer].copy()
+    bad[bad.size - 5] = np.nan
+    slot = {"positions": "dests", "destinations": "dests",
+            "weights": "w", "energy": "energy"}[buffer]
+
+    def stage(t):
+        if buffer == "positions":
+            t.CopyInitialPosition(bad)
+            return
+        t.CopyInitialPosition(src)
+        if buffer == "energy":
+            t._stage_move_attr(bad, "energy")
+        elif buffer == "weights":
+            t.MoveToNextLocation(None, d1, None, bad)
+        else:
+            t.MoveToNextLocation(None, bad, None, None)
+
+    t = _big_facade(dtype=dtype)
+    with pytest.raises(ValueError) as e:
+        stage(t)
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    assert str(e.value) == _numpy_refusal(bad, buffer, np_dtype)
+    staged = 1 + (buffer != "positions") * (1 + (buffer == "weights"))
+    assert (t._staging.threaded_fills + t._staging.inline_fills) == staged
+    assert t._staging.threaded_fills == staged * (host_fill.threads() > 1)
+    t = _big_facade(dtype=dtype, validate_inputs=False,
+                    check_found_all=False)
+    stage(t)
+    assert np.isnan(t._staging.host(slot)[0]).sum() == 1
+
+
+def test_large_weights_cache_and_fill_counters():
+    """Past the threshold: unchanged weights (-0.0 against 0.0 counts as
+    unchanged) reuse the device tensor, changed ones stage anew; every
+    fill took the threaded path. A 5-particle facade fills inline."""
+    from pumiumtally_tpu_torch.native import host_fill
+
+    n = _BIG
+    rng = np.random.default_rng(29)
+    src, d1, d2, d3 = (rng.uniform(0.05, 0.95, 3 * n) for _ in range(4))
+    w = rng.uniform(0.5, 2.0, n)
+    w[10] = 0.0
+    t = _big_facade()
+    t.CopyInitialPosition(src)
+    t.MoveToNextLocation(None, d1, None, w.copy())
+    first = t._last_weights_dev
+    w_neg = w.copy()
+    w_neg[10] = -0.0
+    t.MoveToNextLocation(None, d2, None, w_neg)
+    assert t._last_weights_dev is first
+    t.MoveToNextLocation(None, d3, None, 2.0 * w)
+    assert t._last_weights_dev is not first
+    np.testing.assert_array_equal(t._last_weights_dev.numpy(), 2.0 * w)
+    threaded = host_fill.threads() > 1
+    fills = 1 + 3 * 2  # the positions, then a move's dests and weights
+    assert (t._staging.threaded_fills, t._staging.inline_fills) == (
+        (fills, 0) if threaded else (0, fills))
+    small = PumiTally(_MESH, 5, TallyConfig(), device="cpu")
+    p = rng.uniform(0.05, 0.95, 15)
+    small.CopyInitialPosition(p)
+    small.MoveToNextLocation(None, p[::-1].copy(), None, np.ones(5))
+    assert (small._staging.threaded_fills, small._staging.inline_fills) \
+        == (0, 3)
+
+
+_FORK_CHILD = r"""
+import os, sys, time
+import numpy as np
+from pumiumtally_tpu_torch import PumiTally, TallyConfig
+from pumiumtally_tpu_torch.mesh.box import build_box
+
+n = int(sys.argv[1])
+t = PumiTally(build_box(1, 1, 1, 2, 2, 2), n, TallyConfig(), device="cpu")
+rng = np.random.default_rng(31)
+t.CopyInitialPosition(rng.uniform(0.05, 0.95, 3 * n))  # the parent's pool
+assert t._staging.threaded_fills == 1
+d1 = rng.uniform(0.05, 0.95, 3 * n)
+want = np.empty((n, 3), t._staging.host("dests")[0].dtype)
+np.copyto(want, d1.reshape(n, 3), casting="unsafe")
+pid = os.fork()
+if pid == 0:
+    code = 1
+    try:
+        t._stage_positions(d1, "dests", "destinations")
+        ok = np.array_equal(t._staging.host("dests")[0], want)
+        code = 0 if ok and t._staging.threaded_fills == 2 else 1
+    finally:
+        os._exit(code)
+deadline = time.monotonic() + 60
+while True:
+    done, status = os.waitpid(pid, os.WNOHANG)
+    if done:
+        sys.exit(os.waitstatus_to_exitcode(status))
+    if time.monotonic() > deadline:
+        os.kill(pid, 9)
+        sys.exit("the forked child hung in the fill")
+    time.sleep(0.05)
+"""
+
+
+def test_forked_child_stages_with_its_own_pool():
+    """A child forked after its parent's pool ran a fill past the
+    threshold fills with a pool of its own (its parent's threads are
+    not in it) and stages the values numpy would. Run in a fresh
+    interpreter: this one has the JAX package's threads."""
+    import subprocess
+    import sys
+
+    from pumiumtally_tpu_torch.native import host_fill
+
+    if host_fill.threads() < 2:
+        pytest.skip("one CPU in this process's affinity: no pool to fork")
+    r = subprocess.run([sys.executable, "-W", "ignore::DeprecationWarning",
+                        "-c", _FORK_CHILD, str(_BIG)], capture_output=True,
+                       text=True, timeout=180)
+    assert r.returncode == 0, r.stdout + r.stderr
