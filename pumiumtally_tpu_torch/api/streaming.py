@@ -252,15 +252,19 @@ class StreamingTally(PumiTally):
             return dict(zip(names[k], self._staging.upload(k % 2)))
 
         results = []
-        fill(0)
-        staged = upload(0)
         for k in range(self.nchunks):
-            if k + 1 < self.nchunks:
-                fill(k + 1)
-            self._staging.consume(k % 2)
-            results.append(dispatch(k, staged))
-            if k + 1 < self.nchunks:
-                staged = upload(k + 1)
+            # One ``ptt.stream.chunk`` span a step; the first holds chunk
+            # 0's fill and upload too.
+            with span("ptt.stream.chunk"):
+                if k == 0:
+                    fill(0)
+                    staged = upload(0)
+                if k + 1 < self.nchunks:
+                    fill(k + 1)
+                self._staging.consume(k % 2)
+                results.append(dispatch(k, staged))
+                if k + 1 < self.nchunks:
+                    staged = upload(k + 1)
         return results
 
     def _chunk_ones(self, kind: str, k: int) -> torch.Tensor:
@@ -317,8 +321,9 @@ class StreamingTally(PumiTally):
             self._echo_misses = 0  # a new batch re-arms the echo detector
             host = host_positions(init_particle_positions, size,
                                   self.num_particles)
-            if self.config.validate_inputs:
-                check_finite(host, "positions")
+            with span("ptt.stream.check"):
+                if self.config.validate_inputs:
+                    check_finite(host, "positions")
             dones = self._pipeline(
                 lambda k: [self._positions_spec(host, k, "x", "positions")],
                 lambda k, st: self._chunk_localize(k, st["x"]),
@@ -353,29 +358,35 @@ class StreamingTally(PumiTally):
             dests_h = host_positions(particle_destinations, size, n)
             origins_h = (None if particle_origin is None
                          else host_positions(particle_origin, size, n))
-            if self.config.validate_inputs:
-                check_finite(dests_h, "destinations")
-                if origins_h is not None:
-                    check_finite(origins_h, "origins")
-            # Origin-echo dedup, chunk-wise: the previous move's per-chunk
-            # device destinations stand in for the caller's origins.
-            echo = self._origins_echo_raw(origins_h)
-            echo_chunks = self._last_dests_dev if echo else None
-            fly_h = None
-            if flying is not None:
-                fly_h = np.asarray(flying).reshape(-1)
-                if fly_h.size < n:
-                    raise ValueError(
-                        f"flying buffer has {fly_h.size} values, need {n}")
-            w_h = (None if weights is None
-                   else host_scalar_field(weights, n, "weights"))
-            if self.config.validate_inputs:
-                for buf, what in ((w_h, "weights"), (e_h, "energy"),
-                                  (t_h, "time")):
-                    if buf is not None:
-                        check_finite(buf, what)
-            self._prevalidate_narrow(dests_h, None if echo else origins_h, w_h,
-                                     e_h, t_h)
+            # The whole batch's checks, one span from the raw float64
+            # checks through the working-dtype pass (the echo compare,
+            # which the latter depends on, nests inside as ``ptt.echo``).
+            with span("ptt.stream.check"):
+                if self.config.validate_inputs:
+                    check_finite(dests_h, "destinations")
+                    if origins_h is not None:
+                        check_finite(origins_h, "origins")
+                # Origin-echo dedup, chunk-wise: the previous move's
+                # per-chunk device destinations stand in for the caller's
+                # origins.
+                echo = self._origins_echo_raw(origins_h)
+                echo_chunks = self._last_dests_dev if echo else None
+                fly_h = None
+                if flying is not None:
+                    fly_h = np.asarray(flying).reshape(-1)
+                    if fly_h.size < n:
+                        raise ValueError(
+                            f"flying buffer has {fly_h.size} values, need {n}")
+                w_h = (None if weights is None
+                       else host_scalar_field(weights, n, "weights"))
+                if self.config.validate_inputs:
+                    for buf, what in ((w_h, "weights"), (e_h, "energy"),
+                                      (t_h, "time")):
+                        if buf is not None:
+                            check_finite(buf, what)
+                self._prevalidate_narrow(dests_h,
+                                         None if echo else origins_h, w_h,
+                                         e_h, t_h)
             retain = origins_h is not None and self._retain_echo_snapshots()
             snapshot = None
             if retain:

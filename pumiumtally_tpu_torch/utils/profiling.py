@@ -43,6 +43,10 @@ the call's own span:
   the weights' compare (one pass of ``native/host_fill.cpp``), and
   ``upload``'s device tensors and non-blocking copies;
 - ``ptt.echo``: the origin-echo compare, where origins are passed;
+- ``ptt.stream.check`` / ``ptt.stream.chunk``: the streaming facades'
+  whole-batch checks before any chunk dispatches (a move's echo compare
+  nests in them), and each step of the chunk pipeline (chunk k+1's
+  fill, chunk k's wait and dispatch, chunk k+1's upload);
 - ``ptt.walk``: ``ops.walk.walk``'s host work through the launch;
 - ``ptt.sync``: each wait of the host on the device inside a call (a
   staging slot's event, the found-all and exited reads, the fence);

@@ -174,7 +174,9 @@ def test_other_facades_open_the_same_spans(mesh, tmp_path, facade):
         assert all("ptt.walk" in m for m in moves)
 
 
-def test_no_record_function_without_a_profiler(mesh, monkeypatch):
+def _count_record_function(monkeypatch) -> list:
+    """The names ``torch.profiler.record_function`` is entered with from
+    here on."""
     entered = []
 
     class Counting:
@@ -188,6 +190,11 @@ def test_no_record_function_without_a_profiler(mesh, monkeypatch):
             return False
 
     monkeypatch.setattr(torch.profiler, "record_function", Counting)
+    return entered
+
+
+def test_no_record_function_without_a_profiler(mesh, monkeypatch):
+    entered = _count_record_function(monkeypatch)
     t = PumiTally(mesh, N, TallyConfig(), device="cpu")
     pts = _points(4)
     t.CopyInitialPosition(pts[0])
@@ -207,3 +214,50 @@ def test_span_off_is_one_shared_no_op():
     with profile(activities=[ProfilerActivity.CPU]):
         assert isinstance(profiling.span("ptt.a"),
                           torch.profiler.record_function)
+
+
+def test_streaming_check_and_chunk_spans(mesh, tmp_path):
+    # Seven chunks (six of 6, one of 4): a CopyInitialPosition, a
+    # two-phase move that stages its origins and one whose origins echo.
+    t = StreamingTally(mesh, N, chunk_size=6, device="cpu")
+    assert t.nchunks == 7
+    spans = _spans(tmp_path, lambda: _drive(t, origins=True))
+    calls = _inside(spans, "ptt.copy_initial") + _inside(spans, "ptt.move")
+    assert len(calls) == 3
+    for inner in calls:
+        assert inner.count("ptt.stream.check") == 1
+        assert inner.count("ptt.stream.chunk") == 7
+    assert _enclosed(spans, ("ptt.stream.check", "ptt.stream.chunk"))
+    # Every fill and walk lies inside a chunk step, the echo inside the
+    # check.
+    chunks = [s for s in spans if s[0] == "ptt.stream.chunk"]
+    checks = [s for s in spans if s[0] == "ptt.stream.check"]
+
+    def within(span, outers):
+        n, a, b, tid = span
+        return any(o[3] == tid and o[1] <= a and b <= o[2] for o in outers)
+
+    for s in spans:
+        if s[0] in ("ptt.stage.fill", "ptt.stage.upload", "ptt.walk"):
+            assert within(s, chunks), s
+        if s[0] == "ptt.echo":
+            assert within(s, checks), s
+    assert sum(s[0] == "ptt.echo" for s in spans) == 1
+    # Phase A and phase B of each chunk, in the chunk's own step.
+    for c in chunks[7:]:
+        assert sum(s[0] == "ptt.walk" and within(s, [c]) for s in spans) == 2
+
+
+def test_streaming_move_enters_no_record_function(mesh, monkeypatch):
+    entered = _count_record_function(monkeypatch)
+    t = StreamingTally(mesh, N, chunk_size=6, device="cpu")
+    pts = _points(5)
+    t.CopyInitialPosition(pts[0])
+    t.MoveToNextLocation(pts[0], pts[1], np.ones(N, np.int8), np.ones(N))
+    t.MoveToNextLocation(pts[1], pts[2], np.ones(N, np.int8), np.ones(N))
+    assert not torch.autograd._profiler_enabled()
+    assert entered == []
+    monkeypatch.setattr(profiling, "_profiler_enabled", lambda: True)
+    t.MoveToNextLocation(pts[2], pts[0], np.ones(N, np.int8), np.ones(N))
+    assert entered.count("ptt.stream.check") == 1
+    assert entered.count("ptt.stream.chunk") == 7
