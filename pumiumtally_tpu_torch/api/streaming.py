@@ -20,7 +20,11 @@ the batch into ``chunk_size`` chunks:
   on the slot's event, on the device, before it reads a chunk.
 - Checks before dispatch: a non-finite value anywhere in the batch, in
   the working dtype too (an f64 value that overflows f32), raises before
-  any chunk is dispatched, so a refused move commits nothing.
+  any chunk is dispatched, so a refused move commits nothing. Each
+  whole-batch buffer is read once, by one threaded native pass that casts
+  to the working dtype in registers and writes nothing
+  (``native.host_fill.check``); only a buffer it flags goes through the
+  NumPy checks, which find the value and word the refusal.
 - ``auto_continue`` works chunk-wise: an echoing move reuses the
   previous move's per-chunk device destinations instead of uploading
   the origins (``_last_dests_dev`` is a list).
@@ -110,6 +114,7 @@ from pumiumtally_tpu_torch.mesh.tetmesh import TetMesh
 from pumiumtally_tpu_torch.ops.geometry import locate_by_planes
 from pumiumtally_tpu_torch.parallel.sharded import ShardLayout
 from pumiumtally_tpu_torch.api.partitioned import engine_straggler_rung
+from pumiumtally_tpu_torch.native import host_fill
 from pumiumtally_tpu_torch.parallel.partition import (
     PartitionedEngine,
     engine_partition,
@@ -166,6 +171,8 @@ class StreamingTally(PumiTally):
         self._staging = HostStaging(self.device, copy_stream=True)
         self._snapshot_keep: Optional[np.ndarray] = None
         self._narrow_scratch: Optional[np.ndarray] = None
+        self.batch_checks = 0  # native whole-batch passes run
+        self.batch_check_fallbacks = 0  # passes that flagged their buffer
         if dm is not None and self._replicated_mesh_walk:
             self._cap = self.chunk_size
             self._shard_over(dm, self.chunk_size, mesh)
@@ -206,9 +213,10 @@ class StreamingTally(PumiTally):
                         what: Optional[str] = None, snapshot=None):
         """Chunk k of a flat [3n] float64 buffer as [chunk,3] in the
         working dtype, padded by repeating the last row. ``what``: the
-        working-dtype finite check here (CopyInitialPosition's; moves
-        check before dispatch). ``snapshot``: an [n,3] host array that
-        gets the chunk's working-dtype values too."""
+        working-dtype finite check here (CopyInitialPosition's, once its
+        whole-batch pass flagged the batch; moves check before dispatch).
+        ``snapshot``: an [n,3] host array that gets the chunk's
+        working-dtype values too."""
         lo, hi = self._chunk_bounds(k)
         m = hi - lo
 
@@ -284,13 +292,37 @@ class StreamingTally(PumiTally):
             self._ones_cache[key] = a
         return a
 
+    def _batch_check(self, buf: np.ndarray, what: str) -> bool:
+        """One native pass over a whole batch's buffer in the working
+        dtype (in float32: finite in float64 and inside float32's range),
+        reading ``buf`` once and writing nothing. Only a buffer it flags
+        goes to NumPy's float64 ``check_finite``, which raises for a NaN
+        or Inf. Returns whether the pass flagged ``buf``: past that raw
+        check, a value that overflows the working dtype."""
+        self.batch_checks += 1
+        if host_fill.check(buf, _NP_DTYPE[self.dtype])[0]:
+            return False
+        self.batch_check_fallbacks += 1
+        check_finite(buf, what)
+        return True
+
     def _prevalidate_narrow(self, dests_h, origins_h, w_h, e_h=None,
-                            t_h=None) -> None:
-        """The working-dtype finite check of a move's buffers, chunk by
-        chunk into one scratch array, BEFORE any chunk dispatches (so a
-        refused move commits nothing). Nothing to do in float64 (the
-        raw batch was checked at entry) or with validation off."""
+                            t_h=None, flagged: Optional[bool] = None) -> None:
+        """The working-dtype finite check of a move's buffers, BEFORE any
+        chunk dispatches (so a refused move commits nothing). ``flagged``:
+        whether the caller's ``_batch_check`` passes over these buffers
+        flagged one (None: run them here). Only then does the chunk loop
+        run, casting into one scratch array, to raise for the first
+        overflowing value in chunk-major order. Nothing to do in float64
+        (the raw batch was checked at entry) or with validation off."""
         if not self.config.validate_inputs or not self._narrow():
+            return
+        if flagged is None:
+            flagged = any(self._batch_check(buf, what) for buf, what in (
+                (dests_h, "destinations"), (origins_h, "origins"),
+                (w_h, "weights"), (e_h, "energy"), (t_h, "time"))
+                if buf is not None)
+        if not flagged:
             return
         if self._narrow_scratch is None:
             self._narrow_scratch = np.empty(3 * self.chunk_size,
@@ -322,10 +354,14 @@ class StreamingTally(PumiTally):
             host = host_positions(init_particle_positions, size,
                                   self.num_particles)
             with span("ptt.stream.check"):
-                if self.config.validate_inputs:
-                    check_finite(host, "positions")
+                # A NaN or Inf raises here; a float32 overflow in a
+                # flagged batch at its chunk's fill.
+                what = None
+                if (self.config.validate_inputs
+                        and self._batch_check(host, "positions")):
+                    what = "positions"
             dones = self._pipeline(
-                lambda k: [self._positions_spec(host, k, "x", "positions")],
+                lambda k: [self._positions_spec(host, k, "x", what)],
                 lambda k, st: self._chunk_localize(k, st["x"]),
             )
             self._after_chunk_dispatch()
@@ -358,14 +394,18 @@ class StreamingTally(PumiTally):
             dests_h = host_positions(particle_destinations, size, n)
             origins_h = (None if particle_origin is None
                          else host_positions(particle_origin, size, n))
-            # The whole batch's checks, one span from the raw float64
-            # checks through the working-dtype pass (the echo compare,
-            # which the latter depends on, nests inside as ``ptt.echo``).
+            # The whole batch's checks, one span from the first native
+            # pass through the working-dtype arm (the echo compare, which
+            # the latter depends on, nests inside as ``ptt.echo``). A NaN
+            # or Inf raises at its buffer's pass; a float32 overflow in
+            # the chunk loop, after every raw check.
+            flagged = False
             with span("ptt.stream.check"):
                 if self.config.validate_inputs:
-                    check_finite(dests_h, "destinations")
-                    if origins_h is not None:
-                        check_finite(origins_h, "origins")
+                    for buf, what in ((dests_h, "destinations"),
+                                      (origins_h, "origins")):
+                        if buf is not None:
+                            flagged |= self._batch_check(buf, what)
                 # Origin-echo dedup, chunk-wise: the previous move's
                 # per-chunk device destinations stand in for the caller's
                 # origins.
@@ -383,10 +423,10 @@ class StreamingTally(PumiTally):
                     for buf, what in ((w_h, "weights"), (e_h, "energy"),
                                       (t_h, "time")):
                         if buf is not None:
-                            check_finite(buf, what)
+                            flagged |= self._batch_check(buf, what)
                 self._prevalidate_narrow(dests_h,
                                          None if echo else origins_h, w_h,
-                                         e_h, t_h)
+                                         e_h, t_h, flagged)
             retain = origins_h is not None and self._retain_echo_snapshots()
             snapshot = None
             if retain:

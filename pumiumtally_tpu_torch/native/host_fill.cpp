@@ -3,6 +3,9 @@
 // ``np.copyto(dst, src, casting="unsafe")`` writes it, that also tests
 // every written value for Inf/NaN and, given the previous snapshot, whether
 // every value equals it (``np.array_equal``: -0.0 == 0.0, NaN never equal).
+// The check is the same pass with nothing written: each value is cast in
+// registers and tested, so a float64 value that overflows float32 reads as
+// non-finite, as its written cast would.
 //
 // Arrays of ``kInlineBelow`` elements or more are split into ``kChunk``
 // pieces taken in turn by the calling thread and a pool of host threads;
@@ -62,9 +65,24 @@ unsigned fill_range(const double* __restrict src, T* __restrict dst,
   return (bad ? 1u : 0u) | (neq ? 2u : 0u);
 }
 
+// The check's flag of one range, bit 0 as ``fill_range``'s: nothing is
+// written.
+template <typename T>
+unsigned check_range(const double* __restrict src, int64_t lo, int64_t hi) {
+  using U = typename Bits<T>::U;
+  U bad = 0;
+  for (int64_t i = lo; i < hi; ++i) {
+    const T v = static_cast<T>(src[i]);
+    U u;
+    std::memcpy(&u, &v, sizeof u);
+    bad |= static_cast<U>((u & Bits<T>::kExp) == Bits<T>::kExp);
+  }
+  return bad ? 1u : 0u;
+}
+
 struct Job {
   const double* src;
-  void* dst;
+  void* dst;  // null: the check, which writes nothing
   const void* prev;
   int64_t n;
   int itemsize;
@@ -72,6 +90,10 @@ struct Job {
   std::atomic<unsigned> flags{0};
 
   unsigned range(int64_t lo, int64_t hi) const {
+    if (dst == nullptr) {
+      return itemsize == 4 ? check_range<float>(src, lo, hi)
+                           : check_range<double>(src, lo, hi);
+    }
     if (itemsize == 4) {
       auto* d = static_cast<float*>(dst);
       auto* p = static_cast<const float*>(prev);
@@ -169,17 +191,10 @@ Pool* process_pool() {
   return g_pool;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Fill ``dst`` (``itemsize`` 4: float32, 8: float64; ``n`` elements) from
-// ``src``, comparing with ``prev`` (same dtype, or null). ``threads`` is
-// the most threads to use, the caller's included. Returns bit 0: a
-// non-finite value was written; bit 1: ``dst`` differs from ``prev``;
-// bit 2: the fill ran on pool threads; -1 on a bad argument.
-int pumi_host_fill(const double* src, void* dst, const void* prev, int64_t n,
-                   int itemsize, int threads) {
+// Run a fill (``dst`` set) or a check (``dst`` null) on the calling thread
+// alone below ``kInlineBelow`` elements, else on it and pool threads.
+int run(const double* src, void* dst, const void* prev, int64_t n,
+        int itemsize, int threads) {
   if ((itemsize != 4 && itemsize != 8) || n < 0 || threads < 1) return -1;
   Job job;
   job.src = src;
@@ -195,6 +210,27 @@ int pumi_host_fill(const double* src, void* dst, const void* prev, int64_t n,
   }
   process_pool()->run(&job, helpers);
   return static_cast<int>(job.flags.load()) | 4;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Fill ``dst`` (``itemsize`` 4: float32, 8: float64; ``n`` elements) from
+// ``src``, comparing with ``prev`` (same dtype, or null). ``threads`` is
+// the most threads to use, the caller's included. Returns bit 0: a
+// non-finite value was written; bit 1: ``dst`` differs from ``prev``;
+// bit 2: the fill ran on pool threads; -1 on a bad argument.
+int pumi_host_fill(const double* src, void* dst, const void* prev, int64_t n,
+                   int itemsize, int threads) {
+  return dst == nullptr ? -1 : run(src, dst, prev, n, itemsize, threads);
+}
+
+// The fill's flags for ``src`` cast to ``itemsize`` bytes (4: float32, in
+// registers; 8: the values as they are), with nothing written: bit 0 a
+// non-finite cast, bit 2 the pool ran; -1 on a bad argument.
+int pumi_host_check(const double* src, int64_t n, int itemsize, int threads) {
+  return run(src, nullptr, nullptr, n, itemsize, threads);
 }
 
 int64_t pumi_host_fill_inline_below(void) { return kInlineBelow; }

@@ -4,9 +4,12 @@
 (float32 or float64) as ``np.copyto(dst, src, casting="unsafe")`` would,
 in one pass that also reports whether a written value is Inf or NaN and,
 given ``prev``, whether ``dst`` now equals it (``np.array_equal``).
-Arrays of ``inline_below()`` elements or more are split over the calling
-thread and up to ``MAX_THREADS - 1`` pool threads, as many as the
-process's CPU affinity allows; smaller ones run on the calling thread.
+``check(src, dtype)`` is the same pass with nothing written: each
+value is cast to ``dtype`` in registers, so in float32 a finite float64
+value past float32's range reads as non-finite. Arrays of
+``inline_below()`` elements or more are split over the calling thread and
+up to ``MAX_THREADS - 1`` pool threads, as many as the process's CPU
+affinity allows; smaller ones run on the calling thread.
 
 The library is built with the host C++ compiler at first use into
 ``_build/`` beside the kernels, keyed by a hash of the source and the
@@ -83,6 +86,9 @@ def _library() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int64, ctypes.c_int, ctypes.c_int]
             lib.pumi_host_fill.restype = ctypes.c_int
+            lib.pumi_host_check.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+            lib.pumi_host_check.restype = ctypes.c_int
             lib.pumi_host_fill_inline_below.argtypes = []
             lib.pumi_host_fill_inline_below.restype = ctypes.c_int64
             _lib = lib
@@ -122,3 +128,19 @@ def fill(dst: np.ndarray, src: np.ndarray,
     if r < 0:
         raise RuntimeError(f"pumi_host_fill refused its arguments ({r})")
     return not r & 1, prev is not None and not r & 2, bool(r & 4)
+
+
+def check(src: np.ndarray, dtype) -> Tuple[bool, bool]:
+    """``fill``'s finite flag for ``src`` cast to ``dtype`` (float32 or
+    float64), with nothing written: whether every cast value is finite and
+    whether pool threads ran the pass. A contiguous float64 ``src`` is
+    read in place."""
+    dtype = np.dtype(dtype)
+    if dtype not in (np.float32, np.float64):
+        raise TypeError(f"check casts to float32 or float64, got {dtype}")
+    src = np.ascontiguousarray(src, dtype=np.float64)
+    r = _library().pumi_host_check(src.ctypes.data, src.size,
+                                   dtype.itemsize, threads())
+    if r < 0:
+        raise RuntimeError(f"pumi_host_check refused its arguments ({r})")
+    return not r & 1, bool(r & 4)

@@ -229,6 +229,30 @@ def test_float32_overflow_refuses_at_submit():
         assert h.pending == 0
 
 
+def test_float32_overflow_refuses_at_submit_on_a_streaming_session():
+    """The same refusal on a float32 streaming session, whose
+    working-dtype arm is the facade's native pass: the message of the
+    float32 cast's check, word for word, and one fallback counted."""
+    from pumiumtally_tpu_torch.api.staging import check_finite
+
+    mesh = build_box(*BOX)
+    bad = np.full(3 * N, 0.5)
+    bad[3 * N - 2] = 1e300  # the last of three chunks
+    with np.errstate(over="ignore"):
+        cast = bad.astype(np.float32)
+    with pytest.raises(ValueError) as e:
+        check_finite(cast, "destinations")
+    t = StreamingTally(mesh, N, chunk_size=24, device="cpu")
+    assert t.dtype == torch.float32 and t.nchunks == 3
+    with TallyService() as svc:
+        h = svc.open_session(t, max_queue=4)
+        with pytest.raises(ValueError) as got:
+            h.move(None, bad)
+        assert h.pending == 0
+    assert str(got.value) == str(e.value)
+    assert t.batch_check_fallbacks == 1
+
+
 def test_execution_error_propagates_and_session_survives():
     mesh = _mesh()
     work = _campaign(11, batches=1, moves=1)

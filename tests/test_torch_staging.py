@@ -477,6 +477,55 @@ def test_host_fill_matches_numpy_bit_for_bit(dtype, length, case):
     np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
 
 
+# The float32 rounding boundary: values below 2^128 - 2^103 round to the
+# largest float32, that value and those above it to infinity.
+_F32_EDGE = 2.0 ** 128 - 2.0 ** 103
+_CHECK_EDGES = {
+    "clean": [1.5],
+    "nan": [np.nan],
+    "inf": [np.inf],
+    "-inf": [-np.inf],
+    "1e300": [1e300, -1e300],
+    "edge_below": [np.nextafter(_F32_EDGE, 0.0),
+                   -np.nextafter(_F32_EDGE, 0.0)],
+    "edge_at": [_F32_EDGE, -_F32_EDGE],
+    "edge_above": [np.nextafter(_F32_EDGE, np.inf)],
+    "subnormal": [5e-324, -1e-310, 1e-40, -3e-42, 1e-45],
+    "-0.0": [-0.0],
+}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("length", ["below", "at", "ragged"])
+@pytest.mark.parametrize("case", list(_CHECK_EDGES))
+def test_host_check_matches_numpy(dtype, length, case):
+    """The check-only pass's flag is ``np.isfinite(src.astype(dtype))
+    .all()`` (float32: a float64 value past float32's range is not
+    finite), below the inline threshold, at it, and past it with a ragged
+    last chunk; the source is left as it was."""
+    from pumiumtally_tpu_torch.native import host_fill
+
+    t = host_fill.inline_below()
+    n = {"below": t - 1, "at": t, "ragged": 3 * t + 1234}[length]
+    assert n % 16384 or length == "at"
+    rng = np.random.default_rng(len(case) * 7919 + n)
+    src = rng.standard_normal(n) * 10.0
+    edge = _CHECK_EDGES[case]
+    for i, j in enumerate(sorted({0, n // 2, n - 1})):
+        src[j] = edge[i % len(edge)]
+    before = src.copy()
+    with np.errstate(over="ignore"):
+        cast = src.astype(dtype)
+    finite, threaded = host_fill.check(src, dtype)
+    assert finite == bool(np.isfinite(cast).all())
+    assert finite == (case in ("clean", "subnormal", "-0.0", "edge_below")
+                      or (dtype == np.float64 and case.startswith(("1e",
+                                                                   "edge"))))
+    assert threaded == (length != "below" and host_fill.threads() > 1)
+    np.testing.assert_array_equal(src.view(np.uint64),
+                                  before.view(np.uint64))
+
+
 def test_host_fill_threads_share_the_pool():
     """Python threads filling at once through the one pool (more threads
     than cores, a short switch interval): each gets its own values and

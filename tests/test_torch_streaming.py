@@ -25,6 +25,7 @@ from pumiumtally_tpu_torch import (
     TallyConfig,
     convert,
 )
+from pumiumtally_tpu_torch.api import streaming
 
 _JMESH = jax_build_box(1, 1, 1, 4, 4, 4)
 _MESH = convert.tetmesh_from_arrays(convert.mesh_arrays(_JMESH))
@@ -240,6 +241,117 @@ def test_refused_narrow_move_commits_nothing():
         assert t.iter_count == 1
     assert msgs[0] == msgs[1]
     assert f"flat index {3 * (N - 3) + 2}" in msgs[0]
+
+
+# -- the whole-batch checks past the native pass's threshold ---------------
+
+# 210,000 position values and 70,000 weights: every pass threaded; chunks
+# of 25,000, 25,000 and 20,000. A bad value sits in the last chunk.
+BIG, BIG_CHUNK = 70_000, 25_000
+_AT = BIG - 2
+_REFUSALS = {  # case: (buffer, value, flat index)
+    "destinations_nan": ("dests", np.nan, 3 * _AT + 1),
+    "origins_inf_echoing": ("origins", np.inf, 3 * _AT + 1),
+    "weights_nan": ("w", np.nan, _AT),
+    "destinations_f32_overflow": ("dests", 1e300, 3 * _AT + 1),
+    "positions_f32_overflow": ("positions", -1e300, 3 * _AT + 2),
+}
+_JMESH32 = jax_build_box(1, 1, 1, 4, 4, 4, dtype=np.float32)
+
+
+def _host_state(t):
+    return tuple(np.asarray(a).copy() for a in (t.flux, t.positions,
+                                                t.elem_ids))
+
+
+def _big_run(case=None, jax=False):
+    """A float32 ``StreamingTally`` of BIG particles (``jax``: the JAX
+    package's, on a float32 mesh): localized, one move that arms the
+    echo, then ``case``'s refused call (None: a clean echoing move).
+    Returns the facade, its state before the last call, the refusal's
+    message and the last call's flying buffer."""
+    rng = np.random.default_rng(41)
+    src, d1, d2 = (rng.uniform(0.05, 0.95, 3 * BIG) for _ in range(3))
+    w = rng.uniform(0.5, 2.0, BIG)
+    if jax:
+        t = JaxStreamingTally(_JMESH32, BIG, chunk_size=BIG_CHUNK)
+    else:
+        t = StreamingTally(_MESH, BIG, chunk_size=BIG_CHUNK,
+                           config=TallyConfig(dtype=torch.float32),
+                           device="cpu")
+    assert t.nchunks == 3 and _AT >= 2 * BIG_CHUNK
+    t.CopyInitialPosition(src)
+    t.MoveToNextLocation(src, d1, np.ones(BIG, np.int8), w)
+    bufs = {"positions": src.copy(), "origins": d1.copy(),
+            "dests": d2.copy(), "w": w.copy()}
+    msg = None
+    if case is not None:
+        buf, value, at = _REFUSALS[case]
+        bufs[buf][at] = value
+    before = (_host_state(t), t.iter_count, t.auto_continue_hits,
+              t._echo_misses)
+    fly = np.ones(BIG, np.int8)
+    try:
+        if case is not None and case.startswith("pos"):
+            t.CopyInitialPosition(bufs["positions"])
+        else:
+            t.MoveToNextLocation(bufs["origins"], bufs["dests"], fly,
+                                 bufs["w"])
+    except ValueError as e:
+        msg = str(e)
+    return t, before, msg, fly
+
+
+@pytest.mark.parametrize("case", list(_REFUSALS))
+def test_large_refusals_match_the_numpy_path(case, monkeypatch):
+    """Past the threshold, a bad value in the last chunk of each buffer
+    is refused as the JAX package refuses it: the same message and flat
+    index; a refused move commits nothing and leaves ``flying`` as it
+    was, on both. Against the NumPy checks alone (the native pass made
+    to flag every buffer): the same state and echo counters after it.
+    Each refusal counts one fallback."""
+    t, before, msg, fly = _big_run(case)
+    assert t.batch_check_fallbacks == 1
+    jt, jbefore, jmsg, jfly = _big_run(case, jax=True)
+    assert msg is not None and msg == jmsg
+    assert f"flat index {_REFUSALS[case][2]}" in msg
+    np.testing.assert_array_equal(fly, jfly)
+    with monkeypatch.context() as m:
+        m.setattr(streaming.host_fill, "check",
+                  lambda src, dtype: (False, False))
+        ref, _, want, ref_fly = _big_run(case)
+    assert msg == want
+    assert (t.iter_count, t.auto_continue_hits, t._echo_misses) == (
+        ref.iter_count, ref.auto_continue_hits, ref._echo_misses)
+    _assert_bitwise(_host_state(t), _host_state(ref))
+    np.testing.assert_array_equal(fly, ref_fly)
+    if not case.startswith("pos"):
+        for facade, was in ((t, before), (jt, jbefore)):
+            _assert_bitwise(_host_state(facade), was[0])
+            assert facade.iter_count == was[1]
+        np.testing.assert_array_equal(fly, 1)
+    if case == "origins_inf_echoing":
+        # Refused before the echo compare: neither a hit nor a miss.
+        assert (t.auto_continue_hits, t._echo_misses) == before[2:]
+    if case == "destinations_f32_overflow":
+        assert t.auto_continue_hits == before[2] + 1  # the echo ran first
+
+
+def test_large_clean_moves_read_each_buffer_once(monkeypatch):
+    """Past the threshold, a clean localization and clean moves run one
+    native pass a buffer and no NumPy check (no float64 ``np.isfinite``,
+    no working-dtype scratch); no pass falls back."""
+
+    def numpy_check(*a, **k):
+        raise AssertionError("a NumPy finite check ran on a clean batch")
+
+    monkeypatch.setattr(streaming, "check_finite", numpy_check)
+    t, _, msg, fly = _big_run()
+    assert msg is None and t.auto_continue_hits == 1
+    np.testing.assert_array_equal(fly, 0)
+    # Positions once, then dests, origins and weights a move.
+    assert (t.batch_checks, t.batch_check_fallbacks) == (1 + 3 + 3, 0)
+    assert t._narrow_scratch is None
 
 
 @pytest.mark.parametrize("path", ["W1", "W2"])
